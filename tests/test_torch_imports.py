@@ -1,6 +1,7 @@
-"""The port imports no JAX: a fresh interpreter imports every module of
-vlp_tpu_torch (and runs a tiny CPU decode through it), after which none of
-jax, flax, optax or orbax is loaded."""
+"""The port imports neither JAX nor the JAX package: a fresh interpreter
+imports every module of vlp_tpu_torch and runs a tiny CPU train step and a
+tiny CPU decode through it, after which none of vlp_tpu, jax, flax, optax
+or orbax is loaded."""
 
 import os
 import subprocess
@@ -13,16 +14,25 @@ names = [m.name for m in pkgutil.walk_packages(vlp_tpu_torch.__path__,
                                                "vlp_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-assert "vlp_tpu_torch.cli.decode" in names and "vlp_tpu_torch.ops._build" in names
+for name in ("vlp_tpu_torch.cli.decode", "vlp_tpu_torch.cli.train",
+             "vlp_tpu_torch.ops._build", "vlp_tpu_torch.train_step",
+             "vlp_tpu_torch.data.loader", "vlp_tpu_torch.evals.coco"):
+    assert name in names, name
 
 import torch
-from vlp_tpu.config import VLPConfig
+from vlp_tpu_torch import optim, train_step
+from vlp_tpu_torch.config import VLPConfig
 from vlp_tpu_torch.decode import DecodeParams, Decoder
 from vlp_tpu_torch.models.model import VLPModel
 cfg = VLPConfig.tiny(len_vis_input=3, max_len_b=4, vis_feat_dim=8,
                      vis_pe_dim=8)
 model = VLPModel(cfg)
 model.init_weights(torch.Generator().manual_seed(0))
+opt = optim.BertAdam(dict(model.named_parameters()), 1e-3)
+step = train_step.make_train_step(model, opt, mask_image_regions=True)
+metrics = step(train_step.dummy_batch(cfg, 2), seed=3)
+assert torch.isfinite(metrics["loss"]) and opt.step_count == 1
+model.eval()
 B, L = 2, cfg.seq_len
 batch = dict(input_ids=torch.zeros(B, L, dtype=torch.int32),
              segment_ids=torch.zeros(B, L, dtype=torch.int32),
@@ -33,8 +43,8 @@ out = Decoder(model, cfg, DecodeParams(beam_size=2, max_tgt_length=4,
                                        mask_id=5, eos_id=4))(batch)
 assert out["pred_seq"].shape == (B, 4)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
-                                    "orbax"))
+             if m.split(".")[0] in ("vlp_tpu", "jax", "jaxlib", "flax",
+                                    "optax", "orbax"))
 print("LOADED", bad)
 sys.exit(1 if bad else 0)
 """

@@ -13,10 +13,11 @@ import numpy as np
 import pytest
 import torch
 
-from vlp_tpu.config import MODE_BI, MODE_S2S
+from vlp_tpu_torch.config import MODE_BI, MODE_S2S
 from vlp_tpu_torch.ops import _build
 from vlp_tpu_torch.ops import attention as attn
 from vlp_tpu_torch.ops import decode_attention as dec
+from vlp_tpu_torch.ops import philox
 
 NEG = -10000.0
 FP32_TOL = dict(atol=1e-4, rtol=1e-4)
@@ -144,3 +145,68 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
                              gk.transpose(0, 1).contiguous().transpose(0, 1),
                              gk, 0, n_heads=2)
     np.testing.assert_equal(gk.cpu().numpy(), 0)
+
+
+def _train_inputs(g, dev, dtype, B=6, L=128, H=12, P=102):
+    """Training-shaped attention inputs: mixed modes, some zero colkeep."""
+    qkv = torch.randn(B, L, 3 * H * 64, generator=g, device=dev).to(dtype)
+    q, k, v = (t.view(B, L, H, 64) for t in qkv.split(H * 64, dim=-1))
+    mode = torch.tensor([MODE_S2S, MODE_BI] * (B // 2), device=dev)
+    te = torch.randint(P + 1, L + 1, (B,), generator=g, device=dev)
+    ck = torch.ones(B, L, device=dev)
+    ck[:, 1:P - 1] = (torch.rand(B, P - 2, generator=g, device=dev)
+                      > 0.3).float()
+    return q, k, v, mode, te, ck
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_training_attention_kernels_match_plain(cuda, dtype, tol, rate):
+    """K1's dropout branch forward and K2 backward, through
+    FusedAttention, against attention_plain / attention_bwd_plain."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q, k, v, mode, te, ck = _train_inputs(g, cuda, dtype)
+    seed = 0x0123456789ABCDEF
+    dout = torch.randn(q.shape, generator=g, device=cuda).to(dtype)
+    counts = {n: _build.KERNELS[n].launches
+              for n in ("attention_fwd_drop", "attention_bwd")}
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = attn.FusedAttention.apply(*leaves, mode, te, ck, 102, rate, seed)
+    grads = torch.autograd.grad(out, leaves, dout)
+    assert {n: _build.KERNELS[n].launches for n in counts} == \
+        {n: c + 1 for n, c in counts.items()}
+    want = attn.attention_plain(q, k, v, mode, te, ck, prefix=102,
+                                dropout_rate=rate, seed=seed)
+    want_grads = attn.attention_bwd_plain(q, k, v, mode, te, ck, dout,
+                                          prefix=102, dropout_rate=rate,
+                                          seed=seed)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), want.float(), **tol)
+    for got, exp in zip(grads, want_grads):
+        assert got.dtype == dtype and got.is_contiguous()
+        torch.testing.assert_close(got.float(), exp.float(), **tol)
+
+
+@pytest.mark.cuda
+def test_dropout_mask_kernel_is_bit_exact(cuda):
+    seed, rate = 2 ** 64 - 12345, 0.1
+    before = _build.KERNELS["dropout_mask"].launches
+    got = attn.dropout_mask(8, 12, 128, rate, seed, cuda)
+    assert _build.KERNELS["dropout_mask"].launches == before + 1
+    assert torch.equal(got, philox.keep_scale(seed, 8, 12, 128, rate,
+                                              device=cuda))
+    assert torch.equal(got.cpu(), philox.keep_scale(seed, 8, 12, 128, rate))
+    assert abs(float((got > 0).float().mean()) - 0.9) < 0.005
+    # an L that is not a multiple of 4
+    assert torch.equal(attn.dropout_mask(2, 3, 103, rate, seed, cuda).cpu(),
+                       philox.keep_scale(seed, 2, 3, 103, rate))
+
+
+@pytest.mark.cuda
+def test_backward_rejects_a_length_that_does_not_fit(cuda):
+    x = torch.randn(1, 200, 1, 64, device=cuda)
+    one = torch.ones(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="L <="):
+        attn._backward_cuda(x, x, x, one, one * 200,
+                            torch.ones(1, 200, device=cuda), x, 4, 0.0, None)

@@ -1,11 +1,13 @@
-"""vlp_tpu_torch — the VLP caption-decoding path in PyTorch, with hand-written
-CUDA kernels for NVIDIA Hopper (sm_90a).
+"""vlp_tpu_torch — VLP caption decoding and training in PyTorch, with
+hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 The JAX package ``vlp_tpu`` is the reference this package is held against:
 module names mirror it (``ops/attention.py`` <-> ``vlp_tpu/ops/attention.py``
-and so on), and the JAX-free parts of it (``config``, ``data``, ``evals``,
-``cli/common`` and the numpy half of ``checkpoint``) are imported as they
-are.  Nothing here imports ``jax``.
+and so on).  Nothing here imports ``jax`` or ``vlp_tpu``: the JAX-free parts
+of the reference (``config``, ``data``, ``evals``, ``cli/common`` and the
+numpy half of ``checkpoint``) are kept here as copies that differ from
+their originals only in their import lines (and in docstrings that cite
+the reference tree without its mount path).
 
 Each kernel wrapper launches its CUDA kernel for CUDA tensors and takes its
 plain PyTorch version only for CPU tensors; there is no fallback between the

@@ -22,15 +22,15 @@ import time
 import numpy as np
 import torch
 
-from vlp_tpu.cli import common
-from vlp_tpu.config import VLPConfig
-from vlp_tpu.data.dataset import CaptionExample, load_eval_index
-from vlp_tpu.data.example_builder import DecodeExampleBuilder
-from vlp_tpu.data.features import make_store
-from vlp_tpu.data.loader import EvalLoader
-from vlp_tpu.data.tokenization import detokenize
-from vlp_tpu_torch import configure_precision
 from vlp_tpu_torch import checkpoint as ckpt
+from vlp_tpu_torch import configure_precision
+from vlp_tpu_torch.cli import common
+from vlp_tpu_torch.config import VLPConfig
+from vlp_tpu_torch.data.dataset import CaptionExample, load_eval_index
+from vlp_tpu_torch.data.example_builder import DecodeExampleBuilder
+from vlp_tpu_torch.data.features import make_store
+from vlp_tpu_torch.data.loader import EvalLoader
+from vlp_tpu_torch.data.tokenization import detokenize
 from vlp_tpu_torch.decode import DecodeParams, Decoder
 from vlp_tpu_torch.models.model import VLPModel
 
@@ -224,7 +224,7 @@ def main(argv=None):
 
         stats = {"n_images": n_done, "decode_seconds": dt}
         if args.ann_file:
-            from vlp_tpu.evals.coco import language_eval
+            from vlp_tpu_torch.evals.coco import language_eval
             metrics = language_eval(args.ann_file, predictions, tag,
                                     args.split, args.output_dir)
             print(json.dumps(metrics, indent=2))

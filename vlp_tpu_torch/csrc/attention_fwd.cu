@@ -1,16 +1,21 @@
 // Fused structurally-masked attention forward, [B, L, H*D] layout.
 //
 // Replaces the TPU kernel vlp_tpu/ops/attention.py:_fwd_kernel_blhd (:117),
-// deterministic branch (the dropout branch comes with training).  Per
-// (example, head): S = Q K^T * (1/sqrt(D)) in fp32 plus the additive -10000
-// mask built on the fly from (mode, text_end, colkeep, prefix)
-// (attention.py:_mask_bias), fp32 softmax, P cast to the input dtype, then
-// P V accumulated in fp32.  Q/K/V are read straight off the projections
-// (heads are column slices of the row), so no head transpose exists.
+// both branches.  Per (example, head): S = Q K^T * (1/sqrt(D)) in fp32 plus
+// the additive -10000 mask built on the fly from (mode, text_end, colkeep,
+// prefix) (attention.py:_mask_bias), fp32 softmax, then -- in the dropout
+// branch (training, attention.py:148) -- P times the Philox keep/scale
+// multipliers of common.cuh, P cast to the input dtype, then P V
+// accumulated in fp32.  The backward kernel (attention_bwd.cu) regenerates
+// the same multipliers from the same seed.  Q/K/V are read straight off the
+// projections (heads are column slices of the row), so no head transpose
+// exists.
 //
 // What bounds it on an H100: at the decode prefill (B=100, L=103, H=12,
 // D=64) one call moves ~63 MB (q, k, v in, out back, bf16) — ~19 us at
-// 3.35 TB/s — and does 3.3 GFLOP.  This first version computes both
+// 3.35 TB/s — and does 3.3 GFLOP; at the training shape (B=64, L=128) it
+// moves ~50 MB (~15 us) and does 3.2 GFLOP, plus L/4 Philox draws per
+// row in the dropout branch.  This first version computes both
 // products on the CUDA cores in fp32 (no wgmma yet), so it is bound by
 // FMA issue and shared-memory reads, not by HBM: each block stages its
 // head's K and V once in shared memory (fp32, K rows padded to D+1 words
@@ -35,7 +40,7 @@ size_t smem_bytes(int L) {
          (size_t(L) * (D + 1) + size_t(L) * D + L + kWarps * D + kWarps * L);
 }
 
-template <typename T>
+template <typename T, bool kDrop>
 __global__ void __launch_bounds__(kWarps * 32)
     attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, T* __restrict__ out,
@@ -43,7 +48,7 @@ __global__ void __launch_bounds__(kWarps * 32)
                          const int* __restrict__ text_end,
                          const float* __restrict__ colkeep, int L, int H,
                          long long sb, long long sl, int prefix,
-                         float scale) {
+                         float scale, vlp::Dropout dp) {
   extern __shared__ float smem[];
   float* ks = smem;                  // [L][D+1]
   float* vs = ks + L * (D + 1);      // [L][D]
@@ -102,7 +107,20 @@ __global__ void __launch_bounds__(kWarps * 32)
       sum += e;
     }
     sum = vlp::warp_sum(sum);
-    for (int j = lane; j < L; j += 32) pw[j] = vlp::round_to<T>(pw[j] / sum);
+    if constexpr (kDrop) {
+      for (int j = lane; j < L; j += 32) pw[j] = pw[j] / sum;
+      __syncwarp();
+      // lane c draws the multipliers of columns 4c .. 4c+3
+      for (int c = lane; 4 * c < L; c += 32) {
+        float mult[4];
+        vlp::keep_scale4(dp, b, h, i, c, mult);
+        for (int w = 0; w < 4 && 4 * c + w < L; ++w)
+          pw[4 * c + w] = vlp::round_to<T>(pw[4 * c + w] * mult[w]);
+      }
+    } else {
+      for (int j = lane; j < L; j += 32)
+        pw[j] = vlp::round_to<T>(pw[j] / sum);
+    }
     __syncwarp();
 
     for (int d = lane; d < D; d += 32) {
@@ -114,22 +132,41 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
-template <typename T>
+template <typename T, bool kDrop>
 int launch(const void* q, const void* k, const void* v, void* out,
            const int* mode, const int* text_end, const float* colkeep, int B,
            int L, int H, long long sb, long long sl, int prefix, float scale,
-           cudaStream_t stream) {
+           vlp::Dropout dp, cudaStream_t stream) {
   const size_t smem = smem_bytes(L);
   cudaError_t err = cudaFuncSetAttribute(
-      attention_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      attention_fwd_kernel<T, kDrop>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(B * H, (L + kRowsPerBlock - 1) / kRowsPerBlock);
-  attention_fwd_kernel<T><<<grid, kWarps * 32, smem, stream>>>(
+  attention_fwd_kernel<T, kDrop><<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), mode, text_end, colkeep,
-      L, H, sb, sl, prefix, scale);
+      L, H, sb, sl, prefix, scale, dp);
   return (int)cudaGetLastError();
+}
+
+template <bool kDrop>
+int dispatch(const void* q, const void* k, const void* v, void* out,
+             const void* mode, const void* text_end, const void* colkeep,
+             int B, int L, int H, long long sb, long long sl, int prefix,
+             float scale, vlp::Dropout dp, int is_bf16, void* stream) {
+  if (B <= 0 || L <= 0 || H <= 0 ||
+      smem_bytes(L) > (size_t)vlp::kMaxSmemBytes)
+    return (int)cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  auto md = static_cast<const int*>(mode);
+  auto te = static_cast<const int*>(text_end);
+  auto ck = static_cast<const float*>(colkeep);
+  if (is_bf16)
+    return launch<__nv_bfloat16, kDrop>(q, k, v, out, md, te, ck, B, L, H, sb,
+                                        sl, prefix, scale, dp, s);
+  return launch<float, kDrop>(q, k, v, out, md, te, ck, B, L, H, sb, sl,
+                              prefix, scale, dp, s);
 }
 
 }  // namespace
@@ -144,18 +181,28 @@ int vlp_attention_fwd(const void* q, const void* k, const void* v, void* out,
                       const void* colkeep, int B, int L, int H, long long sb,
                       long long sl, int prefix, float scale, int is_bf16,
                       void* stream) {
-  if (B <= 0 || L <= 0 || H <= 0 ||
-      smem_bytes(L) > (size_t)vlp::kMaxSmemBytes)
-    return (int)cudaErrorInvalidValue;
-  auto s = static_cast<cudaStream_t>(stream);
-  auto md = static_cast<const int*>(mode);
-  auto te = static_cast<const int*>(text_end);
-  auto ck = static_cast<const float*>(colkeep);
-  if (is_bf16)
-    return launch<__nv_bfloat16>(q, k, v, out, md, te, ck, B, L, H, sb, sl,
-                                 prefix, scale, s);
-  return launch<float>(q, k, v, out, md, te, ck, B, L, H, sb, sl, prefix,
-                       scale, s);
+  return dispatch<false>(q, k, v, out, mode, text_end, colkeep, B, L, H, sb,
+                         sl, prefix, scale, vlp::Dropout{0, 0, 1.f}, is_bf16,
+                         stream);
+}
+
+// The training forward: as vlp_attention_fwd, with attention-prob dropout
+// keyed on the 64-bit seed (threshold = uint32(rate * 2^32), keep_scale =
+// 1 / (1 - rate)).
+int vlp_attention_fwd_drop(const void* q, const void* k, const void* v,
+                           void* out, const void* mode, const void* text_end,
+                           const void* colkeep, int B, int L, int H,
+                           long long sb, long long sl, int prefix, float scale,
+                           unsigned long long seed, unsigned int threshold,
+                           float keep_scale, int is_bf16, void* stream) {
+  if (threshold == 0)  // rate 0: every element kept with scale 1
+    return dispatch<false>(q, k, v, out, mode, text_end, colkeep, B, L, H, sb,
+                           sl, prefix, scale, vlp::Dropout{0, 0, 1.f},
+                           is_bf16, stream);
+  return dispatch<true>(q, k, v, out, mode, text_end, colkeep, B, L, H, sb, sl,
+                        prefix, scale,
+                        vlp::Dropout{seed, threshold, keep_scale}, is_bf16,
+                        stream);
 }
 
 }  // extern "C"

@@ -23,7 +23,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from vlp_tpu.config import VLPConfig
+from vlp_tpu_torch.config import VLPConfig
 from vlp_tpu_torch.models.model import VLPModel
 
 NEG = -10000.0

@@ -1,5 +1,6 @@
-"""The unified VLP transformer, inference forward, in PyTorch (counterpart
-of ``vlp_tpu/models/model.py``).
+"""The unified VLP transformer in PyTorch: the training forward with its
+losses, and the inference primitives (counterpart of
+``vlp_tpu/models/model.py``).
 
 Submodules carry the reference state-dict names
 (``bert.encoder.layer.{i}.attention.self.query``,
@@ -11,30 +12,72 @@ Precision policy, as in the JAX package: parameters fp32, activations in
 ``cfg.dtype`` (bf16 on the card), every LayerNorm (eps 1e-5) and GELU (erf)
 in fp32 with the result cast back, attention softmax in fp32, and the tied
 MLM vocab product accumulated and returned in fp32.  Dense layers and
-embedding tables are used in the activation dtype — the JAX package casts
-them per call; :meth:`VLPModel.cast_for_inference` stores them cast once,
-which gives the same values.
+embedding tables are used in the activation dtype, cast per call, so that
+gradients reach the fp32 parameters; :meth:`VLPModel.cast_for_inference`
+stores them cast once for decoding, which gives the same values.
 
-Attention goes through ``ops.attention.attention`` (prefill, encode) and
+Attention goes through ``ops.attention.attention`` (prefill, encode),
+``ops.attention.FusedAttention`` (the training forward and backward) and
 ``ops.decode_attention.decode_attention`` (decode steps): the CUDA kernels
 for CUDA tensors, their plain versions for CPU tensors.
+
+Dropout follows the JAX package's sites: embeddings, region projections,
+attention probabilities, attention output and FFN output.  A training
+forward takes a :class:`DropoutRNG`; without one the forward is
+deterministic.
 """
 
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vlp_tpu.config import MODE_S2S, VLPConfig
+from vlp_tpu_torch import losses as losses_lib
 from vlp_tpu_torch import torch_dtype
+from vlp_tpu_torch.config import MODE_S2S, VLPConfig
 from vlp_tpu_torch.ops import attention as attn_ops
 from vlp_tpu_torch.ops import decode_attention as decode_attn_ops
 
 LN_EPS = 1e-5
+
+
+class DropoutRNG:
+    """The randomness of one training forward (the JAX package's
+    ``dropout`` rng stream).
+
+    Attention-prob dropout takes one 64-bit Philox seed per layer, drawn on
+    the host from a CPU generator, so it reaches the kernel as an argument
+    without a device sync.  Hidden dropout draws its keep masks from a
+    ``torch.Generator`` on the model's device (plain PyTorch; the JAX
+    package leaves it to XLA).  Both follow from ``seed`` alone."""
+
+    def __init__(self, seed: int, device):
+        self._host = torch.Generator().manual_seed(seed)
+        self._device = torch.Generator(device=torch.device(device))
+        self._device.manual_seed(self.seed())
+
+    def seed(self) -> int:
+        """A fresh 64-bit seed."""
+        lo, hi = torch.randint(0, 2 ** 32, (2,), generator=self._host).tolist()
+        return lo | (hi << 32)
+
+    def hidden(self, x: torch.Tensor, rate: float) -> torch.Tensor:
+        """flax ``nn.Dropout``: keep with probability 1 - rate, kept
+        entries scaled by 1 / (1 - rate)."""
+        if rate == 0.0:
+            return x
+        keep = torch.rand(x.shape, generator=self._device,
+                          device=x.device) < 1.0 - rate
+        return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def _hidden_dropout(drop: Optional[DropoutRNG], x: torch.Tensor,
+                    rate: float) -> torch.Tensor:
+    return x if drop is None else drop.hidden(x, rate)
 
 
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:
@@ -67,7 +110,8 @@ class Embeddings(nn.Module):
         self.LayerNorm = nn.LayerNorm(H, eps=LN_EPS)
 
     def forward(self, input_ids, segment_ids, position_ids, vis_feats,
-                vis_pe, dtype: torch.dtype) -> torch.Tensor:
+                vis_pe, dtype: torch.dtype,
+                drop: Optional[DropoutRNG] = None) -> torch.Tensor:
         words = F.embedding(input_ids.long(),
                             self.word_embeddings.weight.to(dtype))
         pos = F.embedding(position_ids.long(),
@@ -82,7 +126,8 @@ class Embeddings(nn.Module):
         types = F.embedding(segment_ids.long(),
                             self.token_type_embeddings.weight.to(dtype))
         x = words + pos + types
-        return _layer_norm(self.LayerNorm, x).to(dtype)
+        x = _layer_norm(self.LayerNorm, x).to(dtype)
+        return _hidden_dropout(drop, x, self.cfg.hidden_dropout_prob)
 
 
 class _SelfAttention(nn.Module):
@@ -130,24 +175,38 @@ class TransformerLayer(nn.Module):
         sa = self.attention.self
         return _linear(sa.query, x), _linear(sa.key, x), _linear(sa.value, x)
 
-    def _post_attention(self, ctx: torch.Tensor,
-                        residual: torch.Tensor) -> torch.Tensor:
-        """Output projection + FFN, each followed by residual + fp32 LN."""
+    def _post_attention(self, ctx: torch.Tensor, residual: torch.Tensor,
+                        drop: Optional[DropoutRNG] = None) -> torch.Tensor:
+        """Output projection + FFN, each followed by (hidden dropout and)
+        residual + fp32 LN."""
+        rate = self.cfg.hidden_dropout_prob
         ao = self.attention.output
-        h = _linear(ao.dense, ctx)
+        h = _hidden_dropout(drop, _linear(ao.dense, ctx), rate)
         h = _layer_norm(ao.LayerNorm, h + residual).to(ctx.dtype)
         f = _linear(self.output.dense,
                     gelu_exact(_linear(self.intermediate.dense, h)))
+        f = _hidden_dropout(drop, f, rate)
         return _layer_norm(self.output.LayerNorm, f + h).to(ctx.dtype)
 
-    def forward(self, x, mode, text_end, colkeep) -> torch.Tensor:
-        """Full-sequence attention (single-shot encode)."""
+    def forward(self, x, mode, text_end, colkeep,
+                drop: Optional[DropoutRNG] = None) -> torch.Tensor:
+        """Full-sequence attention.  Without ``drop``: the deterministic
+        encode (no backward on the card).  With ``drop``: the training
+        forward through ``FusedAttention`` (attention-prob dropout at
+        ``attention_probs_dropout_prob``, which may be 0), differentiable
+        on every device."""
         B, L, HD = x.shape
         hd = (self.cfg.num_attention_heads, self.cfg.head_dim)
         q, k, v = (t.view(B, L, *hd) for t in self._qkv(x))
-        ctx = attn_ops.attention(q, k, v, mode, text_end, colkeep,
-                                 prefix=self.cfg.prefix_len)
-        return self._post_attention(ctx.reshape(B, L, HD), x)
+        prefix = self.cfg.prefix_len
+        if drop is None:
+            ctx = attn_ops.attention(q, k, v, mode, text_end, colkeep,
+                                     prefix=prefix)
+        else:
+            ctx = attn_ops.FusedAttention.apply(
+                q, k, v, mode, text_end, colkeep, prefix,
+                self.cfg.attention_probs_dropout_prob, drop.seed())
+        return self._post_attention(ctx.reshape(B, L, HD), x, drop)
 
     def prefill_attend(self, x: torch.Tensor, prefix: int
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -291,20 +350,27 @@ class VLPModel(nn.Module):
         return self.bert.encoder.layer
 
     # ------------------------------------------------------------------
-    def project_regions(self, vis_feats, vis_pe):
+    def project_regions(self, vis_feats, vis_pe,
+                        drop: Optional[DropoutRNG] = None):
         dt = self.dtype
+        rate = self.cfg.hidden_dropout_prob
         f = vis_feats.to(dt)
         f = F.relu(_linear(self.vis_embed[2],
                            F.relu(_linear(self.vis_embed[0], f))))
+        f = _hidden_dropout(drop, f, rate)
         p = F.relu(_linear(self.vis_pe_embed[0], vis_pe.to(dt)))
-        return f, p
+        return f, _hidden_dropout(drop, p, rate)
 
     def pooled(self, seq_out: torch.Tensor) -> torch.Tensor:
         return torch.tanh(_linear(self.bert.pooler.dense, seq_out[:, 0]))
 
     def encode(self, input_ids, segment_ids, mode, text_end, vis_feats,
-               vis_pe, vis_keep=None, position_ids=None):
-        """Full-sequence forward -> (seq_out, pooled)."""
+               vis_pe, vis_keep=None, position_ids=None,
+               drop: Optional[DropoutRNG] = None,
+               return_projections: bool = False):
+        """Full-sequence forward -> (seq_out, pooled), plus the region
+        projections before the masked regions are zeroed with
+        ``return_projections`` (the pretext loss takes those)."""
         cfg = self.cfg
         B, L = input_ids.shape
         dev = input_ids.device
@@ -312,17 +378,61 @@ class VLPModel(nn.Module):
             position_ids = torch.arange(L, device=dev).expand(B, L)
         if vis_keep is None:
             vis_keep = torch.ones((B, cfg.len_vis_input), device=dev)
-        vf, vp = self.project_regions(vis_feats, vis_pe)
+        vf, vp = self.project_regions(vis_feats, vis_pe, drop)
         keep = vis_keep[..., None]
         x = self.bert.embeddings(input_ids, segment_ids, position_ids,
                                  vf * keep.to(vf.dtype),
-                                 vp * keep.to(vp.dtype), self.dtype)
+                                 vp * keep.to(vp.dtype), self.dtype, drop)
         attn_keep = (vis_keep if cfg.block_masked_regions_in_attention
                      else torch.ones_like(vis_keep))
         colkeep = attn_ops.colkeep_from_vis_keep(attn_keep.float(), L)
         for layer in self.layers:
-            x = layer(x, mode, text_end, colkeep)
+            x = layer(x, mode, text_end, colkeep, drop)
+        if return_projections:
+            return x, self.pooled(x), vf, vp
         return x, self.pooled(x)
+
+    def pretrain_losses(self, batch: Dict[str, torch.Tensor], *,
+                        drop: Optional[DropoutRNG],
+                        drop_worst_ratio: float = 0.0,
+                        mask_image_regions: bool = False,
+                        task: str = "img2txt") -> Dict[str, torch.Tensor]:
+        """Training forward for ``task="img2txt"``: the masked-LM loss on
+        the gathered ``masked_pos`` only, plus the region pretext loss
+        under ``mask_image_regions`` (JAX ``pretrain_losses``)."""
+        if task != "img2txt":
+            raise NotImplementedError(
+                f"task {task!r}: the VQA head is ROADMAP item A8")
+        cfg = self.cfg
+        seq_out, pooled, vf, vp = self.encode(
+            batch["input_ids"], batch["segment_ids"], batch["mode"],
+            batch["text_end"], batch["vis_feats"], batch["vis_pe"],
+            vis_keep=batch.get("vis_keep"), drop=drop,
+            return_projections=True)
+        out: Dict[str, torch.Tensor] = {}
+        pos = batch["masked_pos"].long()
+        hidden = torch.gather(
+            seq_out, 1, pos[:, :, None].expand(-1, -1, seq_out.shape[-1]))
+        logits = self.cls(hidden, batch["task_idx"],
+                          self.bert.embeddings.word_embeddings.weight)
+        per_pos = losses_lib.mlm_position_loss(
+            logits, batch["masked_ids"], cfg.label_smoothing, cfg.vocab_size)
+        out["masked_lm_loss"] = losses_lib.mask_and_normalize_loss(
+            per_pos, batch["masked_weights"], drop_worst_ratio)
+        if mask_image_regions:
+            H = vf.shape[-1]
+            vpos = (batch["vis_masked_pos"] - 1).long()[:, :, None].expand(
+                -1, -1, H)
+            mf = torch.gather(vf, 1, vpos)
+            me = torch.gather(vp, 1, vpos) + pooled[:, None, :].to(vp.dtype)
+            sim = torch.einsum("bmh,bnh->bmn", me.float(), mf.float())
+            logp = torch.log_softmax(sim, dim=-1)
+            diag = torch.diagonal(logp, dim1=1, dim2=2)
+            out["pretext_loss"] = -diag.mean(dim=-1).mean()
+        else:
+            out["pretext_loss"] = torch.zeros((), device=seq_out.device)
+        out["loss"] = out["masked_lm_loss"] + out["pretext_loss"]
+        return out
 
     # ------------------------------------------------------------------
     # Incremental generation primitives

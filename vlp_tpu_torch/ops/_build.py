@@ -1,8 +1,10 @@
 """Build-at-first-use for the CUDA kernels in ``csrc/`` and their ctypes
 binding (the ``vlp_tpu/data/native_store.py`` pattern, with ``nvcc``).
 
-All ``csrc/*.cu`` compile with ``nvcc`` into ONE shared library with a plain
-C interface — no PyTorch headers, so a build takes seconds, not minutes.
+Each ``csrc/*.cu`` compiles with its own ``nvcc`` process, all started
+together, and one more ``nvcc`` links the objects into ONE shared library
+with a plain C interface — no PyTorch headers, so a build takes seconds, not
+minutes.
 The library lives in ``vlp_tpu_torch/_build/<hash>/`` where ``<hash>`` covers
 the sources and the compiler flags, so an edited source never loads a stale
 build.  Every pointer and the stream cross as ``c_void_p`` (a plain ctypes
@@ -29,16 +31,24 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_ULL = ctypes.c_ulonglong
+_U = ctypes.c_uint
 _F = ctypes.c_float
 # C entry point -> argument types (see the extern "C" functions in csrc/)
 _SIGNATURES = {
     "vlp_attention_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL,
                           _I, _F, _I, _P],
+    "vlp_attention_fwd_drop": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _LL,
+                               _LL, _I, _F, _ULL, _U, _F, _I, _P],
+    "vlp_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                          _LL, _LL, _LL, _LL, _I, _F, _ULL, _U, _F, _I, _P],
+    "vlp_attention_bwd_max_len": [],
+    "vlp_dropout_mask": [_P, _I, _I, _I, _ULL, _U, _F, _P],
     "vlp_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                              _I, _I, _I, _LL, _I, _F, _I, _P],
 }
@@ -68,6 +78,15 @@ KERNELS = {
     "decode_attention_anc": Kernel(
         "decode_attention_anc", "vlp_tpu_torch/csrc/decode_attention.cu",
         "vlp_tpu/ops/decode_attention.py:143"),
+    "attention_fwd_drop": Kernel(
+        "attention_fwd_drop", "vlp_tpu_torch/csrc/attention_fwd.cu",
+        "vlp_tpu/ops/attention.py:148"),
+    "attention_bwd": Kernel(
+        "attention_bwd", "vlp_tpu_torch/csrc/attention_bwd.cu",
+        "vlp_tpu/ops/attention.py:197"),
+    "dropout_mask": Kernel(
+        "dropout_mask", "vlp_tpu_torch/csrc/dropout_mask.cu",
+        "tests/test_tpu_dropout.py:50"),
 }
 
 
@@ -109,19 +128,32 @@ def build() -> str:
     nvcc = _nvcc()
     os.makedirs(out_dir, exist_ok=True)
     cus = [p for p in _sources() if p.endswith(".cu")]
-    # write to a temporary name, then rename: a concurrent builder or a cut
+    # the objects and the library go to a private directory first and the
+    # library is renamed into place last: a concurrent builder or a cut
     # build never leaves a half-written library under the final name
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *cus]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    with open(os.path.join(out_dir, "build.log"), "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)
+    work = tempfile.mkdtemp(dir=out_dir)
+    objs = [os.path.join(work, os.path.basename(p) + ".o") for p in cus]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, p] for p, o in zip(cus, objs)]
+    tmp = os.path.join(work, "lib.so")
+    link = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]
+    try:
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        runs = [(c, p.communicate()[0], p.returncode)
+                for c, p in zip(cmds, procs)]
+        if all(rc == 0 for _, _, rc in runs):
+            proc = subprocess.run(link, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+            runs.append((link, proc.stdout, proc.returncode))
+        report = "".join(" ".join(c) + "\n" + out for c, out, _ in runs)
+        with open(os.path.join(out_dir, "build.log"), "w") as f:
+            f.write(report)
+        if any(rc != 0 for _, _, rc in runs):
+            raise RuntimeError(f"nvcc failed:\n{report}")
+        os.replace(tmp, lib)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return lib
 
 

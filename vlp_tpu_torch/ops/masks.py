@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from vlp_tpu.config import MODE_S2S
+from vlp_tpu_torch.config import MODE_S2S
 
 NEG_INF = -10000.0  # matches the reference's additive-mask constant
 
