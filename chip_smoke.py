@@ -1,12 +1,14 @@
 """Smoke test of the PyTorch port on one NVIDIA GPU: builds the CUDA kernels
 from ``vlp_tpu_torch/csrc``, holds each against its plain PyTorch version at
-the shapes of its main path (caption decoding and training), checks the card
-against the CPU end to end (fp32 beam traces; fp32 train-step losses with
-attention dropout on), then drives the user's entry points at bert-base
-width with random weights from a seed -- ``vlp_tpu_torch.cli.decode``
-(beam 5 and greedy, B=100) and ``vlp_tpu_torch.cli.train`` (the COCO
-fine-tune flags on synthetic data, B=64, 2 epochs of 20 steps) -- and
-checks that each path launched its kernels.
+the shapes of its main path (caption decoding, training and SCST), checks
+the card against the CPU end to end (fp32 beam traces; fp32 train-step
+losses with attention dropout on; the fp32 SCST loss and gradients with
+attention dropout on) and the SCST replay against its sampled rollout on the
+card, then drives the user's entry points at bert-base width with random
+weights from a seed -- ``vlp_tpu_torch.cli.decode`` (beam 5 and greedy,
+B=100), ``vlp_tpu_torch.cli.train`` (the COCO fine-tune flags on synthetic
+data, B=64, 2 epochs of 20 steps) and ``vlp_tpu_torch.cli.train --scst``
+(B=64, 8 steps) -- and checks that each path launched its kernels.
 
     python3 chip_smoke.py
 
@@ -37,11 +39,15 @@ T0 = time.time()
 BF16_TOL = dict(atol=3e-2, rtol=1e-2)   # one bf16 ulp at 2-4 is 1.6e-2
 FP32_TOL = dict(atol=1e-4, rtol=1e-4)
 REPS = 20
+ROUNDS = 5
+SPIN_CYCLES = 20_000_000     # ~10 ms of the card's clock
 REPS_STEADY = 5
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 TRAIN_STEPS = (2, 20)        # main-path train CLI: epochs, steps per epoch
+SCST_STEPS = 8               # main-path SCST CLI: steps of one epoch
+SCST_B, SCST_T = 64, 20      # the reference SCST recipe's 16x4 batch, T
 
 
 def log(msg: str) -> None:
@@ -53,18 +59,24 @@ def fail(msg: str) -> None:
 
 
 def time_ms(fn) -> float:
-    """Median milliseconds of one call over REPS calls, CUDA events."""
+    """Device milliseconds of one call: REPS calls queued back to back
+    behind a spin of the card (``torch.cuda._sleep``), so that the host's
+    launch latency hides behind it, timed by CUDA events; the median of
+    ROUNDS rounds.  A function that synchronises (or launches more than the
+    spin can hide) is timed with its host time."""
     fn()
     torch.cuda.synchronize()
     out = []
-    for _ in range(REPS):
+    for _ in range(ROUNDS):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         start.record()
-        fn()
+        for _ in range(REPS):
+            fn()
         end.record()
         end.synchronize()
-        out.append(start.elapsed_time(end))
+        out.append(start.elapsed_time(end) / REPS)
     return statistics.median(out)
 
 
@@ -201,6 +213,96 @@ def phase_kernels(dev, results):
                     max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
                     library_ms=None,
                     **bound(nbytes, 4 * BK * S * H * cols * D))
+
+
+def phase_scst_kernels(dev, results):
+    """K5 (the decode step with dropout) and K6 (its multipliers) at the
+    SCST rollout's shapes: B=64, K=1, P=102, G=24, H=12, 19 decode steps.
+    K5 against its plain version in fp32 and bf16 at several gen_len; K6
+    bit for bit against the plain Philox; K5's output against the plain K3
+    math times K6's multipliers.  Times in bf16 at gen_len 18."""
+    from vlp_tpu_torch.ops import decode_attention as dec
+    from vlp_tpu_torch.ops import philox
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    B, S, P, G, H, D, W = SCST_B, 2, 102, 24, 12, 64, SCST_T - 1
+    rate = 0.1
+    seeds = [philox.step_seed(0xC0FFEE, 1, t, 5) for t in range(W)]
+
+    def inputs(dtype):
+        def r(*shape):
+            return torch.randn(*shape, generator=g, device=dev).to(dtype)
+        q, k, v = (r(B, S, H * D) for _ in range(3))
+        pk, pv = (r(B, P + 1, H * D)[:, :P] for _ in range(2))
+        return q, k, v, pk, pv, r(B, G, H * D), r(B, G, H * D)
+
+    # K6: every row bit for bit, and its keep fraction
+    scales = dec.decode_dropout_scales(seeds, B, n_heads=H, S=S, P=P, G=G,
+                                       rate=rate, device=dev)
+    torch.cuda.synchronize()
+    for t, sd in enumerate(seeds):
+        want = philox.decode_keep_scale(sd, B, H, S, P, G, rate, device=dev)
+        if not torch.equal(scales[t * B:(t + 1) * B], want):
+            fail(f"decode_dropout_scales: step {t}'s multipliers differ from "
+                 "the plain Philox")
+    frac = (scales > 0).float().mean().item()
+    if abs(frac - (1 - rate)) >= 0.005:
+        fail(f"decode_dropout_scales keeps {frac:.5f}, not {1 - rate}")
+    log(f"K6 decode_dropout_scales W={W} B={B}: bit-exact, keep fraction "
+        f"{frac:.5f}")
+
+    errs = []
+    for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
+        for t, gen_len in enumerate((0, 9, 18)):
+            ops = inputs(dtype)
+            copies = [x.clone() for x in ops[5:]]
+            got = dec.decode_attention(*ops, gen_len, n_heads=H,
+                                       drop_seed=seeds[t], drop_rate=rate)
+            want = dec.decode_attention_plain(*ops[:5], *copies, gen_len,
+                                              n_heads=H, drop_seed=seeds[t],
+                                              drop_rate=rate)
+            tag = f"B={B} gen_len={gen_len} {dtype}"
+            errs.append(compare(f"K5 decode_attention_drop {tag}", got, want,
+                                tol))
+            if not (torch.equal(ops[5], copies[0])
+                    and torch.equal(ops[6], copies[1])):
+                fail("decode_attention_drop: cache writes not bit-exact")
+            # K5 = the K3 math times K6's multipliers (rows t*B..)
+            mult = scales[t * B:(t + 1) * B]
+            k3x6 = dec.decode_attention_plain(
+                *ops[:5], *[x.clone() for x in copies], gen_len, n_heads=H,
+                drop_mult=mult)
+            compare(f"K5 vs K3 x K6 {tag}", got, k3x6, tol)
+    # times at the main path's shape, bf16, a late step (gen_len 18)
+    ops = inputs(torch.bfloat16)
+    gen_len, vis = 18, 20
+    k5 = dict(
+        max_abs_err=max(errs),
+        ms=time_ms(lambda: dec.decode_attention(
+            *ops, gen_len, n_heads=H, drop_seed=seeds[0], drop_rate=rate)),
+        plain_ms=time_ms(lambda: dec.decode_attention_plain(
+            *ops, gen_len, n_heads=H, drop_seed=seeds[0], drop_rate=rate)),
+        library_ms=None,
+        # q/k/v/out rows, the prompt K/V, the visible generated slots, the
+        # new K/V written
+        **bound(4 * B * S * H * D * 2 + 2 * B * P * H * D * 2
+                + 2 * B * vis * H * D * 2 + 2 * B * S * H * D * 2,
+                4 * B * S * H * (P + vis) * D))
+    k6 = dict(
+        max_abs_err=0.0,
+        ms=time_ms(lambda: dec.decode_dropout_scales(
+            seeds, B, n_heads=H, S=S, P=P, G=G, rate=rate, device=dev)),
+        plain_ms=time_ms(lambda: torch.cat([
+            philox.decode_keep_scale(sd, B, H, S, P, G, rate, device=dev)
+            for sd in seeds])),
+        library_ms=None, **bound(W * B * H * S * (P + G) * 4, 0))
+    results["decode_attention_drop"] = k5
+    results["decode_dropout_scales"] = k6
+    for name in ("decode_attention_drop", "decode_dropout_scales"):
+        r = results[name]
+        log(f"{name} bf16 B={B} time: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})")
 
 
 def sdpa(q, k, v, mode, text_end, colkeep, prefix, dropout_p=0.0):
@@ -537,6 +639,150 @@ def phase_train_main_path(vocab_path, out_dir, gpu_line):
     return counts, rates
 
 
+def _scst_setup(vocab_path, B, seed, **cfg_kw):
+    """A bert-base SCST trainer (random weights from ``seed``, on the CPU)
+    and a decode batch of B synthetic images as numpy arrays."""
+    from vlp_tpu_torch.cli.common import resolve_tokenizer
+    from vlp_tpu_torch.config import VLPConfig
+    from vlp_tpu_torch.data.example_builder import (DecodeExampleBuilder,
+                                                    collate)
+    from vlp_tpu_torch.models.model import VLPModel
+
+    vocab = resolve_tokenizer(vocab_path, False).vocab
+    cfg = VLPConfig(vocab_size=len(vocab), max_len_b=SCST_T,
+                    relax_projection=0, **cfg_kw)
+    model = VLPModel(cfg)
+    model.init_weights(torch.Generator().manual_seed(seed))
+    rng = np.random.default_rng(seed)
+    nv = cfg.len_vis_input
+    builder = DecodeExampleBuilder(cfg, vocab, new_segment_ids=True,
+                                   max_tgt_length=SCST_T)
+    batch = collate([builder(
+        rng.normal(size=(nv, cfg.vis_feat_dim)).astype(np.float32),
+        rng.uniform(size=(nv, cfg.vis_pe_dim)).astype(np.float32))
+        for _ in range(B)])
+    return cfg, model, vocab, batch, rng
+
+
+def phase_scst_end_to_end(dev, vocab_path, B=4):
+    """fp32 bert-base, attention dropout 0.1 and hidden dropout 0 (the
+    Philox masks are the same on both devices; the hidden masks come from
+    each device's own generator): the SCST loss and gradients of fixed raw
+    and cleaned ids and reward, on the card (K1 dropout, K2, K6) and on the
+    CPU (plain versions).  Then, on the card with both dropouts 0.1, the
+    replay's log-probs against the sampled rollout's, fp32 and bf16."""
+    from vlp_tpu_torch import scst
+
+    cfg, model, vocab, batch, rng = _scst_setup(
+        vocab_path, B, 0, dtype="float32", hidden_dropout_prob=0.0,
+        attention_probs_dropout_prob=0.1)
+    kw = dict(mask_id=vocab["[MASK]"], eos_id=vocab["[SEP]"],
+              max_tgt_length=SCST_T)
+    raw = rng.integers(cfg.vocab_size // 2, cfg.vocab_size,
+                       size=(B, SCST_T))
+    raw[0, SCST_T // 2] = vocab["[SEP]"]   # a live token after EOS
+    clean = scst.clean_rollout(raw, vocab["[SEP]"], 0)
+    reward = np.repeat(rng.normal(size=(B, 1)), SCST_T, 1).astype(np.float32)
+    runs = {}
+    for name, m, d in (("cpu", model, torch.device("cpu")),
+                       ("cuda", copy.deepcopy(model).to(dev), dev)):
+        tr = scst.SCSTTrainer(m, cfg, **kw)
+        tb = {k: torch.from_numpy(v).to(d) for k, v in batch.items()}
+        loss = tr.pg_loss(tb, *(torch.from_numpy(a).to(d)
+                                for a in (raw, clean, reward)),
+                          tr.dropout(99, d))
+        loss.backward()
+        norms = {n: (0.0 if p.grad is None else p.grad.double().norm().item())
+                 for n, p in m.named_parameters()}
+        runs[name] = (loss.item(), norms)
+    (l_cpu, n_cpu), (l_gpu, n_gpu) = runs["cpu"], runs["cuda"]
+    total = {k: float(np.sqrt(sum(v * v for v in n.values())))
+             for k, n in (("cpu", n_cpu), ("cuda", n_gpu))}
+    rel = {n: abs(n_gpu[n] - n_cpu[n]) / max(n_cpu[n], 1e-30) for n in n_cpu}
+    big = [n for n in n_cpu if n_cpu[n] >= 1e-3 * total["cpu"]]
+    log(f"SCST card vs CPU fp32 B={B}: loss {l_gpu:.8f} / {l_cpu:.8f}, grad "
+        f"norm {total['cuda']:.8f} / {total['cpu']:.8f}, max per-parameter "
+        f"rel diff {max(rel.values()):.3e} (over {len(big)} of {len(rel)} "
+        f"parameters holding >= 1e-3 of the norm: "
+        f"{max(rel[n] for n in big):.3e})")
+    if not (np.isfinite(l_gpu) and abs(l_gpu - l_cpu) <= 1e-4 * abs(l_cpu)
+            and abs(total["cuda"] - total["cpu"]) <= 1e-4 * total["cpu"]
+            and max(rel[n] for n in big) <= 1e-4):
+        fail("SCST card vs CPU: loss or gradient norms differ beyond 1e-4")
+    out = {"loss_rel": abs(l_gpu - l_cpu) / abs(l_cpu),
+           "grad_norm_rel": abs(total["cuda"] - total["cpu"]) / total["cpu"]}
+
+    for dtype in ("float32", "bfloat16"):
+        cfg, model, vocab, batch, _ = _scst_setup(vocab_path, 8, 1,
+                                                  dtype=dtype)
+        tr = scst.SCSTTrainer(model.to(dev), cfg, **kw)
+        tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        _, _, sample_raw, lps = tr.rollouts(tb, 5)
+        with torch.no_grad():
+            replay = tr.forced_logprobs(tb, torch.from_numpy(sample_raw).to(
+                dev), tr.dropout(5, dev))
+            other = tr.forced_logprobs(tb, torch.from_numpy(sample_raw).to(
+                dev), tr.dropout(6, dev))
+        diff = (replay - lps).abs().max().item()
+        moved = (other - lps).abs().max().item()
+        log(f"SCST replay vs rollout on the card, {dtype} B=8 T={SCST_T}, "
+            f"dropout 0.1: max |log-prob diff| {diff:.3e} (another seed's "
+            f"masks: {moved:.3e})")
+        if not (torch.isfinite(replay).all() and moved > 1e-3):
+            fail(f"SCST replay {dtype}: non-finite, or dropout not active")
+        if dtype == "float32" and not torch.allclose(replay, lps, rtol=1e-4,
+                                                     atol=1e-4):
+            fail("SCST fp32 replay log-probs differ from the rollout's")
+        out[f"replay_vs_rollout_{dtype}"] = diff
+    return out
+
+
+def phase_scst_main_path(vocab_path, out_dir, gpu_line):
+    """The SCST CLI at bert-base width, bf16, through the kernels: B=64,
+    T=20, both dropouts 0.1, lr 1e-6, SCST_STEPS steps of synthetic data.
+    Each step launches K1 (the greedy prefill) 12 times, K1-dropout 24
+    (the sampled prefill and the replay's), K2 12, K3 and K5 12 x 19 each
+    and K6 12."""
+    from vlp_tpu_torch.cli import train as train_cli
+    from vlp_tpu_torch.ops import _build
+
+    out = os.path.join(out_dir, "scst")
+    args = ["--do_train", "--scst", "--new_segment_ids", "--enable_butd",
+            "--bert_model", vocab_path, "--do_lower_case", "--dataset",
+            "coco", "--max_pred", "0", "--mask_prob", "0",
+            "--train_batch_size", str(SCST_B), "--learning_rate", "1e-6",
+            "--num_train_epochs", "1", "--synthetic_data",
+            "--steps_per_epoch", str(SCST_STEPS), "--output_dir", out,
+            "--device", "cuda"]
+    _build.reset_launch_counts()
+    res = train_cli.main(args)
+    torch.cuda.synchronize()
+    counts = {k: v.launches for k, v in _build.KERNELS.items()}
+    n, steps = SCST_STEPS, 12 * (SCST_T - 1)
+    want = dict({k: 0 for k in counts}, attention_fwd=12 * n,
+                attention_fwd_drop=24 * n, attention_bwd=12 * n,
+                decode_attention=steps * n, decode_attention_drop=steps * n,
+                decode_dropout_scales=12 * n)
+    log(f"SCST launch counts {counts}, expected {want}")
+    if counts != want:
+        fail("the SCST path did not launch the kernels as expected")
+    losses = np.asarray(res["losses"])
+    if len(losses) != n or not np.isfinite(losses).all():
+        fail(f"SCST main path: bad losses {losses}")
+    if not os.path.isfile(os.path.join(out, "model.1.bin")):
+        fail("SCST main path wrote no model.1.bin")
+    warm = 3
+    step_s = float(np.median(res["step_seconds"][warm:]))
+    iter_s = float(np.median(res["iter_seconds"][warm:]))
+    rates = {"scst_samples_per_sec": SCST_B / step_s,
+             "scst_samples_per_sec_with_loader": SCST_B / iter_s}
+    log(f"SCST main path B={SCST_B}: {rates['scst_samples_per_sec']:.2f} "
+        f"samples/s (median step {step_s * 1e3:.2f} ms after {warm} warm-up "
+        f"steps; {rates['scst_samples_per_sec_with_loader']:.2f} with the "
+        f"loader's waits) on {gpu_line}; losses {losses.tolist()}")
+    return counts, rates
+
+
 def phase_steady_state(dev, vocab_path):
     """Device-side decode rate at the main path's shapes, without the CLI's
     loader and first-call costs: one prepared batch of B=100, one warm-up
@@ -610,6 +856,7 @@ def main():
     results = {}
     phase_kernels(dev, results)
     phase_train_kernels(dev, results)
+    phase_scst_kernels(dev, results)
     log("phase 2: kernels agree with their plain versions")
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -619,11 +866,16 @@ def main():
         log("phase 3: end-to-end beam traces identical")
         err = phase_train_end_to_end(dev, vocab_path)
         log(f"phase 3b: card and CPU train losses agree (max rel {err:.2e})")
+        scst_checks = phase_scst_end_to_end(dev, vocab_path)
+        log(f"phase 3c: SCST card vs CPU and replay vs rollout agree "
+            f"{scst_checks}")
         counts, rates = phase_main_path(vocab_path, tmp, smi)
         log("phase 4: decode main path went through its kernels")
         train_counts, train_rates = phase_train_main_path(vocab_path, tmp,
                                                           smi)
         log("phase 4b: train main path went through its kernels")
+        scst_counts, scst_rates = phase_scst_main_path(vocab_path, tmp, smi)
+        log("phase 4c: SCST main path went through its kernels")
         steady = phase_steady_state(dev, vocab_path)
         log(f"phase 5: steady-state rates on {smi}")
 
@@ -635,12 +887,14 @@ def main():
     for name, k in _build.KERNELS.items():
         kernels.append(dict(
             name=name, route=k.route, source=k.source, replaces=k.replaces,
-            launches=counts[name] + train_counts[name],
+            launches=counts[name] + train_counts[name] + scst_counts[name],
             launches_by_path={"decode": counts[name],
-                              "train": train_counts[name]},
+                              "train": train_counts[name],
+                              "scst": scst_counts[name]},
             **results[name]))
     print(json.dumps({"kernels": kernels, "captions_per_sec_cli": rates,
-                      "captions_per_sec_steady": steady, **train_rates}))
+                      "captions_per_sec_steady": steady, **train_rates,
+                      **scst_rates, "scst_checks": scst_checks}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

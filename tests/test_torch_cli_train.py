@@ -3,7 +3,7 @@ synthetic run whose per-step losses track the JAX CLI's from the same
 reference .bin with dropout off; an interrupted run resumed from its epoch
 or step checkpoint ends where an uninterrupted one does; the saved
 ``model.N.bin`` decodes through the port's decode CLI; unported flags
-raise."""
+raise (SCST's own CLI run is in tests/test_torch_scst.py)."""
 
 import json
 import os
@@ -156,7 +156,7 @@ def test_finetune_decay_accumulation_and_profile(fx):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--scst"], "A9"), (["--tasks", "vqa2"], "A8"),
+    (["--scst", "--scst_replay", "scan"], "A9"), (["--tasks", "vqa2"], "A8"),
     (["--jax_distributed"], "A10"), (["--tensor_parallel", "2"], "Not to"),
     (["--true_fp16"], "Not to")])
 def test_unported_flags_raise(fx, flag, item):

@@ -1,7 +1,7 @@
 """The port imports neither JAX nor the JAX package: a fresh interpreter
-imports every module of vlp_tpu_torch and runs a tiny CPU train step and a
-tiny CPU decode through it, after which none of vlp_tpu, jax, flax, optax
-or orbax is loaded."""
+imports every module of vlp_tpu_torch and runs a tiny CPU train step, a
+tiny CPU decode and a tiny SCST step through it, after which none of
+vlp_tpu, jax, flax, optax or orbax is loaded."""
 
 import os
 import subprocess
@@ -16,7 +16,9 @@ for name in names:
     importlib.import_module(name)
 for name in ("vlp_tpu_torch.cli.decode", "vlp_tpu_torch.cli.train",
              "vlp_tpu_torch.ops._build", "vlp_tpu_torch.train_step",
-             "vlp_tpu_torch.data.loader", "vlp_tpu_torch.evals.coco"):
+             "vlp_tpu_torch.data.loader", "vlp_tpu_torch.evals.coco",
+             "vlp_tpu_torch.scst", "vlp_tpu_torch.ops.decode_attention",
+             "vlp_tpu_torch.ops.philox"):
     assert name in names, name
 
 import torch
@@ -42,6 +44,14 @@ batch = dict(input_ids=torch.zeros(B, L, dtype=torch.int32),
 out = Decoder(model, cfg, DecodeParams(beam_size=2, max_tgt_length=4,
                                        mask_id=5, eos_id=4))(batch)
 assert out["pred_seq"].shape == (B, 4)
+from vlp_tpu_torch.scst import SCSTTrainer
+cfg = cfg.replace(hidden_dropout_prob=0.1, attention_probs_dropout_prob=0.1)
+model = VLPModel(cfg)
+tr = SCSTTrainer(model, cfg, mask_id=5, eos_id=4, max_tgt_length=4,
+                 optimizer=optim.BertAdam(dict(model.named_parameters()),
+                                          1e-3))
+loss, m = tr.step(batch, torch.randint(6, 20, (B, 5)).numpy(), seed=1)
+assert torch.isfinite(torch.tensor(loss))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("vlp_tpu", "jax", "jaxlib", "flax",
                                     "optax", "orbax"))

@@ -53,6 +53,11 @@ def test_cpu_tensors_take_the_plain_versions_without_a_build():
     dec.decode_attention(x, x, x, torch.randn(B, P, HD), torch.randn(B, P, HD),
                          gk, gv, 0, n_heads=2,
                          beam_bias=torch.zeros(B * K, K * G))
+    dec.decode_attention(x[:B], x[:B], x[:B], torch.randn(B, P, HD),
+                         torch.randn(B, P, HD), gk[:B], gv[:B], 0, n_heads=2,
+                         drop_seed=5, drop_rate=0.1)
+    dec.decode_dropout_scales([1, 2], B, n_heads=2, S=S, P=P, G=G, rate=0.1,
+                              device="cpu")
     assert {k: v.launches for k, v in _build.KERNELS.items()} == before
     assert _build.library.cache_info().currsize == 0 or \
         torch.cuda.is_available()
@@ -131,6 +136,60 @@ def test_decode_kernel_matches_plain(cuda, dtype, tol, K, anc):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_decode_dropout_kernel_matches_plain(cuda, dtype, tol):
+    """K5 (the SCST rollout step, K == 1) against its plain version, and K3
+    at rate 0."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    B, S, P, G, H = 6, 2, 102, 24, 12
+    HD = H * 64
+    seed = 2 ** 64 - 977
+    for gen_len in (0, 9, 18, 23):
+        def r(*shape):
+            return torch.randn(*shape, generator=g, device=cuda).to(dtype)
+        q, k, v = (r(B, S, HD) for _ in range(3))
+        pk, pv = (r(B, P + 1, HD)[:, :P] for _ in range(2))
+        gk, gv = r(B, G, HD), r(B, G, HD)
+        gk2, gv2 = gk.clone(), gv.clone()
+        before = _build.KERNELS["decode_attention_drop"].launches
+        got = dec.decode_attention(q, k, v, pk, pv, gk, gv, gen_len,
+                                   n_heads=H, drop_seed=seed, drop_rate=0.1)
+        assert _build.KERNELS["decode_attention_drop"].launches == before + 1
+        want = dec.decode_attention_plain(q, k, v, pk, pv, gk2, gv2, gen_len,
+                                          n_heads=H, drop_seed=seed,
+                                          drop_rate=0.1)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+        assert torch.equal(gk, gk2) and torch.equal(gv, gv2)
+    before = _build.KERNELS["decode_attention"].launches
+    dec.decode_attention(q, k, v, pk, pv, gk, gv, 3, n_heads=H,
+                         drop_seed=seed, drop_rate=0.0)
+    assert _build.KERNELS["decode_attention"].launches == before + 1
+
+
+@pytest.mark.cuda
+def test_decode_dropout_scales_kernel_is_bit_exact(cuda):
+    """K6 writes K5's multipliers: row t*B + b from seeds[t], bit for bit
+    philox.decode_keep_scale on the card and on the CPU."""
+    seeds = [philox.step_seed(3, 1, t, 0) for t in range(19)]
+    seeds[4] = 2 ** 64 - 1
+    B, H, P, G = 8, 12, 102, 24
+    before = _build.KERNELS["decode_dropout_scales"].launches
+    got = dec.decode_dropout_scales(seeds, B, n_heads=H, S=2, P=P, G=G,
+                                    rate=0.1, device=cuda)
+    assert _build.KERNELS["decode_dropout_scales"].launches == before + 1
+    want = dec.decode_dropout_scales(seeds, B, n_heads=H, S=2, P=P, G=G,
+                                     rate=0.1, device="cpu")
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got[4 * B:5 * B], philox.decode_keep_scale(
+        seeds[4], B, H, 2, P, G, 0.1, device=cuda))
+    assert abs(float((got > 0).float().mean()) - 0.9) < 0.005
+    with pytest.raises(ValueError, match="128"):
+        dec.decode_dropout_scales(list(range(1, 130)), 1, n_heads=1, S=2,
+                                  P=4, G=8, rate=0.1, device=cuda)
+
+
+@pytest.mark.cuda
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     q = torch.randn(2, 9, 2, 32, device=cuda)       # head width 32
     one = torch.ones(2, dtype=torch.int32, device=cuda)
@@ -145,6 +204,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
                              gk.transpose(0, 1).contiguous().transpose(0, 1),
                              gk, 0, n_heads=2)
     np.testing.assert_equal(gk.cpu().numpy(), 0)
+    with pytest.raises(ValueError, match="K == 1"):
+        dec.decode_attention(x, x, x, torch.randn(1, 3, 128, device=cuda),
+                             torch.randn(1, 3, 128, device=cuda), gk, gk, 0,
+                             n_heads=2, drop_seed=1, drop_rate=0.1)
 
 
 def _train_inputs(g, dev, dtype, B=6, L=128, H=12, P=102):

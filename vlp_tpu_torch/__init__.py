@@ -1,5 +1,6 @@
-"""vlp_tpu_torch — VLP caption decoding and training in PyTorch, with
-hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
+"""vlp_tpu_torch — VLP caption decoding, training and self-critical
+training in PyTorch, with hand-written CUDA kernels for NVIDIA Hopper
+(sm_90a).
 
 The JAX package ``vlp_tpu`` is the reference this package is held against:
 module names mirror it (``ops/attention.py`` <-> ``vlp_tpu/ops/attention.py``

@@ -1,10 +1,14 @@
 """Training CLI on PyTorch (counterpart of ``vlp_tpu/cli/train.py``): the
-masked-LM flag surface of the reference ``run_img2txt_dist.py`` on one
-card, for caption fine-tuning and pretraining (``--s2s_prob/--bi_prob``).
+flag surface of the reference ``run_img2txt_dist.py`` on one card, for
+caption fine-tuning and pretraining (``--s2s_prob/--bi_prob``) and for
+self-critical training (``--scst``, the fused replay, ``scst.py``).
 
     python -m vlp_tpu_torch.cli.train --do_train --bert_model vocab.txt \\
         --new_segment_ids --enable_butd --src_file coco.json \\
         --model_recover_path pretrained.bin --output_dir out ...
+    # SCST from a fine-tuned checkpoint (reference recipe: lr 1e-6)
+    python -m vlp_tpu_torch.cli.train --do_train --scst --dataset coco \\
+        --max_pred 0 --mask_prob 0 --learning_rate 1e-6 ...
 
 It runs on the card unless called with ``--device cpu``: bf16 activations
 through the hand-written kernels on ``cuda``, fp32 through their plain
@@ -13,12 +17,13 @@ checkpoints are ``model.N.bin`` / ``optim.N.bin`` (``checkpoint.py``), and a
 rerun with the same ``--output_dir`` resumes from the newest epoch or
 ``--save_steps`` checkpoint.
 
-Flags of slices not yet ported raise, naming the ROADMAP item: ``--scst``
-(A9), ``--tasks vqa2`` (A8), ``--jax_distributed`` and ``--world_size > 1``
-(A10), ``--tensor_parallel > 1`` and ``--true_fp16`` (ROADMAP A, not to
-port).  The TPU dispatch workarounds ``--device_loop_steps``,
-``--no_pallas`` and ``--tp_impl`` are no-ops here and say so in the log, as
-are ``--fp16/--amp/--fp32_embedding`` (the dtype follows ``--device``).
+Flags of slices not yet ported raise, naming the ROADMAP item:
+``--tasks vqa2`` (A8), ``--jax_distributed`` and ``--world_size > 1``
+(A10), ``--tensor_parallel > 1``, ``--true_fp16``, ``--scst_replay scan``
+and ``--scst_remat`` (ROADMAP A, not to port).  The TPU dispatch
+workarounds ``--device_loop_steps``, ``--no_pallas`` and ``--tp_impl`` are
+no-ops here and say so in the log, as are
+``--fp16/--amp/--fp32_embedding`` (the dtype follows ``--device``).
 ``--profile_steps N`` writes a ``torch.profiler`` table of N steps to
 ``output_dir/profile.txt``.
 """
@@ -46,6 +51,7 @@ from vlp_tpu_torch.data.features import make_store
 from vlp_tpu_torch.data.loader import TrainLoader
 from vlp_tpu_torch.data.tokenization import WhitespaceTokenizer
 from vlp_tpu_torch.models.model import VLPModel
+from vlp_tpu_torch.scst import SCSTTrainer
 
 # parameters of the heads a BERT checkpoint lacks (reference
 # optimization.py:196-201): --finetune_decay decays them toward zero
@@ -123,11 +129,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="vqa2 is ROADMAP A8: raises")
     p.add_argument("--relax_projection", action="store_true")
     p.add_argument("--scst", action="store_true",
-                   help="SCST is ROADMAP A9: raises")
+                   help="self-critical training (fused replay); needs "
+                        "--dataset coco --max_pred 0 --mask_prob 0")
     p.add_argument("--scst_remat", action="store_true",
-                   help="only read with --scst")
+                   help="with --scst: not ported (the scan replay's remat, "
+                        "ROADMAP A, not to port): raises")
     p.add_argument("--scst_replay", default="fused",
-                   choices=("scan", "fused"), help="only read with --scst")
+                   choices=("scan", "fused"),
+                   help="with --scst: scan is not ported (ROADMAP A, not to "
+                        "port) and raises")
     p.add_argument("--answer_vocab_file", default="", type=str,
                    help="only read with --tasks vqa2")
     # beyond the reference
@@ -174,8 +184,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 def refuse_unported(args) -> None:
     """Raise on a flag whose slice the port does not have yet."""
+    not_to_port = ("is under ROADMAP A 'Not to port' (A9 ported the fused "
+                   "replay)")
     unported = [
-        (args.scst, "--scst: SCST is ROADMAP item A9"),
+        (args.scst and args.scst_replay == "scan",
+         f"--scst_replay scan: the scan replay {not_to_port}"),
+        (args.scst and args.scst_remat,
+         f"--scst_remat: the scan replay's remat {not_to_port}"),
         (args.tasks == "vqa2", "--tasks vqa2: VQA is ROADMAP item A8"),
         (args.jax_distributed,
          "--jax_distributed: multi-process training is ROADMAP item A10"),
@@ -235,6 +250,19 @@ def _anchors(model: VLPModel, path: str, cfg: VLPConfig):
             for n, p in model.named_parameters()}
 
 
+def scst_decode_batch(tbatch, cfg: VLPConfig) -> dict:
+    """A training batch as the decoder's prompt batch: the prompt ids, the
+    full segment ids and 0..L-1 position ids (run_img2txt_dist.py:488-496,
+    JAX ``_scst_decode_batch``)."""
+    B, L = tbatch["input_ids"].shape
+    dev = tbatch["input_ids"].device
+    return dict(input_ids=tbatch["input_ids"][:, :cfg.prefix_len],
+                segment_ids=tbatch["segment_ids"],
+                position_ids=torch.arange(L, device=dev).expand(B, L),
+                task_idx=tbatch["task_idx"], vis_feats=tbatch["vis_feats"],
+                vis_pe=tbatch["vis_pe"])
+
+
 def main(argv=None):
     """Returns ``{"losses", "step_seconds", "iter_seconds", "model"}``:
     the loss of every step taken, the seconds from a batch in hand to its
@@ -242,6 +270,16 @@ def main(argv=None):
     included), and the trained model."""
     args = build_parser().parse_args(argv)
     refuse_unported(args)
+    if args.scst:
+        # the reference's asserts (run_img2txt_dist.py; JAX CLI :254-260)
+        if args.dataset != "coco":
+            raise ValueError("--scst supports --dataset coco only")
+        if args.max_pred != 0 or args.mask_prob != 0:
+            raise ValueError("--scst takes no masked-LM targets: pass "
+                             "--max_pred 0 --mask_prob 0")
+        if args.gradient_accumulation_steps > 1:
+            raise ValueError("--scst does not compose with "
+                             "--gradient_accumulation_steps")
     device = resolve_device(args.device)
     configure_precision()
     if abs(args.s2s_prob + args.bi_prob - 1.0) > 1e-6:
@@ -347,15 +385,36 @@ def main(argv=None):
         optimizer = optim_lib.BertAdam(params, args.learning_rate, **opt_kw)
     if tag is not None:
         ckpt.restore_optimizer(args.output_dir, tag, optimizer)
-    train_step = ts.make_train_step(
-        model, optimizer, mask_image_regions=args.mask_image_regions,
-        grad_accum=accum)
+    if args.scst:
+        vocab = tokenizer.vocab
+        scst_trainer = SCSTTrainer(
+            model, cfg, mask_id=vocab["[MASK]"], eos_id=vocab["[SEP]"],
+            pad_id=vocab["[PAD]"], max_tgt_length=cfg.max_len_b,
+            optimizer=optimizer)
+        p0 = cfg.prefix_len
+
+        def run_step(batch, tbatch, seed, i_epoch):
+            # ground truth: everything after the prompt, the final [SEP]
+            # included (run_img2txt_dist.py:517)
+            gt = np.asarray(batch["input_ids"])[:, p0:p0 + cfg.max_len_b + 1]
+            loss, m = scst_trainer.step(scst_decode_batch(tbatch, cfg), gt,
+                                        seed)
+            return {"loss": loss, **m}
+    else:
+        train_step = ts.make_train_step(
+            model, optimizer, mask_image_regions=args.mask_image_regions,
+            grad_accum=accum)
+
+        def run_step(batch, tbatch, seed, i_epoch):
+            return train_step(tbatch, seed, args.max_drop_worst_ratio
+                              if i_epoch > args.drop_after else 0.0)
 
     result = {"losses": [], "step_seconds": [], "iter_seconds": [],
               "model": model}
     if not args.do_train:
         return result
-    logger.info("***** Running training on %s (%s) *****", device, dtype)
+    logger.info("***** Running %straining on %s (%s) *****",
+                "SCST " if args.scst else "", device, dtype)
     logger.info("  Batch size = %d  Num steps = %d", args.train_batch_size,
                 t_total)
     last_save = (start_epoch - 1) * steps_per_epoch + skip_batches
@@ -374,13 +433,10 @@ def main(argv=None):
                     profiler = _start_profiler()
                 t0 = time.perf_counter()
                 tbatch = to_device(batch, device)
-                ratio = (args.max_drop_worst_ratio
-                         if i_epoch > args.drop_after else 0.0)
-                # the step's dropout follows from (seed, epoch, step), so a
-                # resumed run draws what an uninterrupted one would
-                metrics = train_step(
-                    tbatch, ts.step_seed(args.seed + 1,
-                                         i_epoch * 100000 + step_i), ratio)
+                # the step's randomness follows from (seed, epoch, step), so
+                # a resumed run draws what an uninterrupted one would
+                seed = ts.step_seed(args.seed + 1, i_epoch * 100000 + step_i)
+                metrics = run_step(batch, tbatch, seed, i_epoch)
                 loss = float(metrics["loss"])
                 t1 = time.perf_counter()
                 result["step_seconds"].append(t1 - t0)

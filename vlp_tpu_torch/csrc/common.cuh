@@ -73,7 +73,8 @@ struct Dropout {
 };
 
 // Multipliers of columns 4*jblk .. 4*jblk+3 of row i of (example b, head
-// h): the counter is (jblk, i, h, b).
+// h): the counter is (jblk, i, h, b).  In a decode step, i is the query row
+// s and the columns run over the joint (prompt | generated) axis.
 __device__ __forceinline__ void keep_scale4(const Dropout& dp, int b, int h,
                                             int i, int jblk, float out[4]) {
   const uint4 w = philox4x32_10(
@@ -83,6 +84,18 @@ __device__ __forceinline__ void keep_scale4(const Dropout& dp, int b, int h,
   out[1] = w.y >= dp.threshold ? dp.scale : 0.f;
   out[2] = w.z >= dp.threshold ? dp.scale : 0.f;
   out[3] = w.w >= dp.threshold ? dp.scale : 0.f;
+}
+
+// The multiplier of column j alone: word j % 4 of counter (j / 4, i, h, b).
+// The decode kernel's lanes own single columns, not blocks of four.
+__device__ __forceinline__ float keep_scale1(const Dropout& dp, int b, int h,
+                                             int i, int j) {
+  const uint4 w = philox4x32_10(
+      make_uint4((unsigned)(j >> 2), (unsigned)i, (unsigned)h, (unsigned)b),
+      dp.seed);
+  const int r = j & 3;
+  const unsigned int x = r == 0 ? w.x : r == 1 ? w.y : r == 2 ? w.z : w.w;
+  return x >= dp.threshold ? dp.scale : 0.f;
 }
 
 }  // namespace vlp

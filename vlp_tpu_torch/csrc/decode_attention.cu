@@ -1,9 +1,14 @@
 // Fused KV-cached decode-step attention (one generation step of one layer).
 //
 // Replaces the TPU kernel vlp_tpu/ops/decode_attention.py:_kernel (:104),
-// deterministic branches: K3 (beam-local generated cache, greedy decode) and
-// K4 (has_anc, :143-153: the ancestry bias of the fused beam reorder).  The
-// dropout branch (K5, SCST rollouts) comes with the SCST slice.
+// all three branches: K3 (beam-local generated cache, greedy decode), K4
+// (has_anc, :143-153: the ancestry bias of the fused beam reorder) and K5
+// (drop_rate > 0, :159-200: attention-prob dropout in the SCST sampled
+// rollout, K == 1).  K5 multiplies the softmax probabilities by the Philox
+// keep/scale multipliers of common.cuh (counter (column/4, row, head,
+// example) under one seed per decode step and layer) before the cast to the
+// activation dtype, as the TPU kernel does (pp * drop, then .astype(dt));
+// decode_dropout.cu (K6) writes the same multipliers for the replay.
 //
 // One step, per (example b, head h):
 //   1. write the S new tokens' K/V (previous token, [MASK] probe) of each of
@@ -19,9 +24,12 @@
 //      the activation dtype, and the context in fp32.
 //
 // What bounds it on an H100: at beam-5 serving (B=100, K=5, S=2, P=102,
-// G=24, H=12, D=64, bf16) one call reads ~7 MB of caches and writes
-// ~0.4 MB — ~2 us at 3.35 TB/s — and does ~0.1 GFLOP, so the ideal is a
-// memory- and launch-latency-bound kernel.  The cost is the latency of
+// G=24, H=12, D=64, bf16) one call reads the prompt K/V once per example
+// (100*102*768 * 2 B * 2 = 31 MB) and up to 37 MB of generated K/V (all
+// five beams' slots), and writes ~0.6 MB — 9-20 us at 3.35 TB/s — and does
+// ~0.2 GFLOP.  At the SCST rollout (K5: B=64, K=1) the prompt K/V is 20 MB
+// and the generated K/V at most 4.7 MB, ~7.5 us.  The ideal is a memory-
+// and launch-latency-bound kernel.  The cost is the latency of
 // staging each block's caches: the block copies its head's prompt and
 // generated caches into shared memory once, in the activation dtype (~67 KB
 // in bf16 at those shapes, so three blocks share an SM), with 16-byte
@@ -31,7 +39,10 @@
 // Layout: grid = B*H blocks of kWarps warps, one warp per query row; lane c
 // owns columns c, c+32, ... of the joint (prompt | generated) row and output
 // dims 2*lane, 2*lane+1.  K rows are padded by two elements so that the 32
-// lanes reading 32 different rows hit distinct banks.
+// lanes reading 32 different rows hit distinct banks.  In K5 a lane draws
+// its own columns' multipliers (one Philox call per column, four times the
+// draws that are needed: 126 columns a row at the SCST shape, negligible
+// beside the staging).
 
 #include <stdint.h>
 
@@ -77,13 +88,14 @@ __device__ __forceinline__ uint4 ld16(const void* p) {
   return *static_cast<const uint4*>(p);
 }
 
-template <typename T, bool kHasAnc>
+template <typename T, bool kHasAnc, bool kDrop>
 __global__ void __launch_bounds__(kWarps * 32) decode_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ pk, const T* __restrict__ pv, T* __restrict__ gk,
     T* __restrict__ gv, const float* __restrict__ beam_bias,
     T* __restrict__ out, int K, int S, int P, int G, int H, long long psb,
-    int gen_len, float scale) {
+    int gen_len, float scale, vlp::Dropout dp) {
+  static_assert(!(kHasAnc && kDrop), "dropout is for sampling (K == 1)");
   constexpr int E = 16 / sizeof(T);  // elements per 16-byte chunk
   constexpr int CPR = D / E;         // chunks per head row
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -181,8 +193,12 @@ __global__ void __launch_bounds__(kWarps * 32) decode_attention_kernel(
       if (c < P) sum_p += e; else sum_g += e;
     }
     const float denom = vlp::warp_sum(sum_p) + vlp::warp_sum(sum_g);
-    for (int c = lane; c < ncol; c += 32)
-      pw[c] = vlp::round_to<T>(pw[c] / denom);
+    for (int c = lane; c < ncol; c += 32) {
+      float p = pw[c] / denom;
+      // K == 1, so the row's counter row is its query row s
+      if constexpr (kDrop) p = p * vlp::keep_scale1(dp, b, h, s, c);
+      pw[c] = vlp::round_to<T>(p);
+    }
     __syncwarp();
 
     const int d0 = 2 * lane;
@@ -205,36 +221,52 @@ __global__ void __launch_bounds__(kWarps * 32) decode_attention_kernel(
   }
 }
 
-template <typename T, bool kHasAnc>
+template <typename T, bool kHasAnc, bool kDrop>
 int launch(const void* q, const void* k, const void* v, const void* pk,
            const void* pv, void* gk, void* gv, const float* beam_bias,
            void* out, int B, int K, int S, int P, int G, int H,
-           long long psb, int gen_len, float scale, cudaStream_t stream) {
+           long long psb, int gen_len, float scale, vlp::Dropout dp,
+           cudaStream_t stream) {
   const size_t smem = smem_bytes<T>(P, K, G);
   cudaError_t err = cudaFuncSetAttribute(
-      decode_attention_kernel<T, kHasAnc>,
+      decode_attention_kernel<T, kHasAnc, kDrop>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  decode_attention_kernel<T, kHasAnc><<<B * H, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(pk),
-      static_cast<const T*>(pv), static_cast<T*>(gk), static_cast<T*>(gv),
-      beam_bias, static_cast<T*>(out), K, S, P, G, H, psb, gen_len, scale);
+  decode_attention_kernel<T, kHasAnc, kDrop>
+      <<<B * H, kWarps * 32, smem, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<const T*>(pk),
+          static_cast<const T*>(pv), static_cast<T*>(gk),
+          static_cast<T*>(gv), beam_bias, static_cast<T*>(out), K, S, P, G,
+          H, psb, gen_len, scale, dp);
   return (int)cudaGetLastError();
 }
 
+// dp.threshold == 0 (no dropout) selects K3 or K4; otherwise K5, which the
+// entry point only reaches with K == 1 and no beam bias
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, const void* pk,
              const void* pv, void* gk, void* gv, const float* beam_bias,
              void* out, int B, int K, int S, int P, int G, int H,
-             long long psb, int gen_len, float scale, cudaStream_t stream) {
+             long long psb, int gen_len, float scale, vlp::Dropout dp,
+             cudaStream_t stream) {
   if (smem_bytes<T>(P, K, G) > (size_t)vlp::kMaxSmemBytes)
     return (int)cudaErrorInvalidValue;
+  if (dp.threshold)
+    return launch<T, false, true>(q, k, v, pk, pv, gk, gv, nullptr, out, B,
+                                  K, S, P, G, H, psb, gen_len, scale, dp,
+                                  stream);
   if (beam_bias)
-    return launch<T, true>(q, k, v, pk, pv, gk, gv, beam_bias, out, B, K, S,
-                           P, G, H, psb, gen_len, scale, stream);
-  return launch<T, false>(q, k, v, pk, pv, gk, gv, nullptr, out, B, K, S, P,
-                          G, H, psb, gen_len, scale, stream);
+    return launch<T, true, false>(q, k, v, pk, pv, gk, gv, beam_bias, out, B,
+                                  K, S, P, G, H, psb, gen_len, scale, dp,
+                                  stream);
+  return launch<T, false, false>(q, k, v, pk, pv, gk, gv, nullptr, out, B, K,
+                                 S, P, G, H, psb, gen_len, scale, dp, stream);
+}
+
+template <typename... Args>
+int dispatch_dtype(int is_bf16, Args... args) {
+  return is_bf16 ? dispatch<__nv_bfloat16>(args...) : dispatch<float>(args...);
 }
 
 }  // namespace
@@ -254,13 +286,30 @@ int vlp_decode_attention(const void* q, const void* k, const void* v,
                          void* stream) {
   if (B <= 0 || K <= 0 || S <= 0 || P <= 0 || G <= 0 || H <= 0)
     return (int)cudaErrorInvalidValue;
-  auto st = static_cast<cudaStream_t>(stream);
-  auto ab = static_cast<const float*>(beam_bias);
-  if (is_bf16)
-    return dispatch<__nv_bfloat16>(q, k, v, pk, pv, gk, gv, ab, out, B, K, S,
-                                   P, G, H, psb, gen_len, scale, st);
-  return dispatch<float>(q, k, v, pk, pv, gk, gv, ab, out, B, K, S, P, G, H,
-                         psb, gen_len, scale, st);
+  return dispatch_dtype(is_bf16, q, k, v, pk, pv, gk, gv,
+                        static_cast<const float*>(beam_bias), out, B, K, S, P,
+                        G, H, psb, gen_len, scale, vlp::Dropout{0, 0, 1.f},
+                        static_cast<cudaStream_t>(stream));
+}
+
+// K5, the SCST sampled rollout: as vlp_decode_attention with K == 1 and no
+// beam bias, the probabilities multiplied by the Philox keep/scale
+// multipliers keyed on the 64-bit seed (threshold = uint32(rate * 2^32),
+// keep_scale = 1 / (1 - rate)) before their cast to the activation dtype.
+int vlp_decode_attention_drop(const void* q, const void* k, const void* v,
+                              const void* pk, const void* pv, void* gk,
+                              void* gv, void* out, int B, int S, int P,
+                              int G, int H, long long psb, int gen_len,
+                              float scale, unsigned long long seed,
+                              unsigned int threshold, float keep_scale,
+                              int is_bf16, void* stream) {
+  if (B <= 0 || S <= 0 || P <= 0 || G <= 0 || H <= 0 || threshold == 0)
+    return (int)cudaErrorInvalidValue;
+  return dispatch_dtype(is_bf16, q, k, v, pk, pv, gk, gv,
+                        static_cast<const float*>(nullptr), out, B, 1, S, P,
+                        G, H, psb, gen_len, scale,
+                        vlp::Dropout{seed, threshold, keep_scale},
+                        static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -1,5 +1,5 @@
-"""Caption generation: greedy and beam search over the split KV cache
-(counterpart of ``vlp_tpu/decode.py``).
+"""Caption generation: greedy, sampled and beam search decoding over the
+split KV cache (counterpart of ``vlp_tpu/decode.py``).
 
 * The prompt ``[CLS] regions [SEP]`` is encoded once (``VLPModel.prefill``)
   and its K/V cached per example — never beam-expanded, never reordered.
@@ -10,6 +10,10 @@
   whose cache holds beam bk's lineage at slot j, and the decode kernel turns
   it into an additive bias.  So the generated caches are written in place
   by the kernel and never gathered; only the small int map is permuted.
+* Sampling (the SCST rollout) draws from the fp32 softmax with
+  ``torch.multinomial`` and an explicit ``torch.Generator``; with an
+  :class:`~vlp_tpu_torch.models.model.ExplicitDropout` it runs with dropout
+  on (K1 dropout in the prefill, K5 in the steps).
 * A Python loop takes the place of ``lax.scan``; ``torch.topk`` is exact, so
   the TPU top-k workarounds (``topk_impl="blocks"``, ``approx_topk``) have no
   counterpart.  The back-trace (modeling.py:1436-1472) runs on the host.
@@ -18,13 +22,13 @@
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from vlp_tpu_torch.config import VLPConfig
-from vlp_tpu_torch.models.model import VLPModel
+from vlp_tpu_torch.models.model import ExplicitDropout, VLPModel
 
 NEG = -10000.0
 
@@ -59,10 +63,10 @@ class Decoder:
         self.dp = dp
 
     # -- shared primitives -------------------------------------------------
-    def _prefill(self, batch):
+    def _prefill(self, batch, drop=None):
         return self.model.prefill(batch["input_ids"], batch["segment_ids"],
                                   batch["position_ids"], batch["vis_feats"],
-                                  batch["vis_pe"], self.dp.mask_id)
+                                  batch["vis_pe"], self.dp.mask_id, drop)
 
     def _init_gen_cache(self, rows: int, device
                         ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
@@ -80,18 +84,18 @@ class Decoder:
     def _logits(self, hidden, task_idx) -> torch.Tensor:
         return self.model.lm_logits(hidden, task_idx)[:, 0, :]  # [B, V]
 
-    # -- greedy ------------------------------------------------------------
-    @torch.no_grad()
-    def greedy(self, batch) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Returns (ids int64 [B, T], log-probs fp32 [B, T])."""
+    # -- greedy / sample ---------------------------------------------------
+    def _rollout(self, batch, choose, drop: Optional[ExplicitDropout]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         dp = self.dp
         B = batch["input_ids"].shape[0]
-        hidden, pk, pv = self._prefill(batch)
+        hidden, pk, pv = self._prefill(
+            batch, None if drop is None else drop.prefill_rng())
         gk, gv = self._init_gen_cache(B, hidden.device)
 
         def select(logits):
             logp = torch.log_softmax(logits, dim=-1)
-            ids = torch.argmax(logits, dim=-1)
+            ids = choose(logits)
             return ids, torch.gather(logp, 1, ids[:, None])[:, 0]
 
         ids, lp = select(self._logits(hidden, batch["task_idx"]))
@@ -99,11 +103,31 @@ class Decoder:
         for t in range(dp.max_tgt_length - 1):
             hidden = self.model.decode_step(
                 ids[:, None], batch["segment_ids"], batch["position_ids"],
-                pk, pv, gk, gv, t, dp.mask_id)
+                pk, pv, gk, gv, t, dp.mask_id, drop=drop)
             ids, lp = select(self._logits(hidden, batch["task_idx"]))
             all_ids.append(ids)
             all_lp.append(lp)
         return torch.stack(all_ids, dim=1), torch.stack(all_lp, dim=1)
+
+    @torch.no_grad()
+    def greedy(self, batch) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Returns (ids int64 [B, T], log-probs fp32 [B, T])."""
+        return self._rollout(batch, lambda lg: torch.argmax(lg, dim=-1), None)
+
+    @torch.no_grad()
+    def sample(self, batch, generator: torch.Generator,
+               drop: Optional[ExplicitDropout] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Multinomial sampling from the fp32 softmax of each step's logits
+        (JAX ``_run_greedy(sample=True)``), the draws from ``generator``
+        (on the model's device).  ``drop`` runs the rollout in train mode
+        under the SCST explicit-dropout contract (JAX ``train_mode`` with
+        ``explicit_dropout``).  Returns (ids int64 [B, T], the rollout's
+        log-probs fp32 [B, T])."""
+        def choose(logits):
+            return torch.multinomial(torch.softmax(logits, dim=-1), 1,
+                                     generator=generator)[:, 0]
+        return self._rollout(batch, choose, drop)
 
     # -- beam search -------------------------------------------------------
     def _forbidden_candidates(self, seqs: torch.Tensor, t: int, V: int

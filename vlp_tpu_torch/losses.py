@@ -5,6 +5,8 @@
   ``ls / (V - 2)`` and ignore index 0 (reference ``loss.py:12-48``).
 * ``mask_and_normalize_loss`` — weighted reduction with drop-worst
   filtering (reference ``modeling.py:1083-1093``).
+* ``scst_reward_loss`` — the SCST policy-gradient loss (reference
+  ``scst_utils.py:66-78``).
 """
 
 from __future__ import annotations
@@ -58,3 +60,15 @@ def mask_and_normalize_loss(loss: torch.Tensor, weights: torch.Tensor,
     keep = (rank < k).to(loss.dtype)
     denom = (w.sum(dim=-1) * keep).sum() + 1e-5
     return (per_ex * keep).sum() / denom
+
+
+def scst_reward_loss(sample_logprobs: torch.Tensor, gen_result: torch.Tensor,
+                     reward: torch.Tensor) -> torch.Tensor:
+    """Policy-gradient SCST loss.  sample_logprobs, reward: [B, T];
+    gen_result: int [B, T] sampled ids.  The mask is ``(seq > 0)`` shifted
+    right by one behind a leading 1, so the first EOS step is still
+    rewarded."""
+    mask = (gen_result > 0).float()
+    mask = torch.cat([torch.ones_like(mask[:, :1]), mask[:, :-1]], dim=1)
+    out = -sample_logprobs.float() * reward.float() * mask
+    return out.sum() / mask.sum()

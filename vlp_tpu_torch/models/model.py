@@ -17,14 +17,20 @@ gradients reach the fp32 parameters; :meth:`VLPModel.cast_for_inference`
 stores them cast once for decoding, which gives the same values.
 
 Attention goes through ``ops.attention.attention`` (prefill, encode),
-``ops.attention.FusedAttention`` (the training forward and backward) and
-``ops.decode_attention.decode_attention`` (decode steps): the CUDA kernels
-for CUDA tensors, their plain versions for CPU tensors.
+``ops.attention.FusedAttention`` (the training forward and backward, and
+the prefill of an SCST rollout and replay) and
+``ops.decode_attention.decode_attention`` (decode steps, with dropout in
+SCST sampled rollouts): the CUDA kernels for CUDA tensors, their plain
+versions for CPU tensors.  The SCST teacher-forced replay
+(:meth:`VLPModel.scst_replay_hidden`) is plain PyTorch with autograd, as in
+the JAX package it is XLA einsums.
 
 Dropout follows the JAX package's sites: embeddings, region projections,
 attention probabilities, attention output and FFN output.  A training
 forward takes a :class:`DropoutRNG`; without one the forward is
-deterministic.
+deterministic.  An SCST step takes an :class:`ExplicitDropout`, the
+contract under which the sampled rollout and its one-pass replay draw the
+same masks.
 """
 
 from __future__ import annotations
@@ -41,6 +47,8 @@ from vlp_tpu_torch import torch_dtype
 from vlp_tpu_torch.config import MODE_S2S, VLPConfig
 from vlp_tpu_torch.ops import attention as attn_ops
 from vlp_tpu_torch.ops import decode_attention as decode_attn_ops
+from vlp_tpu_torch.ops.masks import NEG_INF
+from vlp_tpu_torch.ops.philox import step_seed
 
 LN_EPS = 1e-5
 
@@ -72,12 +80,69 @@ class DropoutRNG:
             return x
         keep = torch.rand(x.shape, generator=self._device,
                           device=x.device) < 1.0 - rate
-        return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+        return masked_dropout(x, keep, rate)
+
+
+def masked_dropout(x: torch.Tensor, keep: Optional[torch.Tensor],
+                   rate: float) -> torch.Tensor:
+    """Dropout with a given keep mask, flax's scaling (JAX
+    ``masked_dropout``); identity at rate 0."""
+    if rate == 0.0 or keep is None:
+        return x
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 def _hidden_dropout(drop: Optional[DropoutRNG], x: torch.Tensor,
                     rate: float) -> torch.Tensor:
     return x if drop is None else drop.hidden(x, rate)
+
+
+class ExplicitDropout:
+    """The explicit-dropout contract of one SCST step (JAX
+    ``explicit_dropout`` / ``masked_dropout``, model.py:57-93, and
+    ``_scst_replay_drop`` :969): the sampled rollout draws its dropout from
+    here step by step, and the teacher-forced replay re-draws exactly the
+    same masks in its own (row, column) coordinates.  Everything follows
+    from ``seed``:
+
+    * the prefill: a :class:`DropoutRNG` of its own seed, fresh at each
+      call, so the replay's prefill draws what the rollout's drew (the JAX
+      replay re-runs the prefill with the rollout's rngs);
+    * attention probabilities of decode step t in layer l: one 64-bit
+      Philox seed, :meth:`attn_seed` -- K5 applies it in the rollout, K6
+      (``decode_dropout_scales``) regenerates it for the replay;
+    * hidden dropout of decode step t: keep masks ``[1 + 2L, B, 2, H]``
+      for the embeddings (JAX fold 0) and each layer's attention output and
+      FFN output (folds 1 and 2), :meth:`hidden_keep`, drawn by one
+      ``torch.rand`` from a device generator seeded per step.
+    """
+
+    def __init__(self, seed: int, cfg: VLPConfig, device):
+        self.seed = seed
+        self.cfg = cfg
+        self.device = torch.device(device)
+
+    def prefill_rng(self) -> DropoutRNG:
+        return DropoutRNG(step_seed(self.seed, 0), self.device)
+
+    def attn_seed(self, t: int, layer: int) -> Optional[int]:
+        """K5's seed in decode step t, layer ``layer`` (None at rate 0)."""
+        if self.cfg.attention_probs_dropout_prob == 0.0:
+            return None
+        return step_seed(self.seed, 1, t, layer)
+
+    def hidden_keep(self, t: int, B: int) -> Optional[torch.Tensor]:
+        """bool ``[1 + 2L, B, 2, H]`` keep masks of decode step t: index 0
+        the embeddings, 1 + 2l and 2 + 2l layer l's attention output and
+        FFN output (None at rate 0)."""
+        cfg = self.cfg
+        rate = cfg.hidden_dropout_prob
+        if rate == 0.0:
+            return None
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(step_seed(self.seed, 2, t))
+        shape = (1 + 2 * cfg.num_hidden_layers, B, 2, cfg.hidden_size)
+        return torch.rand(shape, generator=gen, device=self.device) < 1 - rate
 
 
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:
@@ -176,16 +241,24 @@ class TransformerLayer(nn.Module):
         return _linear(sa.query, x), _linear(sa.key, x), _linear(sa.value, x)
 
     def _post_attention(self, ctx: torch.Tensor, residual: torch.Tensor,
-                        drop: Optional[DropoutRNG] = None) -> torch.Tensor:
+                        drop: Optional[DropoutRNG] = None,
+                        masks=None) -> torch.Tensor:
         """Output projection + FFN, each followed by (hidden dropout and)
-        residual + fp32 LN."""
+        residual + fp32 LN.  Hidden dropout draws from ``drop``, or takes
+        the pre-drawn keep masks ``masks`` = (attention output, FFN
+        output) of an SCST step."""
         rate = self.cfg.hidden_dropout_prob
+
+        def hdrop(y, i):
+            if masks is not None:
+                return masked_dropout(y, masks[i], rate)
+            return _hidden_dropout(drop, y, rate)
+
         ao = self.attention.output
-        h = _hidden_dropout(drop, _linear(ao.dense, ctx), rate)
+        h = hdrop(_linear(ao.dense, ctx), 0)
         h = _layer_norm(ao.LayerNorm, h + residual).to(ctx.dtype)
-        f = _linear(self.output.dense,
-                    gelu_exact(_linear(self.intermediate.dense, h)))
-        f = _hidden_dropout(drop, f, rate)
+        f = hdrop(_linear(self.output.dense,
+                          gelu_exact(_linear(self.intermediate.dense, h))), 1)
         return _layer_norm(self.output.LayerNorm, f + h).to(ctx.dtype)
 
     def forward(self, x, mode, text_end, colkeep,
@@ -208,36 +281,84 @@ class TransformerLayer(nn.Module):
                 self.cfg.attention_probs_dropout_prob, drop.seed())
         return self._post_attention(ctx.reshape(B, L, HD), x, drop)
 
-    def prefill_attend(self, x: torch.Tensor, prefix: int
+    def prefill_attend(self, x: torch.Tensor, prefix: int,
+                       drop: Optional[DropoutRNG] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Prompt-window attention: ``x`` is [B, P+1, H] (prompt + [MASK]
         probe).  The decode-time visibility is the s2s mask with
         ``text_end = L``.  Returns (layer_out, k[:, :P], v[:, :P]) — the
         caches are views of the projections (batch stride (P+1)*H*D); the
-        decode kernel takes that stride, nothing is copied."""
+        decode kernel takes that stride, nothing is copied.  With ``drop``
+        (an SCST rollout or replay) dropout is on and the attention goes
+        through ``FusedAttention``, so the replay's prefill is
+        differentiable."""
+        cfg = self.cfg
         B, L, HD = x.shape
-        hd = (self.cfg.num_attention_heads, self.cfg.head_dim)
+        hd = (cfg.num_attention_heads, cfg.head_dim)
         qc, kc, vc = self._qkv(x)
         dev = x.device
-        ctx = attn_ops.attention(
-            qc.view(B, L, *hd), kc.view(B, L, *hd), vc.view(B, L, *hd),
-            torch.full((B,), MODE_S2S, dtype=torch.int32, device=dev),
-            torch.full((B,), L, dtype=torch.int32, device=dev),
-            torch.ones((B, L), dtype=torch.float32, device=dev),
-            prefix=prefix)
-        out = self._post_attention(ctx.reshape(B, L, HD), x)
+        meta = (torch.full((B,), MODE_S2S, dtype=torch.int32, device=dev),
+                torch.full((B,), L, dtype=torch.int32, device=dev),
+                torch.ones((B, L), dtype=torch.float32, device=dev))
+        q4, k4, v4 = (t.view(B, L, *hd) for t in (qc, kc, vc))
+        if drop is None:
+            ctx = attn_ops.attention(q4, k4, v4, *meta, prefix=prefix)
+        else:
+            ctx = attn_ops.FusedAttention.apply(
+                q4, k4, v4, *meta, prefix, cfg.attention_probs_dropout_prob,
+                drop.seed())
+        out = self._post_attention(ctx.reshape(B, L, HD), x, drop)
         return out, kc[:, :prefix], vc[:, :prefix]
 
     def incremental_split(self, x, pk, pv, gk, gv, gen_len: int,
-                          beam_bias: Optional[torch.Tensor] = None
-                          ) -> torch.Tensor:
+                          beam_bias: Optional[torch.Tensor] = None,
+                          drop_seed: Optional[int] = None,
+                          masks=None) -> torch.Tensor:
         """One KV-cached step: the fused decode attention writes the new
-        K/V into ``gk``/``gv`` in place."""
+        K/V into ``gk``/``gv`` in place.  An SCST sampled rollout passes
+        the step's attention seed (K5) and its hidden keep masks."""
         q, k, v = self._qkv(x)
         ctx = decode_attn_ops.decode_attention(
             q, k, v, pk, pv, gk, gv, gen_len,
-            n_heads=self.cfg.num_attention_heads, beam_bias=beam_bias)
-        return self._post_attention(ctx, x)
+            n_heads=self.cfg.num_attention_heads, beam_bias=beam_bias,
+            drop_seed=drop_seed,
+            drop_rate=self.cfg.attention_probs_dropout_prob)
+        return self._post_attention(ctx, x, masks=masks)
+
+    def dual_block_attend(self, x, pk, pv, bias, probs_scale=None,
+                          masks=None) -> torch.Tensor:
+        """SCST teacher-forced replay attention (JAX ``dual_block_attend``,
+        model.py:596): one pass, no cache.  Queries are the 2W caption rows
+        ``[w_0..w_{W-1} | m_1..m_W]``, keys/values the prompt caches
+        ``pk/pv [B, P, H*D]`` plus the rows' own projections, visibility the
+        static additive ``bias [R, P+R]``.  ``probs_scale`` [B, H, R, P+R]
+        multiplies the probabilities as K5 did (K6's multipliers mapped to
+        replay coordinates); ``masks`` are the hidden keep masks
+        ([B, R, H], [B, R, H]).  Products in fp32 on the activations'
+        values, the probabilities cast to the activation dtype, and the
+        context summed as a prompt block plus a caption block, as the
+        rollout sums it."""
+        cfg = self.cfg
+        B, R, HD = x.shape
+        P = pk.shape[1]
+        H, D = cfg.num_attention_heads, cfg.head_dim
+        q, k, v = self._qkv(x)
+        qb = q.float().view(B, R, H, D)
+        scale = 1.0 / math.sqrt(D)
+        sp = torch.einsum("brhd,bjhd->bhrj", qb,
+                          pk.float().reshape(B, P, H, D)) * scale
+        sg = torch.einsum("brhd,bjhd->bhrj", qb,
+                          k.float().view(B, R, H, D)) * scale
+        probs = torch.softmax(torch.cat([sp, sg], dim=-1) + bias, dim=-1)
+        if probs_scale is not None:
+            probs = probs * probs_scale
+        probs = probs.to(x.dtype).float()
+        ctx = torch.einsum("bhrj,bjhd->brhd", probs[..., :P],
+                           pv.float().reshape(B, P, H, D))
+        ctx = ctx + torch.einsum("bhrj,bjhd->brhd", probs[..., P:],
+                                 v.float().view(B, R, H, D))
+        return self._post_attention(ctx.to(x.dtype).reshape(B, R, HD), x,
+                                    masks=masks)
 
 
 class _Encoder(nn.Module):
@@ -444,36 +565,38 @@ class VLPModel(nn.Module):
         return -(-max_tgt_length // 8) * 8
 
     def prefill(self, input_ids, segment_ids, position_ids, vis_feats,
-                vis_pe, mask_id: int
+                vis_pe, mask_id: int, drop: Optional[DropoutRNG] = None
                 ) -> Tuple[torch.Tensor, List[torch.Tensor],
                            List[torch.Tensor]]:
         """Encode [CLS] regions [SEP] plus the first [MASK] probe.  Returns
         (probe hidden [B, 1, H], per-layer prompt K and V caches
-        [B, P, H*D]); the probe's own K/V are dropped."""
+        [B, P, H*D]); the probe's own K/V are dropped.  ``drop`` turns
+        dropout on (an SCST rollout and its replay)."""
         B = input_ids.shape[0]
         prefix = self.cfg.prefix_len
         probe = torch.full((B, 1), mask_id, dtype=input_ids.dtype,
                            device=input_ids.device)
         ids = torch.cat([input_ids[:, :prefix], probe], dim=1)
-        vf, vp = self.project_regions(vis_feats, vis_pe)
+        vf, vp = self.project_regions(vis_feats, vis_pe, drop)
         x = self.bert.embeddings(ids, segment_ids[:, :prefix + 1],
                                  position_ids[:, :prefix + 1], vf, vp,
-                                 self.dtype)
+                                 self.dtype, drop)
         ks, vs = [], []
         for layer in self.layers:
-            x, k, v = layer.prefill_attend(x, prefix)
+            x, k, v = layer.prefill_attend(x, prefix, drop)
             ks.append(k)
             vs.append(v)
         return x[:, -1:], ks, vs
 
     def decode_step(self, prev_ids, segment_ids, position_ids, pk, pv, gk,
                     gv, gen_len: int, mask_id: int,
-                    beam_bias: Optional[torch.Tensor] = None
-                    ) -> torch.Tensor:
+                    beam_bias: Optional[torch.Tensor] = None,
+                    drop: Optional[ExplicitDropout] = None) -> torch.Tensor:
         """Feed [prev_token, MASK probe] at absolute positions
         prefix+gen_len and +1; returns the probe hidden [BK, 1, H].  The
         generated caches ``gk``/``gv`` (per-layer lists) are updated in
-        place; the prompt caches are read-only."""
+        place; the prompt caches are read-only.  ``drop``: the SCST
+        contract, whose step ``gen_len`` dropout the step applies."""
         BK = prev_ids.shape[0]
         c = self.cfg.prefix_len + gen_len
         probe = torch.full((BK, 1), mask_id, dtype=prev_ids.dtype,
@@ -482,12 +605,112 @@ class VLPModel(nn.Module):
         x = self.bert.embeddings(ids, segment_ids[:, c:c + 2],
                                  position_ids[:, c:c + 2], None, None,
                                  self.dtype)
+        keep = None if drop is None else drop.hidden_keep(gen_len, BK)
+        rate = self.cfg.hidden_dropout_prob
+        if keep is not None:
+            x = masked_dropout(x, keep[0], rate)
         for i, layer in enumerate(self.layers):
-            x = layer.incremental_split(x, pk[i], pv[i], gk[i], gv[i],
-                                        gen_len, beam_bias=beam_bias)
+            x = layer.incremental_split(
+                x, pk[i], pv[i], gk[i], gv[i], gen_len, beam_bias=beam_bias,
+                drop_seed=None if drop is None else drop.attn_seed(gen_len, i),
+                masks=None if keep is None else keep[1 + 2 * i:3 + 2 * i])
         return x[:, -1:]
 
     def lm_logits(self, hidden, task_idx) -> torch.Tensor:
         """MLM logits for generation (fp32, [B, S, V])."""
         return self.cls(hidden, task_idx,
                         self.bert.embeddings.word_embeddings.weight)
+
+    # ------------------------------------------------------------------
+    # SCST teacher-forced replay (one dual-block pass, no decode loop)
+    # ------------------------------------------------------------------
+    def _scst_replay_drop(self, drop: ExplicitDropout, B: int, T: int):
+        """The rollout's dropout in dual-block coordinates (JAX
+        ``_scst_replay_drop``, model.py:969).  Rollout step t feeds rows
+        (w_t [s=0], m_{t+1} [s=1]) and draws over columns [prompt P | slots
+        G], where slot j holds w_j and slot t+1 the step's own probe; so the
+        replay's columns map row-independently: the prompt to itself, w_j
+        to P+j, and probe m_{u+1}'s own column P+W+u to slot u+1.  Returns
+        (embedding keep mask [B, R, H] or None, ``layer_drop(l)`` ->
+        (probs_scale [B, H, R, P+R] or None, (attn-out, ffn-out) masks or
+        None)), rows ordered [w_0..w_{W-1} | m_1..m_W]."""
+        cfg = self.cfg
+        W = T - 1
+        P = cfg.prefix_len
+        G = VLPModel.gen_cache_slots(T)
+        dev = drop.device
+        keep = None
+        if cfg.hidden_dropout_prob > 0.0:
+            keep = torch.stack([drop.hidden_keep(t, B) for t in range(W)])
+
+        def rows2(m):             # [W, B, 2, H] -> [B, 2W, H]
+            return torch.cat([m[:, :, 0].transpose(0, 1),
+                              m[:, :, 1].transpose(0, 1)], dim=1)
+
+        ar = torch.arange(W, device=dev)
+        row_step = torch.cat([ar, ar])
+        row_s = torch.cat([torch.zeros_like(ar), torch.ones_like(ar)])
+        col_src = torch.cat([torch.arange(P + W, device=dev), P + 1 + ar])
+
+        def layer_drop(layer: int):
+            scale = None
+            if cfg.attention_probs_dropout_prob > 0.0:
+                scales = decode_attn_ops.decode_dropout_scales(
+                    [drop.attn_seed(t, layer) for t in range(W)], B,
+                    n_heads=cfg.num_attention_heads, S=2, P=P, G=G,
+                    rate=cfg.attention_probs_dropout_prob, device=dev)
+                scales = scales.view(W, B, cfg.num_attention_heads, 2, P + G)
+                sel = scales[row_step, :, :, row_s]       # [R, B, H, P+G]
+                scale = sel.index_select(-1, col_src).permute(1, 2, 0, 3)
+            masks = None
+            if keep is not None:
+                masks = (rows2(keep[:, 1 + 2 * layer]),
+                         rows2(keep[:, 2 + 2 * layer]))
+            return scale, masks
+
+        return (None if keep is None else rows2(keep[:, 0])), layer_drop
+
+    def scst_replay_hidden(self, forced_ids, segment_ids, position_ids, pk,
+                           pv, mask_id: int,
+                           drop: Optional[ExplicitDropout] = None
+                           ) -> torch.Tensor:
+        """Teacher-forced SCST replay as one dual-block pass (JAX
+        ``scst_replay_hidden``, model.py:1044): rows [w_0..w_{T-2} |
+        m_1..m_{T-1}] attend to [prompt caches | those rows] under the
+        decode visibility (w_t sees the prompt and w_<=t; m_t the prompt,
+        w_<t and itself), giving the incremental decoder's probe hiddens
+        without the decode loop.  With ``drop`` it applies exactly the
+        masks the sampled rollout drew under the same contract.  Returns
+        [B, T-1, H], the hiddens of probes m_1..m_{T-1}."""
+        cfg = self.cfg
+        B, T = forced_ids.shape
+        if T < 2:
+            raise ValueError("the teacher-forced replay needs T >= 2")
+        W, R, P = T - 1, 2 * (T - 1), cfg.prefix_len
+        dev = forced_ids.device
+        ids = torch.cat([forced_ids[:, :W],
+                         torch.full((B, W), mask_id, dtype=forced_ids.dtype,
+                                    device=dev)], dim=1)
+        seg = torch.cat([segment_ids[:, P:P + W],
+                         segment_ids[:, P + 1:P + 1 + W]], dim=1)
+        pos = torch.cat([position_ids[:, P:P + W],
+                         position_ids[:, P + 1:P + 1 + W]], dim=1)
+        x = self.bert.embeddings(ids, seg, pos, None, None, self.dtype)
+        emb_mask, layer_drop = None, None
+        if drop is not None:
+            emb_mask, layer_drop = self._scst_replay_drop(drop, B, T)
+            x = masked_dropout(x, emb_mask, cfg.hidden_dropout_prob)
+
+        # the static dual-block visibility as an additive bias [R, P+R]
+        r = torch.arange(R, device=dev)[:, None]
+        c = torch.arange(P + R, device=dev)[None, :]
+        step = torch.where(r < W, r, r - W)
+        vis = ((c < P) | ((c >= P) & (c < P + W) & (c - P <= step))
+               | ((r >= W) & (c == P + W + step)))
+        bias = torch.full(vis.shape, NEG_INF, device=dev).masked_fill(vis,
+                                                                      0.0)
+        for i, layer in enumerate(self.layers):
+            scale, masks = (None, None) if layer_drop is None \
+                else layer_drop(i)
+            x = layer.dual_block_attend(x, pk[i], pv[i], bias, scale, masks)
+        return x[:, W:]

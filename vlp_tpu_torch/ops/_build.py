@@ -51,6 +51,9 @@ _SIGNATURES = {
     "vlp_dropout_mask": [_P, _I, _I, _I, _ULL, _U, _F, _P],
     "vlp_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                              _I, _I, _I, _LL, _I, _F, _I, _P],
+    "vlp_decode_attention_drop": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                  _I, _I, _LL, _I, _F, _ULL, _U, _F, _I, _P],
+    "vlp_decode_dropout_scales": [_P, _P, _I, _I, _I, _I, _I, _U, _F, _P],
 }
 
 
@@ -87,6 +90,12 @@ KERNELS = {
     "dropout_mask": Kernel(
         "dropout_mask", "vlp_tpu_torch/csrc/dropout_mask.cu",
         "tests/test_tpu_dropout.py:50"),
+    "decode_attention_drop": Kernel(
+        "decode_attention_drop", "vlp_tpu_torch/csrc/decode_attention.cu",
+        "vlp_tpu/ops/decode_attention.py:159"),
+    "decode_dropout_scales": Kernel(
+        "decode_dropout_scales", "vlp_tpu_torch/csrc/decode_dropout.cu",
+        "vlp_tpu/ops/decode_attention.py:237"),
 }
 
 

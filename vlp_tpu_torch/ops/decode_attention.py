@@ -12,23 +12,35 @@ and the generated cache, and takes one softmax over (prompt | generated):
 * with ``beam_bias`` (K4, the fused beam reorder) it sees all K beams of its
   example plus an additive ancestry bias ``[B*K, K*G]`` (0 where column beam
   k2 holds the row's lineage at slot j, else -10000), so the caches are never
-  gathered when beams reorder.
+  gathered when beams reorder;
+* with ``drop_seed`` and ``drop_rate > 0`` (K5, the SCST sampled rollout,
+  K == 1) the probabilities are multiplied by the Philox keep/scale
+  multipliers of ``philox.decode_keep_scale`` before their cast to the
+  activation dtype.
+
+``decode_dropout_scales`` (K6) writes K5's multipliers for every (decode
+step, example) of one layer, for the SCST teacher-forced replay.
 
 ``decode_attention_plain`` is the plain PyTorch version; ``decode_attention``
-launches ``csrc/decode_attention.cu`` for CUDA tensors and takes the plain
-version only for CPU tensors.  Deterministic only (the SCST dropout branch is
-a later slice).
+launches ``csrc/decode_attention.cu`` for CUDA tensors and
+``decode_dropout_scales`` ``csrc/decode_dropout.cu``; both take the plain
+version only for CPU tensors.  The JAX package's ``decode_dropout_impl="xla"``
+switch (its CPU route for the rollout) has no counterpart: on the card K5
+always runs.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
 
-from vlp_tpu_torch.ops import _build
-from vlp_tpu_torch.ops.attention import HEAD_DIM
+from vlp_tpu_torch.ops import _build, philox
+from vlp_tpu_torch.ops.attention import HEAD_DIM, _dropout_args
 from vlp_tpu_torch.ops.masks import NEG_INF
+
+MAX_DROPOUT_STEPS = 128   # kMaxSteps of csrc/decode_dropout.cu
 
 
 def _write_slots(gk, gv, k, v, gen_len: int) -> None:
@@ -38,10 +50,16 @@ def _write_slots(gk, gv, k, v, gen_len: int) -> None:
 
 
 def decode_attention_plain(q, k, v, pk, pv, gk, gv, gen_len: int, *,
-                           n_heads: int, beam_bias=None) -> torch.Tensor:
+                           n_heads: int, beam_bias=None, drop_seed=None,
+                           drop_rate: float = 0.0,
+                           drop_mult=None) -> torch.Tensor:
     """q/k/v: [B*K, S, H*D]; pk/pv: [B, P, H*D]; gk/gv: [B*K, G, H*D]
     (written in place); gen_len: committed tokens so far; beam_bias: fp32
-    [B*K, K*G] or None.  Returns the context [B*K, S, H*D]."""
+    [B*K, K*G] or None; drop_seed: 64-bit seed of the step's attention
+    dropout at ``drop_rate`` (K == 1, no beam bias).  ``drop_mult`` (fp32
+    [B, H, S, P+G]) hands in the multipliers instead of drawing them from
+    the seed, so that a check can apply K6's.  Returns the context
+    [B*K, S, H*D]."""
     BK, S, HD = q.shape
     B, P, _ = pk.shape
     G = gk.shape[1]
@@ -72,8 +90,14 @@ def decode_attention_plain(q, k, v, pk, pv, gk, gv, gen_len: int, *,
     ep = torch.exp(sp - m)
     eg = torch.exp(sg - m)
     denom = ep.sum(dim=-1, keepdim=True) + eg.sum(dim=-1, keepdim=True)
-    pp = (ep / denom).to(dt).float()
-    pg = (eg / denom).to(dt).float()
+    pp, pg = ep / denom, eg / denom
+    if drop_mult is None and _drops(drop_seed, drop_rate, K, beam_bias):
+        drop_mult = philox.decode_keep_scale(drop_seed, B, H, S, P, G,
+                                             drop_rate, device=q.device)
+    if drop_mult is not None:
+        mult = drop_mult[:, None]
+        pp, pg = pp * mult[..., :P], pg * mult[..., P:]
+    pp, pg = pp.to(dt).float(), pg.to(dt).float()
     ctx = torch.einsum("bkhsj,bjhd->bkshd", pp, pv4)
     if beam_bias is None:
         ctx = ctx + torch.einsum("bkhsj,bkjhd->bkshd", pg,
@@ -84,8 +108,20 @@ def decode_attention_plain(q, k, v, pk, pv, gk, gv, gen_len: int, *,
     return ctx.to(dt).reshape(BK, S, HD)
 
 
+def _drops(drop_seed, drop_rate: float, K: int, beam_bias) -> bool:
+    """Whether a step applies dropout (K5); raises where K5 does not
+    apply (beam search, as the TPU kernel's asserts)."""
+    if drop_seed is None or drop_rate <= 0.0:
+        return False
+    if beam_bias is not None or K != 1:
+        raise ValueError("decode attention dropout is for sampled rollouts: "
+                         "K == 1 and no beam bias")
+    return True
+
+
 def decode_attention(q, k, v, pk, pv, gk, gv, gen_len: int, *,
-                     n_heads: int, beam_bias=None) -> torch.Tensor:
+                     n_heads: int, beam_bias=None, drop_seed=None,
+                     drop_rate: float = 0.0) -> torch.Tensor:
     """Fused decode step; same contract as ``decode_attention_plain``.
 
     CUDA inputs: bf16 or fp32; q/k/v and gk/gv contiguous; pk/pv with
@@ -93,13 +129,15 @@ def decode_attention(q, k, v, pk, pv, gk, gv, gen_len: int, *,
     ``[:, :P]`` view of its [B, P+1, H*D] projections); head width 64."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, pk, pv, gk, gv, gen_len,
-                                      n_heads=n_heads, beam_bias=beam_bias)
+                                      n_heads=n_heads, beam_bias=beam_bias,
+                                      drop_seed=drop_seed,
+                                      drop_rate=drop_rate)
     return _decode_attention_cuda(q, k, v, pk, pv, gk, gv, gen_len, n_heads,
-                                  beam_bias)
+                                  beam_bias, drop_seed, drop_rate)
 
 
 def _decode_attention_cuda(q, k, v, pk, pv, gk, gv, gen_len, n_heads,
-                           beam_bias):
+                           beam_bias, drop_seed=None, drop_rate=0.0):
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: unsupported device {q.device}")
     BK, S, HD = q.shape
@@ -147,13 +185,56 @@ def _decode_attention_cuda(q, k, v, pk, pv, gk, gv, gen_len, n_heads,
                              "fp32 [B*K, K*G] on q's device")
         ab = beam_bias.data_ptr()
     out = torch.empty_like(q)
-    err = _build.library().vlp_decode_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), pk.data_ptr(),
-        pv.data_ptr(), gk.data_ptr(), gv.data_ptr(), ab, out.data_ptr(),
-        B, K, S, P, G, H, pk.stride(0), int(gen_len),
-        1.0 / math.sqrt(HEAD_DIM), int(q.dtype == torch.bfloat16),
-        _build.stream_ptr(q.device))
-    _build.check(err, "decode_attention")
-    name = "decode_attention" if beam_bias is None else "decode_attention_anc"
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), pk.data_ptr(),
+            pv.data_ptr(), gk.data_ptr(), gv.data_ptr())
+    tail = (int(gen_len), 1.0 / math.sqrt(HEAD_DIM))
+    flags = (int(q.dtype == torch.bfloat16), _build.stream_ptr(q.device))
+    lib = _build.library()
+    if _drops(drop_seed, drop_rate, K, beam_bias):
+        name = "decode_attention_drop"
+        err = lib.vlp_decode_attention_drop(
+            *ptrs, out.data_ptr(), B, S, P, G, H, pk.stride(0), *tail,
+            *_dropout_args(drop_rate, drop_seed), *flags)
+    else:
+        name = ("decode_attention" if beam_bias is None
+                else "decode_attention_anc")
+        err = lib.vlp_decode_attention(
+            *ptrs, ab, out.data_ptr(), B, K, S, P, G, H, pk.stride(0),
+            *tail, *flags)
+    _build.check(err, name)
     _build.KERNELS[name].launches += 1
+    return out
+
+
+def decode_dropout_scales(seeds, B: int, *, n_heads: int, S: int, P: int,
+                          G: int, rate: float, device) -> torch.Tensor:
+    """K5's multipliers of one layer over a rollout: fp32
+    ``[N, H, S, P+G]``, N = len(seeds) * B, row ``t*B + b`` holding step
+    t's draws for example b (``seeds[t]`` keyed K5 in step t).  The
+    ``decode_dropout_scales`` kernel (K6, at most ``MAX_DROPOUT_STEPS``
+    seeds) on a CUDA device, ``philox.decode_keep_scale`` on the CPU."""
+    device = torch.device(device)
+    H = n_heads
+    if not 0.0 < rate < 1.0:
+        raise ValueError(f"decode_dropout_scales: rate {rate} outside (0, 1)")
+    if device.type == "cpu":
+        return torch.cat([philox.decode_keep_scale(s, B, H, S, P, G, rate)
+                          for s in seeds])
+    if device.type != "cuda":
+        raise ValueError(f"decode_dropout_scales: unsupported device {device}")
+    for s in seeds:
+        _dropout_args(rate, s)   # each a 64-bit seed
+    W = len(seeds)
+    if not 0 < W <= MAX_DROPOUT_STEPS:
+        raise ValueError(f"decode_dropout_scales kernel takes 1 to "
+                         f"{MAX_DROPOUT_STEPS} decode steps, got {W}")
+    out = torch.empty((W * B, H, S, P + G), dtype=torch.float32,
+                      device=device)
+    _, threshold, keep = _dropout_args(rate, seeds[0])
+    # the seeds go to the kernel by value, from host memory
+    err = _build.library().vlp_decode_dropout_scales(
+        out.data_ptr(), (ctypes.c_ulonglong * W)(*seeds), W, B, H, S, P + G,
+        threshold, keep, _build.stream_ptr(device))
+    _build.check(err, "decode_dropout_scales")
+    _build.KERNELS["decode_dropout_scales"].launches += 1
     return out

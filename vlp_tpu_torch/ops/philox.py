@@ -14,6 +14,13 @@ counter cover columns ``4*(j//4) .. 4*(j//4)+3``.  An element is kept iff its
 word is ``>= uint32(rate * 2**32)``, the threshold of the TPU kernel's
 ``_dropout_keep_scale``.
 
+A decode step's probabilities ``[B, H, S, P+G]`` (query row s, column c of
+the joint ``[prompt P | generated G]`` axis) take the same layout with
+``(c // 4, s, h, b)`` as the counter, under one seed per (SCST step, decode
+step, layer): the decode kernel (K5), its regenerator (K6) and
+:func:`decode_keep_scale` give the same bits.  P need not be a multiple of
+4: one counter may then cover both prompt and generated columns.
+
 Words are uint32 values held in int64 tensors; ``mulhilo`` splits one factor
 into 16-bit halves so that no product exceeds 2**48.
 """
@@ -25,7 +32,24 @@ import torch
 M0, M1 = 0xD2511F53, 0xCD9E8D57   # Philox4x32 round multipliers
 W0, W1 = 0x9E3779B9, 0xBB67AE85   # Weyl key increments
 MASK32 = 0xFFFFFFFF
+MASK64 = (1 << 64) - 1
 ROUNDS = 10
+
+
+def _splitmix64(x: int) -> int:
+    x = (x + 0x9E3779B97F4A7C15) & MASK64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & MASK64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & MASK64
+    return x ^ (x >> 31)
+
+
+def step_seed(seed: int, *path: int) -> int:
+    """A 64-bit seed derived from ``seed`` and the integers ``path`` (the
+    counterpart of ``jax.random.fold_in``)."""
+    x = _splitmix64(seed & MASK64)
+    for p in path:
+        x = _splitmix64(x ^ (p & MASK64))
+    return x
 
 
 def _mulhilo(m: int, x: torch.Tensor):
@@ -60,15 +84,26 @@ def keep_scale(seed: int, B: int, H: int, L: int, rate: float,
                device=None) -> torch.Tensor:
     """fp32 ``[B, H, L, L]`` attention-dropout multipliers: ``1/(1-rate)``
     where kept, 0 where dropped."""
-    nblk = -(-L // 4)
+    return _keep_scale(seed, B, H, L, L, rate, device)
+
+
+def decode_keep_scale(seed: int, B: int, H: int, S: int, P: int, G: int,
+                      rate: float, device=None) -> torch.Tensor:
+    """fp32 ``[B, H, S, P+G]`` multipliers of one decode step's attention
+    probabilities (the plain version of what K5 applies and K6 writes)."""
+    return _keep_scale(seed, B, H, S, P + G, rate, device)
+
+
+def _keep_scale(seed, B, H, rows, cols, rate, device):
+    nblk = -(-cols // 4)
 
     def ar(n, *shape):
         return torch.arange(n, dtype=torch.int64, device=device).view(shape)
 
-    words = philox4x32(ar(nblk, 1, 1, 1, nblk), ar(L, 1, 1, L, 1),
+    words = philox4x32(ar(nblk, 1, 1, 1, nblk), ar(rows, 1, 1, rows, 1),
                        ar(H, 1, H, 1, 1), ar(B, B, 1, 1, 1), seed)
     bits = torch.stack(torch.broadcast_tensors(*words), dim=-1)
-    bits = bits.reshape(B, H, L, nblk * 4)[..., :L]
+    bits = bits.reshape(B, H, rows, nblk * 4)[..., :cols]
     keep = bits >= keep_threshold(rate)
     scale = torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32,
                          device=device)

@@ -17,25 +17,8 @@ import torch
 
 from vlp_tpu_torch.config import VLPConfig
 from vlp_tpu_torch.models.model import DropoutRNG, VLPModel
+from vlp_tpu_torch.ops.philox import step_seed
 from vlp_tpu_torch.optim import BertAdam
-
-MASK64 = (1 << 64) - 1
-
-
-def _splitmix64(x: int) -> int:
-    x = (x + 0x9E3779B97F4A7C15) & MASK64
-    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & MASK64
-    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & MASK64
-    return x ^ (x >> 31)
-
-
-def step_seed(seed: int, *path: int) -> int:
-    """A 64-bit seed derived from ``seed`` and the integers ``path`` (the
-    counterpart of ``jax.random.fold_in``)."""
-    x = _splitmix64(seed & MASK64)
-    for p in path:
-        x = _splitmix64(x ^ (p & MASK64))
-    return x
 
 
 def dummy_batch(cfg: VLPConfig, batch_size: int,
