@@ -1,14 +1,19 @@
 """Smoke test of the PyTorch port on one NVIDIA GPU: builds the CUDA kernels
 from ``vlp_tpu_torch/csrc``, holds each against its plain PyTorch version at
-the shapes of its main path (caption decoding, training and SCST), checks
-the card against the CPU end to end (fp32 beam traces; fp32 train-step
-losses with attention dropout on; the fp32 SCST loss and gradients with
-attention dropout on) and the SCST replay against its sampled rollout on the
-card, then drives the user's entry points at bert-base width with random
-weights from a seed -- ``vlp_tpu_torch.cli.decode`` (beam 5 and greedy,
-B=100), ``vlp_tpu_torch.cli.train`` (the COCO fine-tune flags on synthetic
-data, B=64, 2 epochs of 20 steps) and ``vlp_tpu_torch.cli.train --scst``
-(B=64, 8 steps) -- and checks that each path launched its kernels.
+the shapes of its main path (caption decoding, training, SCST and the
+``[B, H, L, D]`` attention op, whose kernels must also equal the
+``[B, L, H, D]`` ones bit for bit), checks the card against the CPU end to
+end (fp32 beam traces; fp32 train-step losses with attention dropout on; the
+fp32 SCST loss and gradients with attention dropout on; fp32 VQA answer
+logits and fine-tune losses) and the SCST replay against its sampled rollout
+on the card, then drives the user's entry points at bert-base width with
+random weights from a seed -- ``vlp_tpu_torch.cli.decode`` (beam 5 and
+greedy, B=100), ``vlp_tpu_torch.cli.train`` (the COCO fine-tune flags on
+synthetic data, B=64, 2 epochs of 20 steps), ``vlp_tpu_torch.cli.train
+--scst`` (B=64, 8 steps), ``vlp_tpu_torch.cli.train --tasks vqa2`` (bi
+mode, B=64, 12 steps), ``vlp_tpu_torch.cli.eval_vqa2`` (B=256, 1,024
+questions) and the ``layout="bhld"`` attention op -- and checks that each
+path launched its kernels.
 
     python3 chip_smoke.py
 
@@ -48,6 +53,8 @@ BF16_FLOP_PER_S = 989e12
 TRAIN_STEPS = (2, 20)        # main-path train CLI: epochs, steps per epoch
 SCST_STEPS = 8               # main-path SCST CLI: steps of one epoch
 SCST_B, SCST_T = 64, 20      # the reference SCST recipe's 16x4 batch, T
+VQA_B, VQA_QUESTIONS = 256, 1024   # main-path VQA eval: batch, questions
+VQA_STEPS = 12               # main-path VQA fine-tune: steps at B=64
 
 
 def log(msg: str) -> None:
@@ -305,17 +312,21 @@ def phase_scst_kernels(dev, results):
             f"({r['bound_by']})")
 
 
-def sdpa(q, k, v, mode, text_end, colkeep, prefix, dropout_p=0.0):
+def sdpa(q, k, v, mode, text_end, colkeep, prefix, dropout_p=0.0,
+         layout="blhd"):
     """One PyTorch library call computing the same attention (additive
-    -10000 mask, [B, L, H, D] in and out): the yardstick of library_ms.
-    The port never calls it."""
+    -10000 mask), in and out in ``layout``: [B, L, H, D], or [B, H, L, D],
+    SDPA's own, with no transpose.  The yardstick of library_ms; the port
+    never calls it."""
     import torch.nn.functional as F
     from vlp_tpu_torch.ops.attention import _mask_bias
-    bias = _mask_bias(mode, text_end, colkeep, prefix, q.shape[1])
-    out = F.scaled_dot_product_attention(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        attn_mask=bias[:, None].to(q.dtype), dropout_p=dropout_p)
-    return out.transpose(1, 2)
+    if layout == "blhd":
+        return sdpa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    mode, text_end, colkeep, prefix, dropout_p,
+                    "bhld").transpose(1, 2)
+    bias = _mask_bias(mode, text_end, colkeep, prefix, q.shape[2])
+    return F.scaled_dot_product_attention(
+        q, k, v, attn_mask=bias[:, None].to(q.dtype), dropout_p=dropout_p)
 
 
 def phase_train_kernels(dev, results):
@@ -430,6 +441,178 @@ def phase_train_kernels(dev, results):
         f"{fwd_bwd['library_ms']:.4f} ms")
 
 
+BHLD = ("attention_fwd_bhld", "attention_fwd_bhld_drop", "attention_bwd_bhld")
+
+
+def bhld_inputs(g, dev, dtype, strided=False, B=64, L=128, H=12, P=102):
+    """[B, H, L, 64] q/k/v and dout at the training shape, mixed modes,
+    zeros in colkeep; ``strided``: q/k/v are slices of one [B, H, L, 192]
+    tensor (row stride 192, not 64)."""
+    from vlp_tpu_torch.config import MODE_BI, MODE_S2S
+    D = 64
+    if strided:
+        qkv = torch.randn(B, H, L, 3 * D, generator=g, device=dev).to(dtype)
+        q, k, v = qkv.split(D, dim=-1)
+    else:
+        q, k, v = (torch.randn(B, H, L, D, generator=g, device=dev).to(dtype)
+                   for _ in range(3))
+    mode = torch.tensor([MODE_S2S, MODE_BI] * (B // 2), device=dev)
+    te = torch.randint(P + 1, L + 1, (B,), generator=g, device=dev)
+    ck = torch.ones(B, L, device=dev)
+    ck[:, 1:P - 1] = (torch.rand(B, P - 2, generator=g, device=dev)
+                      > 0.3).float()
+    dout = torch.randn(B, H, L, D, generator=g, device=dev).to(dtype)
+    return q, k, v, mode, te, ck, dout
+
+
+def phase_bhld_kernels(dev, results):
+    """The [B, H, L, D] pair (counterparts of ``_fwd_kernel`` and
+    ``_bwd_kernel``) at the training shape B=64, L=128, H=12, D=64: the
+    forward (both branches) and the backward against their plain versions
+    in fp32 and bf16, on contiguous and on strided inputs; then, with
+    dropout 0.1, bit for bit against the blhd kernels (K1, K2) on the
+    transposed inputs.  Times in bf16 (the dropout branch at rate 0.1); the
+    library call is SDPA in its own [B, H, L, D] layout."""
+    from vlp_tpu_torch.ops import attention as attn
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    B, L, H, D, P = 64, 128, 12, 64, 102
+    seed, rate = 0x243F6A8885A308D3, 0.1
+    errs = dict.fromkeys(BHLD, 0.0)
+
+    def track(name, err):
+        errs[name] = max(errs[name], err)
+
+    for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
+        for strided in (False, True):
+            q, k, v, mode, te, ck, dout = bhld_inputs(g, dev, dtype, strided)
+            tag = f"B={B} L={L} {dtype}{' strided' if strided else ''}"
+            track("attention_fwd_bhld", compare(
+                f"attention_fwd_bhld {tag}",
+                attn.attention(q, k, v, mode, te, ck, prefix=P,
+                               layout="bhld"),
+                attn.attention_plain(q, k, v, mode, te, ck, prefix=P,
+                                     layout="bhld"), tol))
+            for r in (0.0, rate):
+                kw = dict(prefix=P, dropout_rate=r, seed=seed, layout="bhld")
+                track("attention_fwd_bhld_drop", compare(
+                    f"attention_fwd_bhld_drop {tag} rate={r}",
+                    attn._forward_cuda(q, k, v, mode, te, ck, P,
+                                       dropout=(r, seed), layout="bhld"),
+                    attn.attention_plain(q, k, v, mode, te, ck, **kw), tol))
+                got = attn._backward_cuda(q, k, v, mode, te, ck, dout, P, r,
+                                          seed, "bhld")
+                want = attn.attention_bwd_plain(q, k, v, mode, te, ck, dout,
+                                                **kw)
+                for name, a, b_ in zip(("dq", "dk", "dv"), got, want):
+                    if a.shape != (B, H, L, D) or not a.is_contiguous():
+                        fail(f"attention_bwd_bhld {name}: not a contiguous "
+                             f"[B, H, L, D] tensor")
+                    track("attention_bwd_bhld", compare(
+                        f"attention_bwd_bhld {name} {tag} rate={r}", a, b_,
+                        tol))
+
+        # the same seed draws the same multipliers in both layouts
+        q, k, v, mode, te, ck, dout = bhld_inputs(g, dev, dtype)
+        tq, tk, tv, tdo = (x.transpose(1, 2).contiguous()
+                           for x in (q, k, v, dout))
+        pairs = [("deterministic forward",
+                  attn.attention(q, k, v, mode, te, ck, prefix=P,
+                                 layout="bhld"),
+                  attn.attention(tq, tk, tv, mode, te, ck, prefix=P)),
+                 ("dropout forward",
+                  attn._forward_cuda(q, k, v, mode, te, ck, P,
+                                     dropout=(rate, seed), layout="bhld"),
+                  attn._forward_cuda(tq, tk, tv, mode, te, ck, P,
+                                     dropout=(rate, seed)))]
+        pairs += zip(("dq", "dk", "dv"),
+                     attn._backward_cuda(q, k, v, mode, te, ck, dout, P, rate,
+                                         seed, "bhld"),
+                     attn._backward_cuda(tq, tk, tv, mode, te, ck, tdo, P,
+                                         rate, seed))
+        torch.cuda.synchronize()
+        for what, a, b_ in pairs:
+            b_ = b_.transpose(1, 2)
+            if not torch.equal(a, b_):
+                diff = (a.float() - b_.float()).abs().max().item()
+                fail(f"bhld vs blhd {dtype} rate={rate}: {what} differs "
+                     f"(max {diff:.3e})")
+        log(f"bhld vs blhd on transposed inputs, {dtype}, dropout {rate}: "
+            f"forward and dq/dk/dv bit for bit")
+
+    # times at the main path's shape: bf16, contiguous, rate 0.1
+    q, k, v, mode, te, ck, dout = bhld_inputs(g, dev, torch.bfloat16)
+    meta = 8 * B + 4 * B * L
+    act = B * L * H * D * 2               # one bf16 [B, H, L, D] tensor
+    pd = L * L * D * 2 * B * H            # FLOP of one L x L x D product
+    kw = dict(prefix=P, layout="bhld")
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    lib_out = sdpa(*leaves, mode, te, ck, P, rate, layout="bhld")
+    results["attention_fwd_bhld"] = dict(
+        max_abs_err=errs["attention_fwd_bhld"],
+        ms=time_ms(lambda: attn.attention(q, k, v, mode, te, ck, **kw)),
+        plain_ms=time_ms(lambda: attn.attention_plain(q, k, v, mode, te, ck,
+                                                      **kw)),
+        library_ms=time_ms(lambda: sdpa(q, k, v, mode, te, ck, P,
+                                        layout="bhld")),
+        **bound(4 * act + meta, 2 * pd))
+    results["attention_fwd_bhld_drop"] = dict(
+        max_abs_err=errs["attention_fwd_bhld_drop"],
+        ms=time_ms(lambda: attn._forward_cuda(
+            q, k, v, mode, te, ck, P, dropout=(rate, seed), layout="bhld")),
+        plain_ms=time_ms(lambda: attn.attention_plain(
+            q, k, v, mode, te, ck, dropout_rate=rate, seed=seed, **kw)),
+        library_ms=time_ms(lambda: sdpa(q, k, v, mode, te, ck, P, rate,
+                                        layout="bhld")),
+        **bound(4 * act + meta, 2 * pd))
+    results["attention_bwd_bhld"] = dict(
+        max_abs_err=errs["attention_bwd_bhld"],
+        ms=time_ms(lambda: attn._backward_cuda(q, k, v, mode, te, ck, dout,
+                                               P, rate, seed, "bhld")),
+        plain_ms=time_ms(lambda: attn.attention_bwd_plain(
+            q, k, v, mode, te, ck, dout, dropout_rate=rate, seed=seed,
+            **kw)),
+        library_ms=time_ms(lambda: torch.autograd.grad(
+            lib_out, leaves, dout, retain_graph=True)),
+        **bound(7 * act + meta, 5 * pd))
+    for name in BHLD:
+        r = results[name]
+        log(f"{name} bf16 B={B} time: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, SDPA (bhld) {r['library_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+
+def phase_bhld_main_path(dev):
+    """The public [B, H, L, D] op as a user calls it, at the training shape
+    (B=64, L=128, H=12, D=64, bf16): one inference call
+    (``attention(..., layout="bhld")``) and one training forward and
+    backward through autograd (``FusedAttention``, dropout 0.1).  Each
+    launches its bhld kernel once and no other kernel."""
+    from vlp_tpu_torch.ops import _build
+    from vlp_tpu_torch.ops import attention as attn
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    q, k, v, mode, te, ck, dout = bhld_inputs(g, dev, torch.bfloat16)
+    leaves = [t.requires_grad_() for t in (q, k, v)]
+    _build.reset_launch_counts()
+    with torch.no_grad():
+        out = attn.attention(q, k, v, mode, te, ck, prefix=102,
+                             layout="bhld")
+    y = attn.FusedAttention.apply(*leaves, mode, te, ck, 102, 0.1, 99,
+                                  "bhld")
+    grads = torch.autograd.grad(y, leaves, dout)
+    torch.cuda.synchronize()
+    counts = {k: v.launches for k, v in _build.KERNELS.items()}
+    want = {k: (1 if k in BHLD else 0) for k in counts}
+    log(f"bhld op launch counts {counts}, expected {want}")
+    if counts != want:
+        fail("the bhld op did not launch its kernels as expected")
+    if not all(torch.isfinite(t).all() and t.shape == q.shape
+               for t in (out, y, *grads)):
+        fail("the bhld op returned non-finite or misshapen tensors")
+    return counts
+
+
 def phase_end_to_end(dev, vocab_path, seed=0, word_scale=5.0):
     """fp32 bert-base, same weights: Decoder on the card (kernels) vs on
     the CPU (plain versions), beam 5, B=4, T=20.  Returns the max score
@@ -538,6 +721,84 @@ def phase_train_end_to_end(dev, vocab_path, steps=3, B=8):
     if not np.allclose(got, want, rtol=1e-4, atol=0):
         fail(f"train end to end: card and CPU losses differ by rel {err}")
     return err
+
+
+def phase_vqa_end_to_end(dev, vocab_path, steps=3, B=8):
+    """fp32 bert-base with the 3,129-way answer head, same weights: the
+    answer logits of bi-mode questions on the card (K1) and on the CPU
+    (plain versions) within 1e-4, the answer ids identical wherever the
+    top two logits are more than 1e-3 apart; then ``steps`` VQA fine-tune
+    steps (K1 dropout + K2 on the card) on soft answer scores, hidden
+    dropout 0 and attention dropout 0.1 from the same seeds, losses within
+    rtol 1e-4."""
+    from vlp_tpu_torch import optim, train_step
+    from vlp_tpu_torch.cli.common import resolve_tokenizer
+    from vlp_tpu_torch.config import VLPConfig
+    from vlp_tpu_torch.data.example_builder import TrainExampleBuilder, collate
+    from vlp_tpu_torch.models.model import VLPModel
+
+    vocab = resolve_tokenizer(vocab_path, False).vocab
+    words = [w for w in vocab if not w.startswith("[")]
+    cfg = VLPConfig(vocab_size=len(vocab), relax_projection=0,
+                    dtype="float32", hidden_dropout_prob=0.0,
+                    attention_probs_dropout_prob=0.1)
+    rng = np.random.default_rng(2)
+    nv, A = cfg.len_vis_input, cfg.num_answers
+    builder = TrainExampleBuilder(cfg, vocab, mode="bi", mask_prob=0.0,
+                                  load_vqa_ann=True)
+    batches = []
+    for _ in range(steps):
+        exs = []
+        for _ in range(B):
+            scores = np.zeros(A, np.float32)
+            scores[rng.choice(np.arange(1, A), 3, replace=False)] = \
+                rng.choice([0.3, 0.6, 0.9, 1.0], 3)
+            toks = [words[j] for j in rng.integers(0, len(words),
+                                                   rng.integers(4, 12))]
+            exs.append(builder(toks, rng.normal(size=(nv, cfg.vis_feat_dim)),
+                               rng.uniform(size=(nv, cfg.vis_pe_dim)), rng,
+                               ans_scores=scores))
+        batches.append(collate(exs))
+    model = VLPModel(cfg, with_vqa=True)
+    model.init_weights(torch.Generator().manual_seed(0))
+    runs = {}
+    for name, m, d in (("cpu", model, torch.device("cpu")),
+                       ("cuda", copy.deepcopy(model).to(dev), dev)):
+        tbs = [{k: torch.from_numpy(v).to(d) for k, v in nb.items()}
+               for nb in batches]
+        m.eval()
+        with torch.no_grad():
+            logits = m.vqa_logits(tbs[0]).cpu()
+        opt = optim.BertAdam(dict(m.named_parameters()), 3e-5)
+        step = train_step.make_train_step(m, opt, task="vqa2")
+        t = time.time()
+        losses = [float(step(tb, train_step.step_seed(13, i))["loss"])
+                  for i, tb in enumerate(tbs)]
+        runs[name] = (logits, losses)
+        log(f"VQA end to end on {name}: losses {losses} "
+            f"({time.time() - t:.1f} s)")
+    (lc, loss_c), (lg, loss_g) = runs["cpu"], runs["cuda"]
+    if lg.shape != (B, A) or not torch.isfinite(lg).all():
+        fail(f"VQA end to end: logits of shape {tuple(lg.shape)} or "
+             "non-finite on the card")
+    logit_err = (lg - lc).abs().max().item()
+    top2 = lc[:, 1:].topk(2, dim=-1).values
+    apart = (top2[:, 0] - top2[:, 1]) > 1e-3
+    ids_c, ids_g = lc[:, 1:].argmax(-1) + 1, lg[:, 1:].argmax(-1) + 1
+    log(f"VQA end to end fp32 B={B}: max |logit diff| {logit_err:.3e}; ids "
+        f"compared on {int(apart.sum())} of {B} questions (top-2 gap "
+        f"> 1e-3): card {ids_g.tolist()}, CPU {ids_c.tolist()}")
+    if not torch.allclose(lg, lc, rtol=1e-4, atol=1e-4):
+        fail(f"VQA end to end: card and CPU logits differ by {logit_err}")
+    if not torch.equal(ids_g[apart], ids_c[apart]):
+        fail("VQA end to end: the card picks other answers than the CPU")
+    got, want = np.asarray(loss_g), np.asarray(loss_c)
+    loss_err = float(np.max(np.abs(got - want) / np.abs(want)))
+    if not (np.isfinite(got).all()
+            and np.allclose(got, want, rtol=1e-4, atol=0)):
+        fail(f"VQA end to end: card and CPU losses differ by rel {loss_err}")
+    return {"vqa_logit_abs_err": logit_err, "vqa_loss_rel_err": loss_err,
+            "vqa_ids_compared": int(apart.sum())}
 
 
 def phase_main_path(vocab_path, out_dir, gpu_line):
@@ -783,6 +1044,91 @@ def phase_scst_main_path(vocab_path, out_dir, gpu_line):
     return counts, rates
 
 
+def write_answer_vocab(path: str, n: int = 3129) -> str:
+    """A synthetic VQA answer vocabulary of ``n`` lines, ``<unk>`` first
+    (the size of the VQA 2.0 answer list)."""
+    with open(path, "w") as f:
+        f.write("\n".join(["<unk>"] + [f"answer{i}" for i in range(1, n)])
+                + "\n")
+    return path
+
+
+def phase_vqa_main_path(vocab_path, answers_path, out_dir, gpu_line):
+    """VQA 2.0 through the user's entry points at bert-base width, bf16:
+    ``cli.train --tasks vqa2`` (bi mode, B=64, VQA_STEPS steps, dropout
+    0.1; K1-dropout and K2 once per layer and step), then
+    ``cli.eval_vqa2`` on its model.1.bin over VQA_QUESTIONS synthetic
+    questions at B=256 (K1 once per layer and batch).  Returns the counts
+    of each run and the rates."""
+    from vlp_tpu_torch.cli import eval_vqa2 as eval_cli
+    from vlp_tpu_torch.cli import train as train_cli
+    from vlp_tpu_torch.ops import _build
+
+    out = os.path.join(out_dir, "vqa_train")
+    flags = ["--new_segment_ids", "--enable_butd", "--bert_model",
+             vocab_path, "--do_lower_case", "--answer_vocab_file",
+             answers_path, "--device", "cuda"]
+    _build.reset_launch_counts()
+    res = train_cli.main(flags + [
+        "--do_train", "--tasks", "vqa2", "--s2s_prob", "0", "--bi_prob", "1",
+        "--train_batch_size", "64", "--learning_rate", "3e-5",
+        "--num_train_epochs", "1", "--synthetic_data", "--steps_per_epoch",
+        str(VQA_STEPS), "--output_dir", out])
+    torch.cuda.synchronize()
+    train_counts = {k: v.launches for k, v in _build.KERNELS.items()}
+    n = 12 * VQA_STEPS
+    want = {k: (n if k in ("attention_fwd_drop", "attention_bwd") else 0)
+            for k in train_counts}
+    log(f"VQA train launch counts {train_counts}, expected {want}")
+    if train_counts != want:
+        fail("the VQA train path did not launch the kernels as expected")
+    losses = np.asarray(res["losses"])
+    if len(losses) != VQA_STEPS or not np.isfinite(losses).all():
+        fail(f"VQA train main path: bad losses {losses}")
+    if not losses[-3:].mean() < losses[:3].mean():
+        fail(f"VQA train main path: the loss did not fall: {losses}")
+    warm = 3
+    step_s = float(np.median(res["step_seconds"][warm:]))
+    iter_s = float(np.median(res["iter_seconds"][warm:]))
+    rates = {"vqa_train_samples_per_sec": 64 / step_s,
+             "vqa_train_samples_per_sec_with_loader": 64 / iter_s}
+    log(f"VQA train main path B=64: "
+        f"{rates['vqa_train_samples_per_sec']:.2f} samples/s (median step "
+        f"{step_s * 1e3:.2f} ms after {warm} warm-up steps; "
+        f"{rates['vqa_train_samples_per_sec_with_loader']:.2f} with the "
+        f"loader's waits) on {gpu_line}; losses {losses.tolist()}")
+
+    bin_path = os.path.join(out, "model.1.bin")
+    eval_out = os.path.join(out_dir, "vqa_eval")
+    _build.reset_launch_counts()
+    stats = eval_cli.main(flags + [
+        "--synthetic_data", "--num_synthetic", str(VQA_QUESTIONS),
+        "--batch_size", str(VQA_B), "--model_recover_path", bin_path,
+        "--output_dir", eval_out])["model.1.bin"]
+    torch.cuda.synchronize()
+    eval_counts = {k: v.launches for k, v in _build.KERNELS.items()}
+    want = {k: (12 * -(-VQA_QUESTIONS // VQA_B) if k == "attention_fwd"
+                else 0) for k in eval_counts}
+    log(f"VQA eval launch counts {eval_counts}, expected {want}")
+    if eval_counts != want:
+        fail("the VQA eval path did not launch the kernels as expected")
+    with open(os.path.join(eval_out, "vqa2-results-model.1.bin-val.json")) as f:
+        preds = json.load(f)
+    with open(answers_path) as f:
+        answers = set(f.read().split())
+    if ([p["question_id"] for p in preds] != list(range(VQA_QUESTIONS))
+            or not all(p["answer"] in answers - {"<unk>"} for p in preds)):
+        fail("VQA eval main path: malformed predictions")
+    rates["vqa_questions_per_sec_cli"] = (stats["n_questions"]
+                                          / stats["eval_seconds"])
+    log(f"VQA eval main path B={VQA_B}: {stats['n_questions']} questions in "
+        f"{stats['eval_seconds']:.3f} s = "
+        f"{rates['vqa_questions_per_sec_cli']:.2f} questions/s on "
+        f"{gpu_line} (first call of the CLI, example building included); "
+        f"{len({p['answer'] for p in preds})} distinct answers")
+    return train_counts, eval_counts, rates
+
+
 def phase_steady_state(dev, vocab_path):
     """Device-side decode rate at the main path's shapes, without the CLI's
     loader and first-call costs: one prepared batch of B=100, one warm-up
@@ -827,6 +1173,50 @@ def phase_steady_state(dev, vocab_path):
     return rates
 
 
+def phase_vqa_steady_state(dev, vocab_path):
+    """Device-side VQA rate at the eval path's shape, without the CLI's
+    example building: one prepared batch of B=256 bi-mode questions (its
+    fp32 features uploaded in each call, as the CLI does), bert-base bf16
+    with the 3,129-way head, one warm-up call, then the median of
+    REPS_STEADY timed calls up to the answer ids on the host."""
+    from vlp_tpu_torch.cli.common import resolve_tokenizer
+    from vlp_tpu_torch.cli.decode import to_device
+    from vlp_tpu_torch.config import VLPConfig
+    from vlp_tpu_torch.data.example_builder import TrainExampleBuilder, collate
+    from vlp_tpu_torch.models.model import VLPModel
+
+    vocab = resolve_tokenizer(vocab_path, False).vocab
+    words = [w for w in vocab if not w.startswith("[")]
+    cfg = VLPConfig(vocab_size=len(vocab), relax_projection=0)
+    model = VLPModel(cfg, with_vqa=True)
+    model.init_weights(torch.Generator().manual_seed(0))
+    model = model.to(dev).cast_for_inference().eval()
+    rng = np.random.default_rng(0)
+    nv = cfg.len_vis_input
+    builder = TrainExampleBuilder(cfg, vocab, mode="bi", mask_prob=0.0)
+    batch = collate([builder(
+        [words[j] for j in rng.integers(0, len(words), 8)],
+        rng.normal(size=(nv, cfg.vis_feat_dim)).astype(np.float32),
+        rng.uniform(size=(nv, cfg.vis_pe_dim)).astype(np.float32), rng)
+        for _ in range(VQA_B)])
+    keys = ("input_ids", "segment_ids", "mode", "text_end", "vis_feats",
+            "vis_pe")
+    batch = {k: batch[k] for k in keys}
+    secs = []
+    with torch.no_grad():
+        for i in range(REPS_STEADY + 1):
+            t = time.perf_counter()
+            ids = model.vqa_inference(to_device(batch, dev)).cpu()
+            if i:
+                secs.append(time.perf_counter() - t)
+    if ids.shape != (VQA_B,) or not bool((ids >= 1).all()):
+        fail("VQA steady state: malformed answer ids")
+    rate = VQA_B / statistics.median(secs)
+    log(f"steady state VQA B={VQA_B}: {rate:.2f} questions/s (median of "
+        f"{REPS_STEADY} batches: {sorted(secs)} s)")
+    return rate
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs an "
@@ -857,11 +1247,14 @@ def main():
     phase_kernels(dev, results)
     phase_train_kernels(dev, results)
     phase_scst_kernels(dev, results)
+    phase_bhld_kernels(dev, results)
     log("phase 2: kernels agree with their plain versions")
 
+    paths = {}
     with tempfile.TemporaryDirectory() as tmp:
         vocab_path = write_synthetic_vocab(os.path.join(tmp, "vocab.txt"),
                                            size=28996)
+        answers_path = write_answer_vocab(os.path.join(tmp, "answers.txt"))
         phase_end_to_end(dev, vocab_path)
         log("phase 3: end-to-end beam traces identical")
         err = phase_train_end_to_end(dev, vocab_path)
@@ -869,14 +1262,24 @@ def main():
         scst_checks = phase_scst_end_to_end(dev, vocab_path)
         log(f"phase 3c: SCST card vs CPU and replay vs rollout agree "
             f"{scst_checks}")
-        counts, rates = phase_main_path(vocab_path, tmp, smi)
+        vqa_checks = phase_vqa_end_to_end(dev, vocab_path)
+        log(f"phase 3d: VQA card vs CPU agree {vqa_checks}")
+        paths["decode"], rates = phase_main_path(vocab_path, tmp, smi)
         log("phase 4: decode main path went through its kernels")
-        train_counts, train_rates = phase_train_main_path(vocab_path, tmp,
-                                                          smi)
+        paths["train"], train_rates = phase_train_main_path(vocab_path, tmp,
+                                                            smi)
         log("phase 4b: train main path went through its kernels")
-        scst_counts, scst_rates = phase_scst_main_path(vocab_path, tmp, smi)
+        paths["scst"], scst_rates = phase_scst_main_path(vocab_path, tmp,
+                                                         smi)
         log("phase 4c: SCST main path went through its kernels")
+        paths["vqa_train"], paths["vqa"], vqa_rates = phase_vqa_main_path(
+            vocab_path, answers_path, tmp, smi)
+        log("phase 4d: VQA train and eval paths went through their kernels")
+        paths["bhld"] = phase_bhld_main_path(dev)
+        log("phase 4e: the bhld op went through its kernels")
         steady = phase_steady_state(dev, vocab_path)
+        vqa_rates["vqa_questions_per_sec_steady"] = phase_vqa_steady_state(
+            dev, vocab_path)
         log(f"phase 5: steady-state rates on {smi}")
 
     leaked = [m for m in sys.modules
@@ -885,16 +1288,15 @@ def main():
         fail(f"JAX or the JAX package was imported: {leaked[:5]}")
     kernels = []
     for name, k in _build.KERNELS.items():
+        by_path = {p: c[name] for p, c in paths.items()}
         kernels.append(dict(
             name=name, route=k.route, source=k.source, replaces=k.replaces,
-            launches=counts[name] + train_counts[name] + scst_counts[name],
-            launches_by_path={"decode": counts[name],
-                              "train": train_counts[name],
-                              "scst": scst_counts[name]},
+            launches=sum(by_path.values()), launches_by_path=by_path,
             **results[name]))
     print(json.dumps({"kernels": kernels, "captions_per_sec_cli": rates,
                       "captions_per_sec_steady": steady, **train_rates,
-                      **scst_rates, "scst_checks": scst_checks}))
+                      **scst_rates, **vqa_rates, "scst_checks": scst_checks,
+                      "vqa_checks": vqa_checks}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

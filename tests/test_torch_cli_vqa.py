@@ -1,0 +1,162 @@
+"""The port's VQA 2.0 CLIs on the CPU against the JAX CLIs, on reference
+``.bin`` files written from JAX params with ``params_to_torch``:
+
+* ``vlp_tpu_torch.cli.eval_vqa2 --device cpu --synthetic_data`` writes the
+  same ``vqa2-results-*.json`` as ``vlp_tpu.cli.eval_vqa2`` (a batch size
+  that leaves a padded tail; the .bin carries a 4-head relax projection,
+  which both loaders collapse to head 0), and with ``--profile_batches``
+  its profiler table;
+* ``vlp_tpu_torch.cli.train --tasks vqa2 --device cpu`` writes
+  ``model.N.bin`` and its per-step losses track the JAX CLI's at rtol 1e-5
+  with dropout off;
+* ``--device cuda`` without a GPU raises."""
+
+import json
+import os
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from vlp_tpu.checkpoint import params_to_torch
+from vlp_tpu.cli import eval_vqa2 as jax_eval
+from vlp_tpu.cli import train as jax_train
+from vlp_tpu.config import VLPConfig
+from vlp_tpu.parallel import train_step as ts
+from vlp_tpu_torch.cli import common
+from vlp_tpu_torch.cli import eval_vqa2 as eval_cli
+from vlp_tpu_torch.cli import train as train_cli
+
+TINY = {"vocab_size": 120, "hidden_size": 32, "num_hidden_layers": 2,
+        "num_attention_heads": 2, "intermediate_size": 64,
+        "max_position_embeddings": 512, "vis_feat_dim": 24,
+        "vis_cls_dim": 10, "vis_pe_dim": 16}
+N_ANSWERS = 30
+
+
+@pytest.fixture(scope="module")
+def fx(tmp_path_factory):
+    d = tmp_path_factory.mktemp("torch_cli_vqa")
+    vocab = str(d / "vocab.txt")
+    common.write_synthetic_vocab(vocab, size=120)
+    answers = str(d / "answers.txt")
+    with open(answers, "w") as f:
+        f.write("\n".join(["<unk>"] + [f"ans{i}" for i in
+                                       range(1, N_ANSWERS)]) + "\n")
+    cfg_json = str(d / "bert_config.json")
+    with open(cfg_json, "w") as f:
+        json.dump(TINY, f)
+    # with --config_path both CLIs take the dropout rates from the json
+    cfg_nodrop = str(d / "bert_config_nodrop.json")
+    with open(cfg_nodrop, "w") as f:
+        json.dump(dict(TINY, hidden_dropout_prob=0.0,
+                       attention_probs_dropout_prob=0.0), f)
+    return dict(dir=str(d), vocab=vocab, answers=answers, cfg=cfg_json,
+                cfg_nodrop=cfg_nodrop)
+
+
+def _save_bin(sd, path):
+    torch.save({k: torch.from_numpy(np.array(v)) for k, v in sd.items()},
+               path)
+
+
+def eval_args(fx, bin_path):
+    return ["--synthetic_data", "--enable_butd", "--bert_model", fx["vocab"],
+            "--config_path", fx["cfg"], "--new_segment_ids",
+            "--answer_vocab_file", fx["answers"], "--batch_size", "3",
+            "--num_synthetic", "7", "--max_tgt_length", "5",
+            "--len_vis_input", "6", "--model_recover_path", bin_path]
+
+
+def test_eval_cli_matches_the_jax_cli(fx):
+    cfg = VLPConfig.from_reference_json(
+        fx["cfg"], type_vocab_size=6, relax_projection=4, len_vis_input=6,
+        max_len_b=5, num_answers=N_ANSWERS, dtype="float32",
+        use_pallas_attention=False)
+    params = jax.jit(lambda key: ts.init_params(
+        ts.create_model(cfg, "vqa2"), cfg, key, "vqa2"))(
+            jax.random.PRNGKey(5))
+    sd = params_to_torch(params, cfg)
+    for k in sd:
+        if k.startswith(("vis_", "ans_")) or ".attention.self." in k:
+            # louder regions and answer head, sharper attention: at the
+            # initial scale every question gets the same answer
+            sd[k] = sd[k] * 30.0
+    bin_path = os.path.join(fx["dir"], "model.3.bin")
+    _save_bin(sd, bin_path)
+    out_j = os.path.join(fx["dir"], "eval_jax")
+    out_t = os.path.join(fx["dir"], "eval_port")
+    jax_eval.main(eval_args(fx, bin_path) + ["--output_dir", out_j])
+    stats = eval_cli.main(eval_args(fx, bin_path)
+                          + ["--output_dir", out_t, "--device", "cpu",
+                             "--profile_batches", "1"])
+    assert stats["model.3.bin"]["n_questions"] == 7
+    with open(os.path.join(out_t, "profile.txt")) as f:
+        assert f.readline().startswith("wall ")
+    name = "vqa2-results-model.3.bin-val.json"
+    with open(os.path.join(out_j, name)) as f:
+        want = json.load(f)
+    with open(os.path.join(out_t, name)) as f:
+        got = json.load(f)
+    assert [p["question_id"] for p in got] == list(range(7))
+    assert got == want
+    assert len({p["answer"] for p in got}) > 1
+
+
+def train_args(fx, out, *extra):
+    return ["--do_train", "--synthetic_data", "--enable_butd",
+            "--bert_model", fx["vocab"], "--config_path", fx["cfg_nodrop"],
+            "--output_dir", out, "--train_batch_size", "4",
+            "--new_segment_ids", "--len_vis_input", "6", "--max_len_b", "5",
+            "--tasks", "vqa2", "--answer_vocab_file", fx["answers"],
+            "--s2s_prob", "0", "--bi_prob", "1", "--learning_rate", "1e-3",
+            *extra]
+
+
+def test_train_cli_losses_track_the_jax_cli(fx):
+    """Dropout off, the JAX CLI's own initial weights as a .bin both CLIs
+    load, one step per epoch (the JAX CLI logs step 0 of each epoch).  The
+    port writes model.N.bin; a relax-projection .bin loads head 0."""
+    jout = os.path.join(fx["dir"], "train_jax")
+    init = jax_train.main(train_args(fx, jout, "--relax_projection")[1:])
+    cfg = VLPConfig.from_reference_json(fx["cfg_nodrop"],
+                                        relax_projection=4,
+                                        num_answers=N_ANSWERS)
+    sd = params_to_torch(init.params, cfg)
+    assert "ans_classifier.2.weight" in sd
+    ref = os.path.join(fx["dir"], "ref_vqa.bin")
+    _save_bin(sd, ref)
+    extra = ["--num_train_epochs", "3", "--steps_per_epoch", "1",
+             "--model_recover_path", ref]
+    jax_train.main(train_args(fx, jout, "--relax_projection", *extra))
+    with open(os.path.join(jout, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    pout = os.path.join(fx["dir"], "train_port")
+    res = train_cli.main(train_args(fx, pout, "--relax_projection", *extra,
+                                    "--device", "cpu"))
+    want = [r["loss"] for r in recs]
+    assert len(want) == len(res["losses"]) == 3
+    np.testing.assert_allclose(res["losses"], want, rtol=1e-5)
+    assert want[0] == recs[0]["vqa2_loss"] and len(set(want)) == 3
+    saved = torch.load(os.path.join(pout, "model.3.bin"), weights_only=True)
+    assert saved["ans_classifier.2.weight"].shape == (N_ANSWERS, 64)
+
+    # without --relax_projection the 4 MLM heads collapse to VQA's head 0
+    loaded = train_cli.main(train_args(fx, os.path.join(fx["dir"], "load"),
+                                       "--model_recover_path", ref,
+                                       "--device", "cpu")[1:])["model"]
+    H = TINY["hidden_size"]
+    head0 = sd["cls.predictions.transform.dense.weight"][:H]
+    np.testing.assert_array_equal(
+        loaded.cls.predictions.transform.dense.weight.detach().numpy(),
+        head0)
+
+
+def test_device_cuda_without_a_gpu_raises(fx, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        eval_cli.main(["--bert_model", fx["vocab"], "--answer_vocab_file",
+                       fx["answers"]])
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        train_cli.main(train_args(fx, os.path.join(fx["dir"], "nogpu")))

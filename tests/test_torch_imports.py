@@ -1,7 +1,7 @@
 """The port imports neither JAX nor the JAX package: a fresh interpreter
 imports every module of vlp_tpu_torch and runs a tiny CPU train step, a
-tiny CPU decode and a tiny SCST step through it, after which none of
-vlp_tpu, jax, flax, optax or orbax is loaded."""
+tiny CPU decode, a tiny SCST step and a tiny VQA step and answer through
+it, after which none of vlp_tpu, jax, flax, optax or orbax is loaded."""
 
 import os
 import subprocess
@@ -18,7 +18,8 @@ for name in ("vlp_tpu_torch.cli.decode", "vlp_tpu_torch.cli.train",
              "vlp_tpu_torch.ops._build", "vlp_tpu_torch.train_step",
              "vlp_tpu_torch.data.loader", "vlp_tpu_torch.evals.coco",
              "vlp_tpu_torch.scst", "vlp_tpu_torch.ops.decode_attention",
-             "vlp_tpu_torch.ops.philox"):
+             "vlp_tpu_torch.ops.philox", "vlp_tpu_torch.cli.eval_vqa2",
+             "vlp_tpu_torch.evals.vqa"):
     assert name in names, name
 
 import torch
@@ -52,6 +53,15 @@ tr = SCSTTrainer(model, cfg, mask_id=5, eos_id=4, max_tgt_length=4,
                                           1e-3))
 loss, m = tr.step(batch, torch.randint(6, 20, (B, 5)).numpy(), seed=1)
 assert torch.isfinite(torch.tensor(loss))
+vqa = VLPModel(cfg, with_vqa=True)
+opt = optim.BertAdam(dict(vqa.named_parameters()), 1e-3)
+step = train_step.make_train_step(vqa, opt, task="vqa2")
+metrics = step(train_step.dummy_batch(cfg, 2, task="vqa2"), seed=3)
+assert torch.isfinite(metrics["vqa2_loss"]) and opt.step_count == 1
+vqa.eval()
+with torch.no_grad():
+    ids = vqa.vqa_inference(train_step.dummy_batch(cfg, 2, task="vqa2"))
+assert ids.shape == (2,) and bool((ids >= 1).all())
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("vlp_tpu", "jax", "jaxlib", "flax",
                                     "optax", "orbax"))

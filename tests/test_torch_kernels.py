@@ -273,3 +273,87 @@ def test_backward_rejects_a_length_that_does_not_fit(cuda):
     with pytest.raises(ValueError, match="L <="):
         attn._backward_cuda(x, x, x, one, one * 200,
                             torch.ones(1, 200, device=cuda), x, 4, 0.0, None)
+
+
+def _bhld_inputs(g, dev, dtype, strided, B=6, L=128, H=12, P=102):
+    """[B, H, L, 64] q/k/v (``strided``: slices of one [B, H, L, 192]
+    tensor) and dout, with training-shaped mask metadata."""
+    if strided:
+        qkv = torch.randn(B, H, L, 3 * 64, generator=g, device=dev).to(dtype)
+        q, k, v = qkv.split(64, dim=-1)
+    else:
+        q, k, v = (torch.randn(B, H, L, 64, generator=g, device=dev).to(dtype)
+                   for _ in range(3))
+    _, _, _, mode, te, ck = _train_inputs(g, dev, dtype, B=B, L=L, H=1, P=P)
+    dout = torch.randn(B, H, L, 64, generator=g, device=dev).to(dtype)
+    return q, k, v, mode, te, ck, dout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("strided", [False, True], ids=["packed", "strided"])
+def test_bhld_kernels_match_plain(cuda, dtype, tol, rate, strided):
+    """The [B, H, L, D] forward (both branches) and backward, through
+    attention(layout="bhld") and FusedAttention, against their plain
+    versions; each call launches its own kernel once."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v, mode, te, ck, dout = _bhld_inputs(g, cuda, dtype, strided)
+    seed = 0x0123456789ABCDEF
+    names = ("attention_fwd_bhld", "attention_fwd_bhld_drop",
+             "attention_bwd_bhld")
+    counts = {n: _build.KERNELS[n].launches for n in names}
+    det = attn.attention(q, k, v, mode, te, ck, prefix=102, layout="bhld")
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = attn.FusedAttention.apply(*leaves, mode, te, ck, 102, rate, seed,
+                                    "bhld")
+    grads = torch.autograd.grad(out, leaves, dout)
+    assert {n: _build.KERNELS[n].launches for n in names} == \
+        {n: c + 1 for n, c in counts.items()}
+    kw = dict(prefix=102, layout="bhld")
+    want = attn.attention_plain(q, k, v, mode, te, ck, dropout_rate=rate,
+                                seed=seed, **kw)
+    want_grads = attn.attention_bwd_plain(q, k, v, mode, te, ck, dout,
+                                          dropout_rate=rate, seed=seed, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        det.float(), attn.attention_plain(q, k, v, mode, te, ck,
+                                          **kw).float(), **tol)
+    torch.testing.assert_close(out.float(), want.float(), **tol)
+    for got, exp in zip(grads, want_grads):
+        assert got.shape == q.shape and got.is_contiguous()
+        torch.testing.assert_close(got.float(), exp.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bhld_kernels_equal_blhd_on_transposed_inputs(cuda, dtype):
+    """With dropout on, one seed: the bhld kernels' forward and gradients
+    are the blhd kernels' with dims 1 and 2 swapped, bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v, mode, te, ck, dout = _bhld_inputs(g, cuda, dtype, False)
+    seed = 2 ** 63 + 12345
+    runs = []
+    for layout, xs in (("bhld", (q, k, v, dout)),
+                       ("blhd", [x.transpose(1, 2).contiguous()
+                                 for x in (q, k, v, dout)])):
+        leaves = [x.detach().requires_grad_() for x in xs[:3]]
+        out = attn.FusedAttention.apply(*leaves, mode, te, ck, 102, 0.1,
+                                        seed, layout)
+        grads = torch.autograd.grad(out, leaves, xs[3])
+        runs.append([t if layout == "bhld" else t.transpose(1, 2)
+                     for t in (out, *grads)])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_bhld_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    one = torch.ones(2, dtype=torch.int32, device=cuda)
+    ck = torch.ones(2, 16, device=cuda)
+    x = torch.randn(2, 3, 64, 16, device=cuda).transpose(2, 3)  # [B,H,L,D]
+    with pytest.raises(ValueError, match="contiguous"):
+        attn.attention(x, x, x, one, one * 16, ck, prefix=4, layout="bhld")
+    y = torch.randn(2, 3, 16, 64, device=cuda)
+    with pytest.raises(ValueError, match="layout"):
+        attn.attention(y, y, y, one, one * 16, ck, prefix=4, layout="lbhd")

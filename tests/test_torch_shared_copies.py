@@ -33,7 +33,7 @@ COPIED = ["config.py", "cli/common.py"] + [
     f"data/{m}.py" for m in ("tokenization", "example_builder", "dataset",
                              "features", "loader", "native_store")] + [
     f"evals/{m}.py" for m in ("coco", "bleu", "cider", "rouge", "ptbtok",
-                              "meteor", "spice")]
+                              "meteor", "spice", "vqa")]
 TINY = dict(len_vis_input=8, max_len_b=6, max_pred=3, vis_feat_dim=12,
             vis_cls_dim=4, vis_pe_dim=10)
 

@@ -1,11 +1,15 @@
 """Training CLI on PyTorch (counterpart of ``vlp_tpu/cli/train.py``): the
 flag surface of the reference ``run_img2txt_dist.py`` on one card, for
-caption fine-tuning and pretraining (``--s2s_prob/--bi_prob``) and for
-self-critical training (``--scst``, the fused replay, ``scst.py``).
+caption fine-tuning and pretraining (``--s2s_prob/--bi_prob``), VQA 2.0
+fine-tuning (``--tasks vqa2``) and self-critical training (``--scst``, the
+fused replay, ``scst.py``).
 
     python -m vlp_tpu_torch.cli.train --do_train --bert_model vocab.txt \\
         --new_segment_ids --enable_butd --src_file coco.json \\
         --model_recover_path pretrained.bin --output_dir out ...
+    # VQA 2.0 fine-tuning (bi mode; the answer vocab sets num_answers)
+    python -m vlp_tpu_torch.cli.train --do_train --tasks vqa2 \
+        --answer_vocab_file answers.txt --s2s_prob 0 --bi_prob 1 ...
     # SCST from a fine-tuned checkpoint (reference recipe: lr 1e-6)
     python -m vlp_tpu_torch.cli.train --do_train --scst --dataset coco \\
         --max_pred 0 --mask_prob 0 --learning_rate 1e-6 ...
@@ -18,9 +22,9 @@ rerun with the same ``--output_dir`` resumes from the newest epoch or
 ``--save_steps`` checkpoint.
 
 Flags of slices not yet ported raise, naming the ROADMAP item:
-``--tasks vqa2`` (A8), ``--jax_distributed`` and ``--world_size > 1``
-(A10), ``--tensor_parallel > 1``, ``--true_fp16``, ``--scst_replay scan``
-and ``--scst_remat`` (ROADMAP A, not to port).  The TPU dispatch
+``--jax_distributed`` and ``--world_size > 1`` (A10),
+``--tensor_parallel > 1``, ``--true_fp16``, ``--scst_replay scan`` and
+``--scst_remat`` (ROADMAP A, not to port).  The TPU dispatch
 workarounds ``--device_loop_steps``, ``--no_pallas`` and ``--tp_impl`` are
 no-ops here and say so in the log, as are
 ``--fp16/--amp/--fp32_embedding`` (the dtype follows ``--device``).
@@ -45,11 +49,13 @@ from vlp_tpu_torch import train_step as ts
 from vlp_tpu_torch.cli import common
 from vlp_tpu_torch.cli.decode import resolve_device, to_device
 from vlp_tpu_torch.config import VLPConfig
-from vlp_tpu_torch.data.dataset import CaptionExample, load_karpathy_index
+from vlp_tpu_torch.data.dataset import (CaptionExample, load_karpathy_index,
+                                        load_vqa_index)
 from vlp_tpu_torch.data.example_builder import TrainExampleBuilder
 from vlp_tpu_torch.data.features import make_store
 from vlp_tpu_torch.data.loader import TrainLoader
 from vlp_tpu_torch.data.tokenization import WhitespaceTokenizer
+from vlp_tpu_torch.evals.vqa import VQAAnswerProcessor
 from vlp_tpu_torch.models.model import VLPModel
 from vlp_tpu_torch.scst import SCSTTrainer
 
@@ -126,7 +132,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--packed_feature_file", default="", type=str,
                    help="native packed feature store (.vlps)")
     p.add_argument("--tasks", default="img2txt", choices=("img2txt", "vqa2"),
-                   help="vqa2 is ROADMAP A8: raises")
+                   help="vqa2: VQA 2.0 fine-tuning (needs "
+                        "--answer_vocab_file)")
     p.add_argument("--relax_projection", action="store_true")
     p.add_argument("--scst", action="store_true",
                    help="self-critical training (fused replay); needs "
@@ -191,7 +198,6 @@ def refuse_unported(args) -> None:
          f"--scst_replay scan: the scan replay {not_to_port}"),
         (args.scst and args.scst_remat,
          f"--scst_remat: the scan replay's remat {not_to_port}"),
-        (args.tasks == "vqa2", "--tasks vqa2: VQA is ROADMAP item A8"),
         (args.jax_distributed,
          "--jax_distributed: multi-process training is ROADMAP item A10"),
         (args.world_size > 1,
@@ -242,10 +248,16 @@ def synthetic_examples(n, tokenizer, rng):
     return out
 
 
-def _anchors(model: VLPModel, path: str, cfg: VLPConfig):
+def task_idx(tasks: str) -> int:
+    """The relax-projection head a reference .bin collapses to: 3 for
+    captioning, 0 for VQA (JAX CLI :445)."""
+    return 3 if tasks == "img2txt" else 0
+
+
+def _anchors(model: VLPModel, path: str, cfg: VLPConfig, tasks: str):
     """--finetune_decay anchors: the model's parameters with those the
     reference .bin holds replaced by its values."""
-    sd = ckpt.load_reference_bin(path, cfg, task_idx=3)
+    sd = ckpt.load_reference_bin(path, cfg, task_idx=task_idx(tasks))
     return {n: (sd[n] if n in sd else p.detach()).float().clone()
             for n, p in model.named_parameters()}
 
@@ -307,6 +319,12 @@ def main(argv=None):
     rng_np = np.random.default_rng(args.seed)
 
     # ---- data ------------------------------------------------------------
+    vqa = args.tasks == "vqa2"
+    if vqa:
+        if not args.answer_vocab_file:
+            raise ValueError("--tasks vqa2 needs --answer_vocab_file")
+        ans_proc = VQAAnswerProcessor(args.answer_vocab_file)
+        cfg = cfg.replace(num_answers=len(ans_proc))
     if args.synthetic_data:
         examples = synthetic_examples(
             max(args.train_batch_size * max(args.steps_per_epoch, 4), 64),
@@ -316,16 +334,23 @@ def main(argv=None):
     else:
         store = make_store(args.region_det_file_prefix, args.region_bbox_file,
                            packed_file=args.packed_feature_file)
-        if not args.src_file or len(args.src_file) != 1:
-            raise ValueError("--src_file takes one Karpathy-split json")
-        examples = load_karpathy_index(
-            args.src_file[0], args.split, data_tokenizer, args.image_root,
-            args.file_valid_jpgs, args.use_num_imgs, args.dataset,
-            cache_dir=args.index_cache_dir or None)
+        if vqa:
+            examples = load_vqa_index(args.src_file, data_tokenizer,
+                                      args.image_root, args.use_num_imgs)
+            for ex in examples:
+                ex.ans_scores = ans_proc.answers_scores(ex.answers)
+        else:
+            if not args.src_file or len(args.src_file) != 1:
+                raise ValueError("--src_file takes one Karpathy-split json")
+            examples = load_karpathy_index(
+                args.src_file[0], args.split, data_tokenizer,
+                args.image_root, args.file_valid_jpgs, args.use_num_imgs,
+                args.dataset, cache_dir=args.index_cache_dir or None)
     builder_kw = dict(mask_prob=args.mask_prob,
                       vis_mask_prob=args.vis_mask_prob,
                       new_segment_ids=args.new_segment_ids,
-                      always_truncate_tail=args.always_truncate_tail)
+                      always_truncate_tail=args.always_truncate_tail,
+                      load_vqa_ann=vqa)
     builders = [TrainExampleBuilder(cfg, tokenizer.vocab, mode=m, **builder_kw)
                 for m in ("s2s", "bi")]
     accum = max(args.gradient_accumulation_steps, 1)
@@ -343,7 +368,7 @@ def main(argv=None):
     t_total = steps_per_epoch * args.num_train_epochs
 
     # ---- model / optimizer / resume ----------------------------------------
-    model = VLPModel(cfg)
+    model = VLPModel(cfg, with_vqa=vqa)
     model.init_weights(torch.Generator().manual_seed(args.seed))
     model.to(device)
     recover_step = ckpt.get_max_epoch_model(args.output_dir)
@@ -366,7 +391,8 @@ def main(argv=None):
         logger.info("***** Recover model: %s *****", args.model_recover_path)
         missing = ckpt.load_into(model, {
             k: v.to(device) for k, v in ckpt.load_reference_bin(
-                args.model_recover_path, cfg, task_idx=3).items()})
+                args.model_recover_path, cfg,
+                task_idx=task_idx(args.tasks)).items()})
         if missing:
             logger.info("not in the checkpoint, kept at init: %s", missing)
 
@@ -379,7 +405,8 @@ def main(argv=None):
                              "(the weights to decay toward)")
         optimizer = optim_lib.bert_adam_finetune(
             params, args.learning_rate,
-            init_params=_anchors(model, args.model_recover_path, cfg),
+            init_params=_anchors(model, args.model_recover_path, cfg,
+                                 args.tasks),
             missing_key_substrings=FRESH_HEADS, **opt_kw)
     else:
         optimizer = optim_lib.BertAdam(params, args.learning_rate, **opt_kw)
@@ -403,7 +430,7 @@ def main(argv=None):
     else:
         train_step = ts.make_train_step(
             model, optimizer, mask_image_regions=args.mask_image_regions,
-            grad_accum=accum)
+            task=args.tasks, grad_accum=accum)
 
         def run_step(batch, tbatch, seed, i_epoch):
             return train_step(tbatch, seed, args.max_drop_worst_ratio
@@ -430,7 +457,7 @@ def main(argv=None):
                     break
                 if (args.profile_steps and i_epoch == start_epoch
                         and step_i == skip + 1):
-                    profiler = _start_profiler()
+                    profiler = start_profiler()
                 t0 = time.perf_counter()
                 tbatch = to_device(batch, device)
                 # the step's randomness follows from (seed, epoch, step), so
@@ -446,7 +473,7 @@ def main(argv=None):
                 result["losses"].append(loss)
                 if (profiler is not None
                         and step_i == skip + args.profile_steps):
-                    _stop_profiler(profiler, args.output_dir)
+                    stop_profiler(profiler, args.output_dir)
                     profiler = None
                 gdone = (i_epoch - 1) * steps_per_epoch + step_i + 1
                 if args.save_steps and gdone - last_save >= args.save_steps:
@@ -462,7 +489,7 @@ def main(argv=None):
                     mf.write(json.dumps(rec) + "\n")
                     mf.flush()
             if profiler is not None:
-                _stop_profiler(profiler, args.output_dir)
+                stop_profiler(profiler, args.output_dir)
                 profiler = None
             logger.info("Epoch %d done in %.1fs, mean loss %.4f", i_epoch,
                         time.perf_counter() - t_ep,
@@ -471,7 +498,7 @@ def main(argv=None):
     return result
 
 
-def _start_profiler():
+def start_profiler():
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
@@ -481,7 +508,7 @@ def _start_profiler():
     return prof, time.perf_counter()
 
 
-def _stop_profiler(profiler, output_dir: str) -> None:
+def stop_profiler(profiler, output_dir: str) -> None:
     """Write the profiled window's wall time, summed device time and
     busy share, then the per-op table sorted by device time."""
     prof, t0 = profiler

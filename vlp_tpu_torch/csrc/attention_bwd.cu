@@ -1,8 +1,11 @@
-// Backward of the fused structurally-masked attention, [B, L, H*D] layout.
+// Backward of the fused structurally-masked attention, in both layouts of
+// the JAX package's attention_pallas: [B, L, H*D] ("blhd") and [B, H, L, D]
+// ("bhld").
 //
-// Replaces the TPU kernel vlp_tpu/ops/attention.py:_bwd_kernel_blhd (:197).
-// Per (example, head), with no L x L residual kept in HBM between the
-// passes: recompute S = Q K^T * scale + mask and P = softmax(S) in fp32 from
+// Replaces the TPU kernels vlp_tpu/ops/attention.py:_bwd_kernel_blhd (:197)
+// and _bwd_kernel (:155, the bhld layout).  Per (example, head), with no
+// L x L residual kept in HBM between the passes: recompute
+// S = Q K^T * scale + mask and P = softmax(S) in fp32 from
 // Q and K, regenerate the forward's dropout multipliers (keep) from the same
 // Philox seed (common.cuh), then
 //   dV = (P o keep)^T dO
@@ -10,8 +13,11 @@
 //   dS = P o (dP - rowsum(dP o P))        (P without keep, dP with it)
 //   dQ = dS K * scale,  dK = dS^T Q * scale
 // all in fp32 from the inputs cast to fp32, as the TPU kernel does
-// (attention.py:214-242).  dq/dk/dv are written [B, L, H*D] in the input
-// dtype.
+// (attention.py:214-242).  dq/dk/dv are written contiguous in the input's
+// layout and dtype.  One kernel body serves both layouts: it addresses
+// q/k/v, dO and the gradients only through vlp::Strides, and the dropout
+// counter is the logical (column/4, row, head, example), so bhld and blhd
+// regenerate the same multipliers for one seed.
 //
 // What bounds it on an H100: at the training shape (B=64, L=128, H=12,
 // D=64, bf16) one call reads q, k, v, dO and writes dq, dk, dv: ~88 MB,
@@ -42,7 +48,9 @@ size_t smem_bytes(int L) {
                           kWarps * Lz + kWarps * 2 * D);
 }
 
-// dst[j][d] = src[base + j * sl + d] as fp32, d < D, j < L.
+// dst[j][d] = src[base + j * sl + d] as fp32, d < D, j < L.  (In bhld,
+// src is one contiguous L*D block per head, which 16-byte loads could
+// stage; left for the faster version.)
 template <typename T>
 __device__ void stage(float* dst, const T* __restrict__ src, long long base,
                       long long sl, int L) {
@@ -52,10 +60,11 @@ __device__ void stage(float* dst, const T* __restrict__ src, long long base,
   }
 }
 
-// out[r][d] = scale * sum_j A(r, j) * bt[j][d] for r < L, d < D, where
-// A(r, j) = a[r * lda + j], or a[j * lda + r] when kTrans.
+// out[out_base + r * ol + d] = scale * sum_j A(r, j) * bt[j][d] for r < L,
+// d < D, where A(r, j) = a[r * lda + j], or a[j * lda + r] when kTrans;
+// ol is the output's row stride (H*D in blhd, D in bhld).
 template <typename T, bool kTrans>
-__device__ void product(T* __restrict__ out, long long out_base, int HD,
+__device__ void product(T* __restrict__ out, long long out_base, long long ol,
                         const float* a, int lda, const float* bt, int L,
                         float scale) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -74,7 +83,7 @@ __device__ void product(T* __restrict__ out, long long out_base, int HD,
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       if (r0 + r >= L) break;
-      T* o = out + out_base + (long long)(r0 + r) * HD;
+      T* o = out + out_base + (r0 + r) * ol;
       o[lane] = vlp::from_f<T>(acc[r][0] * scale);
       o[lane + 32] = vlp::from_f<T>(acc[r][1] * scale);
     }
@@ -89,8 +98,8 @@ __global__ void __launch_bounds__(kWarps * 32)
                          T* __restrict__ dv, const int* __restrict__ mode,
                          const int* __restrict__ text_end,
                          const float* __restrict__ colkeep, int L, int H,
-                         long long sb, long long sl, long long dsb,
-                         long long dsl, int prefix, float scale,
+                         vlp::Strides in, vlp::Strides ds_in,
+                         vlp::Strides os, int prefix, float scale,
                          vlp::Dropout dp) {
   extern __shared__ float smem[];
   const int LDP = L + 1;
@@ -104,10 +113,10 @@ __global__ void __launch_bounds__(kWarps * 32)
 
   const int b = blockIdx.x / H;
   const int h = blockIdx.x % H;
-  const long long in_base = b * sb + h * D;
-  const long long do_base = b * dsb + h * D;
-  const int HD = H * D;
-  const long long out_base = (long long)b * L * HD + h * D;
+  const long long in_base = b * in.b + h * in.h;
+  const long long do_base = b * ds_in.b + h * ds_in.h;
+  const long long sl = in.l, dsl = ds_in.l;
+  const long long out_base = b * os.b + h * os.h;
 
   stage(ta, k, in_base, sl, L);
   stage(tb, v, in_base, sl, L);
@@ -194,20 +203,20 @@ __global__ void __launch_bounds__(kWarps * 32)
   // K's place; dV = (P o keep)^T dO
   stage(tb, q, in_base, sl, L);
   __syncthreads();
-  product<T, false>(dq, out_base, HD, ds, LDP, ta, L, scale);
-  product<T, true>(dk, out_base, HD, ds, LDP, tb, L, scale);
+  product<T, false>(dq, out_base, os.l, ds, LDP, ta, L, scale);
+  product<T, true>(dk, out_base, os.l, ds, LDP, tb, L, scale);
   __syncthreads();
   stage(ta, dout, do_base, dsl, L);
   __syncthreads();
-  product<T, true>(dv, out_base, HD, pd, LDP, ta, L, 1.f);
+  product<T, true>(dv, out_base, os.l, pd, LDP, ta, L, 1.f);
 }
 
 template <typename T, bool kDrop>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            void* dq, void* dk, void* dv, const int* mode, const int* text_end,
-           const float* colkeep, int B, int L, int H, long long sb,
-           long long sl, long long dsb, long long dsl, int prefix,
-           float scale, vlp::Dropout dp, cudaStream_t stream) {
+           const float* colkeep, int B, int L, int H, vlp::Strides in,
+           vlp::Strides ds_in, vlp::Strides os, int prefix, float scale,
+           vlp::Dropout dp, cudaStream_t stream) {
   const size_t smem = smem_bytes(L);
   cudaError_t err = cudaFuncSetAttribute(
       attention_bwd_kernel<T, kDrop>,
@@ -217,7 +226,7 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv), mode,
-      text_end, colkeep, L, H, sb, sl, dsb, dsl, prefix, scale, dp);
+      text_end, colkeep, L, H, in, ds_in, os, prefix, scale, dp);
   return (int)cudaGetLastError();
 }
 
@@ -225,15 +234,34 @@ template <typename T>
 int launch_any(const void* q, const void* k, const void* v, const void* dout,
                void* dq, void* dk, void* dv, const int* mode,
                const int* text_end, const float* colkeep, int B, int L, int H,
-               long long sb, long long sl, long long dsb, long long dsl,
+               vlp::Strides in, vlp::Strides ds_in, vlp::Strides os,
                int prefix, float scale, vlp::Dropout dp, cudaStream_t stream) {
   if (dp.threshold == 0)  // rate 0: every element kept with scale 1
     return launch<T, false>(q, k, v, dout, dq, dk, dv, mode, text_end,
-                            colkeep, B, L, H, sb, sl, dsb, dsl, prefix, scale,
+                            colkeep, B, L, H, in, ds_in, os, prefix, scale,
                             dp, stream);
   return launch<T, true>(q, k, v, dout, dq, dk, dv, mode, text_end, colkeep,
-                         B, L, H, sb, sl, dsb, dsl, prefix, scale, dp,
-                         stream);
+                         B, L, H, in, ds_in, os, prefix, scale, dp, stream);
+}
+
+int backward(const void* q, const void* k, const void* v, const void* dout,
+             void* dq, void* dk, void* dv, const void* mode,
+             const void* text_end, const void* colkeep, int B, int L, int H,
+             vlp::Strides in, vlp::Strides ds_in, vlp::Strides os, int prefix,
+             float scale, vlp::Dropout dp, int is_bf16, void* stream) {
+  if (B <= 0 || L <= 0 || H <= 0 ||
+      smem_bytes(L) > (size_t)vlp::kMaxSmemBytes)
+    return (int)cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  auto md = static_cast<const int*>(mode);
+  auto te = static_cast<const int*>(text_end);
+  auto ck = static_cast<const float*>(colkeep);
+  if (is_bf16)
+    return launch_any<__nv_bfloat16>(q, k, v, dout, dq, dk, dv, md, te, ck, B,
+                                     L, H, in, ds_in, os, prefix, scale, dp,
+                                     s);
+  return launch_any<float>(q, k, v, dout, dq, dk, dv, md, te, ck, B, L, H, in,
+                           ds_in, os, prefix, scale, dp, s);
 }
 
 }  // namespace
@@ -260,20 +288,31 @@ int vlp_attention_bwd(const void* q, const void* k, const void* v,
                       float scale, unsigned long long seed,
                       unsigned int threshold, float keep_scale, int is_bf16,
                       void* stream) {
-  if (B <= 0 || L <= 0 || H <= 0 ||
-      smem_bytes(L) > (size_t)vlp::kMaxSmemBytes)
-    return (int)cudaErrorInvalidValue;
-  auto s = static_cast<cudaStream_t>(stream);
-  auto md = static_cast<const int*>(mode);
-  auto te = static_cast<const int*>(text_end);
-  auto ck = static_cast<const float*>(colkeep);
-  const vlp::Dropout dp{seed, threshold, keep_scale};
-  if (is_bf16)
-    return launch_any<__nv_bfloat16>(q, k, v, dout, dq, dk, dv, md, te, ck, B,
-                                     L, H, sb, sl, dsb, dsl, prefix, scale,
-                                     dp, s);
-  return launch_any<float>(q, k, v, dout, dq, dk, dv, md, te, ck, B, L, H, sb,
-                           sl, dsb, dsl, prefix, scale, dp, s);
+  const long long HD = (long long)H * D;
+  return backward(q, k, v, dout, dq, dk, dv, mode, text_end, colkeep, B, L, H,
+                  vlp::Strides{sb, D, sl}, vlp::Strides{dsb, D, dsl},
+                  vlp::Strides{L * HD, D, HD}, prefix, scale,
+                  vlp::Dropout{seed, threshold, keep_scale}, is_bf16, stream);
+}
+
+// The bhld layout: q/k/v [B, H, L, 64] with element strides sb (batch), sh
+// (head) and sl (row); dout [B, H, L, 64] with strides dsb, dsh, dsl; the
+// last dimension contiguous in all four.  dq/dk/dv: contiguous
+// [B, H, L, 64].  Otherwise as vlp_attention_bwd.
+int vlp_attention_bwd_bhld(const void* q, const void* k, const void* v,
+                           const void* dout, void* dq, void* dk, void* dv,
+                           const void* mode, const void* text_end,
+                           const void* colkeep, int B, int L, int H,
+                           long long sb, long long sh, long long sl,
+                           long long dsb, long long dsh, long long dsl,
+                           int prefix, float scale, unsigned long long seed,
+                           unsigned int threshold, float keep_scale,
+                           int is_bf16, void* stream) {
+  const long long LD = (long long)L * D;
+  return backward(q, k, v, dout, dq, dk, dv, mode, text_end, colkeep, B, L, H,
+                  vlp::Strides{sb, sh, sl}, vlp::Strides{dsb, dsh, dsl},
+                  vlp::Strides{H * LD, LD, D}, prefix, scale,
+                  vlp::Dropout{seed, threshold, keep_scale}, is_bf16, stream);
 }
 
 }  // extern "C"

@@ -1,15 +1,20 @@
-// Fused structurally-masked attention forward, [B, L, H*D] layout.
+// Fused structurally-masked attention forward, in both layouts of the JAX
+// package's attention_pallas: [B, L, H*D] ("blhd") and [B, H, L, D]
+// ("bhld").
 //
-// Replaces the TPU kernel vlp_tpu/ops/attention.py:_fwd_kernel_blhd (:117),
-// both branches.  Per (example, head): S = Q K^T * (1/sqrt(D)) in fp32 plus
-// the additive -10000 mask built on the fly from (mode, text_end, colkeep,
-// prefix) (attention.py:_mask_bias), fp32 softmax, then -- in the dropout
-// branch (training, attention.py:148) -- P times the Philox keep/scale
+// Replaces the TPU kernels vlp_tpu/ops/attention.py:_fwd_kernel_blhd (:117)
+// and _fwd_kernel (:95, the bhld layout), both branches of each.  Per
+// (example, head): S = Q K^T * (1/sqrt(D)) in fp32 plus the additive -10000
+// mask built on the fly from (mode, text_end, colkeep, prefix)
+// (attention.py:_mask_bias), fp32 softmax, then -- in the dropout branch
+// (training, attention.py:110 and :148) -- P times the Philox keep/scale
 // multipliers of common.cuh, P cast to the input dtype, then P V
 // accumulated in fp32.  The backward kernel (attention_bwd.cu) regenerates
-// the same multipliers from the same seed.  Q/K/V are read straight off the
-// projections (heads are column slices of the row), so no head transpose
-// exists.
+// the same multipliers from the same seed.  In blhd, Q/K/V are read
+// straight off the projections (heads are column slices of the row), so no
+// head transpose exists; in bhld each head is its own L x D block.  One
+// kernel body serves both: it addresses its operands only through
+// vlp::Strides, and the output layout is the input's.
 //
 // What bounds it on an H100: at the decode prefill (B=100, L=103, H=12,
 // D=64) one call moves ~63 MB (q, k, v in, out back, bf16) — ~19 us at
@@ -20,7 +25,11 @@
 // FMA issue and shared-memory reads, not by HBM: each block stages its
 // head's K and V once in shared memory (fp32, K rows padded to D+1 words
 // so the 32 lanes of a warp hit 32 banks), and each warp then serves whole
-// query rows from them with its query row held in registers.
+// query rows from them with its query row held in registers.  In bhld a
+// head's K (or V) tile is one contiguous L*D block (16 KB in bf16), so its
+// staging could be fully coalesced 16-byte loads (TMA, or cp.async); the
+// element-wise staging below is shared with blhd, whose rows are 128-byte
+// runs, and is left for the kernel's later, faster version.
 //
 // Layout: grid = (B*H, ceil(L / kRowsPerBlock)), kWarps warps per block,
 // one warp per query row.  Lane j owns key columns j, j+32, ...; the
@@ -47,7 +56,7 @@ __global__ void __launch_bounds__(kWarps * 32)
                          const int* __restrict__ mode,
                          const int* __restrict__ text_end,
                          const float* __restrict__ colkeep, int L, int H,
-                         long long sb, long long sl, int prefix,
+                         vlp::Strides in, vlp::Strides os, int prefix,
                          float scale, vlp::Dropout dp) {
   extern __shared__ float smem[];
   float* ks = smem;                  // [L][D+1]
@@ -58,9 +67,9 @@ __global__ void __launch_bounds__(kWarps * 32)
 
   const int b = blockIdx.x / H;
   const int h = blockIdx.x % H;
-  const long long in_base = b * sb + h * D;
-  const int HD = H * D;
-  const long long out_base = (long long)b * L * HD + h * D;
+  const long long in_base = b * in.b + h * in.h;
+  const long long sl = in.l;
+  const long long out_base = b * os.b + h * os.h;
 
   for (int idx = threadIdx.x; idx < L * D; idx += blockDim.x) {
     const int j = idx / D, d = idx % D;
@@ -126,7 +135,7 @@ __global__ void __launch_bounds__(kWarps * 32)
     for (int d = lane; d < D; d += 32) {
       float acc = 0.f;
       for (int j = 0; j < L; ++j) acc = fmaf(pw[j], vs[j * D + d], acc);
-      out[out_base + (long long)i * HD + d] = vlp::from_f<T>(acc);
+      out[out_base + (long long)i * os.l + d] = vlp::from_f<T>(acc);
     }
     __syncwarp();
   }
@@ -135,8 +144,8 @@ __global__ void __launch_bounds__(kWarps * 32)
 template <typename T, bool kDrop>
 int launch(const void* q, const void* k, const void* v, void* out,
            const int* mode, const int* text_end, const float* colkeep, int B,
-           int L, int H, long long sb, long long sl, int prefix, float scale,
-           vlp::Dropout dp, cudaStream_t stream) {
+           int L, int H, vlp::Strides in, vlp::Strides os, int prefix,
+           float scale, vlp::Dropout dp, cudaStream_t stream) {
   const size_t smem = smem_bytes(L);
   cudaError_t err = cudaFuncSetAttribute(
       attention_fwd_kernel<T, kDrop>,
@@ -146,15 +155,16 @@ int launch(const void* q, const void* k, const void* v, void* out,
   attention_fwd_kernel<T, kDrop><<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), mode, text_end, colkeep,
-      L, H, sb, sl, prefix, scale, dp);
+      L, H, in, os, prefix, scale, dp);
   return (int)cudaGetLastError();
 }
 
 template <bool kDrop>
 int dispatch(const void* q, const void* k, const void* v, void* out,
              const void* mode, const void* text_end, const void* colkeep,
-             int B, int L, int H, long long sb, long long sl, int prefix,
-             float scale, vlp::Dropout dp, int is_bf16, void* stream) {
+             int B, int L, int H, vlp::Strides in, vlp::Strides os,
+             int prefix, float scale, vlp::Dropout dp, int is_bf16,
+             void* stream) {
   if (B <= 0 || L <= 0 || H <= 0 ||
       smem_bytes(L) > (size_t)vlp::kMaxSmemBytes)
     return (int)cudaErrorInvalidValue;
@@ -163,10 +173,34 @@ int dispatch(const void* q, const void* k, const void* v, void* out,
   auto te = static_cast<const int*>(text_end);
   auto ck = static_cast<const float*>(colkeep);
   if (is_bf16)
-    return launch<__nv_bfloat16, kDrop>(q, k, v, out, md, te, ck, B, L, H, sb,
-                                        sl, prefix, scale, dp, s);
-  return launch<float, kDrop>(q, k, v, out, md, te, ck, B, L, H, sb, sl,
+    return launch<__nv_bfloat16, kDrop>(q, k, v, out, md, te, ck, B, L, H, in,
+                                        os, prefix, scale, dp, s);
+  return launch<float, kDrop>(q, k, v, out, md, te, ck, B, L, H, in, os,
                               prefix, scale, dp, s);
+}
+
+// Both branches behind one entry: threshold 0 (rate 0) keeps every element
+// with scale 1, which is the deterministic kernel.
+int forward(const void* q, const void* k, const void* v, void* out,
+            const void* mode, const void* text_end, const void* colkeep,
+            int B, int L, int H, vlp::Strides in, vlp::Strides os, int prefix,
+            float scale, vlp::Dropout dp, int is_bf16, void* stream) {
+  if (dp.threshold == 0)
+    return dispatch<false>(q, k, v, out, mode, text_end, colkeep, B, L, H, in,
+                           os, prefix, scale, vlp::Dropout{0, 0, 1.f},
+                           is_bf16, stream);
+  return dispatch<true>(q, k, v, out, mode, text_end, colkeep, B, L, H, in,
+                        os, prefix, scale, dp, is_bf16, stream);
+}
+
+// blhd: q/k/v rows of H*D columns at strides (sb, sl); out contiguous
+vlp::Strides blhd_in(long long sb, long long sl) { return {sb, D, sl}; }
+vlp::Strides blhd_out(int L, int H) {
+  return {(long long)L * H * D, D, (long long)H * D};
+}
+// bhld: out contiguous [B, H, L, D]
+vlp::Strides bhld_out(int L, int H) {
+  return {(long long)H * L * D, (long long)L * D, D};
 }
 
 }  // namespace
@@ -181,9 +215,9 @@ int vlp_attention_fwd(const void* q, const void* k, const void* v, void* out,
                       const void* colkeep, int B, int L, int H, long long sb,
                       long long sl, int prefix, float scale, int is_bf16,
                       void* stream) {
-  return dispatch<false>(q, k, v, out, mode, text_end, colkeep, B, L, H, sb,
-                         sl, prefix, scale, vlp::Dropout{0, 0, 1.f}, is_bf16,
-                         stream);
+  return forward(q, k, v, out, mode, text_end, colkeep, B, L, H,
+                 blhd_in(sb, sl), blhd_out(L, H), prefix, scale,
+                 vlp::Dropout{0, 0, 1.f}, is_bf16, stream);
 }
 
 // The training forward: as vlp_attention_fwd, with attention-prob dropout
@@ -195,14 +229,38 @@ int vlp_attention_fwd_drop(const void* q, const void* k, const void* v,
                            long long sb, long long sl, int prefix, float scale,
                            unsigned long long seed, unsigned int threshold,
                            float keep_scale, int is_bf16, void* stream) {
-  if (threshold == 0)  // rate 0: every element kept with scale 1
-    return dispatch<false>(q, k, v, out, mode, text_end, colkeep, B, L, H, sb,
-                           sl, prefix, scale, vlp::Dropout{0, 0, 1.f},
-                           is_bf16, stream);
-  return dispatch<true>(q, k, v, out, mode, text_end, colkeep, B, L, H, sb, sl,
-                        prefix, scale,
-                        vlp::Dropout{seed, threshold, keep_scale}, is_bf16,
-                        stream);
+  return forward(q, k, v, out, mode, text_end, colkeep, B, L, H,
+                 blhd_in(sb, sl), blhd_out(L, H), prefix, scale,
+                 vlp::Dropout{seed, threshold, keep_scale}, is_bf16, stream);
+}
+
+// The bhld layout: q/k/v [B, H, L, 64] with element strides sb (batch), sh
+// (head) and sl (row), the last dimension contiguous; out: contiguous
+// [B, H, L, 64].  Otherwise as vlp_attention_fwd.
+int vlp_attention_fwd_bhld(const void* q, const void* k, const void* v,
+                           void* out, const void* mode, const void* text_end,
+                           const void* colkeep, int B, int L, int H,
+                           long long sb, long long sh, long long sl,
+                           int prefix, float scale, int is_bf16,
+                           void* stream) {
+  return forward(q, k, v, out, mode, text_end, colkeep, B, L, H,
+                 vlp::Strides{sb, sh, sl}, bhld_out(L, H), prefix, scale,
+                 vlp::Dropout{0, 0, 1.f}, is_bf16, stream);
+}
+
+// The bhld training forward: as vlp_attention_fwd_bhld, with dropout as in
+// vlp_attention_fwd_drop (the same multipliers for the same seed).
+int vlp_attention_fwd_bhld_drop(const void* q, const void* k, const void* v,
+                                void* out, const void* mode,
+                                const void* text_end, const void* colkeep,
+                                int B, int L, int H, long long sb,
+                                long long sh, long long sl, int prefix,
+                                float scale, unsigned long long seed,
+                                unsigned int threshold, float keep_scale,
+                                int is_bf16, void* stream) {
+  return forward(q, k, v, out, mode, text_end, colkeep, B, L, H,
+                 vlp::Strides{sb, sh, sl}, bhld_out(L, H), prefix, scale,
+                 vlp::Dropout{seed, threshold, keep_scale}, is_bf16, stream);
 }
 
 }  // extern "C"

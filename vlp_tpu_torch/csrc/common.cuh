@@ -72,6 +72,17 @@ struct Dropout {
   float scale;
 };
 
+// Element strides of a [B, H, L, 64] view: element (b, h, i, d) sits at
+// b * b_ + h * h_ + i * l_ + d.  The blhd layout ([B, L, H*64], heads as
+// column slices of a row) is {sb, 64, sl}; the bhld layout ([B, H, L, 64],
+// one L x 64 block per head) is {sb, sh, sl}.  The attention kernels address
+// q/k/v/dO and their outputs only through these, so one body serves both
+// layouts and the dropout counter (column/4, row, head, example) stays the
+// same: bhld and blhd draw identical multipliers for one seed.
+struct Strides {
+  long long b, h, l;
+};
+
 // Multipliers of columns 4*jblk .. 4*jblk+3 of row i of (example b, head
 // h): the counter is (jblk, i, h, b).  In a decode step, i is the query row
 // s and the columns run over the joint (prompt | generated) axis.

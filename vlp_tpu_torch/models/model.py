@@ -423,12 +423,16 @@ class MLMHead(nn.Module):
 
 
 class VLPModel(nn.Module):
-    """Backbone + MLM head + region projections; inference primitives
-    ``encode``, ``prefill``, ``decode_step`` and ``lm_logits``."""
+    """Backbone + MLM head + region projections, and with ``with_vqa`` the
+    VQA answer head ``ans_classifier`` (JAX ``VLPModel(cfg, with_vqa)``).
+    Training: ``pretrain_losses`` (``task`` "img2txt" or "vqa2").
+    Inference: ``encode``, ``vqa_logits`` / ``vqa_inference``, and the
+    generation primitives ``prefill``, ``decode_step`` and ``lm_logits``."""
 
-    def __init__(self, cfg: VLPConfig):
+    def __init__(self, cfg: VLPConfig, with_vqa: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.with_vqa = with_vqa
         self.dtype = torch_dtype(cfg.dtype)
         H = cfg.hidden_size
         self.bert = _Bert(cfg)
@@ -440,6 +444,11 @@ class VLPModel(nn.Module):
             nn.Linear(cfg.vis_feat_dim, H), nn.ReLU())
         self.vis_pe_embed = nn.Sequential(nn.Linear(cfg.vis_pe_dim, H),
                                           nn.ReLU())
+        if with_vqa:
+            # the reference's answer head, under its keys ans_classifier.0/.2
+            self.ans_classifier = nn.Sequential(
+                nn.Linear(H, 2 * H), nn.ReLU(),
+                nn.Linear(2 * H, cfg.num_answers))
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
@@ -485,6 +494,16 @@ class VLPModel(nn.Module):
     def pooled(self, seq_out: torch.Tensor) -> torch.Tensor:
         return torch.tanh(_linear(self.bert.pooler.dense, seq_out[:, 0]))
 
+    def _answer_logits(self, seq_out: torch.Tensor) -> torch.Tensor:
+        """fp32 [B, num_answers]: the head on [CLS] o the first text token
+        (the token after the regions' [SEP]), in the activation dtype."""
+        if not self.with_vqa:
+            raise ValueError("VQA needs VLPModel(cfg, with_vqa=True)")
+        nv = self.cfg.len_vis_input
+        vqa_embed = seq_out[:, 0] * seq_out[:, nv + 1]
+        h = F.relu(_linear(self.ans_classifier[0], vqa_embed))
+        return _linear(self.ans_classifier[2], h).float()
+
     def encode(self, input_ids, segment_ids, mode, text_end, vis_feats,
                vis_pe, vis_keep=None, position_ids=None,
                drop: Optional[DropoutRNG] = None,
@@ -518,12 +537,14 @@ class VLPModel(nn.Module):
                         drop_worst_ratio: float = 0.0,
                         mask_image_regions: bool = False,
                         task: str = "img2txt") -> Dict[str, torch.Tensor]:
-        """Training forward for ``task="img2txt"``: the masked-LM loss on
-        the gathered ``masked_pos`` only, plus the region pretext loss
-        under ``mask_image_regions`` (JAX ``pretrain_losses``)."""
-        if task != "img2txt":
-            raise NotImplementedError(
-                f"task {task!r}: the VQA head is ROADMAP item A8")
+        """Training forward (JAX ``pretrain_losses``): for ``task="img2txt"``
+        the masked-LM loss on the gathered ``masked_pos`` only; for
+        ``task="vqa2"`` the VQA loss, BCE with logits against the soft
+        ``ans_scores`` summed over answers and averaged over the batch
+        (``masked_lm_loss`` is 0).  Plus the region pretext loss under
+        ``mask_image_regions``."""
+        if task not in ("img2txt", "vqa2"):
+            raise ValueError(f"unknown task {task!r}")
         cfg = self.cfg
         seq_out, pooled, vf, vp = self.encode(
             batch["input_ids"], batch["segment_ids"], batch["mode"],
@@ -531,15 +552,28 @@ class VLPModel(nn.Module):
             vis_keep=batch.get("vis_keep"), drop=drop,
             return_projections=True)
         out: Dict[str, torch.Tensor] = {}
-        pos = batch["masked_pos"].long()
-        hidden = torch.gather(
-            seq_out, 1, pos[:, :, None].expand(-1, -1, seq_out.shape[-1]))
-        logits = self.cls(hidden, batch["task_idx"],
-                          self.bert.embeddings.word_embeddings.weight)
-        per_pos = losses_lib.mlm_position_loss(
-            logits, batch["masked_ids"], cfg.label_smoothing, cfg.vocab_size)
-        out["masked_lm_loss"] = losses_lib.mask_and_normalize_loss(
-            per_pos, batch["masked_weights"], drop_worst_ratio)
+        zero = torch.zeros((), device=seq_out.device)
+        if task == "vqa2":
+            x = self._answer_logits(seq_out)
+            y = batch["ans_scores"].float()
+            # the stable BCE-with-logits; BCEWithLogitsLoss (mean over all)
+            # times num_answers is the batch mean of per-example sums
+            # (reference modeling.py:1140)
+            bce = x.clamp(min=0) - x * y + torch.log1p(torch.exp(-x.abs()))
+            out["vqa2_loss"] = bce.sum(dim=-1).mean()
+            out["masked_lm_loss"] = zero
+        else:
+            pos = batch["masked_pos"].long()
+            hidden = torch.gather(
+                seq_out, 1, pos[:, :, None].expand(-1, -1, seq_out.shape[-1]))
+            logits = self.cls(hidden, batch["task_idx"],
+                              self.bert.embeddings.word_embeddings.weight)
+            per_pos = losses_lib.mlm_position_loss(
+                logits, batch["masked_ids"], cfg.label_smoothing,
+                cfg.vocab_size)
+            out["masked_lm_loss"] = losses_lib.mask_and_normalize_loss(
+                per_pos, batch["masked_weights"], drop_worst_ratio)
+            out["vqa2_loss"] = zero
         if mask_image_regions:
             H = vf.shape[-1]
             vpos = (batch["vis_masked_pos"] - 1).long()[:, :, None].expand(
@@ -551,9 +585,23 @@ class VLPModel(nn.Module):
             diag = torch.diagonal(logp, dim1=1, dim2=2)
             out["pretext_loss"] = -diag.mean(dim=-1).mean()
         else:
-            out["pretext_loss"] = torch.zeros((), device=seq_out.device)
-        out["loss"] = out["masked_lm_loss"] + out["pretext_loss"]
+            out["pretext_loss"] = zero
+        out["loss"] = (out["masked_lm_loss"] + out["pretext_loss"]
+                       + out["vqa2_loss"])
         return out
+
+    def vqa_logits(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """fp32 answer logits [B, num_answers] of the deterministic encode
+        (no backward on the card)."""
+        seq_out, _ = self.encode(
+            batch["input_ids"], batch["segment_ids"], batch["mode"],
+            batch["text_end"], batch["vis_feats"], batch["vis_pe"])
+        return self._answer_logits(seq_out)
+
+    def vqa_inference(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Answer ids int64[B], the argmax over answers 1.. (answer 0 is
+        ``<unk>``; JAX ``vqa_inference``, reference modeling.py:1039-1047)."""
+        return self.vqa_logits(batch)[:, 1:].argmax(dim=-1) + 1
 
     # ------------------------------------------------------------------
     # Incremental generation primitives

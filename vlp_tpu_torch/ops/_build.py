@@ -48,6 +48,14 @@ _SIGNATURES = {
     "vlp_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                           _LL, _LL, _LL, _LL, _I, _F, _ULL, _U, _F, _I, _P],
     "vlp_attention_bwd_max_len": [],
+    "vlp_attention_fwd_bhld": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _LL,
+                               _LL, _LL, _I, _F, _I, _P],
+    "vlp_attention_fwd_bhld_drop": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                    _LL, _LL, _LL, _I, _F, _ULL, _U, _F, _I,
+                                    _P],
+    "vlp_attention_bwd_bhld": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                               _I, _LL, _LL, _LL, _LL, _LL, _LL, _I, _F, _ULL,
+                               _U, _F, _I, _P],
     "vlp_dropout_mask": [_P, _I, _I, _I, _ULL, _U, _F, _P],
     "vlp_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                              _I, _I, _I, _LL, _I, _F, _I, _P],
@@ -96,6 +104,15 @@ KERNELS = {
     "decode_dropout_scales": Kernel(
         "decode_dropout_scales", "vlp_tpu_torch/csrc/decode_dropout.cu",
         "vlp_tpu/ops/decode_attention.py:237"),
+    "attention_fwd_bhld": Kernel(
+        "attention_fwd_bhld", "vlp_tpu_torch/csrc/attention_fwd.cu",
+        "vlp_tpu/ops/attention.py:95"),
+    "attention_fwd_bhld_drop": Kernel(
+        "attention_fwd_bhld_drop", "vlp_tpu_torch/csrc/attention_fwd.cu",
+        "vlp_tpu/ops/attention.py:110"),
+    "attention_bwd_bhld": Kernel(
+        "attention_bwd_bhld", "vlp_tpu_torch/csrc/attention_bwd.cu",
+        "vlp_tpu/ops/attention.py:155"),
 }
 
 

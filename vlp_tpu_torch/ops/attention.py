@@ -1,5 +1,8 @@
-"""Structurally-masked multi-head attention, ``[B, L, H, D]`` layout
-(counterpart of ``vlp_tpu/ops/attention.py``, ``layout="blhd"``).
+"""Structurally-masked multi-head attention (counterpart of
+``vlp_tpu/ops/attention.py``, ``attention_pallas`` :422) in both of its
+layouts: ``layout="blhd"`` (q/k/v ``[B, L, H, D]``, the projections' own
+layout, which every model call uses) and ``layout="bhld"``
+(``[B, H, L, D]``).  The output layout is the input's.
 
 * ``attention_plain`` — plain PyTorch with the reference math: fp32 scores
   ``Q K^T / sqrt(D)`` plus the additive -10000 mask built from
@@ -10,12 +13,17 @@
   kernel computes it (P recomputed, the dropout mask regenerated).
 * ``attention`` — the inference wrapper (decode prefill, encode).  For CPU
   tensors it takes ``attention_plain``; for CUDA tensors it launches
-  ``csrc/attention_fwd.cu`` (counterpart of ``_fwd_kernel_blhd``) or raises.
+  ``csrc/attention_fwd.cu`` (counterpart of ``_fwd_kernel_blhd``, or of
+  ``_fwd_kernel`` in bhld) or raises.
 * ``FusedAttention`` — the training ``torch.autograd.Function``
   (counterpart of ``_fused_attention``): forward K1 with dropout
-  (``attention_fwd_drop``), backward K2 (``csrc/attention_bwd.cu``,
-  counterpart of ``_bwd_kernel_blhd``), or their plain versions for CPU
-  tensors.  There is no fallback between a kernel and its plain version.
+  (``attention_fwd_drop``; ``attention_fwd_bhld_drop`` in bhld), backward
+  K2 (``csrc/attention_bwd.cu``, counterpart of ``_bwd_kernel_blhd``, or
+  ``_bwd_kernel`` in bhld), or their plain versions for CPU tensors.
+  There is no fallback between a kernel and its plain version, and no
+  layout becomes the other's kernel plus transposes: the bhld kernels
+  read and write ``[B, H, L, D]`` themselves.  The plain versions of bhld
+  are those of blhd on transposed views.
 * ``dropout_mask`` — the multipliers themselves (``csrc/dropout_mask.cu``),
   to hold the kernels' bits against ``philox.keep_scale`` on the card.
 
@@ -33,6 +41,19 @@ from vlp_tpu_torch.ops import _build, masks, philox
 from vlp_tpu_torch.ops.masks import NEG_INF
 
 HEAD_DIM = 64  # the only head width the kernels are built for
+LAYOUTS = ("blhd", "bhld")
+
+
+def _check_layout(layout: str) -> None:
+    if layout not in LAYOUTS:
+        raise ValueError(f"attention layout must be one of {LAYOUTS}, got "
+                         f"{layout!r}")
+
+
+def _swap(layout: str, *ts):
+    """bhld tensors as blhd views (and back): dims 1 and 2 swapped."""
+    _check_layout(layout)
+    return ts if layout == "blhd" else tuple(t.transpose(1, 2) for t in ts)
 
 
 def _mask_bias(mode, text_end, colkeep, prefix: int, L: int) -> torch.Tensor:
@@ -65,10 +86,16 @@ def _keep(q, dropout_rate: float, seed):
 
 
 def attention_plain(q, k, v, mode, text_end, colkeep, *, prefix: int,
-                    dropout_rate: float = 0.0, seed=None) -> torch.Tensor:
-    """q/k/v: [B, L, H, D]; mode/text_end: int[B]; colkeep: float[B, L];
-    seed: 64-bit int when ``dropout_rate > 0``.  Returns [B, L, H, D] in
-    q's dtype."""
+                    dropout_rate: float = 0.0, seed=None,
+                    layout: str = "blhd") -> torch.Tensor:
+    """q/k/v: [B, L, H, D] (``[B, H, L, D]`` in bhld); mode/text_end:
+    int[B]; colkeep: float[B, L]; seed: 64-bit int when
+    ``dropout_rate > 0``.  Returns q's layout and dtype."""
+    if layout != "blhd":
+        q, k, v = _swap(layout, q, k, v)
+        return attention_plain(q, k, v, mode, text_end, colkeep,
+                               prefix=prefix, dropout_rate=dropout_rate,
+                               seed=seed).transpose(1, 2)
     p = _probs(q, k, mode, text_end, colkeep, prefix)
     keep = _keep(q, dropout_rate, seed)
     if keep is not None:
@@ -78,11 +105,18 @@ def attention_plain(q, k, v, mode, text_end, colkeep, *, prefix: int,
 
 
 def attention_bwd_plain(q, k, v, mode, text_end, colkeep, dout, *,
-                        prefix: int, dropout_rate: float = 0.0, seed=None):
+                        prefix: int, dropout_rate: float = 0.0, seed=None,
+                        layout: str = "blhd"):
     """(dq, dk, dv) of ``attention_plain`` for the output gradient ``dout``,
-    each [B, L, H, D] in q's dtype.  fp32 throughout, as the TPU backward
+    each in q's layout and dtype.  fp32 throughout, as the TPU backward
     kernel: ``rowsum(dP o P)`` takes P without the keep mask and dP with
     it."""
+    if layout != "blhd":
+        grads = attention_bwd_plain(*_swap(layout, q, k, v), mode, text_end,
+                                    colkeep, dout.transpose(1, 2),
+                                    prefix=prefix, dropout_rate=dropout_rate,
+                                    seed=seed)
+        return tuple(g.transpose(1, 2) for g in grads)
     D = q.shape[-1]
     scale = 1.0 / math.sqrt(D)
     qf, kf, vf, dof = (t.float() for t in (q, k, v, dout))
@@ -99,25 +133,38 @@ def attention_bwd_plain(q, k, v, mode, text_end, colkeep, dout, *,
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
-def attention(q, k, v, mode, text_end, colkeep, *,
-              prefix: int) -> torch.Tensor:
+def attention(q, k, v, mode, text_end, colkeep, *, prefix: int,
+              layout: str = "blhd") -> torch.Tensor:
     """Fused attention forward without dropout; same contract as
     ``attention_plain``.  No backward on CUDA: training goes through
     ``FusedAttention``.
 
-    CUDA inputs: q/k/v bf16 or fp32 with identical strides, the (H, D)
-    dims packed (``x.view(B, L, H, D)`` of a projection output, any batch
-    and row stride); D == 64."""
+    CUDA inputs: q/k/v bf16 or fp32 with identical strides and D == 64.
+    In blhd the (H, D) dims are packed (``x.view(B, L, H, D)`` of a
+    projection output, any batch and row stride); in bhld any batch, head
+    and row strides with the last dim contiguous.  The output is
+    contiguous."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v, mode, text_end, colkeep,
-                               prefix=prefix)
-    return _forward_cuda(q, k, v, mode, text_end, colkeep, prefix)
+                               prefix=prefix, layout=layout)
+    return _forward_cuda(q, k, v, mode, text_end, colkeep, prefix,
+                         layout=layout)
 
 
-def _check_qkv(q, k, v, mode, text_end, colkeep, what):
+def _dims(q, layout):
+    """(B, L, H, D) of a q in ``layout``."""
+    if layout == "blhd":
+        B, L, H, D = q.shape
+    else:
+        B, H, L, D = q.shape
+    return B, L, H, D
+
+
+def _check_qkv(q, k, v, mode, text_end, colkeep, what, layout="blhd"):
+    _check_layout(layout)
     if q.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {q.device}")
-    B, L, H, D = q.shape
+    B, L, H, D = _dims(q, layout)
     if D != HEAD_DIM:
         raise ValueError(f"{what} kernel takes D == {HEAD_DIM}, got {D}")
     if q.dtype not in (torch.bfloat16, torch.float32):
@@ -127,7 +174,9 @@ def _check_qkv(q, k, v, mode, text_end, colkeep, what):
             raise ValueError(f"{what}: q, k, v differ in shape/dtype/device")
         if t.stride() != q.stride():
             raise ValueError(f"{what}: q, k, v must share strides")
-    if q.stride(3) != 1 or q.stride(2) != D:
+    if q.stride(3) != 1:
+        raise ValueError(f"{what}: the last dim must be contiguous")
+    if layout == "blhd" and q.stride(2) != D:
         raise ValueError(f"{what}: the (H, D) dims must be packed")
     if any(m.device != q.device for m in (mode, text_end, colkeep)):
         raise ValueError(f"{what}: mask metadata must be on q's device")
@@ -151,35 +200,36 @@ def _dropout_args(dropout_rate: float, seed):
 
 
 def _forward_cuda(q, k, v, mode, text_end, colkeep, prefix,
-                  dropout=None):
-    """K1; ``dropout`` = (rate, seed) selects the training entry point."""
-    what = "attention_fwd" if dropout is None else "attention_fwd_drop"
+                  dropout=None, layout="blhd"):
+    """K1 (``_fwd_kernel``'s counterpart in bhld); ``dropout`` = (rate,
+    seed) selects the training entry point."""
+    what = "attention_fwd" + ("_bhld" if layout == "bhld" else "") + (
+        "" if dropout is None else "_drop")
     mode, text_end, colkeep = _check_qkv(q, k, v, mode, text_end, colkeep,
-                                         what)
-    B, L, H, D = q.shape
-    out = torch.empty((B, L, H, D), dtype=q.dtype, device=q.device)
+                                         what, layout)
+    B, L, H, D = _dims(q, layout)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    strides = q.stride()[:3] if layout == "bhld" else q.stride()[:2]
     common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
               mode.data_ptr(), text_end.data_ptr(), colkeep.data_ptr(),
-              B, L, H, q.stride(0), q.stride(1), prefix, 1.0 / math.sqrt(D))
-    lib = _build.library()
-    if dropout is None:
-        err = lib.vlp_attention_fwd(*common, int(q.dtype == torch.bfloat16),
-                                    _build.stream_ptr(q.device))
-    else:
-        err = lib.vlp_attention_fwd_drop(
-            *common, *_dropout_args(*dropout),
-            int(q.dtype == torch.bfloat16), _build.stream_ptr(q.device))
+              B, L, H, *strides, prefix, 1.0 / math.sqrt(D))
+    drop = () if dropout is None else _dropout_args(*dropout)
+    err = getattr(_build.library(), "vlp_" + what)(
+        *common, *drop, int(q.dtype == torch.bfloat16),
+        _build.stream_ptr(q.device))
     _build.check(err, what)
     _build.KERNELS[what].launches += 1
     return out
 
 
 def _backward_cuda(q, k, v, mode, text_end, colkeep, dout, prefix, rate,
-                   seed):
-    """K2: (dq, dk, dv), each contiguous [B, L, H, D] in q's dtype."""
+                   seed, layout="blhd"):
+    """K2 (``_bwd_kernel``'s counterpart in bhld): (dq, dk, dv), each
+    contiguous in q's layout and dtype."""
+    what = "attention_bwd" + ("_bhld" if layout == "bhld" else "")
     mode, text_end, colkeep = _check_qkv(q, k, v, mode, text_end, colkeep,
-                                         "attention_bwd")
-    B, L, H, D = q.shape
+                                         what, layout)
+    B, L, H, D = _dims(q, layout)
     lib = _build.library()
     max_len = lib.vlp_attention_bwd_max_len()
     if L > max_len:
@@ -187,20 +237,21 @@ def _backward_cuda(q, k, v, mode, text_end, colkeep, dout, prefix, rate,
                          f"(its tiles must fit a block's shared memory), "
                          f"got {L}")
     if dout.shape != q.shape or dout.dtype != q.dtype:
-        raise ValueError("attention_bwd: dout differs from q in shape/dtype")
-    if dout.stride(3) != 1 or dout.stride(2) != D:
+        raise ValueError(f"{what}: dout differs from q in shape/dtype")
+    n = 3 if layout == "bhld" else 2   # the strides the entry point takes
+    if dout.stride(3) != 1 or (layout == "blhd" and dout.stride(2) != D):
         dout = dout.contiguous()
-    grads = [torch.empty((B, L, H, D), dtype=q.dtype, device=q.device)
+    grads = [torch.empty(q.shape, dtype=q.dtype, device=q.device)
              for _ in range(3)]
-    err = lib.vlp_attention_bwd(
+    err = getattr(lib, "vlp_" + what)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         *(g.data_ptr() for g in grads), mode.data_ptr(),
-        text_end.data_ptr(), colkeep.data_ptr(), B, L, H, q.stride(0),
-        q.stride(1), dout.stride(0), dout.stride(1), prefix,
-        1.0 / math.sqrt(D), *_dropout_args(rate, seed),
-        int(q.dtype == torch.bfloat16), _build.stream_ptr(q.device))
-    _build.check(err, "attention_bwd")
-    _build.KERNELS["attention_bwd"].launches += 1
+        text_end.data_ptr(), colkeep.data_ptr(), B, L, H, *q.stride()[:n],
+        *dout.stride()[:n], prefix, 1.0 / math.sqrt(D),
+        *_dropout_args(rate, seed), int(q.dtype == torch.bfloat16),
+        _build.stream_ptr(q.device))
+    _build.check(err, what)
+    _build.KERNELS[what].launches += 1
     return tuple(grads)
 
 
@@ -210,32 +261,34 @@ class FusedAttention(torch.autograd.Function):
     multipliers from ``seed``).
 
     ``FusedAttention.apply(q, k, v, mode, text_end, colkeep, prefix,
-    dropout_rate, seed)``; gradients flow to q, k and v only."""
+    dropout_rate, seed[, layout])``, ``layout`` "blhd" (the default, every
+    model call) or "bhld" (the bhld kernels); gradients flow to q, k and v
+    only.  The same seed draws the same multipliers in both layouts."""
 
     @staticmethod
     def forward(ctx, q, k, v, mode, text_end, colkeep, prefix, dropout_rate,
-                seed):
+                seed, layout="blhd"):
         ctx.save_for_backward(q, k, v, mode, text_end, colkeep)
-        ctx.args = (prefix, dropout_rate, seed)
+        ctx.args = (prefix, dropout_rate, seed, layout)
         if q.device.type == "cpu":
             return attention_plain(q, k, v, mode, text_end, colkeep,
                                    prefix=prefix, dropout_rate=dropout_rate,
-                                   seed=seed)
+                                   seed=seed, layout=layout)
         return _forward_cuda(q, k, v, mode, text_end, colkeep, prefix,
-                             dropout=(dropout_rate, seed))
+                             dropout=(dropout_rate, seed), layout=layout)
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, mode, text_end, colkeep = ctx.saved_tensors
-        prefix, rate, seed = ctx.args
+        prefix, rate, seed, layout = ctx.args
         if q.device.type == "cpu":
             dq, dk, dv = attention_bwd_plain(
                 q, k, v, mode, text_end, colkeep, dout, prefix=prefix,
-                dropout_rate=rate, seed=seed)
+                dropout_rate=rate, seed=seed, layout=layout)
         else:
             dq, dk, dv = _backward_cuda(q, k, v, mode, text_end, colkeep,
-                                        dout, prefix, rate, seed)
-        return dq, dk, dv, None, None, None, None, None, None
+                                        dout, prefix, rate, seed, layout)
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
 def dropout_mask(B: int, H: int, L: int, dropout_rate: float, seed,

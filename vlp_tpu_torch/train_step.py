@@ -21,15 +21,16 @@ from vlp_tpu_torch.ops.philox import step_seed
 from vlp_tpu_torch.optim import BertAdam
 
 
-def dummy_batch(cfg: VLPConfig, batch_size: int,
-                device="cpu") -> Dict[str, torch.Tensor]:
-    """An all-zero caption batch of the training shapes."""
+def dummy_batch(cfg: VLPConfig, batch_size: int, device="cpu",
+                task: str = "img2txt") -> Dict[str, torch.Tensor]:
+    """An all-zero batch of the training shapes; ``task="vqa2"`` adds the
+    answer scores ``ans_scores`` [B, num_answers]."""
     B, L, nv = batch_size, cfg.seq_len, cfg.len_vis_input
 
     def z(*shape, dtype=torch.int32):
         return torch.zeros(shape, dtype=dtype, device=device)
 
-    return dict(
+    b = dict(
         input_ids=z(B, L), segment_ids=z(B, L),
         mode=torch.ones((B,), dtype=torch.int32, device=device),
         text_end=torch.full((B,), cfg.prefix_len + 5, dtype=torch.int32,
@@ -43,6 +44,9 @@ def dummy_batch(cfg: VLPConfig, batch_size: int,
         vis_feats=z(B, nv, cfg.vis_feat_dim, dtype=torch.float32),
         vis_pe=z(B, nv, cfg.vis_pe_dim, dtype=torch.float32),
     )
+    if task == "vqa2":
+        b["ans_scores"] = z(B, cfg.num_answers, dtype=torch.float32)
+    return b
 
 
 def loss_fn(model: VLPModel, batch, seed: int, *, drop_worst_ratio: float,
