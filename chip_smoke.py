@@ -111,7 +111,8 @@ def compare(name, got, want, tol) -> float:
 
 
 def phase_kernels(dev, results):
-    """K1 (deterministic), K3 and K4 at the decoding path's shapes."""
+    """K1 (deterministic) at the decode prefill's and the VQA eval's shapes,
+    K3 and K4 at the decoding path's."""
     from vlp_tpu_torch.config import MODE_BI, MODE_S2S
     from vlp_tpu_torch.ops import attention as attn
     from vlp_tpu_torch.ops import decode_attention as dec
@@ -119,41 +120,56 @@ def phase_kernels(dev, results):
     g = torch.Generator(device=dev).manual_seed(0)
     H, D, P = 12, 64, 102
 
-    # ---- K1: prefill (s2s, text_end = L, colkeep 1) and an encode shape
-    def k1_inputs(B, L, dtype, prefill):
+    # ---- K1: the decode prefill (s2s, text_end = L, colkeep 1), an encode
+    # of mixed modes, and the VQA eval's bi-mode encode at B=VQA_B
+    def k1_inputs(B, L, dtype, kind):
         qkv = torch.randn(B, L, 3 * H * D, generator=g, device=dev).to(dtype)
         q, k, v = (t.view(B, L, H, D) for t in qkv.split(H * D, dim=-1))
-        if prefill:
+        if kind == "prefill":
             mode = torch.full((B,), MODE_S2S, device=dev)
             te = torch.full((B,), L, device=dev)
             ck = torch.ones(B, L, device=dev)
+            return q, k, v, mode, te, ck
+        if kind == "vqa":
+            mode = torch.full((B,), MODE_BI, device=dev)
         else:
             mode = torch.randint(MODE_BI, MODE_S2S + 1, (B,), generator=g,
                                  device=dev)
-            te = torch.randint(P + 1, L + 1, (B,), generator=g, device=dev)
-            ck = (torch.rand(B, L, generator=g, device=dev) > 0.1).float()
+        te = torch.randint(P + 1, L + 1, (B,), generator=g, device=dev)
+        ck = (torch.rand(B, L, generator=g, device=dev) > 0.1).float()
         return q, k, v, mode, te, ck
 
-    for label, L, prefill in (("prefill", P + 1, True),
-                              ("encode", 128, False)):
+    def k1_times(args, err):
+        """bf16 times of K1, its plain version and SDPA, and the bound."""
+        B, L = args[0].shape[:2]
+        return dict(
+            max_abs_err=err, ms=time_ms(lambda: attn.attention(*args,
+                                                               prefix=P)),
+            plain_ms=time_ms(lambda: attn.attention_plain(*args, prefix=P)),
+            library_ms=time_ms(lambda: sdpa(*args, P)),
+            **bound(4 * B * L * H * D * 2 + 8 * B + 4 * B * L,
+                    4 * B * H * L * L * D))
+
+    for label, B, L in (("prefill", 100, P + 1), ("encode", 100, 128),
+                        ("vqa", VQA_B, 128)):
+        errs = []
         for dtype, tol in ((torch.float32, FP32_TOL),
                            (torch.bfloat16, BF16_TOL)):
-            args = k1_inputs(100, L, dtype, prefill)
-            err = compare(f"K1 attention_fwd {label} B=100 L={L} {dtype}",
-                          attn.attention(*args, prefix=P),
-                          attn.attention_plain(*args, prefix=P), tol)
-            if prefill and dtype == torch.bfloat16:
-                ms = time_ms(lambda: attn.attention(*args, prefix=P))
-                plain_ms = time_ms(
-                    lambda: attn.attention_plain(*args, prefix=P))
-                log(f"K1 prefill bf16 time: kernel {ms:.4f} ms, plain "
-                    f"{plain_ms:.4f} ms")
-                B, L = 100, P + 1
-                results["attention_fwd"] = dict(
-                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                    library_ms=time_ms(lambda: sdpa(*args, P)),
-                    **bound(4 * B * L * H * D * 2 + 8 * B + 4 * B * L,
-                            4 * B * H * L * L * D))
+            args = k1_inputs(B, L, dtype, label)
+            errs.append(compare(
+                f"K1 attention_fwd {label} B={B} L={L} {dtype}",
+                attn.attention(*args, prefix=P),
+                attn.attention_plain(*args, prefix=P), tol))
+        if label == "encode":
+            continue
+        r = k1_times(args, max(errs))
+        log(f"K1 {label} bf16 B={B} L={L} time: kernel {r['ms']:.4f} ms, "
+            f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} "
+            f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        if label == "prefill":
+            results["attention_fwd"] = r
+        else:   # the VQA eval's shape, beside the prefill's
+            results["attention_fwd"]["vqa_encode"] = dict(B=B, L=L, **r)
 
     # ---- K3 (own beam) and K4 (ancestry bias): B = 100, P = 102, G = 24
     G = 24
@@ -1053,18 +1069,46 @@ def write_answer_vocab(path: str, n: int = 3129) -> str:
     return path
 
 
+def write_vqa_index(path: str, vocab_path: str, n: int, seed: int = 0,
+                    n_answers: int = 3129) -> str:
+    """A VQA imdb index (the ``.npy`` that ``load_vqa_index`` reads) of
+    ``n`` questions of 4-11 random vocabulary words, each with 10 human
+    answers drawn from three of the answer vocabulary's candidates, so
+    that every question has non-zero soft answer scores.  No feature file
+    goes with it: the train CLI then draws each image's features from its
+    synthetic store."""
+    from vlp_tpu_torch.cli.common import resolve_tokenizer
+    words = [w for w in resolve_tokenizer(vocab_path, False).vocab
+             if not w.startswith("[")]
+    rng = np.random.default_rng(seed)
+    recs = [{"has_answer": True}]
+    for i in range(n):
+        cands = [f"answer{j}" for j in rng.choice(np.arange(1, n_answers), 3,
+                                                  replace=False)]
+        recs.append(dict(
+            image_name=f"COCO_train2014_{i:012d}", feature_path=f"{i}.npy",
+            image_id=i, question_str=" ".join(
+                words[j] for j in rng.integers(0, len(words),
+                                               rng.integers(4, 12))),
+            answers=[cands[j] for j in rng.choice(3, 10, p=[0.6, 0.3, 0.1])]))
+    np.save(path, np.array(recs, dtype=object), allow_pickle=True)
+    return path
+
+
 def phase_vqa_main_path(vocab_path, answers_path, out_dir, gpu_line):
     """VQA 2.0 through the user's entry points at bert-base width, bf16:
-    ``cli.train --tasks vqa2`` (bi mode, B=64, VQA_STEPS steps, dropout
-    0.1; K1-dropout and K2 once per layer and step), then
-    ``cli.eval_vqa2`` on its model.1.bin over VQA_QUESTIONS synthetic
-    questions at B=256 (K1 once per layer and batch).  Returns the counts
-    of each run and the rates."""
+    ``cli.train --tasks vqa2`` on a VQA index with soft answer scores (bi
+    mode, B=64, VQA_STEPS steps, dropout 0.1; K1-dropout and K2 once per
+    layer and step), then ``cli.eval_vqa2`` on its model.1.bin over
+    VQA_QUESTIONS synthetic questions at B=256 (K1 once per layer and
+    batch).  Returns the counts of each run and the rates."""
     from vlp_tpu_torch.cli import eval_vqa2 as eval_cli
     from vlp_tpu_torch.cli import train as train_cli
     from vlp_tpu_torch.ops import _build
 
     out = os.path.join(out_dir, "vqa_train")
+    index = write_vqa_index(os.path.join(out_dir, "vqa_train.npy"),
+                            vocab_path, 64 * VQA_STEPS)
     flags = ["--new_segment_ids", "--enable_butd", "--bert_model",
              vocab_path, "--do_lower_case", "--answer_vocab_file",
              answers_path, "--device", "cuda"]
@@ -1072,7 +1116,7 @@ def phase_vqa_main_path(vocab_path, answers_path, out_dir, gpu_line):
     res = train_cli.main(flags + [
         "--do_train", "--tasks", "vqa2", "--s2s_prob", "0", "--bi_prob", "1",
         "--train_batch_size", "64", "--learning_rate", "3e-5",
-        "--num_train_epochs", "1", "--synthetic_data", "--steps_per_epoch",
+        "--num_train_epochs", "1", "--src_file", index, "--steps_per_epoch",
         str(VQA_STEPS), "--output_dir", out])
     torch.cuda.synchronize()
     train_counts = {k: v.launches for k, v in _build.KERNELS.items()}

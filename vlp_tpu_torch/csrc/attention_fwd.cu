@@ -207,57 +207,34 @@ vlp::Strides bhld_out(int L, int H) {
 
 extern "C" {
 
-// q/k/v: [B, L, H*64] with element strides sb (batch) and sl (row), the
-// last dimension contiguous; out: contiguous [B, L, H*64].  is_bf16 selects
-// bf16 (1) or fp32 (0).  Returns cudaGetLastError() after the launch.
+// Both branches: q/k/v [B, L, H*64] with element strides sb (batch) and sl
+// (row), the last dimension contiguous; out: contiguous [B, L, H*64].
+// Attention-prob dropout is keyed on the 64-bit seed (threshold =
+// uint32(rate * 2^32), keep_scale = 1 / (1 - rate)); threshold 0 is the
+// deterministic kernel.  is_bf16 selects bf16 (1) or fp32 (0).  Returns
+// cudaGetLastError() after the launch.
 int vlp_attention_fwd(const void* q, const void* k, const void* v, void* out,
                       const void* mode, const void* text_end,
                       const void* colkeep, int B, int L, int H, long long sb,
-                      long long sl, int prefix, float scale, int is_bf16,
-                      void* stream) {
-  return forward(q, k, v, out, mode, text_end, colkeep, B, L, H,
-                 blhd_in(sb, sl), blhd_out(L, H), prefix, scale,
-                 vlp::Dropout{0, 0, 1.f}, is_bf16, stream);
-}
-
-// The training forward: as vlp_attention_fwd, with attention-prob dropout
-// keyed on the 64-bit seed (threshold = uint32(rate * 2^32), keep_scale =
-// 1 / (1 - rate)).
-int vlp_attention_fwd_drop(const void* q, const void* k, const void* v,
-                           void* out, const void* mode, const void* text_end,
-                           const void* colkeep, int B, int L, int H,
-                           long long sb, long long sl, int prefix, float scale,
-                           unsigned long long seed, unsigned int threshold,
-                           float keep_scale, int is_bf16, void* stream) {
+                      long long sl, int prefix, float scale,
+                      unsigned long long seed, unsigned int threshold,
+                      float keep_scale, int is_bf16, void* stream) {
   return forward(q, k, v, out, mode, text_end, colkeep, B, L, H,
                  blhd_in(sb, sl), blhd_out(L, H), prefix, scale,
                  vlp::Dropout{seed, threshold, keep_scale}, is_bf16, stream);
 }
 
-// The bhld layout: q/k/v [B, H, L, 64] with element strides sb (batch), sh
-// (head) and sl (row), the last dimension contiguous; out: contiguous
-// [B, H, L, 64].  Otherwise as vlp_attention_fwd.
+// The bhld layout, both branches: q/k/v [B, H, L, 64] with element strides
+// sb (batch), sh (head) and sl (row), the last dimension contiguous; out:
+// contiguous [B, H, L, 64].  Otherwise as vlp_attention_fwd (the same
+// multipliers for the same seed).
 int vlp_attention_fwd_bhld(const void* q, const void* k, const void* v,
                            void* out, const void* mode, const void* text_end,
                            const void* colkeep, int B, int L, int H,
                            long long sb, long long sh, long long sl,
-                           int prefix, float scale, int is_bf16,
-                           void* stream) {
-  return forward(q, k, v, out, mode, text_end, colkeep, B, L, H,
-                 vlp::Strides{sb, sh, sl}, bhld_out(L, H), prefix, scale,
-                 vlp::Dropout{0, 0, 1.f}, is_bf16, stream);
-}
-
-// The bhld training forward: as vlp_attention_fwd_bhld, with dropout as in
-// vlp_attention_fwd_drop (the same multipliers for the same seed).
-int vlp_attention_fwd_bhld_drop(const void* q, const void* k, const void* v,
-                                void* out, const void* mode,
-                                const void* text_end, const void* colkeep,
-                                int B, int L, int H, long long sb,
-                                long long sh, long long sl, int prefix,
-                                float scale, unsigned long long seed,
-                                unsigned int threshold, float keep_scale,
-                                int is_bf16, void* stream) {
+                           int prefix, float scale, unsigned long long seed,
+                           unsigned int threshold, float keep_scale,
+                           int is_bf16, void* stream) {
   return forward(q, k, v, out, mode, text_end, colkeep, B, L, H,
                  vlp::Strides{sb, sh, sl}, bhld_out(L, H), prefix, scale,
                  vlp::Dropout{seed, threshold, keep_scale}, is_bf16, stream);

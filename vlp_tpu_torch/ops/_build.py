@@ -42,17 +42,12 @@ _F = ctypes.c_float
 # C entry point -> argument types (see the extern "C" functions in csrc/)
 _SIGNATURES = {
     "vlp_attention_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL,
-                          _I, _F, _I, _P],
-    "vlp_attention_fwd_drop": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _LL,
-                               _LL, _I, _F, _ULL, _U, _F, _I, _P],
+                          _I, _F, _ULL, _U, _F, _I, _P],
     "vlp_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                           _LL, _LL, _LL, _LL, _I, _F, _ULL, _U, _F, _I, _P],
     "vlp_attention_bwd_max_len": [],
     "vlp_attention_fwd_bhld": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _LL,
-                               _LL, _LL, _I, _F, _I, _P],
-    "vlp_attention_fwd_bhld_drop": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                    _LL, _LL, _LL, _I, _F, _ULL, _U, _F, _I,
-                                    _P],
+                               _LL, _LL, _I, _F, _ULL, _U, _F, _I, _P],
     "vlp_attention_bwd_bhld": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                _I, _LL, _LL, _LL, _LL, _LL, _LL, _I, _F, _ULL,
                                _U, _F, _I, _P],

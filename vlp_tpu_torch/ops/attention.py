@@ -202,9 +202,11 @@ def _dropout_args(dropout_rate: float, seed):
 def _forward_cuda(q, k, v, mode, text_end, colkeep, prefix,
                   dropout=None, layout="blhd"):
     """K1 (``_fwd_kernel``'s counterpart in bhld); ``dropout`` = (rate,
-    seed) selects the training entry point."""
-    what = "attention_fwd" + ("_bhld" if layout == "bhld" else "") + (
-        "" if dropout is None else "_drop")
+    seed) selects the training branch.  Each layout has one entry point
+    for both branches (rate 0 is the deterministic kernel); each branch
+    keeps its own launch count."""
+    entry = "attention_fwd" + ("_bhld" if layout == "bhld" else "")
+    what = entry + ("" if dropout is None else "_drop")
     mode, text_end, colkeep = _check_qkv(q, k, v, mode, text_end, colkeep,
                                          what, layout)
     B, L, H, D = _dims(q, layout)
@@ -213,10 +215,9 @@ def _forward_cuda(q, k, v, mode, text_end, colkeep, prefix,
     common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
               mode.data_ptr(), text_end.data_ptr(), colkeep.data_ptr(),
               B, L, H, *strides, prefix, 1.0 / math.sqrt(D))
-    drop = () if dropout is None else _dropout_args(*dropout)
-    err = getattr(_build.library(), "vlp_" + what)(
-        *common, *drop, int(q.dtype == torch.bfloat16),
-        _build.stream_ptr(q.device))
+    err = getattr(_build.library(), "vlp_" + entry)(
+        *common, *_dropout_args(*(dropout or (0.0, None))),
+        int(q.dtype == torch.bfloat16), _build.stream_ptr(q.device))
     _build.check(err, what)
     _build.KERNELS[what].launches += 1
     return out
