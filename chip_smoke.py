@@ -19,8 +19,10 @@ path launched its kernels.
 
 Prints one line per phase, then a JSON line with each kernel's launches,
 error against its plain version, times (kernel, plain version, the bound,
-one PyTorch library call where one exists), the card's ``nvidia-smi`` name
-and power limit, and as its last line ``{"ok": true, "device": {...}}``.
+one PyTorch library call where one exists: SDPA with its mask built in the
+call and prebuilt) and, for the attention kernels, the body the timed
+dtype runs, the card's ``nvidia-smi`` name and power limit, and as its
+last line ``{"ok": true, "device": {...}}``.
 Exits non-zero, printing no result, when there is no GPU or any phase
 fails.
 """
@@ -55,6 +57,12 @@ SCST_STEPS = 8               # main-path SCST CLI: steps of one epoch
 SCST_B, SCST_T = 64, 20      # the reference SCST recipe's 16x4 batch, T
 VQA_B, VQA_QUESTIONS = 256, 1024   # main-path VQA eval: batch, questions
 VQA_STEPS = 12               # main-path VQA fine-tune: steps at B=64
+
+
+def body(dtype) -> str:
+    """The attention kernel body a dtype runs: bf16 the tensor-core one,
+    fp32 the first version on the CUDA cores."""
+    return "v2 mma" if dtype == torch.bfloat16 else "v1 fp32"
 
 
 def log(msg: str) -> None:
@@ -125,9 +133,10 @@ def phase_kernels(dev, results):
     def k1_inputs(B, L, dtype, kind):
         qkv = torch.randn(B, L, 3 * H * D, generator=g, device=dev).to(dtype)
         q, k, v = (t.view(B, L, H, D) for t in qkv.split(H * D, dim=-1))
+        # int32 metadata, as the model passes it (no cast in the wrapper)
         if kind == "prefill":
-            mode = torch.full((B,), MODE_S2S, device=dev)
-            te = torch.full((B,), L, device=dev)
+            mode = torch.full((B,), MODE_S2S, dtype=torch.int32, device=dev)
+            te = torch.full((B,), L, dtype=torch.int32, device=dev)
             ck = torch.ones(B, L, device=dev)
             return q, k, v, mode, te, ck
         if kind == "vqa":
@@ -137,16 +146,20 @@ def phase_kernels(dev, results):
                                  device=dev)
         te = torch.randint(P + 1, L + 1, (B,), generator=g, device=dev)
         ck = (torch.rand(B, L, generator=g, device=dev) > 0.1).float()
-        return q, k, v, mode, te, ck
+        return q, k, v, mode.int(), te.int(), ck
 
     def k1_times(args, err):
-        """bf16 times of K1, its plain version and SDPA, and the bound."""
+        """bf16 times of K1, its plain version and SDPA (mask built in the
+        call, and prebuilt), and the bound."""
         B, L = args[0].shape[:2]
+        mask = sdpa_mask(args[0], *args[3:], P)
         return dict(
-            max_abs_err=err, ms=time_ms(lambda: attn.attention(*args,
-                                                               prefix=P)),
+            body=body(torch.bfloat16), max_abs_err=err,
+            ms=time_ms(lambda: attn.attention(*args, prefix=P)),
             plain_ms=time_ms(lambda: attn.attention_plain(*args, prefix=P)),
             library_ms=time_ms(lambda: sdpa(*args, P)),
+            library_prebuilt_mask_ms=time_ms(lambda: sdpa(*args, P,
+                                                          mask=mask)),
             **bound(4 * B * L * H * D * 2 + 8 * B + 4 * B * L,
                     4 * B * H * L * L * D))
 
@@ -157,15 +170,18 @@ def phase_kernels(dev, results):
                            (torch.bfloat16, BF16_TOL)):
             args = k1_inputs(B, L, dtype, label)
             errs.append(compare(
-                f"K1 attention_fwd {label} B={B} L={L} {dtype}",
+                f"K1 attention_fwd {label} B={B} L={L} {dtype} "
+                f"({body(dtype)})",
                 attn.attention(*args, prefix=P),
                 attn.attention_plain(*args, prefix=P), tol))
         if label == "encode":
             continue
         r = k1_times(args, max(errs))
-        log(f"K1 {label} bf16 B={B} L={L} time: kernel {r['ms']:.4f} ms, "
-            f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} "
-            f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        log(f"K1 {label} bf16 B={B} L={L} time ({r['body']}): kernel "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+            f"{r['library_ms']:.4f} ms (prebuilt mask "
+            f"{r['library_prebuilt_mask_ms']:.4f}), bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
         if label == "prefill":
             results["attention_fwd"] = r
         else:   # the VQA eval's shape, beside the prefill's
@@ -328,21 +344,30 @@ def phase_scst_kernels(dev, results):
             f"({r['bound_by']})")
 
 
+def sdpa_mask(q, mode, text_end, colkeep, prefix, layout="blhd"):
+    """SDPA's additive [B, 1, L, L] mask (-10000 where hidden) in q's
+    dtype."""
+    from vlp_tpu_torch.ops.attention import _mask_bias
+    L = q.shape[1 if layout == "blhd" else 2]
+    return _mask_bias(mode, text_end, colkeep, prefix, L)[:, None].to(q.dtype)
+
+
 def sdpa(q, k, v, mode, text_end, colkeep, prefix, dropout_p=0.0,
-         layout="blhd"):
+         layout="blhd", mask=None):
     """One PyTorch library call computing the same attention (additive
     -10000 mask), in and out in ``layout``: [B, L, H, D], or [B, H, L, D],
-    SDPA's own, with no transpose.  The yardstick of library_ms; the port
-    never calls it."""
+    SDPA's own, with no transpose.  The mask is built inside the call
+    unless ``mask`` (``sdpa_mask``) is given: library_ms times the former,
+    library_prebuilt_mask_ms the latter.  The port never calls it."""
     import torch.nn.functional as F
-    from vlp_tpu_torch.ops.attention import _mask_bias
+    if mask is None:
+        mask = sdpa_mask(q, mode, text_end, colkeep, prefix, layout)
     if layout == "blhd":
-        return sdpa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                    mode, text_end, colkeep, prefix, dropout_p,
-                    "bhld").transpose(1, 2)
-    bias = _mask_bias(mode, text_end, colkeep, prefix, q.shape[2])
-    return F.scaled_dot_product_attention(
-        q, k, v, attn_mask=bias[:, None].to(q.dtype), dropout_p=dropout_p)
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask, dropout_p=dropout_p).transpose(1, 2)
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                          dropout_p=dropout_p)
 
 
 def phase_train_kernels(dev, results):
@@ -367,7 +392,7 @@ def phase_train_kernels(dev, results):
         ck[:, 1:P - 1] = (torch.rand(B, P - 2, generator=g, device=dev)
                           > 0.3).float()
         dout = torch.randn(B, L, H, D, generator=g, device=dev).to(dtype)
-        return q, k, v, mode, te, ck, dout
+        return q, k, v, mode.int(), te.int(), ck, dout
 
     # the mask, bit for bit, and its keep fraction
     mask = attn.dropout_mask(B, H, L, rate, seed, dev)
@@ -396,7 +421,7 @@ def phase_train_kernels(dev, results):
                                      dropout=(r, seed))
             want = attn.attention_plain(q, k, v, mode, te, ck, prefix=P,
                                         dropout_rate=r, seed=seed)
-            tag = f"B={B} L={L} {dtype} rate={r}"
+            tag = f"B={B} L={L} {dtype} ({body(dtype)}) rate={r}"
             errs["attention_fwd_drop"] = max(
                 errs["attention_fwd_drop"],
                 compare(f"K1 attention_fwd_drop {tag}", fwd, want, tol))
@@ -414,18 +439,22 @@ def phase_train_kernels(dev, results):
     meta = 8 * B + 4 * B * L
     act = B * L * H * D * 2               # one bf16 [B, L, H*D] tensor
     pd = L * L * D * 2 * B * H            # FLOP of one L x L x D product
+    mask = sdpa_mask(q, mode, te, ck, P)
     fwd = dict(
-        max_abs_err=errs["attention_fwd_drop"],
+        body=body(torch.bfloat16), max_abs_err=errs["attention_fwd_drop"],
         ms=time_ms(lambda: attn._forward_cuda(q, k, v, mode, te, ck, P,
                                               dropout=(rate, seed))),
         plain_ms=time_ms(lambda: attn.attention_plain(
             q, k, v, mode, te, ck, prefix=P, dropout_rate=rate, seed=seed)),
         library_ms=time_ms(lambda: sdpa(q, k, v, mode, te, ck, P, rate)),
+        library_prebuilt_mask_ms=time_ms(lambda: sdpa(
+            q, k, v, mode, te, ck, P, rate, mask=mask)),
         **bound(4 * act + meta, 2 * pd))
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     lib_out = sdpa(*leaves, mode, te, ck, P, rate)
+    lib_out_pre = sdpa(*leaves, mode, te, ck, P, rate, mask=mask)
     bwd = dict(
-        max_abs_err=errs["attention_bwd"],
+        body=body(torch.bfloat16), max_abs_err=errs["attention_bwd"],
         ms=time_ms(lambda: attn._backward_cuda(q, k, v, mode, te, ck, dout,
                                                P, rate, seed)),
         plain_ms=time_ms(lambda: attn.attention_bwd_plain(
@@ -433,28 +462,39 @@ def phase_train_kernels(dev, results):
             seed=seed)),
         library_ms=time_ms(lambda: torch.autograd.grad(
             lib_out, leaves, dout, retain_graph=True)),
+        library_prebuilt_mask_ms=time_ms(lambda: torch.autograd.grad(
+            lib_out_pre, leaves, dout, retain_graph=True)),
         **bound(7 * act + meta, 5 * pd))
 
     def fused_step():
         out = attn.FusedAttention.apply(*leaves, mode, te, ck, P, rate, seed)
         return torch.autograd.grad(out, leaves, dout)
 
-    def library_step():
-        return torch.autograd.grad(sdpa(*leaves, mode, te, ck, P, rate),
-                                   leaves, dout)
+    def library_step(mask=None):
+        return torch.autograd.grad(
+            sdpa(*leaves, mode, te, ck, P, rate, mask=mask), leaves, dout)
 
-    fwd_bwd = dict(ms=time_ms(fused_step), library_ms=time_ms(library_step))
+    fwd_bwd = dict(ms=time_ms(fused_step), library_ms=time_ms(library_step),
+                   library_prebuilt_mask_ms=time_ms(
+                       lambda: library_step(mask)))
     bwd.update(fwd_bwd_ms=fwd_bwd["ms"],
-               library_fwd_bwd_ms=fwd_bwd["library_ms"])
+               library_fwd_bwd_ms=fwd_bwd["library_ms"],
+               library_prebuilt_mask_fwd_bwd_ms=fwd_bwd[
+                   "library_prebuilt_mask_ms"])
     results["attention_fwd_drop"] = fwd
     results["attention_bwd"] = bwd
     for name in ("attention_fwd_drop", "attention_bwd", "dropout_mask"):
         r = results[name]
-        log(f"{name} bf16 B={B} time: kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
-    log(f"K1+K2 fwd+bwd bf16: {fwd_bwd['ms']:.4f} ms; SDPA fwd+bwd "
-        f"{fwd_bwd['library_ms']:.4f} ms")
+        which = f" ({r['body']})" if "body" in r else ""
+        pre = r.get("library_prebuilt_mask_ms")
+        log(f"{name} bf16 B={B} time{which}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms"
+            + ("" if pre is None else f" (prebuilt mask {pre:.4f})")
+            + f", bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    log(f"K1+K2 fwd+bwd bf16 ({body(torch.bfloat16)}): "
+        f"{fwd_bwd['ms']:.4f} ms; SDPA fwd+bwd "
+        f"{fwd_bwd['library_ms']:.4f} ms (prebuilt mask "
+        f"{fwd_bwd['library_prebuilt_mask_ms']:.4f})")
 
 
 BHLD = ("attention_fwd_bhld", "attention_fwd_bhld_drop", "attention_bwd_bhld")
@@ -478,7 +518,7 @@ def bhld_inputs(g, dev, dtype, strided=False, B=64, L=128, H=12, P=102):
     ck[:, 1:P - 1] = (torch.rand(B, P - 2, generator=g, device=dev)
                       > 0.3).float()
     dout = torch.randn(B, H, L, D, generator=g, device=dev).to(dtype)
-    return q, k, v, mode, te, ck, dout
+    return q, k, v, mode.int(), te.int(), ck, dout
 
 
 def phase_bhld_kernels(dev, results):
@@ -502,7 +542,8 @@ def phase_bhld_kernels(dev, results):
     for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
         for strided in (False, True):
             q, k, v, mode, te, ck, dout = bhld_inputs(g, dev, dtype, strided)
-            tag = f"B={B} L={L} {dtype}{' strided' if strided else ''}"
+            tag = (f"B={B} L={L} {dtype} ({body(dtype)})"
+                   f"{' strided' if strided else ''}")
             track("attention_fwd_bhld", compare(
                 f"attention_fwd_bhld {tag}",
                 attn.attention(q, k, v, mode, te, ck, prefix=P,
@@ -562,27 +603,34 @@ def phase_bhld_kernels(dev, results):
     act = B * L * H * D * 2               # one bf16 [B, H, L, D] tensor
     pd = L * L * D * 2 * B * H            # FLOP of one L x L x D product
     kw = dict(prefix=P, layout="bhld")
+    mask = sdpa_mask(q, mode, te, ck, P, layout="bhld")
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     lib_out = sdpa(*leaves, mode, te, ck, P, rate, layout="bhld")
+    lib_out_pre = sdpa(*leaves, mode, te, ck, P, rate, layout="bhld",
+                       mask=mask)
     results["attention_fwd_bhld"] = dict(
-        max_abs_err=errs["attention_fwd_bhld"],
+        body=body(torch.bfloat16), max_abs_err=errs["attention_fwd_bhld"],
         ms=time_ms(lambda: attn.attention(q, k, v, mode, te, ck, **kw)),
         plain_ms=time_ms(lambda: attn.attention_plain(q, k, v, mode, te, ck,
                                                       **kw)),
         library_ms=time_ms(lambda: sdpa(q, k, v, mode, te, ck, P,
                                         layout="bhld")),
+        library_prebuilt_mask_ms=time_ms(lambda: sdpa(
+            q, k, v, mode, te, ck, P, layout="bhld", mask=mask)),
         **bound(4 * act + meta, 2 * pd))
     results["attention_fwd_bhld_drop"] = dict(
-        max_abs_err=errs["attention_fwd_bhld_drop"],
+        body=body(torch.bfloat16), max_abs_err=errs["attention_fwd_bhld_drop"],
         ms=time_ms(lambda: attn._forward_cuda(
             q, k, v, mode, te, ck, P, dropout=(rate, seed), layout="bhld")),
         plain_ms=time_ms(lambda: attn.attention_plain(
             q, k, v, mode, te, ck, dropout_rate=rate, seed=seed, **kw)),
         library_ms=time_ms(lambda: sdpa(q, k, v, mode, te, ck, P, rate,
                                         layout="bhld")),
+        library_prebuilt_mask_ms=time_ms(lambda: sdpa(
+            q, k, v, mode, te, ck, P, rate, layout="bhld", mask=mask)),
         **bound(4 * act + meta, 2 * pd))
     results["attention_bwd_bhld"] = dict(
-        max_abs_err=errs["attention_bwd_bhld"],
+        body=body(torch.bfloat16), max_abs_err=errs["attention_bwd_bhld"],
         ms=time_ms(lambda: attn._backward_cuda(q, k, v, mode, te, ck, dout,
                                                P, rate, seed, "bhld")),
         plain_ms=time_ms(lambda: attn.attention_bwd_plain(
@@ -590,12 +638,16 @@ def phase_bhld_kernels(dev, results):
             **kw)),
         library_ms=time_ms(lambda: torch.autograd.grad(
             lib_out, leaves, dout, retain_graph=True)),
+        library_prebuilt_mask_ms=time_ms(lambda: torch.autograd.grad(
+            lib_out_pre, leaves, dout, retain_graph=True)),
         **bound(7 * act + meta, 5 * pd))
     for name in BHLD:
         r = results[name]
-        log(f"{name} bf16 B={B} time: kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, SDPA (bhld) {r['library_ms']:.4f} ms, "
-            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        log(f"{name} bf16 B={B} time ({r['body']}): kernel {r['ms']:.4f} "
+            f"ms, plain {r['plain_ms']:.4f} ms, SDPA (bhld) "
+            f"{r['library_ms']:.4f} ms (prebuilt mask "
+            f"{r['library_prebuilt_mask_ms']:.4f}), bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
 
 
 def phase_bhld_main_path(dev):

@@ -122,6 +122,75 @@ def test_dropout_matches_jax_fed_the_port_mask(mode, rng):
     assert np.abs(other - out).max() > 1e-3
 
 
+BF16_TOL = dict(atol=3e-2, rtol=1e-2)  # chip_smoke.py's bf16 tolerance
+
+
+def _bf16_mma_backward(q, k, v, do, md, te, ck, keep, prefix):
+    """The CUDA tensor-core backward's arithmetic (csrc/attention_bwd.cu,
+    bf16 body): fp32 scores and softmax from bf16 inputs, P o keep and dS
+    rounded to bf16 before the products that take them, fp32 sums."""
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    p = tattn._probs(q, k, md, te, ck, prefix)
+    keep = torch.ones_like(p) if keep is None else keep
+    pk = (p * keep).bfloat16().float()
+    dp = torch.einsum("blhd,bmhd->bhlm", dof, vf) * keep
+    ds = (p * (dp - (dp * p).sum(-1, keepdim=True))).bfloat16().float()
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    dq = torch.einsum("bhlm,bmhd->blhd", ds, kf) * scale
+    dk = torch.einsum("bhlm,blhd->bmhd", ds, qf) * scale
+    dv = torch.einsum("bhlm,blhd->bmhd", pk, dof)
+    return [g.bfloat16() for g in (dq, dk, dv)]
+
+
+@jax.jit
+def _jax_bf16_bwd_fed_mask(q, k, v, do, bias, keep):
+    """The JAX backward kernel's math (vlp_tpu/ops/attention.py:214-242):
+    fp32 throughout from bf16 inputs, fed an explicit dropout mask."""
+    q, k, v, do = (x.astype(jnp.float32) for x in (q, k, v, do))
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    p = jax.nn.softmax(jnp.einsum("blhd,bmhd->bhlm", q, k) * scale + bias,
+                       axis=-1)
+    dv = jnp.einsum("bhlm,blhd->bmhd", p * keep, do)
+    dp = jnp.einsum("blhd,bmhd->bhlm", do, v) * keep
+    ds = p * (dp - jnp.sum(dp * p, axis=-1, keepdims=True))
+    dq = jnp.einsum("bhlm,bmhd->blhd", ds, k) * scale
+    dk = jnp.einsum("bhlm,blhd->bmhd", ds, q) * scale
+    return [g.astype(jnp.bfloat16) for g in (dq, dk, dv)]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_bf16_rounded_backward_fits_the_jax_bf16_backward(rate, rng):
+    """Go/no-go for the tensor-core backward's rounding at the training
+    width (D=64, L=128, mixed modes, zeros in colkeep): rounding P o keep
+    and dS to bf16 before their products stays within the bf16 tolerance
+    of JAX's bf16 backward (the Pallas kernel in interpret mode at rate 0;
+    its math fed the port's Philox mask at rate 0.1)."""
+    b, l, h, d, prefix, seed = 2, 128, 2, 64, 102, 0x5DEECE66D0123457
+    q, k, v, do = (torch.from_numpy(rng.normal(size=(b, l, h, d)).astype(
+        np.float32)).bfloat16() for _ in range(4))
+    md = np.asarray([1, 0], np.int32)
+    te = np.asarray([l, prefix + 9], np.int32)
+    ck = np.ones((b, l), np.float32)
+    ck[:, 1:prefix - 1] = rng.random((b, prefix - 2)) > 0.3
+    keep = philox.keep_scale(seed, b, h, l, rate) if rate else None
+    got = _bf16_mma_backward(q, k, v, do, *_torch(md, te, ck), keep, prefix)
+    jx = [jnp.asarray(t.float().numpy(), jnp.bfloat16) for t in (q, k, v, do)]
+    if rate:
+        bias = attention_bias(jnp.asarray(md), jnp.asarray(te),
+                              jnp.asarray(ck[:, 1:prefix - 1]), prefix, l)
+        want = _jax_bf16_bwd_fed_mask(*jx, bias, jnp.asarray(keep.numpy()))
+    else:
+        def f(q_, k_, v_):
+            return jattn.attention_pallas(q_, k_, v_, jnp.asarray(md),
+                                          jnp.asarray(te), jnp.asarray(ck),
+                                          prefix=prefix, layout="blhd")
+        want = jax.vjp(f, *jx[:3])[1](jx[3])
+    for g, w, which in zip(got, want, "qkv"):
+        np.testing.assert_allclose(
+            g.float().numpy(), np.asarray(w, np.float32), **BF16_TOL,
+            err_msg=f"d{which}")
+
+
 M0, M1, W0, W1 = 0xD2511F53, 0xCD9E8D57, 0x9E3779B9, 0xBB67AE85
 
 

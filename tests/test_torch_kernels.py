@@ -357,3 +357,113 @@ def test_bhld_wrappers_reject_what_the_kernels_do_not_take(cuda):
     y = torch.randn(2, 3, 16, 64, device=cuda)
     with pytest.raises(ValueError, match="layout"):
         attn.attention(y, y, y, one, one * 16, ck, prefix=4, layout="lbhd")
+
+
+def _check_fwd_bwd(q, k, v, mode, te, ck, dout, tol, rate, layout="blhd",
+                   prefix=102):
+    """Both forward branches and the backward through the wrappers against
+    their plain versions."""
+    seed = 0x243F6A8885A308D3
+    kw = dict(prefix=prefix, layout=layout)
+    det = attn.attention(q, k, v, mode, te, ck, **kw)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = attn.FusedAttention.apply(*leaves, mode, te, ck, prefix, rate, seed,
+                                    layout)
+    grads = torch.autograd.grad(out, leaves, dout)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        det.float(), attn.attention_plain(q, k, v, mode, te, ck,
+                                          **kw).float(), **tol)
+    torch.testing.assert_close(out.float(), attn.attention_plain(
+        q, k, v, mode, te, ck, dropout_rate=rate, seed=seed,
+        **kw).float(), **tol)
+    for got, exp in zip(grads, attn.attention_bwd_plain(
+            q, k, v, mode, te, ck, dout, dropout_rate=rate, seed=seed, **kw)):
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got.float(), exp.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("L", [103, 127])
+def test_ragged_lengths_match_plain(cuda, dtype, tol, rate, L):
+    """An L that is not a multiple of 16: the padded columns take no share
+    of the softmax and the padded rows are not stored."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    q, k, v, mode, te, ck = _train_inputs(g, cuda, dtype, B=4, L=L, H=3)
+    dout = torch.randn(q.shape, generator=g, device=cuda).to(dtype)
+    _check_fwd_bwd(q, k, v, mode, te, ck, dout, tol, rate)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_fully_masked_example_matches_plain(cuda, rate):
+    """A bi-mode example whose every column is dropped by colkeep: its rows
+    spread over the L real columns only (L = 103, so 9 padded ones).  The
+    bf16 body only: such a row's fp32 scores sit at -10000 + s, where one
+    fp32 ulp is ~1e-3, so a summation order other than the plain
+    version's moves P by ~1e-3 relative and the fp32 tolerance (1e-4)
+    does not hold for it even between two plain orders."""
+    dtype, tol = torch.bfloat16, BF16_TOL
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v, mode, te, ck = _train_inputs(g, cuda, dtype, B=4, L=103, H=2)
+    mode[1], te[1] = MODE_BI, 103
+    ck[1] = 0.0
+    dout = torch.randn(q.shape, generator=g, device=cuda).to(dtype)
+    _check_fwd_bwd(q, k, v, mode, te, ck, dout, tol, rate)
+    # the all-masked rows' P sums to 1 over the L real columns: P V = 1
+    # for V = 1 (the padded V rows are zeros)
+    q, k, v1 = (t.contiguous() for t in (q, k, torch.ones_like(v)))
+    out = attn.attention(q, k, v1, mode, te, ck, prefix=102)
+    torch.testing.assert_close(out[1].float(), torch.ones_like(out[1]).float(),
+                               **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("L", [256, 417])
+def test_long_forward_matches_plain(cuda, dtype, tol, rate, L):
+    """Lengths past one 128-column chunk, up to the first version's limit
+    (417): the bf16 body's two passes (row max and sum, then P V)."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    q, k, v, mode, te, ck = _train_inputs(g, cuda, dtype, B=2, L=L, H=2)
+    te = torch.randint(103, L + 1, (2,), generator=g, device=cuda)
+    seed = 0x13198A2E03707344
+    got = attn._forward_cuda(q, k, v, mode, te, ck, 102, dropout=(rate, seed))
+    want = attn.attention_plain(q, k, v, mode, te, ck, prefix=102,
+                                dropout_rate=rate, seed=seed)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_backward_at_its_max_len_matches_plain(cuda, dtype, tol):
+    L = _build.library().vlp_attention_bwd_max_len(
+        int(dtype == torch.bfloat16))
+    assert L >= 134      # the first version's limit
+    g = torch.Generator(device=cuda).manual_seed(9)
+    q, k, v, mode, te, ck = _train_inputs(g, cuda, dtype, B=2, L=L, H=2)
+    te = torch.randint(103, L + 1, (2,), generator=g, device=cuda)
+    dout = torch.randn(q.shape, generator=g, device=cuda).to(dtype)
+    _check_fwd_bwd(q, k, v, mode, te, ck, dout, tol, 0.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("pad", [1, 2, 4], ids=["align2", "align4", "align8"])
+def test_bhld_unaligned_strides_match_plain(cuda, dtype, tol, pad):
+    """bhld q/k/v/dout whose row stride (and, for q, base) is not 16-byte
+    aligned: the kernels stage with narrower copies and still agree."""
+    g = torch.Generator(device=cuda).manual_seed(10)
+    B, H, L, D = 4, 3, 128, 64
+    qkv = torch.randn(B, H, L, 3 * D + pad, generator=g,
+                      device=cuda).to(dtype)
+    q, k, v = (qkv[..., pad + i * D:pad + (i + 1) * D] if i == 0 else
+               qkv[..., i * D:(i + 1) * D] for i in range(3))
+    dout = torch.randn(B, H, L, D + pad, generator=g,
+                       device=cuda).to(dtype)[..., :D]
+    _, _, _, mode, te, ck = _train_inputs(g, cuda, dtype, B=B, L=L, H=1)
+    _check_fwd_bwd(q, k, v, mode, te, ck, dout, tol, 0.1, layout="bhld")

@@ -12,52 +12,81 @@
 // accumulated in fp32.  The backward kernel (attention_bwd.cu) regenerates
 // the same multipliers from the same seed.  In blhd, Q/K/V are read
 // straight off the projections (heads are column slices of the row), so no
-// head transpose exists; in bhld each head is its own L x D block.  One
-// kernel body serves both: it addresses its operands only through
-// vlp::Strides, and the output layout is the input's.
+// head transpose exists; in bhld each head is its own L x D block.  Each
+// body addresses its operands only through vlp::Strides, so it serves both
+// layouts, and the output layout is the input's.
 //
-// What bounds it on an H100: at the decode prefill (B=100, L=103, H=12,
-// D=64) one call moves ~63 MB (q, k, v in, out back, bf16) — ~19 us at
-// 3.35 TB/s — and does 3.3 GFLOP; at the training shape (B=64, L=128) it
-// moves ~50 MB (~15 us) and does 3.2 GFLOP, plus L/4 Philox draws per
-// row in the dropout branch.  This first version computes both
-// products on the CUDA cores in fp32 (no wgmma yet), so it is bound by
-// FMA issue and shared-memory reads, not by HBM: each block stages its
-// head's K and V once in shared memory (fp32, K rows padded to D+1 words
-// so the 32 lanes of a warp hit 32 banks), and each warp then serves whole
-// query rows from them with its query row held in registers.  In bhld a
-// head's K (or V) tile is one contiguous L*D block (16 KB in bf16), so its
-// staging could be fully coalesced 16-byte loads (TMA, or cp.async); the
-// element-wise staging below is shared with blhd, whose rows are 128-byte
-// runs, and is left for the kernel's later, faster version.
+// Two bodies, chosen by dtype (never by a failure):
+// * bf16, every main path: attention_fwd_mma, on the tensor cores.  One
+//   block per (example, head) stages the head's Q, K and V once in shared
+//   memory with 16-byte cp.async (narrower copies when a base pointer or
+//   stride is not 16-byte aligned), rows padded to 72 bf16 so ldmatrix
+//   reads are conflict-free; K arrives in the first copy group, V in the
+//   second, so S is computed while V lands.  Each warp owns 16 query rows:
+//   S = Q K^T by mma.m16n8k16 (bf16 in, fp32 out) into registers (64 fp32
+//   a thread for 128 columns), the mask and the softmax in registers (quad
+//   shuffles for the row max and sum), the keep multipliers drawn per lane
+//   pair (vlp::keep_frag, the bits of keep_scale4), P rounded to bf16 and
+//   reused as the A operand of P V with no trip through shared memory
+//   (ldmatrix.trans gives V's fragments).  The order of the rounding is the
+//   TPU kernel's: P normalized in fp32, times keep, then cast; no online
+//   rescaling of an unnormalized P.  Padded columns of a ragged L are
+//   excluded (not given -10000), padded rows are never stored.  For L > 128
+//   a warp makes two passes over 128-column chunks: the row max and sum,
+//   then S again, P, keep, rounding and P V.
+// * fp32: attention_fwd_fp32, the first version on the CUDA cores (fp32
+//   FMAs), which the card-vs-CPU fp32 gates need: tensor cores give neither
+//   fp32 nor its exact products.  Each block stages its head's K and V in
+//   fp32 shared memory (K rows padded to D+1 words), each warp serves whole
+//   query rows with its query row in registers.
 //
-// Layout: grid = (B*H, ceil(L / kRowsPerBlock)), kWarps warps per block,
-// one warp per query row.  Lane j owns key columns j, j+32, ...; the
-// reductions are warp shuffles.  D is fixed at 64 (every config in the
-// repository); the wrapper rejects anything else.
+// What bounds it on an H100: at the VQA eval shape (B=256, L=128, H=12,
+// D=64, bf16) one call reads q, k, v and writes out, ~201 MB (60 us at
+// 3.35 TB/s), against 12.9 GFLOP (13 us at 989 TFLOP/s); at the decode
+// prefill (B=100, L=103) ~63 MB (19 us); at the training shape (B=64,
+// L=128) ~50 MB (15 us), plus L/4 Philox draws per row in the dropout
+// branch.  So the bf16 body would be bound by bytes once its products run
+// on the tensor cores and each tile is staged once with 16-byte copies;
+// two blocks (2 x 56 KB of shared memory at L=128, at most 128 registers
+// a thread by the launch bounds) share an SM so that one block's loads
+// overlap the other's math.  It reaches about half the HBM rate
+// (PERF.md): a block's phases (stage, S, softmax, P V, store) run in
+// turn, and 16 warps per SM do not hide all of their latency; the Philox
+// draws (10 rounds of 32-bit multiplies per 4 columns) add ~40% in the
+// dropout branch.  Registers and spills: `-Xptxas -v` in the build log
+// (chip_smoke.py prints it).
+//
+// Layout (bf16): grid = B*H, min(8, ceil(L/16)) warps per block.  D is
+// fixed at 64 (every config in the repository); the wrapper rejects
+// anything else.
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
-constexpr int D = 64;
+constexpr int D = vlp::kHeadDim;
+using bf16 = __nv_bfloat16;
+
+// ---- fp32: the first version, on the CUDA cores
+
 constexpr int kWarps = 8;
 constexpr int kRowsPerBlock = 32;
 
-size_t smem_bytes(int L) {
+size_t smem_bytes_fp32(int L) {
   return sizeof(float) *
          (size_t(L) * (D + 1) + size_t(L) * D + L + kWarps * D + kWarps * L);
 }
 
-template <typename T, bool kDrop>
+template <bool kDrop>
 __global__ void __launch_bounds__(kWarps * 32)
-    attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, T* __restrict__ out,
-                         const int* __restrict__ mode,
-                         const int* __restrict__ text_end,
-                         const float* __restrict__ colkeep, int L, int H,
-                         vlp::Strides in, vlp::Strides os, int prefix,
-                         float scale, vlp::Dropout dp) {
+    attention_fwd_fp32(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ out,
+                       const int* __restrict__ mode,
+                       const int* __restrict__ text_end,
+                       const float* __restrict__ colkeep, int L, int H,
+                       vlp::Strides in, vlp::Strides os, int prefix,
+                       float scale, vlp::Dropout dp) {
   extern __shared__ float smem[];
   float* ks = smem;                  // [L][D+1]
   float* vs = ks + L * (D + 1);      // [L][D]
@@ -73,8 +102,8 @@ __global__ void __launch_bounds__(kWarps * 32)
 
   for (int idx = threadIdx.x; idx < L * D; idx += blockDim.x) {
     const int j = idx / D, d = idx % D;
-    ks[j * (D + 1) + d] = vlp::to_f(k[in_base + j * sl + d]);
-    vs[j * D + d] = vlp::to_f(v[in_base + j * sl + d]);
+    ks[j * (D + 1) + d] = k[in_base + j * sl + d];
+    vs[j * D + d] = v[in_base + j * sl + d];
   }
   for (int j = threadIdx.x; j < L; j += blockDim.x)
     colok[j] = colkeep[(long long)b * L + j] > 0.5f ? 1.f : 0.f;
@@ -87,7 +116,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   const int row_end = min(L, (int)(blockIdx.y + 1) * kRowsPerBlock);
 
   for (int i = blockIdx.y * kRowsPerBlock + warp; i < row_end; i += kWarps) {
-    for (int d = lane; d < D; d += 32) qw[d] = vlp::to_f(q[in_base + i * sl + d]);
+    for (int d = lane; d < D; d += 32) qw[d] = q[in_base + i * sl + d];
     __syncwarp();
     float qr[D];
 #pragma unroll
@@ -124,38 +153,277 @@ __global__ void __launch_bounds__(kWarps * 32)
         float mult[4];
         vlp::keep_scale4(dp, b, h, i, c, mult);
         for (int w = 0; w < 4 && 4 * c + w < L; ++w)
-          pw[4 * c + w] = vlp::round_to<T>(pw[4 * c + w] * mult[w]);
+          pw[4 * c + w] = pw[4 * c + w] * mult[w];
       }
     } else {
-      for (int j = lane; j < L; j += 32)
-        pw[j] = vlp::round_to<T>(pw[j] / sum);
+      for (int j = lane; j < L; j += 32) pw[j] = pw[j] / sum;
     }
     __syncwarp();
 
     for (int d = lane; d < D; d += 32) {
       float acc = 0.f;
       for (int j = 0; j < L; ++j) acc = fmaf(pw[j], vs[j * D + d], acc);
-      out[out_base + (long long)i * os.l + d] = vlp::from_f<T>(acc);
+      out[out_base + (long long)i * os.l + d] = acc;
     }
     __syncwarp();
   }
 }
 
-template <typename T, bool kDrop>
-int launch(const void* q, const void* k, const void* v, void* out,
-           const int* mode, const int* text_end, const float* colkeep, int B,
-           int L, int H, vlp::Strides in, vlp::Strides os, int prefix,
-           float scale, vlp::Dropout dp, cudaStream_t stream) {
-  const size_t smem = smem_bytes(L);
+// ---- bf16: on the tensor cores
+
+constexpr int kMaxWarps = 8;
+constexpr int kChunk = 128;          // key columns a warp holds in registers
+constexpr int kNT = kChunk / 8;      // n8 tiles of a chunk
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Columns of the per-column mask bias: Lp rounded up to whole chunks.
+__host__ __device__ int bias_cols(int Lp) {
+  return (Lp + kChunk - 1) / kChunk * kChunk;
+}
+
+size_t smem_bytes_mma(int Lp) {
+  return 3 * size_t(Lp) * vlp::kTileStride * sizeof(bf16) +
+         size_t(bias_cols(Lp)) * sizeof(float);
+}
+
+struct FwdTiles {
+  const bf16* q;  // [Lp][kTileStride] each, in shared memory
+  const bf16* k;
+  const bf16* v;
+  const float* colbias;  // vlp::mask_bias's column bias, -inf past L
+};
+
+// s = the masked, scaled scores of query rows r0..r0+15 against key columns
+// c0..c0+127: a lane holds columns c0 + 8n + 2t (+1) of rows r0 + g
+// (limit lim[0]) and r0 + g + 8 (lim[1]).  Columns past L are -inf, so
+// they take no part in the max and sum.
+__device__ __forceinline__ void scores(float (&s)[kNT][4], const FwdTiles& t,
+                                       int r0, int c0, int Lp, int lane,
+                                       const int (&lim)[2], float scale) {
+  vlp::mma_abt<kNT>(s, t.q, t.k, r0, c0, Lp, lane);
+  const int j0 = c0 + 2 * (lane & 3);
+#pragma unroll
+  for (int n = 0; n < kNT; ++n) {
+    const float2 cb =
+        *reinterpret_cast<const float2*>(t.colbias + j0 + n * 8);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int j = j0 + n * 8 + (e & 1);
+      const float bias = vlp::mask_bias(e & 1 ? cb.y : cb.x, j, lim[e >> 1]);
+      s[n][e] = __fadd_rn(__fmul_rn(s[n][e], scale), bias);
+    }
+  }
+}
+
+// The row max (h = 0: row g, 1: row g + 8) of s, over the quad.
+__device__ __forceinline__ void row_max(const float (&s)[kNT][4],
+                                        float (&m)[2]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float x = -CUDART_INF_F;
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+      x = fmaxf(x, fmaxf(s[n][2 * h], s[n][2 * h + 1]));
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+    m[h] = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+  }
+}
+
+// s = exp(s - m) in place; returns the row sums over the quad.
+__device__ __forceinline__ void exp_rows(float (&s)[kNT][4],
+                                         const float (&m)[2],
+                                         float (&sum)[2]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float x = 0.f;
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int e = 2 * h; e < 2 * h + 2; ++e) {
+        s[n][e] = exp2f((s[n][e] - m[h]) * kLog2e);
+        x += s[n][e];
+      }
+    x += __shfl_xor_sync(0xffffffffu, x, 1);
+    sum[h] = x + __shfl_xor_sync(0xffffffffu, x, 2);
+  }
+}
+
+// o += bf16(p o keep) V over key columns c0..c0+127, p the normalized
+// probabilities in s's layout.
+template <bool kDrop>
+__device__ __forceinline__ void pv(float (&o)[D / 8][4], float (&p)[kNT][4],
+                                   const FwdTiles& t, int c0, int L, int Lp,
+                                   int lane, int b, int h, int i0,
+                                   const vlp::Dropout& dp) {
+  if constexpr (kDrop) {
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) {
+      if (c0 + n * 8 < L) {
+        float mult[4];
+        vlp::keep_frag(dp, b, h, i0, c0 + n * 8, lane, mult);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) p[n][e] *= mult[e];
+      }
+    }
+  }
+#pragma unroll
+  for (int kk = 0; kk < kNT / 2; ++kk) {
+    const int k0 = c0 + kk * 16;
+    if (k0 >= Lp) continue;
+    const uint32_t a[4] = {
+        vlp::pack_bf16(p[2 * kk][0], p[2 * kk][1]),
+        vlp::pack_bf16(p[2 * kk][2], p[2 * kk][3]),
+        vlp::pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
+        vlp::pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
+#pragma unroll
+    for (int np = 0; np < D / 16; ++np) {
+      uint32_t bv[4];
+      vlp::ldsm_x4_t(bv, t.v + (k0 + (lane & 15)) * vlp::kTileStride +
+                             np * 16 + (lane >> 4) * 8);
+      vlp::mma_bf16(o[2 * np], a, bv[0], bv[1]);
+      vlp::mma_bf16(o[2 * np + 1], a, bv[2], bv[3]);
+    }
+  }
+}
+
+// kLong: L > 128, two passes over 128-column chunks per 16-row tile, the
+// 8 warps of a block taking the tiles in turn; otherwise one chunk and one
+// tile per warp.
+template <bool kDrop, bool kLong>
+__global__ void __launch_bounds__(kMaxWarps * 32, 2)
+    attention_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, bf16* __restrict__ out,
+                      const int* __restrict__ mode,
+                      const int* __restrict__ text_end,
+                      const float* __restrict__ colkeep, int L, int H,
+                      vlp::Strides in, vlp::Strides os, int prefix,
+                      float scale, vlp::Dropout dp, int align) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int Lp = (L + 15) & ~15;
+  bf16* sq = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sk = sq + Lp * vlp::kTileStride;
+  bf16* sv = sk + Lp * vlp::kTileStride;
+  float* colbias = reinterpret_cast<float*>(sv + Lp * vlp::kTileStride);
+
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x % H;
+  const long long in_base = b * in.b + h * in.h;
+  vlp::stage_rows(sq, q + in_base, in.l, L, Lp, align);
+  vlp::stage_rows(sk, k + in_base, in.l, L, Lp, align);
+  vlp::cp_async_commit();
+  vlp::stage_rows(sv, v + in_base, in.l, L, Lp, align);
+  vlp::cp_async_commit();
+  for (int j = threadIdx.x; j < bias_cols(Lp); j += blockDim.x)
+    colbias[j] = j >= L ? -CUDART_INF_F
+                 : colkeep[(long long)b * L + j] > 0.5f ? 0.f
+                                                        : vlp::kNegInf;
+
+  const FwdTiles t{sq, sk, sv, colbias};
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2;
+  const int md = mode[b], te = text_end[b];
+  const long long out_base = b * os.b + h * os.h;
+  float s[kNT][4], m[2], sum[2];
+
+  if constexpr (!kLong) {
+    // S while V is still arriving
+    vlp::cp_async_wait<1>();
+    __syncthreads();
+    const int r0 = warp * 16;
+    const int lim[2] = {vlp::row_limit(md, te, prefix, r0 + g),
+                        vlp::row_limit(md, te, prefix, r0 + g + 8)};
+    scores(s, t, r0, 0, Lp, lane, lim, scale);
+    row_max(s, m);
+    exp_rows(s, m, sum);
+    const float inv[2] = {1.f / sum[0], 1.f / sum[1]};
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] *= inv[e >> 1];
+    vlp::cp_async_wait<0>();
+    __syncthreads();
+    float o[D / 8][4] = {};
+    pv<kDrop>(o, s, t, 0, L, Lp, lane, b, h, r0 + g, dp);
+    vlp::store_rows(out + out_base, os.l, o, r0, L, lane, 1.f);
+  } else {
+    vlp::cp_async_wait<0>();
+    __syncthreads();
+    for (int r0 = warp * 16; r0 < Lp; r0 += kMaxWarps * 16) {
+      const int lim[2] = {vlp::row_limit(md, te, prefix, r0 + g),
+                          vlp::row_limit(md, te, prefix, r0 + g + 8)};
+      // pass 1: the row max and sum over 128-column chunks
+      m[0] = m[1] = -CUDART_INF_F;
+      sum[0] = sum[1] = 0.f;
+      for (int c0 = 0; c0 < Lp; c0 += kChunk) {
+        float cm[2], cs[2];
+        scores(s, t, r0, c0, Lp, lane, lim, scale);
+        row_max(s, cm);
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) cm[hh] = fmaxf(cm[hh], m[hh]);
+        exp_rows(s, cm, cs);
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          sum[hh] = sum[hh] * exp2f((m[hh] - cm[hh]) * kLog2e) + cs[hh];
+          m[hh] = cm[hh];
+        }
+      }
+      const float inv[2] = {1.f / sum[0], 1.f / sum[1]};
+      // pass 2: S again, P, keep, rounding and P V
+      float o[D / 8][4] = {};
+      for (int c0 = 0; c0 < Lp; c0 += kChunk) {
+        scores(s, t, r0, c0, Lp, lane, lim, scale);
+#pragma unroll
+        for (int n = 0; n < kNT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[n][e] = exp2f((s[n][e] - m[e >> 1]) * kLog2e) * inv[e >> 1];
+        pv<kDrop>(o, s, t, c0, L, Lp, lane, b, h, r0 + g, dp);
+      }
+      vlp::store_rows(out + out_base, os.l, o, r0, L, lane, 1.f);
+    }
+  }
+}
+
+template <bool kDrop>
+int launch_fp32(const void* q, const void* k, const void* v, void* out,
+                const int* mode, const int* text_end, const float* colkeep,
+                int B, int L, int H, vlp::Strides in, vlp::Strides os,
+                int prefix, float scale, vlp::Dropout dp,
+                cudaStream_t stream) {
+  const size_t smem = smem_bytes_fp32(L);
+  if (smem > (size_t)vlp::kMaxSmemBytes) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      attention_fwd_kernel<T, kDrop>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      attention_fwd_fp32<kDrop>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(B * H, (L + kRowsPerBlock - 1) / kRowsPerBlock);
-  attention_fwd_kernel<T, kDrop><<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), mode, text_end, colkeep,
-      L, H, in, os, prefix, scale, dp);
+  attention_fwd_fp32<kDrop><<<grid, kWarps * 32, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), mode, text_end,
+      colkeep, L, H, in, os, prefix, scale, dp);
+  return (int)cudaGetLastError();
+}
+
+template <bool kDrop>
+int launch_mma(const void* q, const void* k, const void* v, void* out,
+               const int* mode, const int* text_end, const float* colkeep,
+               int B, int L, int H, vlp::Strides in, vlp::Strides os,
+               int prefix, float scale, vlp::Dropout dp, cudaStream_t stream) {
+  const int Lp = (L + 15) & ~15;
+  const size_t smem = smem_bytes_mma(Lp);
+  if (smem > (size_t)vlp::kMaxSmemBytes) return (int)cudaErrorInvalidValue;
+  const int align = vlp::common_alignment(
+      {(unsigned long long)q, (unsigned long long)k, (unsigned long long)v,
+       2ull * in.b, 2ull * in.h, 2ull * in.l});
+  auto kernel = Lp <= kChunk ? attention_fwd_mma<kDrop, false>
+                             : attention_fwd_mma<kDrop, true>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<B * H, 32 * (Lp <= kChunk ? Lp / 16 : kMaxWarps), smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), mode, text_end,
+      colkeep, L, H, in, os, prefix, scale, dp, align);
   return (int)cudaGetLastError();
 }
 
@@ -165,18 +433,16 @@ int dispatch(const void* q, const void* k, const void* v, void* out,
              int B, int L, int H, vlp::Strides in, vlp::Strides os,
              int prefix, float scale, vlp::Dropout dp, int is_bf16,
              void* stream) {
-  if (B <= 0 || L <= 0 || H <= 0 ||
-      smem_bytes(L) > (size_t)vlp::kMaxSmemBytes)
-    return (int)cudaErrorInvalidValue;
+  if (B <= 0 || L <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   auto md = static_cast<const int*>(mode);
   auto te = static_cast<const int*>(text_end);
   auto ck = static_cast<const float*>(colkeep);
   if (is_bf16)
-    return launch<__nv_bfloat16, kDrop>(q, k, v, out, md, te, ck, B, L, H, in,
-                                        os, prefix, scale, dp, s);
-  return launch<float, kDrop>(q, k, v, out, md, te, ck, B, L, H, in, os,
-                              prefix, scale, dp, s);
+    return launch_mma<kDrop>(q, k, v, out, md, te, ck, B, L, H, in, os,
+                             prefix, scale, dp, s);
+  return launch_fp32<kDrop>(q, k, v, out, md, te, ck, B, L, H, in, os,
+                            prefix, scale, dp, s);
 }
 
 // Both branches behind one entry: threshold 0 (rate 0) keeps every element
@@ -211,8 +477,8 @@ extern "C" {
 // (row), the last dimension contiguous; out: contiguous [B, L, H*64].
 // Attention-prob dropout is keyed on the 64-bit seed (threshold =
 // uint32(rate * 2^32), keep_scale = 1 / (1 - rate)); threshold 0 is the
-// deterministic kernel.  is_bf16 selects bf16 (1) or fp32 (0).  Returns
-// cudaGetLastError() after the launch.
+// deterministic kernel.  is_bf16 selects the bf16 tensor-core body (1) or
+// the fp32 body (0).  Returns cudaGetLastError() after the launch.
 int vlp_attention_fwd(const void* q, const void* k, const void* v, void* out,
                       const void* mode, const void* text_end,
                       const void* colkeep, int B, int L, int H, long long sb,

@@ -1,6 +1,8 @@
-// Helpers shared by the attention kernels: dtype conversion, the rounding
-// of probabilities to the activation dtype, warp reductions, and the
-// Philox generator of the attention-dropout bits.
+// Helpers shared by the attention kernels: the structural mask as a row
+// limit and a column bias, dtype conversion, the rounding of probabilities
+// to the activation dtype, warp reductions, and the Philox generator of
+// the attention-dropout bits (per block of 4 columns, per column, and per
+// lane of an mma tile).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -12,6 +14,23 @@ namespace vlp {
 constexpr float kNegInf = -10000.0f;  // the reference's additive mask value
 constexpr int kModeS2S = 1;           // vlp_tpu_torch/config.py MODE_S2S
 constexpr int kMaxSmemBytes = 232448; // per-block opt-in limit on sm_90
+
+// The structural mask (attention.py:_mask_bias) of query row i as a column
+// limit: s2s rows see the prefix, and caption rows (i < text_end) causally
+// up to i; bi rows every column before text_end.  Column j of row i is
+// visible iff j <= row_limit(...) and colkeep[j].
+__device__ __forceinline__ int row_limit(int mode, int text_end, int prefix,
+                                         int i) {
+  return mode == kModeS2S ? max(prefix - 1, i < text_end ? i : -1)
+                          : text_end - 1;
+}
+
+// The additive mask of column j in a row of limit `limit`, from the
+// column's own bias: 0 (kept), kNegInf (dropped by colkeep) or -inf (past
+// L: excluded from the softmax, not masked).
+__device__ __forceinline__ float mask_bias(float colbias, int j, int limit) {
+  return j <= limit ? colbias : fminf(colbias, kNegInf);
+}
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -107,6 +126,30 @@ __device__ __forceinline__ float keep_scale1(const Dropout& dp, int b, int h,
   const int r = j & 3;
   const unsigned int x = r == 0 ? w.x : r == 1 ? w.y : r == 2 ? w.z : w.w;
   return x >= dp.threshold ? dp.scale : 0.f;
+}
+
+// The multipliers of one lane's four elements of an mma accumulator tile
+// (mma.cuh): columns c0 + 2t, c0 + 2t + 1 (t = lane % 4, c0 a multiple of
+// 8) of rows i and i + 8.  Both columns lie in counter block c0/4 + t/2, at
+// words 2(t%2) and 2(t%2)+1, which lane t^1 needs too, so each lane pair
+// draws once per row: the even lane row i, the odd lane row i + 8, and
+// they swap the two words the other needs.  The bits are keep_scale4's.
+// Every lane of the warp must call it (it shuffles).
+__device__ __forceinline__ void keep_frag(const Dropout& dp, int b, int h,
+                                          int i, int c0, int lane,
+                                          float out[4]) {
+  const int t = lane & 3;
+  const bool odd = t & 1;
+  const uint4 w = philox4x32_10(
+      make_uint4((unsigned)((c0 >> 2) + (t >> 1)), (unsigned)(odd ? i + 8 : i),
+                 (unsigned)h, (unsigned)b),
+      dp.seed);
+  const unsigned r0 = __shfl_xor_sync(0xffffffffu, odd ? w.x : w.z, 1);
+  const unsigned r1 = __shfl_xor_sync(0xffffffffu, odd ? w.y : w.w, 1);
+  const unsigned x[4] = {odd ? r0 : w.x, odd ? r1 : w.y, odd ? w.z : r0,
+                         odd ? w.w : r1};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) out[e] = x[e] >= dp.threshold ? dp.scale : 0.f;
 }
 
 }  // namespace vlp

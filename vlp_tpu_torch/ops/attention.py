@@ -24,6 +24,12 @@ layout, which every model call uses) and ``layout="bhld"``
   layout becomes the other's kernel plus transposes: the bhld kernels
   read and write ``[B, H, L, D]`` themselves.  The plain versions of bhld
   are those of blhd on transposed views.
+* The dtype picks the kernel body, in both layouts and both directions:
+  bf16 (every main path) runs the tensor-core bodies (``mma.sync`` on
+  tiles staged with ``cp.async``; the backward rounds P o keep and dS to
+  bf16 before their products), fp32 the first versions on the CUDA cores
+  (fp32 FMAs, which the card-vs-CPU fp32 checks rest on).  Nothing falls
+  back from one body to the other.
 * ``dropout_mask`` — the multipliers themselves (``csrc/dropout_mask.cu``),
   to hold the kernels' bits against ``philox.keep_scale`` on the card.
 
@@ -139,11 +145,13 @@ def attention(q, k, v, mode, text_end, colkeep, *, prefix: int,
     ``attention_plain``.  No backward on CUDA: training goes through
     ``FusedAttention``.
 
-    CUDA inputs: q/k/v bf16 or fp32 with identical strides and D == 64.
-    In blhd the (H, D) dims are packed (``x.view(B, L, H, D)`` of a
-    projection output, any batch and row stride); in bhld any batch, head
-    and row strides with the last dim contiguous.  The output is
-    contiguous."""
+    CUDA inputs: q/k/v bf16 (the tensor-core body) or fp32 (the CUDA-core
+    body) with identical strides and D == 64.  In blhd the (H, D) dims are
+    packed (``x.view(B, L, H, D)`` of a projection output, any batch and
+    row stride); in bhld any batch, head and row strides with the last dim
+    contiguous.  Base pointers or strides that are not 16-byte aligned
+    are taken too: the kernel then stages with narrower copies.  The
+    output is contiguous."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v, mode, text_end, colkeep,
                                prefix=prefix, layout=layout)
@@ -232,11 +240,10 @@ def _backward_cuda(q, k, v, mode, text_end, colkeep, dout, prefix, rate,
                                          what, layout)
     B, L, H, D = _dims(q, layout)
     lib = _build.library()
-    max_len = lib.vlp_attention_bwd_max_len()
+    max_len = lib.vlp_attention_bwd_max_len(int(q.dtype == torch.bfloat16))
     if L > max_len:
-        raise ValueError(f"attention_bwd kernel takes L <= {max_len} "
-                         f"(its tiles must fit a block's shared memory), "
-                         f"got {L}")
+        raise ValueError(f"attention_bwd kernel takes L <= {max_len} in "
+                         f"{q.dtype} (its tiles must fit a block), got {L}")
     if dout.shape != q.shape or dout.dtype != q.dtype:
         raise ValueError(f"{what}: dout differs from q in shape/dtype")
     n = 3 if layout == "bhld" else 2   # the strides the entry point takes
