@@ -57,6 +57,7 @@ SCST_STEPS = 8               # main-path SCST CLI: steps of one epoch
 SCST_B, SCST_T = 64, 20      # the reference SCST recipe's 16x4 batch, T
 VQA_B, VQA_QUESTIONS = 256, 1024   # main-path VQA eval: batch, questions
 VQA_STEPS = 12               # main-path VQA fine-tune: steps at B=64
+DECODE_GEN_LENS = (0, 9, 18)   # decode steps timed: first, middle, last
 
 
 def body(dtype) -> str:
@@ -213,7 +214,8 @@ def phase_kernels(dev, results):
         for dtype, tol in ((torch.float32, FP32_TOL),
                            (torch.bfloat16, BF16_TOL)):
             errs = []
-            for gen_len in (0, 7, 18):
+            # gen_len 23: the step's second new token falls past slot G-1
+            for gen_len in DECODE_GEN_LENS + (23,):
                 q, k, v, pk, pv, gk, gv = dec_inputs(100, K, dtype)
                 bias = anc_bias(100, K, gen_len) if anc else None
                 gk2, gv2 = gk.clone(), gv.clone()
@@ -224,34 +226,76 @@ def phase_kernels(dev, results):
                     beam_bias=bias)
                 errs.append(compare(
                     f"{'K4' if anc else 'K3'} {name} B=100 K={K} "
-                    f"gen_len={gen_len} {dtype}", got, want, tol))
+                    f"gen_len={gen_len} {dtype} ({body(dtype)})", got, want,
+                    tol))
                 if not (torch.equal(gk, gk2) and torch.equal(gv, gv2)):
                     fail(f"{name}: generated-cache writes not bit-exact")
             log(f"{name} K={K} {dtype}: cache writes bit-exact")
             # time at the main path's shape: greedy K3 (K=1), beam K4 (K=5)
             if dtype == torch.bfloat16 and (anc or K == 1):
-                step = (lambda: dec.decode_attention(
-                    q, k, v, pk, pv, gk, gv, gen_len, n_heads=H,
-                    beam_bias=bias))
-                plain = (lambda: dec.decode_attention_plain(
-                    q, k, v, pk, pv, gk2, gv2, gen_len, n_heads=H,
-                    beam_bias=bias))
-                ms, plain_ms = time_ms(step), time_ms(plain)
-                log(f"{name} K={K} bf16 time: kernel {ms:.4f} ms, plain "
-                    f"{plain_ms:.4f} ms")
-                # q/k/v/out of the S=2 new rows, the prompt K/V once per
-                # example, the visible generated slots of all K beams (K4
-                # reads every beam of its example), the new K/V written,
-                # and the ancestry bias
-                BK, S, vis = 100 * K, 2, gen_len + 2
-                nbytes = (4 * BK * S * H * D * 2 + 2 * 100 * P * H * D * 2
-                          + 2 * BK * vis * H * D * 2 + 2 * BK * S * H * D * 2
-                          + (BK * K * G * 4 if anc else 0))
-                cols = P + (K * vis if anc else vis)
-                results[name] = dict(
-                    max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                    library_ms=None,
-                    **bound(nbytes, 4 * BK * S * H * cols * D))
+                results[name] = decode_times(
+                    dec, lambda: dec_inputs(100, K, dtype),
+                    (lambda gl: anc_bias(100, K, gl)) if anc else None,
+                    max(errs), name)
+
+
+def decode_times(dec, make_inputs, bias_for, err, name, drop_seed=None,
+                 rate=0.0):
+    """bf16 times of one decode-step kernel (K3, K4 or K5) at each of
+    DECODE_GEN_LENS: the kernel, its plain version, SDPA over the joint
+    keys (``decode_sdpa``: joint K/V and mask built in the call, and
+    prebuilt) and the bound, which counts the visible slots only: q/k/v/out
+    of the S new rows, the prompt K/V once per example, each beam's
+    visible generated K/V once (and, for K4, the ancestry bias of the
+    visible columns), the new K/V written.  The row's own numbers are the last
+    step's; ``batch_mean`` is the mean over the timed steps, the per-batch
+    figure.  SDPA writes no cache slots and draws its own dropout bits
+    (K5): a time bar only."""
+    from vlp_tpu_torch.ops import _build
+    per = {}
+    for gen_len in DECODE_GEN_LENS:
+        q, k, v, pk, pv, gk, gv = make_inputs()
+        bias = bias_for(gen_len) if bias_for else None
+        BK, S, HD = q.shape
+        B, P, _ = pk.shape
+        G, K, H = gk.shape[1], BK // pk.shape[0], HD // 64
+        kw = dict(n_heads=H, beam_bias=bias, drop_seed=drop_seed,
+                  drop_rate=rate)
+        parts = decode_sdpa_parts(q, pk, pv, gk, gv, gen_len, H, bias)
+        before = _build.KERNELS[name].launches
+        dec.decode_attention(q, k, v, pk, pv, gk, gv, gen_len, **kw)
+        if _build.KERNELS[name].launches != before + 1:
+            fail(f"{name}: the timed call is not this kernel")
+        vis = min(G, gen_len + S)
+        cols = P + (K * vis if bias is not None else vis)
+        nbytes = (4 * BK * S * HD * 2 + 2 * B * P * HD * 2
+                  + 2 * BK * vis * HD * 2 + 2 * BK * S * HD * 2
+                  + (BK * K * vis * 4 if bias is not None else 0))
+        per[gen_len] = dict(
+            ms=time_ms(lambda: dec.decode_attention(
+                q, k, v, pk, pv, gk, gv, gen_len, **kw)),
+            plain_ms=time_ms(lambda: dec.decode_attention_plain(
+                q, k, v, pk, pv, gk, gv, gen_len, **kw)),
+            library_ms=time_ms(lambda: decode_sdpa(
+                q, pk, pv, gk, gv, gen_len, H, bias, rate)),
+            library_prebuilt_mask_ms=time_ms(lambda: decode_sdpa(
+                q, pk, pv, gk, gv, gen_len, H, bias, rate, parts=parts)),
+            **bound(nbytes, 4 * BK * S * H * cols * 64))
+        r = per[gen_len]
+        log(f"{name} B={B} K={K} gen_len={gen_len} bf16 time "
+            f"({body(torch.bfloat16)}): kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms "
+            f"(joint K/V and mask prebuilt {r['library_prebuilt_mask_ms']:.4f})"
+            f", bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    keys = ("ms", "plain_ms", "library_ms", "library_prebuilt_mask_ms",
+            "bound_ms")
+    mean = {key: statistics.mean(per[gl][key] for gl in DECODE_GEN_LENS)
+            for key in keys}
+    log(f"{name} mean over gen_len {DECODE_GEN_LENS}: " + ", ".join(
+        f"{key} {val:.4f}" for key, val in mean.items()))
+    return dict(body=body(torch.bfloat16), max_abs_err=err,
+                gen_len=DECODE_GEN_LENS[-1], **per[DECODE_GEN_LENS[-1]],
+                batch_mean=mean, per_gen_len=per)
 
 
 def phase_scst_kernels(dev, results):
@@ -292,7 +336,7 @@ def phase_scst_kernels(dev, results):
 
     errs = []
     for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
-        for t, gen_len in enumerate((0, 9, 18)):
+        for t, gen_len in enumerate(DECODE_GEN_LENS + (23,)):
             ops = inputs(dtype)
             copies = [x.clone() for x in ops[5:]]
             got = dec.decode_attention(*ops, gen_len, n_heads=H,
@@ -300,7 +344,7 @@ def phase_scst_kernels(dev, results):
             want = dec.decode_attention_plain(*ops[:5], *copies, gen_len,
                                               n_heads=H, drop_seed=seeds[t],
                                               drop_rate=rate)
-            tag = f"B={B} gen_len={gen_len} {dtype}"
+            tag = f"B={B} gen_len={gen_len} {dtype} ({body(dtype)})"
             errs.append(compare(f"K5 decode_attention_drop {tag}", got, want,
                                 tol))
             if not (torch.equal(ops[5], copies[0])
@@ -312,21 +356,9 @@ def phase_scst_kernels(dev, results):
                 *ops[:5], *[x.clone() for x in copies], gen_len, n_heads=H,
                 drop_mult=mult)
             compare(f"K5 vs K3 x K6 {tag}", got, k3x6, tol)
-    # times at the main path's shape, bf16, a late step (gen_len 18)
-    ops = inputs(torch.bfloat16)
-    gen_len, vis = 18, 20
-    k5 = dict(
-        max_abs_err=max(errs),
-        ms=time_ms(lambda: dec.decode_attention(
-            *ops, gen_len, n_heads=H, drop_seed=seeds[0], drop_rate=rate)),
-        plain_ms=time_ms(lambda: dec.decode_attention_plain(
-            *ops, gen_len, n_heads=H, drop_seed=seeds[0], drop_rate=rate)),
-        library_ms=None,
-        # q/k/v/out rows, the prompt K/V, the visible generated slots, the
-        # new K/V written
-        **bound(4 * B * S * H * D * 2 + 2 * B * P * H * D * 2
-                + 2 * B * vis * H * D * 2 + 2 * B * S * H * D * 2,
-                4 * B * S * H * (P + vis) * D))
+    # times at the main path's shape, bf16, at the timed steps
+    k5 = decode_times(dec, lambda: inputs(torch.bfloat16), None, max(errs),
+                      "decode_attention_drop", drop_seed=seeds[0], rate=rate)
     k6 = dict(
         max_abs_err=0.0,
         ms=time_ms(lambda: dec.decode_dropout_scales(
@@ -337,11 +369,9 @@ def phase_scst_kernels(dev, results):
         library_ms=None, **bound(W * B * H * S * (P + G) * 4, 0))
     results["decode_attention_drop"] = k5
     results["decode_dropout_scales"] = k6
-    for name in ("decode_attention_drop", "decode_dropout_scales"):
-        r = results[name]
-        log(f"{name} bf16 B={B} time: kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']})")
+    log(f"decode_dropout_scales B={B} time: kernel {k6['ms']:.4f} ms, plain "
+        f"{k6['plain_ms']:.4f} ms, bound {k6['bound_ms']:.4f} ms "
+        f"({k6['bound_by']})")
 
 
 def sdpa_mask(q, mode, text_end, colkeep, prefix, layout="blhd"):
@@ -370,11 +400,103 @@ def sdpa(q, k, v, mode, text_end, colkeep, prefix, dropout_p=0.0,
                                           dropout_p=dropout_p)
 
 
+def decode_sdpa_parts(q, pk, pv, gk, gv, gen_len, n_heads, beam_bias=None):
+    """(q, keys, values, additive mask) with which one
+    ``F.scaled_dot_product_attention`` call computes decode step
+    ``gen_len`` of ``decode_attention_plain`` over caches that already hold
+    the step's new tokens: with ``beam_bias`` (K4) q as [B, H, K*S, D]
+    against the example's joint keys cat(prompt, all K beams' slots)
+    [B, H, P+K*G, D] under a [B, 1, K*S, P+K*G] mask (0 / -10000
+    visibility, slot <= gen_len + s, plus the ancestry bias), nothing
+    expanded; without (K3, K5) q as [B*K, H, S, D] against cat(prompt
+    repeated over the K beams, the beam's own slots) under a
+    [1, 1, S, P+G] mask.  The mask is in q's dtype."""
+    from vlp_tpu_torch.ops.masks import NEG_INF
+    BK, S, HD = q.shape
+    B, P, _ = pk.shape
+    G = gk.shape[1]
+    K, H = BK // B, n_heads
+    D = HD // H
+    zeros = torch.zeros((S, P), device=q.device)
+    vis = torch.full((S, G), NEG_INF, device=q.device).masked_fill(
+        torch.arange(G, device=q.device)[None, :]
+        <= gen_len + torch.arange(S, device=q.device)[:, None], 0.0)
+
+    def heads(x):
+        return x.view(x.shape[0], x.shape[1], H, D).transpose(1, 2)
+
+    if beam_bias is None:
+        pkx, pvx = ((x if K == 1 else x.repeat_interleave(K, dim=0))
+                    for x in (pk, pv))
+        keys, vals = torch.cat([pkx, gk], 1), torch.cat([pvx, gv], 1)
+        mask = torch.cat([zeros, vis], 1)[None, None]
+        return heads(q), heads(keys), heads(vals), mask.to(q.dtype)
+    keys = torch.cat([pk, gk.view(B, K * G, HD)], 1)
+    vals = torch.cat([pv, gv.view(B, K * G, HD)], 1)
+    gen = vis.repeat(1, K) + beam_bias.view(B, K, 1, K * G)
+    mask = torch.cat([zeros.expand(B, K, S, P), gen], -1)
+    return (q.view(B, K * S, H, D).transpose(1, 2), heads(keys),
+            heads(vals), mask.view(B, 1, K * S, P + K * G).to(q.dtype))
+
+
+def decode_sdpa(q, pk, pv, gk, gv, gen_len, n_heads, beam_bias=None,
+                dropout_p=0.0, parts=None):
+    """One decode step as one PyTorch library call (``decode_sdpa_parts``,
+    built in the call unless ``parts`` hands them in); the context
+    [B*K, S, H*D].  It writes no cache slots.  The port never calls it."""
+    import torch.nn.functional as F
+    qh, kh, vh, mask = parts or decode_sdpa_parts(q, pk, pv, gk, gv, gen_len,
+                                                  n_heads, beam_bias)
+    out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                         dropout_p=dropout_p)
+    return out.transpose(1, 2).reshape(q.shape)
+
+
+def phase_long_backward(attn, inputs, B, H, D, P, seed, rate, L=256):
+    """K2 in bf16 past the one-block body's L <= 144: the key-chunked body
+    at B=64, L=256 (any --max_len_b >= 26 with 100 regions rounds the
+    training length up to 256), rate 0.1, against its plain version, then
+    its time beside SDPA's backward (mask built in the forward, and
+    prebuilt) and the bound."""
+    q, k, v, mode, te, ck, dout = inputs(torch.bfloat16, L)
+    got = attn._backward_cuda(q, k, v, mode, te, ck, dout, P, rate, seed)
+    want = attn.attention_bwd_plain(q, k, v, mode, te, ck, dout, prefix=P,
+                                    dropout_rate=rate, seed=seed)
+    err = max(compare(f"K2 attention_bwd {name} B={B} L={L} bf16 "
+                      f"({body(torch.bfloat16)}, key-chunked) rate={rate}",
+                      a, b_, BF16_TOL)
+              for name, a, b_ in zip(("dq", "dk", "dv"), got, want))
+    mask = sdpa_mask(q, mode, te, ck, P)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    lib_out = sdpa(*leaves, mode, te, ck, P, rate)
+    lib_out_pre = sdpa(*leaves, mode, te, ck, P, rate, mask=mask)
+    act = B * L * H * D * 2
+    r = dict(
+        B=B, L=L, max_abs_err=err,
+        ms=time_ms(lambda: attn._backward_cuda(q, k, v, mode, te, ck, dout,
+                                               P, rate, seed)),
+        plain_ms=time_ms(lambda: attn.attention_bwd_plain(
+            q, k, v, mode, te, ck, dout, prefix=P, dropout_rate=rate,
+            seed=seed)),
+        library_ms=time_ms(lambda: torch.autograd.grad(
+            lib_out, leaves, dout, retain_graph=True)),
+        library_prebuilt_mask_ms=time_ms(lambda: torch.autograd.grad(
+            lib_out_pre, leaves, dout, retain_graph=True)),
+        **bound(7 * act + 8 * B + 4 * B * L, 5 * L * L * D * 2 * B * H))
+    log(f"attention_bwd bf16 B={B} L={L} time (key-chunked): kernel "
+        f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, SDPA backward "
+        f"{r['library_ms']:.4f} ms (prebuilt mask "
+        f"{r['library_prebuilt_mask_ms']:.4f}), bound {r['bound_ms']:.4f} "
+        f"ms ({r['bound_by']})")
+    return r
+
+
 def phase_train_kernels(dev, results):
     """K1's dropout branch, K2 and dropout_mask at the training shape
     (B=64, L=128, H=12, D=64): fp32 and bf16, mixed modes, zeros in
     colkeep, rate 0 and 0.1, each against its plain version; the mask bit
-    for bit.  Times in bf16 at rate 0.1."""
+    for bit.  Times in bf16 at rate 0.1, and K2 at L=256 beside them
+    (``phase_long_backward``)."""
     from vlp_tpu_torch.config import MODE_BI, MODE_S2S
     from vlp_tpu_torch.ops import attention as attn
     from vlp_tpu_torch.ops import philox
@@ -383,7 +505,7 @@ def phase_train_kernels(dev, results):
     B, L, H, D, P = 64, 128, 12, 64, 102
     seed, rate = 0x5DEECE66D0123457, 0.1
 
-    def inputs(dtype):
+    def inputs(dtype, L=L):
         qkv = torch.randn(B, L, 3 * H * D, generator=g, device=dev).to(dtype)
         q, k, v = (t.view(B, L, H, D) for t in qkv.split(H * D, dim=-1))
         mode = torch.tensor([MODE_S2S, MODE_BI] * (B // 2), device=dev)
@@ -481,6 +603,7 @@ def phase_train_kernels(dev, results):
                library_fwd_bwd_ms=fwd_bwd["library_ms"],
                library_prebuilt_mask_fwd_bwd_ms=fwd_bwd[
                    "library_prebuilt_mask_ms"])
+    bwd["long"] = phase_long_backward(attn, inputs, B, H, D, P, seed, rate)
     results["attention_fwd_drop"] = fwd
     results["attention_bwd"] = bwd
     for name in ("attention_fwd_drop", "attention_bwd", "dropout_mask"):

@@ -159,13 +159,16 @@ def _jax_bf16_bwd_fed_mask(q, k, v, do, bias, keep):
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-def test_bf16_rounded_backward_fits_the_jax_bf16_backward(rate, rng):
+@pytest.mark.parametrize("l", [128, 256])
+def test_bf16_rounded_backward_fits_the_jax_bf16_backward(l, rate, rng):
     """Go/no-go for the tensor-core backward's rounding at the training
-    width (D=64, L=128, mixed modes, zeros in colkeep): rounding P o keep
-    and dS to bf16 before their products stays within the bf16 tolerance
-    of JAX's bf16 backward (the Pallas kernel in interpret mode at rate 0;
-    its math fed the port's Philox mask at rate 0.1)."""
-    b, l, h, d, prefix, seed = 2, 128, 2, 64, 102, 0x5DEECE66D0123457
+    width (D=64, mixed modes, zeros in colkeep), at L=128 (the one-block
+    body) and L=256 (the key-chunked body, whose softmax sums over more
+    columns): rounding P o keep and dS to bf16 before their products stays
+    within the bf16 tolerance of JAX's bf16 backward (the Pallas kernel in
+    interpret mode at rate 0; its math fed the port's Philox mask at rate
+    0.1)."""
+    b, h, d, prefix, seed = 2, 2, 64, 102, 0x5DEECE66D0123457
     q, k, v, do = (torch.from_numpy(rng.normal(size=(b, l, h, d)).astype(
         np.float32)).bfloat16() for _ in range(4))
     md = np.asarray([1, 0], np.int32)

@@ -167,6 +167,68 @@ def test_decode_dropout_kernel_matches_plain(cuda, dtype, tol):
     assert _build.KERNELS["decode_attention"].launches == before + 1
 
 
+def _decode_inputs(g, dev, dtype, B, K, S, P, G, H):
+    def r(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+    q, k, v = (r(B * K, S, H * 64) for _ in range(3))
+    pk, pv = (r(B, P + 1, H * 64)[:, :P] for _ in range(2))  # strided
+    return q, k, v, pk, pv, r(B * K, G, H * 64), r(B * K, G, H * 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("anc", [False, True], ids=["K3", "K4"])
+@pytest.mark.parametrize("case", ["two_mtiles", "P37"])
+def test_decode_kernel_edge_shapes_match_plain(cuda, dtype, tol, anc, case):
+    """Shapes past the main path's: K*S = 20 query rows (two m16 tiles of
+    the bf16 body) and a prompt of 37 columns (the generated columns start
+    off an 8-column tile), with gen_len = G - 1 among the steps (one new
+    token dropped, every slot visible)."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    B, K, S, P, G, H = 3, 5, 2, 102, 24, 4
+    if case == "two_mtiles":
+        K = 10
+    else:
+        P = 37
+    for gen_len in (0, 9, G - 1):
+        q, k, v, pk, pv, gk, gv = _decode_inputs(g, cuda, dtype, B, K, S, P,
+                                                 G, H)
+        bias = _anc_bias(g, B, K, G, gen_len, cuda) if anc else None
+        gk2, gv2 = gk.clone(), gv.clone()
+        got = dec.decode_attention(q, k, v, pk, pv, gk, gv, gen_len,
+                                   n_heads=H, beam_bias=bias)
+        want = dec.decode_attention_plain(q, k, v, pk, pv, gk2, gv2, gen_len,
+                                          n_heads=H, beam_bias=bias)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+        assert torch.equal(gk, gk2) and torch.equal(gv, gv2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_decode_dropout_kernel_is_plain_times_the_regenerated_mask(cuda, dtype,
+                                                                   tol):
+    """K5's output is the plain K3 math times K6's multipliers (the replay's
+    contract), at the SCST shape and at gen_len = G - 1."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    B, S, P, G, H = 4, 2, 102, 24, 12
+    seeds = [philox.step_seed(9, 2, t, 1) for t in range(3)]
+    mult = dec.decode_dropout_scales(seeds, B, n_heads=H, S=S, P=P, G=G,
+                                     rate=0.1, device=cuda)
+    for t, gen_len in enumerate((0, 18, G - 1)):
+        ops = _decode_inputs(g, cuda, dtype, B, 1, S, P, G, H)
+        copies = [x.clone() for x in ops[5:]]
+        got = dec.decode_attention(*ops, gen_len, n_heads=H,
+                                   drop_seed=seeds[t], drop_rate=0.1)
+        want = dec.decode_attention_plain(*ops[:5], *copies, gen_len,
+                                          n_heads=H,
+                                          drop_mult=mult[t * B:(t + 1) * B])
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+        assert torch.equal(ops[5], copies[0]) and torch.equal(ops[6],
+                                                              copies[1])
+
+
 @pytest.mark.cuda
 def test_decode_dropout_scales_kernel_is_bit_exact(cuda):
     """K6 writes K5's multipliers: row t*B + b from seeds[t], bit for bit
@@ -436,6 +498,53 @@ def test_long_forward_matches_plain(cuda, dtype, tol, rate, L):
                                 dropout_rate=rate, seed=seed)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("layout", ["blhd", "bhld"])
+@pytest.mark.parametrize("L", [144, 160, 256])
+def test_long_backward_matches_plain(cuda, rate, layout, L):
+    """bf16 past the one-block body (L <= 144): the key-chunked body, in
+    both layouts, against attention_bwd_plain."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    q, k, v, mode, te, ck = _train_inputs(g, cuda, torch.bfloat16, B=2, L=L,
+                                          H=3)
+    te = torch.randint(103, L + 1, (2,), generator=g, device=cuda)
+    dout = torch.randn(q.shape, generator=g, device=cuda).to(torch.bfloat16)
+    if layout == "bhld":
+        q, k, v, dout = (t.transpose(1, 2).contiguous()
+                         for t in (q, k, v, dout))
+    seed = 0x3243F6A8885A308D
+    got = attn._backward_cuda(q, k, v, mode, te, ck, dout, 102, rate, seed,
+                              layout)
+    want = attn.attention_bwd_plain(q, k, v, mode, te, ck, dout, prefix=102,
+                                    dropout_rate=rate, seed=seed,
+                                    layout=layout)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.shape == q.shape and torch.isfinite(a).all()
+        torch.testing.assert_close(a.float(), b.float(), **BF16_TOL)
+
+
+@pytest.mark.cuda
+def test_bf16_backward_takes_the_forward_lengths(cuda):
+    """The bf16 backward's limit is the bf16 forward's: both take
+    L = max_len, both refuse max_len + 1."""
+    L = _build.library().vlp_attention_bwd_max_len(1)
+    assert L > 417       # the fp32 forward's limit
+    one = torch.ones(1, dtype=torch.int32, device=cuda)
+    for n in (L, L + 1):
+        x = torch.randn(1, n, 1, 64, device=cuda).to(torch.bfloat16)
+        args = (x, x, x, one, one * n, torch.ones(1, n, device=cuda))
+        if n == L:
+            attn.attention(*args, prefix=4)
+            attn._backward_cuda(*args, x, 4, 0.0, None)
+            continue
+        with pytest.raises(RuntimeError, match="attention_fwd"):
+            attn.attention(*args, prefix=4)
+        with pytest.raises(ValueError, match="L <="):
+            attn._backward_cuda(*args, x, 4, 0.0, None)
 
 
 @pytest.mark.cuda

@@ -18,9 +18,9 @@
 // is the logical (column/4, row, head, example), so bhld and blhd
 // regenerate the same multipliers for one seed.
 //
-// Two bodies, chosen by dtype (never by a failure):
-// * bf16, every main path: attention_bwd_mma, on the tensor cores
-//   (mma.m16n8k16, bf16 operands, fp32 accumulation).  One block per
+// The body is chosen by dtype and length (never by a failure):
+// * bf16, every main path, L <= 144: attention_bwd_mma, on the tensor
+//   cores (mma.m16n8k16, bf16 operands, fp32 accumulation).  One block per
 //   (example, head) holds the whole problem: Q, K, V and dO staged once
 //   with 16-byte cp.async (narrower copies for unaligned inputs) into rows
 //   padded to 72 bf16, Q and K in the first copy group, V and dO in the
@@ -39,6 +39,15 @@
 //   test_bf16_rounded_backward_fits_the_jax_bf16_backward holds that
 //   arithmetic within the bf16 tolerance of JAX's bf16 backward.  Padded
 //   rows and columns of a ragged L are exact zeros in P o keep and dS.
+// * bf16, 144 < L <= the bf16 forward's limit (vlp::attention_fwd_max_len:
+//   its tiles fit at 528, these at 544 query rows): attention_bwd_long,
+//   the same products, rounding and Philox bits over 128-column key chunks
+//   (the whole problem no longer fits a block).  Q and dO stay staged;
+//   each pass stages one chunk's K (and V) at a time: (1) the row max and
+//   sum, rescaled chunk to chunk, (2) rowsum(dP o keep o P), (3) per chunk
+//   and 32 query rows, P o keep and dS through shared memory into dK and
+//   dV (registers, stored after the chunk) and dQ, added up over the
+//   chunks in fp32 in a scratch that the wrapper allocates.
 // * fp32: attention_bwd_fp32, the first version on the CUDA cores (fp32
 //   FMAs), which the card-vs-CPU fp32 gates need: tensor cores give
 //   neither fp32 nor its exact products.  Its block holds two [L][D+1]
@@ -461,6 +470,324 @@ __global__ void __launch_bounds__(kNT * 32, 1)
   vlp::store_rows(dv + out_base, os.l, va, r0, L, lane, 1.f);
 }
 
+// ---- bf16, 144 < L <= the forward's limit: key-chunked, on the tensor
+// cores
+
+constexpr int kLongWarps = 16;
+constexpr int kKeyChunk = 128;        // key columns staged at a time
+constexpr int kGroup = 32;            // query rows of one gradient step
+constexpr int kCS = kKeyChunk + 8;    // row of a [kGroup][kKeyChunk] tile
+
+__host__ __device__ __forceinline__ int long_rows(int L) {
+  return (L + kGroup - 1) & ~(kGroup - 1);
+}
+__host__ __device__ __forceinline__ int long_chunks(int L) {
+  return (L + kKeyChunk - 1) / kKeyChunk;
+}
+
+// Q and dO [Lq][72], one key chunk of K and V [128][72], P o keep and dS of
+// one group [32][136]; the column bias of every chunk, and the row max,
+// sum and rowsum(dP o keep o P) of every query row.
+size_t smem_bytes_long(int L) {
+  const size_t Lq = long_rows(L);
+  return sizeof(bf16) * (2 * Lq * vlp::kTileStride +
+                         2 * kKeyChunk * vlp::kTileStride + 2 * kGroup * kCS) +
+         sizeof(float) * (long_chunks(L) * kKeyChunk + 3 * Lq);
+}
+
+// s = the masked, scaled scores of query rows r0 + g and r0 + g + 8 against
+// the kN n8 tiles at column c0 of the staged key chunk (whose first column
+// is cb); columns past L are -inf.
+template <int kN>
+__device__ __forceinline__ void chunk_scores(
+    float (&s)[kN][4], const bf16* sq, const bf16* sk, const float* colbias,
+    int r0, int cb, int c0, int lane, const int (&lim)[2], float scale) {
+  vlp::mma_abt<kN>(s, sq, sk, r0, c0, kKeyChunk, lane);
+  const int j0 = cb + c0 + 2 * (lane & 3);
+#pragma unroll
+  for (int n = 0; n < kN; ++n) {
+    const float2 cb2 = *reinterpret_cast<const float2*>(colbias + j0 + n * 8);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      s[n][e] = __fadd_rn(
+          __fmul_rn(s[n][e], scale),
+          vlp::mask_bias(e & 1 ? cb2.y : cb2.x, j0 + n * 8 + (e & 1),
+                         lim[e >> 1]));
+  }
+}
+
+// A value summed (maxed) over the 4 lanes of a quad, which hold one row of
+// an mma accumulator.
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+// Three passes over 128-column key chunks (K, or K and V, staged once per
+// pass and chunk; Q and dO stay staged throughout):
+//   1. each warp's 16-row query tiles: the row max and sum over all keys,
+//      rescaled from chunk to chunk;
+//   2. the same tiles: rowsum(dP o keep o P), P from the final max and sum;
+//   3. per chunk, 32 query rows at a time: each warp forms P o keep and dS
+//      (bf16, the L <= 144 body's rounding) of one 16 x 16 tile into shared
+//      memory, then owns 16 key rows x 32 d-columns of dK and dV (kept in
+//      registers over the chunk's groups) and 16 query rows x 8 d-columns of
+//      dQ, which it adds up over the chunks in fp32 in dq_acc
+//      ([B*H][Lq][64], the rows this block alone touches) and stores as bf16
+//      after the last.
+template <bool kDrop>
+__global__ void __launch_bounds__(kLongWarps * 32, 1)
+    attention_bwd_long(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v,
+                       const bf16* __restrict__ dout, bf16* __restrict__ dq,
+                       bf16* __restrict__ dk, bf16* __restrict__ dv,
+                       float* __restrict__ dq_acc,
+                       const int* __restrict__ mode,
+                       const int* __restrict__ text_end,
+                       const float* __restrict__ colkeep, int L, int H,
+                       vlp::Strides in, vlp::Strides ds_in, vlp::Strides os,
+                       int prefix, float scale, vlp::Dropout dp, int align) {
+  constexpr int TS = vlp::kTileStride;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int Lq = long_rows(L), nc = long_chunks(L);
+  bf16* sq = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sdo = sq + Lq * TS;
+  bf16* sk = sdo + Lq * TS;             // key chunk c
+  bf16* sv = sk + kKeyChunk * TS;
+  bf16* spk = sv + kKeyChunk * TS;      // P o keep of a group
+  bf16* sds = spk + kGroup * kCS;       // dS of a group
+  float* colbias = reinterpret_cast<float*>(sds + kGroup * kCS);
+  float* rmax = colbias + nc * kKeyChunk;
+  float* rsum = rmax + Lq;
+  float* rdot = rsum + Lq;
+
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x % H;
+  const long long in_base = b * in.b + h * in.h;
+  const long long do_base = b * ds_in.b + h * ds_in.h;
+  const long long out_base = b * os.b + h * os.h;
+  float* acc = dq_acc + (long long)blockIdx.x * Lq * D;
+  vlp::stage_rows(sq, q + in_base, in.l, L, Lq, align);
+  vlp::stage_rows(sdo, dout + do_base, ds_in.l, L, Lq, align);
+  vlp::cp_async_commit();
+  for (int j = threadIdx.x; j < nc * kKeyChunk; j += blockDim.x)
+    colbias[j] = j >= L ? -CUDART_INF_F
+                 : colkeep[(long long)b * L + j] > 0.5f ? 0.f
+                                                        : vlp::kNegInf;
+  for (int i = threadIdx.x; i < Lq; i += blockDim.x) {
+    rmax[i] = -CUDART_INF_F;
+    rsum[i] = 0.f;
+    rdot[i] = 0.f;
+  }
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int md = mode[b], te = text_end[b];
+  // stages chunk c's K (and V); the barriers fence the previous readers
+  auto stage_chunk = [&](int cb, bool with_v) {
+    __syncthreads();
+    const int Lc = min(kKeyChunk, L - cb);
+    vlp::stage_rows(sk, k + in_base + cb * in.l, in.l, Lc, kKeyChunk, align);
+    if (with_v)
+      vlp::stage_rows(sv, v + in_base + cb * in.l, in.l, Lc, kKeyChunk,
+                      align);
+    vlp::cp_async_commit();
+    vlp::cp_async_wait<0>();
+    __syncthreads();
+  };
+  auto limits = [&](int r0, int (&lim)[2]) {
+    lim[0] = vlp::row_limit(md, te, prefix, r0 + g);
+    lim[1] = vlp::row_limit(md, te, prefix, r0 + g + 8);
+  };
+  // P = exp(S - max) / sum in place; rows past L are 0
+  auto probs = [&](auto& s, int r0) {
+    float m[2], inv[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int i = r0 + g + 8 * hh;
+      m[hh] = rmax[i];
+      inv[hh] = i < L ? 1.f / rsum[i] : 0.f;
+    }
+#pragma unroll
+    for (auto& tile : s)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        tile[e] = exp2f((tile[e] - m[e >> 1]) * kLog2e) * inv[e >> 1];
+  };
+
+  // ---- pass 1: row max and sum, one 128-column chunk in registers
+  for (int c = 0; c < nc; ++c) {
+    const int cb = c * kKeyChunk;
+    stage_chunk(cb, false);
+    for (int r0 = warp * 16; r0 < Lq; r0 += kLongWarps * 16) {
+      int lim[2];
+      limits(r0, lim);
+      float s[kKeyChunk / 8][4];
+      chunk_scores(s, sq, sk, colbias, r0, cb, 0, lane, lim, scale);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int i = r0 + g + 8 * hh;
+        float cm = -CUDART_INF_F;
+#pragma unroll
+        for (auto& tile : s)
+          cm = fmaxf(cm, fmaxf(tile[2 * hh], tile[2 * hh + 1]));
+        // every chunk holds a column < L, so cm is finite
+        const float m_old = rmax[i];
+        const float m_new = fmaxf(m_old, quad_max(cm));
+        float cs = 0.f;
+#pragma unroll
+        for (auto& tile : s)
+          cs += exp2f((tile[2 * hh] - m_new) * kLog2e) +
+                exp2f((tile[2 * hh + 1] - m_new) * kLog2e);
+        cs = quad_sum(cs);
+        const float l = rsum[i] * exp2f((m_old - m_new) * kLog2e) + cs;
+        __syncwarp();
+        if (t == 0) {
+          rmax[i] = m_new;
+          rsum[i] = l;
+        }
+      }
+    }
+  }
+
+  // ---- pass 2: rowsum(dP o keep o P) (P without keep), in two halves of
+  // the chunk
+  for (int c = 0; c < nc; ++c) {
+    const int cb = c * kKeyChunk;
+    stage_chunk(cb, true);
+    for (int r0 = warp * 16; r0 < Lq; r0 += kLongWarps * 16) {
+      int lim[2];
+      limits(r0, lim);
+      float rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int c0 = 0; c0 < kKeyChunk; c0 += kKeyChunk / 2) {
+        float p[kKeyChunk / 16][4], dpk[kKeyChunk / 16][4];
+        chunk_scores(p, sq, sk, colbias, r0, cb, c0, lane, lim, scale);
+        probs(p, r0);
+        vlp::mma_abt<kKeyChunk / 16>(dpk, sdo, sv, r0, c0, kKeyChunk, lane);
+#pragma unroll
+        for (int n = 0; n < kKeyChunk / 16; ++n) {
+          float mult[4] = {1.f, 1.f, 1.f, 1.f};
+          if (kDrop && cb + c0 + n * 8 < L)
+            vlp::keep_frag(dp, b, h, r0 + g, cb + c0 + n * 8, lane, mult);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            rs[e >> 1] += dpk[n][e] * mult[e] * p[n][e];
+        }
+      }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const float x = quad_sum(rs[hh]);
+        if (t == 0) rdot[r0 + g + 8 * hh] += x;
+      }
+    }
+  }
+
+  // ---- pass 3: dS, then dK and dV per chunk, dQ over the chunks
+  const int qt = warp >> 3;           // query tile of the group
+  const int kc = (warp & 7) * 16;     // key columns of the chunk (step 1)
+  const int kr0 = (warp >> 1) * 16;   // dK/dV key rows of the chunk
+  const int d0 = (warp & 1) * 32;     // their d-columns
+  const int dn = (warp & 7) * 8;      // dQ d-columns of rows qt
+  for (int c = 0; c < nc; ++c) {
+    const int cb = c * kKeyChunk;
+    stage_chunk(cb, true);
+    float ka[4][4] = {}, va[4][4] = {};
+    for (int g0 = 0; g0 < Lq; g0 += kGroup) {
+      const int r0 = g0 + qt * 16;
+      // this lane's dQ sums of the earlier chunks, loaded ahead of their use
+      float2* dq_sum[2];
+      float2 before[2] = {};
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        dq_sum[hh] = reinterpret_cast<float2*>(acc + (r0 + g + 8 * hh) * D +
+                                               dn + 2 * t);
+        if (c > 0) before[hh] = *dq_sum[hh];
+      }
+      int lim[2];
+      limits(r0, lim);
+      float p[2][4], dpk[2][4];
+      chunk_scores(p, sq, sk, colbias, r0, cb, kc, lane, lim, scale);
+      probs(p, r0);
+      vlp::mma_abt<2>(dpk, sdo, sv, r0, kc, kKeyChunk, lane);
+      const float rs[2] = {rdot[r0 + g], rdot[r0 + g + 8]};
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        float mult[4] = {1.f, 1.f, 1.f, 1.f};
+        if (kDrop && cb + kc + n * 8 < L)
+          vlp::keep_frag(dp, b, h, r0 + g, cb + kc + n * 8, lane, mult);
+        const int off = (qt * 16 + g) * kCS + kc + n * 8 + 2 * t;
+        bf16* pk_row = spk + off;
+        bf16* ds_row = sds + off;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const float* x = p[n] + 2 * hh;
+          const float* y = dpk[n] + 2 * hh;
+          *reinterpret_cast<uint32_t*>(pk_row + 8 * hh * kCS) =
+              vlp::pack_bf16(x[0] * mult[2 * hh], x[1] * mult[2 * hh + 1]);
+          *reinterpret_cast<uint32_t*>(ds_row + 8 * hh * kCS) =
+              vlp::pack_bf16(x[0] * (y[0] * mult[2 * hh] - rs[hh]),
+                             x[1] * (y[1] * mult[2 * hh + 1] - rs[hh]));
+        }
+      }
+      __syncthreads();
+
+      // dK = dS^T Q, dV = (P o keep)^T dO over the group's 32 rows
+#pragma unroll
+      for (int k0 = 0; k0 < kGroup; k0 += 16) {
+        uint32_t fs[4], fp[4];
+        const int off = (k0 + (lane & 7) + (lane >> 4) * 8) * kCS + kr0 +
+                        ((lane >> 3) & 1) * 8;
+        vlp::ldsm_x4_t(fs, sds + off);
+        vlp::ldsm_x4_t(fp, spk + off);
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          const int boff = (g0 + k0 + (lane & 15)) * TS + d0 + np * 16 +
+                           (lane >> 4) * 8;
+          uint32_t fb[4];
+          vlp::ldsm_x4_t(fb, sq + boff);
+          vlp::mma_bf16(ka[2 * np], fs, fb[0], fb[1]);
+          vlp::mma_bf16(ka[2 * np + 1], fs, fb[2], fb[3]);
+          vlp::ldsm_x4_t(fb, sdo + boff);
+          vlp::mma_bf16(va[2 * np], fp, fb[0], fb[1]);
+          vlp::mma_bf16(va[2 * np + 1], fp, fb[2], fb[3]);
+        }
+      }
+      // dQ = dS K over the chunk's 128 keys, added up over the chunks
+      float qa[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int k0 = 0; k0 < kKeyChunk; k0 += 16) {
+        uint32_t fa[4], fb[2];
+        vlp::ldsm_x4(fa, sds + (qt * 16 + (lane & 15)) * kCS + k0 +
+                             (lane >> 4) * 8);
+        vlp::ldsm_x2_t(fb, sk + (k0 + (lane & 15)) * TS + dn);
+        vlp::mma_bf16(qa, fa, fb[0], fb[1]);
+      }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int i = r0 + g + 8 * hh;
+        const float x = qa[2 * hh] + before[hh].x;
+        const float y = qa[2 * hh + 1] + before[hh].y;
+        if (c + 1 < nc)
+          *dq_sum[hh] = make_float2(x, y);
+        else if (i < L)
+          *reinterpret_cast<uint32_t*>(dq + out_base + i * os.l + dn +
+                                       2 * t) =
+              vlp::pack_bf16(x * scale, y * scale);
+      }
+      __syncthreads();   // the next group rewrites P o keep and dS
+    }
+    const long long cbase = out_base + cb * os.l + d0;
+    const int Lc = min(kKeyChunk, L - cb);
+    vlp::store_rows(dk + cbase, os.l, ka, kr0, Lc, lane, scale);
+    vlp::store_rows(dv + cbase, os.l, va, kr0, Lc, lane, 1.f);
+  }
+}
+
 template <bool kDrop>
 int launch_fp32(const void* q, const void* k, const void* v, const void* dout,
                 void* dq, void* dk, void* dv, const int* mode,
@@ -507,17 +834,54 @@ int launch_mma(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
-// The largest L the body of this dtype takes.
+// The key-chunked body, for 8 * kMaxNT < L; dq_acc holds its dQ sums.
+template <bool kDrop>
+int launch_long(const void* q, const void* k, const void* v, const void* dout,
+                void* dq, void* dk, void* dv, float* dq_acc, const int* mode,
+                const int* text_end, const float* colkeep, int B, int L,
+                int H, vlp::Strides in, vlp::Strides ds_in, vlp::Strides os,
+                int prefix, float scale, vlp::Dropout dp,
+                cudaStream_t stream) {
+  const size_t smem = smem_bytes_long(L);
+  if (smem > (size_t)vlp::kMaxSmemBytes || dq_acc == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const int align = vlp::common_alignment(
+      {(unsigned long long)q, (unsigned long long)k, (unsigned long long)v,
+       (unsigned long long)dout, 2ull * in.b, 2ull * in.h, 2ull * in.l,
+       2ull * ds_in.b, 2ull * ds_in.h, 2ull * ds_in.l});
+  cudaError_t err = cudaFuncSetAttribute(
+      attention_bwd_long<kDrop>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  attention_bwd_long<kDrop><<<B * H, kLongWarps * 32, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+      dq_acc, mode, text_end, colkeep, L, H, in, ds_in, os, prefix, scale, dp,
+      align);
+  return (int)cudaGetLastError();
+}
+
+// The largest L the body of this dtype takes: in bf16 the forward's own
+// limit, in fp32 the first version's.
 int max_len(int is_bf16) {
-  if (is_bf16) return 8 * kMaxNT;
+  if (is_bf16) return vlp::attention_fwd_max_len(1);
   int L = 1;
   while (smem_bytes_fp32(L + 1) <= (size_t)vlp::kMaxSmemBytes) ++L;
   return L;
 }
 
+// fp32 scratch (floats per example and head) the body for L needs: the
+// key-chunked body's dQ sums.
+int scratch_floats(int L, int is_bf16) {
+  return is_bf16 && L > 8 * kMaxNT ? long_rows(L) * D : 0;
+}
+
+// bf16: the whole problem in one block up to 8 * kMaxNT, key chunks
+// beyond; fp32: the first version.
 template <bool kDrop>
 int launch_any(const void* q, const void* k, const void* v, const void* dout,
-               void* dq, void* dk, void* dv, const int* mode,
+               void* dq, void* dk, void* dv, float* dq_acc, const int* mode,
                const int* text_end, const float* colkeep, int B, int L, int H,
                vlp::Strides in, vlp::Strides ds_in, vlp::Strides os,
                int prefix, float scale, vlp::Dropout dp, int is_bf16,
@@ -530,27 +894,32 @@ int launch_any(const void* q, const void* k, const void* v, const void* dout,
     return launch_mma<16, kDrop>(q, k, v, dout, dq, dk, dv, mode, text_end,
                                  colkeep, B, L, H, in, ds_in, os, prefix,
                                  scale, dp, stream);
-  return launch_mma<kMaxNT, kDrop>(q, k, v, dout, dq, dk, dv, mode, text_end,
-                                   colkeep, B, L, H, in, ds_in, os, prefix,
-                                   scale, dp, stream);
+  if (L <= 8 * kMaxNT)
+    return launch_mma<kMaxNT, kDrop>(q, k, v, dout, dq, dk, dv, mode,
+                                     text_end, colkeep, B, L, H, in, ds_in,
+                                     os, prefix, scale, dp, stream);
+  return launch_long<kDrop>(q, k, v, dout, dq, dk, dv, dq_acc, mode, text_end,
+                            colkeep, B, L, H, in, ds_in, os, prefix, scale,
+                            dp, stream);
 }
 
 int backward(const void* q, const void* k, const void* v, const void* dout,
-             void* dq, void* dk, void* dv, const void* mode,
+             void* dq, void* dk, void* dv, void* dq_acc, const void* mode,
              const void* text_end, const void* colkeep, int B, int L, int H,
              vlp::Strides in, vlp::Strides ds_in, vlp::Strides os, int prefix,
              float scale, vlp::Dropout dp, int is_bf16, void* stream) {
   if (B <= 0 || L <= 0 || H <= 0 || L > max_len(is_bf16))
     return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
+  auto acc = static_cast<float*>(dq_acc);
   auto md = static_cast<const int*>(mode);
   auto te = static_cast<const int*>(text_end);
   auto ck = static_cast<const float*>(colkeep);
   if (dp.threshold == 0)  // rate 0: every element kept with scale 1
-    return launch_any<false>(q, k, v, dout, dq, dk, dv, md, te, ck, B, L, H,
-                             in, ds_in, os, prefix, scale, dp, is_bf16, s);
-  return launch_any<true>(q, k, v, dout, dq, dk, dv, md, te, ck, B, L, H, in,
-                          ds_in, os, prefix, scale, dp, is_bf16, s);
+    return launch_any<false>(q, k, v, dout, dq, dk, dv, acc, md, te, ck, B, L,
+                             H, in, ds_in, os, prefix, scale, dp, is_bf16, s);
+  return launch_any<true>(q, k, v, dout, dq, dk, dv, acc, md, te, ck, B, L, H,
+                          in, ds_in, os, prefix, scale, dp, is_bf16, s);
 }
 
 }  // namespace
@@ -558,26 +927,33 @@ int backward(const void* q, const void* k, const void* v, const void* dout,
 extern "C" {
 
 // The largest L whose tiles fit the body that is_bf16 selects: the bf16
-// tensor-core body (1) or the fp32 body (0).
+// tensor-core bodies (1) or the fp32 body (0).
 int vlp_attention_bwd_max_len(int is_bf16) { return max_len(is_bf16); }
+
+// The fp32 scratch, in floats per (example, head), that a backward at L
+// needs in dq_acc (0: none; dq_acc may then be null).
+int vlp_attention_bwd_scratch_floats(int L, int is_bf16) {
+  return scratch_floats(L, is_bf16);
+}
 
 // q/k/v: [B, L, H*64] with element strides sb (batch) and sl (row); dout:
 // [B, L, H*64] with strides dsb, dsl; the last dimension contiguous in
-// all four.  dq/dk/dv: contiguous [B, L, H*64].  seed/threshold/keep_scale
-// are the forward's dropout (threshold 0 = no dropout).  is_bf16 selects
-// the bf16 tensor-core body (1) or the fp32 body (0).  Returns
-// cudaGetLastError() after the launch.
+// all four.  dq/dk/dv: contiguous [B, L, H*64]; dq_acc: fp32 scratch of
+// B * H * vlp_attention_bwd_scratch_floats(L, is_bf16) floats.
+// seed/threshold/keep_scale are the forward's dropout (threshold 0 = no
+// dropout).  is_bf16 selects the bf16 tensor-core bodies (1) or the fp32
+// body (0).  Returns cudaGetLastError() after the launch.
 int vlp_attention_bwd(const void* q, const void* k, const void* v,
                       const void* dout, void* dq, void* dk, void* dv,
-                      const void* mode, const void* text_end,
+                      void* dq_acc, const void* mode, const void* text_end,
                       const void* colkeep, int B, int L, int H, long long sb,
                       long long sl, long long dsb, long long dsl, int prefix,
                       float scale, unsigned long long seed,
                       unsigned int threshold, float keep_scale, int is_bf16,
                       void* stream) {
   const long long HD = (long long)H * D;
-  return backward(q, k, v, dout, dq, dk, dv, mode, text_end, colkeep, B, L, H,
-                  vlp::Strides{sb, D, sl}, vlp::Strides{dsb, D, dsl},
+  return backward(q, k, v, dout, dq, dk, dv, dq_acc, mode, text_end, colkeep,
+                  B, L, H, vlp::Strides{sb, D, sl}, vlp::Strides{dsb, D, dsl},
                   vlp::Strides{L * HD, D, HD}, prefix, scale,
                   vlp::Dropout{seed, threshold, keep_scale}, is_bf16, stream);
 }
@@ -588,18 +964,19 @@ int vlp_attention_bwd(const void* q, const void* k, const void* v,
 // [B, H, L, 64].  Otherwise as vlp_attention_bwd.
 int vlp_attention_bwd_bhld(const void* q, const void* k, const void* v,
                            const void* dout, void* dq, void* dk, void* dv,
-                           const void* mode, const void* text_end,
-                           const void* colkeep, int B, int L, int H,
-                           long long sb, long long sh, long long sl,
-                           long long dsb, long long dsh, long long dsl,
-                           int prefix, float scale, unsigned long long seed,
-                           unsigned int threshold, float keep_scale,
-                           int is_bf16, void* stream) {
+                           void* dq_acc, const void* mode,
+                           const void* text_end, const void* colkeep, int B,
+                           int L, int H, long long sb, long long sh,
+                           long long sl, long long dsb, long long dsh,
+                           long long dsl, int prefix, float scale,
+                           unsigned long long seed, unsigned int threshold,
+                           float keep_scale, int is_bf16, void* stream) {
   const long long LD = (long long)L * D;
-  return backward(q, k, v, dout, dq, dk, dv, mode, text_end, colkeep, B, L, H,
-                  vlp::Strides{sb, sh, sl}, vlp::Strides{dsb, dsh, dsl},
-                  vlp::Strides{H * LD, LD, D}, prefix, scale,
-                  vlp::Dropout{seed, threshold, keep_scale}, is_bf16, stream);
+  return backward(q, k, v, dout, dq, dk, dv, dq_acc, mode, text_end, colkeep,
+                  B, L, H, vlp::Strides{sb, sh, sl},
+                  vlp::Strides{dsb, dsh, dsl}, vlp::Strides{H * LD, LD, D},
+                  prefix, scale, vlp::Dropout{seed, threshold, keep_scale},
+                  is_bf16, stream);
 }
 
 }  // extern "C"

@@ -471,6 +471,14 @@ vlp::Strides bhld_out(int L, int H) {
 
 }  // namespace
 
+int vlp::attention_fwd_max_len(int is_bf16) {
+  int L = 1;
+  while ((is_bf16 ? smem_bytes_mma((L + 16) & ~15) : smem_bytes_fp32(L + 1))
+         <= (size_t)vlp::kMaxSmemBytes)
+    ++L;
+  return L;
+}
+
 extern "C" {
 
 // Both branches: q/k/v [B, L, H*64] with element strides sb (batch) and sl

@@ -240,7 +240,8 @@ def _backward_cuda(q, k, v, mode, text_end, colkeep, dout, prefix, rate,
                                          what, layout)
     B, L, H, D = _dims(q, layout)
     lib = _build.library()
-    max_len = lib.vlp_attention_bwd_max_len(int(q.dtype == torch.bfloat16))
+    is_bf16 = int(q.dtype == torch.bfloat16)
+    max_len = lib.vlp_attention_bwd_max_len(is_bf16)
     if L > max_len:
         raise ValueError(f"attention_bwd kernel takes L <= {max_len} in "
                          f"{q.dtype} (its tiles must fit a block), got {L}")
@@ -251,13 +252,17 @@ def _backward_cuda(q, k, v, mode, text_end, colkeep, dout, prefix, rate,
         dout = dout.contiguous()
     grads = [torch.empty(q.shape, dtype=q.dtype, device=q.device)
              for _ in range(3)]
+    # the key-chunked bf16 body (L > 144) adds dQ up over its key chunks in
+    # an fp32 scratch
+    n_acc = lib.vlp_attention_bwd_scratch_floats(L, is_bf16)
+    dq_acc = (torch.empty(B * H * n_acc, dtype=torch.float32, device=q.device)
+              if n_acc else None)
     err = getattr(lib, "vlp_" + what)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-        *(g.data_ptr() for g in grads), mode.data_ptr(),
-        text_end.data_ptr(), colkeep.data_ptr(), B, L, H, *q.stride()[:n],
-        *dout.stride()[:n], prefix, 1.0 / math.sqrt(D),
-        *_dropout_args(rate, seed), int(q.dtype == torch.bfloat16),
-        _build.stream_ptr(q.device))
+        *(g.data_ptr() for g in grads),
+        None if dq_acc is None else dq_acc.data_ptr(), mode.data_ptr(), text_end.data_ptr(), colkeep.data_ptr(), B, L, H,
+        *q.stride()[:n], *dout.stride()[:n], prefix, 1.0 / math.sqrt(D),
+        *_dropout_args(rate, seed), is_bf16, _build.stream_ptr(q.device))
     _build.check(err, what)
     _build.KERNELS[what].launches += 1
     return tuple(grads)
