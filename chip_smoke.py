@@ -244,10 +244,11 @@ def decode_times(dec, make_inputs, bias_for, err, name, drop_seed=None,
     """bf16 times of one decode-step kernel (K3, K4 or K5) at each of
     DECODE_GEN_LENS: the kernel, its plain version, SDPA over the joint
     keys (``decode_sdpa``: joint K/V and mask built in the call, and
-    prebuilt) and the bound, which counts the visible slots only: q/k/v/out
+    prebuilt) and the bound, which counts the visible slots only: q and out
     of the S new rows, the prompt K/V once per example, each beam's
-    visible generated K/V once (and, for K4, the ancestry bias of the
-    visible columns), the new K/V written.  The row's own numbers are the last
+    committed slots' K/V once (and, for K4, the ancestry bias of the
+    visible columns), and the K/V of the new tokens that get a slot (< G),
+    read and written.  The row's own numbers are the last
     step's; ``batch_mean`` is the mean over the timed steps, the per-batch
     figure.  SDPA writes no cache slots and draws its own dropout bits
     (K5): a time bar only."""
@@ -266,10 +267,13 @@ def decode_times(dec, make_inputs, bias_for, err, name, drop_seed=None,
         dec.decode_attention(q, k, v, pk, pv, gk, gv, gen_len, **kw)
         if _build.KERNELS[name].launches != before + 1:
             fail(f"{name}: the timed call is not this kernel")
-        vis = min(G, gen_len + S)
+        vis = min(G, gen_len + S)        # slots a row can see
+        new = vis - min(G, gen_len)      # new tokens that get a slot
         cols = P + (K * vis if bias is not None else vis)
-        nbytes = (4 * BK * S * HD * 2 + 2 * B * P * HD * 2
-                  + 2 * BK * vis * HD * 2 + 2 * BK * S * HD * 2
+        # q read and out written; the prompt's K/V once per example; the
+        # committed slots' K/V; the new tokens' K/V read and written
+        nbytes = (2 * BK * S * HD * 2 + 2 * B * P * HD * 2
+                  + 2 * BK * (vis - new) * HD * 2 + 4 * BK * new * HD * 2
                   + (BK * K * vis * 4 if bias is not None else 0))
         per[gen_len] = dict(
             ms=time_ms(lambda: dec.decode_attention(

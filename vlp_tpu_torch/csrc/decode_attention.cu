@@ -77,11 +77,10 @@ constexpr int D = 64;
 constexpr int kWarps = 8;
 constexpr int kRowStride = D + 2;  // padded K rows (elements)
 
-template <typename T>
 size_t smem_bytes(int P, int K, int G) {
   const size_t cols = size_t(P) + size_t(K) * G;
-  return sizeof(float) * (kWarps * D + kWarps * cols) +
-         sizeof(T) * (cols * kRowStride + cols * D);
+  return sizeof(float) * (kWarps * D + kWarps * cols + cols * kRowStride +
+                          cols * D);
 }
 
 __device__ __forceinline__ float2 load_pair(const float* p) {
@@ -104,25 +103,26 @@ __device__ __forceinline__ uint4 ld16(const void* p) {
   return *static_cast<const uint4*>(p);
 }
 
-template <typename T, bool kHasAnc, bool kDrop>
+template <bool kHasAnc, bool kDrop>
 __global__ void __launch_bounds__(kWarps * 32) decode_attention_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ pk, const T* __restrict__ pv, T* __restrict__ gk,
-    T* __restrict__ gv, const float* __restrict__ beam_bias,
-    T* __restrict__ out, int K, int S, int P, int G, int H, long long psb,
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ pk,
+    const float* __restrict__ pv, float* __restrict__ gk,
+    float* __restrict__ gv, const float* __restrict__ beam_bias,
+    float* __restrict__ out, int K, int S, int P, int G, int H, long long psb,
     int gen_len, float scale, vlp::Dropout dp) {
   static_assert(!(kHasAnc && kDrop), "dropout is for sampling (K == 1)");
-  constexpr int E = 16 / sizeof(T);  // elements per 16-byte chunk
-  constexpr int CPR = D / E;         // chunks per head row
+  constexpr int E = 4;        // floats per 16-byte chunk
+  constexpr int CPR = D / E;  // chunks per head row
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int KG = K * G;
   const int cols = P + KG;
   float* qs = reinterpret_cast<float*>(smem_raw);  // [kWarps][D]
   float* ps = qs + kWarps * D;                     // [kWarps][P + K*G]
-  T* pks = reinterpret_cast<T*>(ps + kWarps * cols);  // [P][kRowStride]
-  T* pvs = pks + P * kRowStride;                      // [P][D]
-  T* gks = pvs + P * D;             // [K*G][kRowStride], rows beam-major
-  T* gvs = gks + KG * kRowStride;   // [K*G][D]
+  float* pks = ps + kWarps * cols;                 // [P][kRowStride]
+  float* pvs = pks + P * kRowStride;               // [P][D]
+  float* gks = pvs + P * D;          // [K*G][kRowStride], rows beam-major
+  float* gvs = gks + KG * kRowStride;  // [K*G][D]
 
   const int b = blockIdx.x / H;
   const int h = blockIdx.x % H;
@@ -178,7 +178,7 @@ __global__ void __launch_bounds__(kWarps * 32) decode_attention_kernel(
 
     float mx = -CUDART_INF_F;
     for (int c = lane; c < ncol; c += 32) {
-      const T* kr;
+      const float* kr;
       float bias = 0.f;
       if (c < P) {
         kr = pks + c * kRowStride;  // prompt: always visible
@@ -213,12 +213,12 @@ __global__ void __launch_bounds__(kWarps * 32) decode_attention_kernel(
       float p = pw[c] / denom;
       // K == 1, so the row's counter row is its query row s
       if constexpr (kDrop) p = p * vlp::keep_scale1(dp, b, h, s, c);
-      pw[c] = vlp::round_to<T>(p);
+      pw[c] = p;
     }
     __syncwarp();
 
     const int d0 = 2 * lane;
-    const T* gv_rows = gvs + (kHasAnc ? 0 : kk * G * D);
+    const float* gv_rows = gvs + (kHasAnc ? 0 : kk * G * D);
     float px = 0.f, py = 0.f, gx = 0.f, gy = 0.f;
     for (int j = 0; j < P; ++j) {
       const float p = pw[j];
@@ -602,57 +602,51 @@ int launch_mma(const void* q, const void* k, const void* v, const void* pk,
 
 // ---- launch: bf16 the tensor-core body, fp32 the first version
 
-template <typename T, bool kHasAnc, bool kDrop>
-int launch(const void* q, const void* k, const void* v, const void* pk,
-           const void* pv, void* gk, void* gv, const float* beam_bias,
-           void* out, int B, int K, int S, int P, int G, int H,
-           long long psb, int gen_len, float scale, vlp::Dropout dp,
-           cudaStream_t stream) {
-  if constexpr (sizeof(T) == 2) {
-    return launch_mma<kHasAnc, kDrop>(q, k, v, pk, pv, gk, gv, beam_bias, out,
-                                      B, K, S, P, G, H, psb, gen_len, scale,
-                                      dp, stream);
-  } else {
-    const size_t smem = smem_bytes<T>(P, K, G);
-    if (smem > (size_t)vlp::kMaxSmemBytes) return (int)cudaErrorInvalidValue;
-    cudaError_t err = cudaFuncSetAttribute(
-        decode_attention_kernel<T, kHasAnc, kDrop>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    decode_attention_kernel<T, kHasAnc, kDrop>
-        <<<B * H, kWarps * 32, smem, stream>>>(
-            static_cast<const T*>(q), static_cast<const T*>(k),
-            static_cast<const T*>(v), static_cast<const T*>(pk),
-            static_cast<const T*>(pv), static_cast<T*>(gk),
-            static_cast<T*>(gv), beam_bias, static_cast<T*>(out), K, S, P,
-            G, H, psb, gen_len, scale, dp);
-    return (int)cudaGetLastError();
-  }
+template <bool kHasAnc, bool kDrop>
+int launch_fp32(const void* q, const void* k, const void* v, const void* pk,
+                const void* pv, void* gk, void* gv, const float* beam_bias,
+                void* out, int B, int K, int S, int P, int G, int H,
+                long long psb, int gen_len, float scale, vlp::Dropout dp,
+                cudaStream_t stream) {
+  const size_t smem = smem_bytes(P, K, G);
+  if (smem > (size_t)vlp::kMaxSmemBytes) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      decode_attention_kernel<kHasAnc, kDrop>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  decode_attention_kernel<kHasAnc, kDrop><<<B * H, kWarps * 32, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(pk),
+      static_cast<const float*>(pv), static_cast<float*>(gk),
+      static_cast<float*>(gv), beam_bias, static_cast<float*>(out), K, S, P,
+      G, H, psb, gen_len, scale, dp);
+  return (int)cudaGetLastError();
+}
+
+template <bool kHasAnc, bool kDrop, typename... Args>
+int launch(int is_bf16, Args... args) {
+  return is_bf16 ? launch_mma<kHasAnc, kDrop>(args...)
+                 : launch_fp32<kHasAnc, kDrop>(args...);
 }
 
 // dp.threshold == 0 (no dropout) selects K3 or K4; otherwise K5, which the
 // entry point only reaches with K == 1 and no beam bias
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, const void* pk,
-             const void* pv, void* gk, void* gv, const float* beam_bias,
-             void* out, int B, int K, int S, int P, int G, int H,
-             long long psb, int gen_len, float scale, vlp::Dropout dp,
-             cudaStream_t stream) {
+int dispatch(int is_bf16, const void* q, const void* k, const void* v,
+             const void* pk, const void* pv, void* gk, void* gv,
+             const float* beam_bias, void* out, int B, int K, int S, int P,
+             int G, int H, long long psb, int gen_len, float scale,
+             vlp::Dropout dp, cudaStream_t stream) {
   if (dp.threshold)
-    return launch<T, false, true>(q, k, v, pk, pv, gk, gv, nullptr, out, B,
-                                  K, S, P, G, H, psb, gen_len, scale, dp,
-                                  stream);
+    return launch<false, true>(is_bf16, q, k, v, pk, pv, gk, gv, nullptr, out,
+                               B, K, S, P, G, H, psb, gen_len, scale, dp,
+                               stream);
   if (beam_bias)
-    return launch<T, true, false>(q, k, v, pk, pv, gk, gv, beam_bias, out, B,
-                                  K, S, P, G, H, psb, gen_len, scale, dp,
-                                  stream);
-  return launch<T, false, false>(q, k, v, pk, pv, gk, gv, nullptr, out, B, K,
-                                 S, P, G, H, psb, gen_len, scale, dp, stream);
-}
-
-template <typename... Args>
-int dispatch_dtype(int is_bf16, Args... args) {
-  return is_bf16 ? dispatch<__nv_bfloat16>(args...) : dispatch<float>(args...);
+    return launch<true, false>(is_bf16, q, k, v, pk, pv, gk, gv, beam_bias,
+                               out, B, K, S, P, G, H, psb, gen_len, scale, dp,
+                               stream);
+  return launch<false, false>(is_bf16, q, k, v, pk, pv, gk, gv, nullptr, out,
+                              B, K, S, P, G, H, psb, gen_len, scale, dp,
+                              stream);
 }
 
 }  // namespace
@@ -662,7 +656,8 @@ extern "C" {
 // q/k/v/out: contiguous [B*K, S, H*64]; pk/pv: [B, P, H*64] with batch
 // stride psb (elements) and contiguous rows; gk/gv: contiguous
 // [B*K, G, H*64], updated in place; beam_bias: contiguous fp32 [B*K, K*G]
-// or null (K3).  Every pointer and psb*sizeof(T) must be 16-byte aligned.
+// or null (K3).  Every pointer and psb times the element size must be 16-byte
+// aligned.
 // Returns cudaGetLastError() after the launch.
 int vlp_decode_attention(const void* q, const void* k, const void* v,
                          const void* pk, const void* pv, void* gk, void* gv,
@@ -672,10 +667,10 @@ int vlp_decode_attention(const void* q, const void* k, const void* v,
                          void* stream) {
   if (B <= 0 || K <= 0 || S <= 0 || P <= 0 || G <= 0 || H <= 0)
     return (int)cudaErrorInvalidValue;
-  return dispatch_dtype(is_bf16, q, k, v, pk, pv, gk, gv,
-                        static_cast<const float*>(beam_bias), out, B, K, S, P,
-                        G, H, psb, gen_len, scale, vlp::Dropout{0, 0, 1.f},
-                        static_cast<cudaStream_t>(stream));
+  return dispatch(is_bf16, q, k, v, pk, pv, gk, gv,
+                  static_cast<const float*>(beam_bias), out, B, K, S, P, G, H,
+                  psb, gen_len, scale, vlp::Dropout{0, 0, 1.f},
+                  static_cast<cudaStream_t>(stream));
 }
 
 // K5, the SCST sampled rollout: as vlp_decode_attention with K == 1 and no
@@ -691,11 +686,10 @@ int vlp_decode_attention_drop(const void* q, const void* k, const void* v,
                               int is_bf16, void* stream) {
   if (B <= 0 || S <= 0 || P <= 0 || G <= 0 || H <= 0 || threshold == 0)
     return (int)cudaErrorInvalidValue;
-  return dispatch_dtype(is_bf16, q, k, v, pk, pv, gk, gv,
-                        static_cast<const float*>(nullptr), out, B, 1, S, P,
-                        G, H, psb, gen_len, scale,
-                        vlp::Dropout{seed, threshold, keep_scale},
-                        static_cast<cudaStream_t>(stream));
+  return dispatch(is_bf16, q, k, v, pk, pv, gk, gv, nullptr, out, B, 1, S, P,
+                  G, H, psb, gen_len, scale,
+                  vlp::Dropout{seed, threshold, keep_scale},
+                  static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

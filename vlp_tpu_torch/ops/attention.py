@@ -260,7 +260,8 @@ def _backward_cuda(q, k, v, mode, text_end, colkeep, dout, prefix, rate,
     err = getattr(lib, "vlp_" + what)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         *(g.data_ptr() for g in grads),
-        None if dq_acc is None else dq_acc.data_ptr(), mode.data_ptr(), text_end.data_ptr(), colkeep.data_ptr(), B, L, H,
+        None if dq_acc is None else dq_acc.data_ptr(), mode.data_ptr(),
+        text_end.data_ptr(), colkeep.data_ptr(), B, L, H,
         *q.stride()[:n], *dout.stride()[:n], prefix, 1.0 / math.sqrt(D),
         *_dropout_args(rate, seed), is_bf16, _build.stream_ptr(q.device))
     _build.check(err, what)
