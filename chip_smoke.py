@@ -32,6 +32,7 @@ from __future__ import annotations
 import copy
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -371,11 +372,17 @@ def phase_scst_kernels(dev, results):
             philox.decode_keep_scale(sd, B, H, S, P, G, rate, device=dev)
             for sd in seeds])),
         library_ms=None, **bound(W * B * H * S * (P + G) * 4, 0))
+    # what holds it back: an empty launch (the card's per-launch floor in
+    # this timing) and a fill of the same bytes by one PyTorch call
+    filled = torch.empty((W * B, H, S, P + G), device=dev)
+    k6.update(launch_floor_ms=time_ms(lambda: torch.cuda._sleep(0)),
+              fill_ms=time_ms(filled.zero_))
     results["decode_attention_drop"] = k5
     results["decode_dropout_scales"] = k6
     log(f"decode_dropout_scales B={B} time: kernel {k6['ms']:.4f} ms, plain "
         f"{k6['plain_ms']:.4f} ms, bound {k6['bound_ms']:.4f} ms "
-        f"({k6['bound_by']})")
+        f"({k6['bound_by']}); an empty launch {k6['launch_floor_ms']:.4f} ms, "
+        f"zero_ of the same bytes {k6['fill_ms']:.4f} ms")
 
 
 def sdpa_mask(q, mode, text_end, colkeep, prefix, layout="blhd"):
@@ -456,51 +463,110 @@ def decode_sdpa(q, pk, pv, gk, gv, gen_len, n_heads, beam_bias=None,
     return out.transpose(1, 2).reshape(q.shape)
 
 
-def phase_long_backward(attn, inputs, B, H, D, P, seed, rate, L=256):
-    """K2 in bf16 past the one-block body's L <= 144: the key-chunked body
-    at B=64, L=256 (any --max_len_b >= 26 with 100 regions rounds the
-    training length up to 256), rate 0.1, against its plain version, then
-    its time beside SDPA's backward (mask built in the forward, and
-    prebuilt) and the bound."""
-    q, k, v, mode, te, ck, dout = inputs(torch.bfloat16, L)
-    got = attn._backward_cuda(q, k, v, mode, te, ck, dout, P, rate, seed)
-    want = attn.attention_bwd_plain(q, k, v, mode, te, ck, dout, prefix=P,
-                                    dropout_rate=rate, seed=seed)
-    err = max(compare(f"K2 attention_bwd {name} B={B} L={L} bf16 "
-                      f"({body(torch.bfloat16)}, key-chunked) rate={rate}",
-                      a, b_, BF16_TOL)
-              for name, a, b_ in zip(("dq", "dk", "dv"), got, want))
-    mask = sdpa_mask(q, mode, te, ck, P)
-    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-    lib_out = sdpa(*leaves, mode, te, ck, P, rate)
-    lib_out_pre = sdpa(*leaves, mode, te, ck, P, rate, mask=mask)
-    act = B * L * H * D * 2
-    r = dict(
-        B=B, L=L, max_abs_err=err,
-        ms=time_ms(lambda: attn._backward_cuda(q, k, v, mode, te, ck, dout,
-                                               P, rate, seed)),
-        plain_ms=time_ms(lambda: attn.attention_bwd_plain(
-            q, k, v, mode, te, ck, dout, prefix=P, dropout_rate=rate,
-            seed=seed)),
-        library_ms=time_ms(lambda: torch.autograd.grad(
-            lib_out, leaves, dout, retain_graph=True)),
-        library_prebuilt_mask_ms=time_ms(lambda: torch.autograd.grad(
-            lib_out_pre, leaves, dout, retain_graph=True)),
-        **bound(7 * act + 8 * B + 4 * B * L, 5 * L * L * D * 2 * B * H))
-    log(f"attention_bwd bf16 B={B} L={L} time (key-chunked): kernel "
-        f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, SDPA backward "
-        f"{r['library_ms']:.4f} ms (prebuilt mask "
-        f"{r['library_prebuilt_mask_ms']:.4f}), bound {r['bound_ms']:.4f} "
-        f"ms ({r['bound_by']})")
-    return r
+def kernel_split(fn, calls=10) -> dict:
+    """Device microseconds per call of each CUDA kernel that ``fn``
+    launches (``torch.profiler``), over ``calls`` calls after one warm-up;
+    empty if the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_time_total > 0:
+            # "void (anonymous namespace)::name<args>(params)" -> "name<args>"
+            m = re.search(r"(\w+(<[^>]*>)?)\(", e.key)
+            name = m.group(1) if m else e.key
+            out[name] = round(e.device_time_total / calls, 1)
+    return out
+
+
+LONG_GATE_LENS = (160, 256, 528)   # the tiled backward's gates
+LONG_TIMED_LENS = (256, 528)       # and its times
+
+
+def phase_long_backward(attn, inputs, B, H, D, P, seed, rate):
+    """K2 in bf16 past the one-block body's L <= 144: the tiled body (any
+    --max_len_b >= 26 with 100 regions rounds the training length up to
+    256; 528 is the bf16 forward's limit) at B=64, rate 0.1.  At each of
+    LONG_GATE_LENS, in both layouts: against its plain version, two calls
+    bit for bit, and bhld = blhd on transposed inputs bit for bit.  Then
+    its time at LONG_TIMED_LENS beside SDPA's backward (mask built in the
+    forward, and prebuilt) and the bound.  Returns {L: times}."""
+    err = 0.0
+    for L in LONG_GATE_LENS:
+        q, k, v, mode, te, ck, dout = inputs(torch.bfloat16, L)
+        tr = [t.transpose(1, 2).contiguous() for t in (q, k, v, dout)]
+        got = {}
+        for layout, (a, b_, c, d) in (("blhd", (q, k, v, dout)),
+                                      ("bhld", tr)):
+            args = (a, b_, c, mode, te, ck, d, P, rate, seed, layout)
+            got[layout] = attn._backward_cuda(*args)
+            want = attn.attention_bwd_plain(
+                a, b_, c, mode, te, ck, d, prefix=P, dropout_rate=rate,
+                seed=seed, layout=layout)
+            tag = (f"B={B} L={L} bf16 ({body(torch.bfloat16)}, tiled) "
+                   f"{layout} rate={rate}")
+            err = max([err] + [compare(f"K2 attention_bwd {name} {tag}", x,
+                                       y, BF16_TOL)
+                               for name, x, y in zip(("dq", "dk", "dv"),
+                                                     got[layout], want)])
+            again = attn._backward_cuda(*args)
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y)
+                       for x, y in zip(got[layout], again)):
+                fail(f"attention_bwd {tag}: two calls differ")
+        if not all(torch.equal(x.transpose(1, 2), y)
+                   for x, y in zip(got["bhld"], got["blhd"])):
+            fail(f"attention_bwd L={L}: bhld differs from blhd on "
+                 "transposed inputs")
+        log(f"K2 tiled L={L}: both layouts bit-identical across two calls "
+            "and to each other")
+    times = {}
+    for L in LONG_TIMED_LENS:
+        q, k, v, mode, te, ck, dout = inputs(torch.bfloat16, L)
+        mask = sdpa_mask(q, mode, te, ck, P)
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        lib_out = sdpa(*leaves, mode, te, ck, P, rate)
+        lib_out_pre = sdpa(*leaves, mode, te, ck, P, rate, mask=mask)
+        act = B * L * H * D * 2
+        r = dict(
+            B=B, L=L, max_abs_err=err,
+            ms=time_ms(lambda: attn._backward_cuda(
+                q, k, v, mode, te, ck, dout, P, rate, seed)),
+            plain_ms=time_ms(lambda: attn.attention_bwd_plain(
+                q, k, v, mode, te, ck, dout, prefix=P, dropout_rate=rate,
+                seed=seed)),
+            library_ms=time_ms(lambda: torch.autograd.grad(
+                lib_out, leaves, dout, retain_graph=True)),
+            library_prebuilt_mask_ms=time_ms(lambda: torch.autograd.grad(
+                lib_out_pre, leaves, dout, retain_graph=True)),
+            **bound(7 * act + 8 * B + 4 * B * L, 5 * L * L * D * 2 * B * H))
+        if L == 256:
+            r["kernels_us"] = {f"rate {x}": kernel_split(
+                lambda: attn._backward_cuda(q, k, v, mode, te, ck, dout, P, x,
+                                            seed)) for x in (0.0, rate)}
+            log(f"attention_bwd tiled L={L}, device us per call by kernel: "
+                f"{r['kernels_us']}")
+        log(f"attention_bwd bf16 B={B} L={L} time (tiled): kernel "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, SDPA backward "
+            f"{r['library_ms']:.4f} ms (prebuilt mask "
+            f"{r['library_prebuilt_mask_ms']:.4f}), bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+        times[L] = r
+        del q, k, v, dout, mask, leaves, lib_out, lib_out_pre
+    return times
 
 
 def phase_train_kernels(dev, results):
     """K1's dropout branch, K2 and dropout_mask at the training shape
     (B=64, L=128, H=12, D=64): fp32 and bf16, mixed modes, zeros in
     colkeep, rate 0 and 0.1, each against its plain version; the mask bit
-    for bit.  Times in bf16 at rate 0.1, and K2 at L=256 beside them
-    (``phase_long_backward``)."""
+    for bit.  Times in bf16 at rate 0.1, and the tiled K2 at L=256 and 528
+    beside them (``phase_long_backward``)."""
     from vlp_tpu_torch.config import MODE_BI, MODE_S2S
     from vlp_tpu_torch.ops import attention as attn
     from vlp_tpu_torch.ops import philox
@@ -607,7 +673,9 @@ def phase_train_kernels(dev, results):
                library_fwd_bwd_ms=fwd_bwd["library_ms"],
                library_prebuilt_mask_fwd_bwd_ms=fwd_bwd[
                    "library_prebuilt_mask_ms"])
-    bwd["long"] = phase_long_backward(attn, inputs, B, H, D, P, seed, rate)
+    long = phase_long_backward(attn, inputs, B, H, D, P, seed, rate)
+    bwd["long"] = long[256]
+    bwd["long_528"] = long[528]
     results["attention_fwd_drop"] = fwd
     results["attention_bwd"] = bwd
     for name in ("attention_fwd_drop", "attention_bwd", "dropout_mask"):
@@ -1463,7 +1531,8 @@ def main():
         f"{time.time() - t:.2f} s")
     with open(os.path.join(_build.build_dir(), "build.log")) as f:
         for line in f:
-            if "registers" in line or "Compiling entry" in line:
+            if any(w in line for w in ("registers", "Compiling entry",
+                                       "spill")):
                 log("  ptxas: " + line.strip())
 
     results = {}

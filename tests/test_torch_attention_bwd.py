@@ -163,7 +163,7 @@ def _jax_bf16_bwd_fed_mask(q, k, v, do, bias, keep):
 def test_bf16_rounded_backward_fits_the_jax_bf16_backward(l, rate, rng):
     """Go/no-go for the tensor-core backward's rounding at the training
     width (D=64, mixed modes, zeros in colkeep), at L=128 (the one-block
-    body) and L=256 (the key-chunked body, whose softmax sums over more
+    body) and L=256 (the tiled body, whose softmax sums over more
     columns): rounding P o keep and dS to bf16 before their products stays
     within the bf16 tolerance of JAX's bf16 backward (the Pallas kernel in
     interpret mode at rate 0; its math fed the port's Philox mask at rate

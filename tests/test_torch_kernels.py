@@ -229,26 +229,77 @@ def test_decode_dropout_kernel_is_plain_times_the_regenerated_mask(cuda, dtype,
                                                               copies[1])
 
 
+# (B, H, S, P, G): the SCST shape at a small B; an odd B with P+G = 125;
+# P+G = 128; an odd total of rows (W*B*H*S) with P+G = 125
+K6_SHAPES = [(8, 12, 2, 102, 24), (5, 12, 2, 101, 24), (3, 12, 2, 104, 24),
+             (5, 3, 1, 101, 24)]
+
+
 @pytest.mark.cuda
-def test_decode_dropout_scales_kernel_is_bit_exact(cuda):
+@pytest.mark.parametrize("shape", K6_SHAPES,
+                         ids=["scst", "oddB-125", "128", "oddrows-125"])
+@pytest.mark.parametrize("W", [1, 19, 128])
+def test_decode_dropout_scales_kernel_is_bit_exact(cuda, W, shape):
     """K6 writes K5's multipliers: row t*B + b from seeds[t], bit for bit
-    philox.decode_keep_scale on the card and on the CPU."""
-    seeds = [philox.step_seed(3, 1, t, 0) for t in range(19)]
-    seeds[4] = 2 ** 64 - 1
-    B, H, P, G = 8, 12, 102, 24
+    philox.decode_keep_scale on the card and on the CPU, for row widths P+G
+    that leave rows 8- or 4-byte aligned and row counts that do not fill
+    the last segment."""
+    B, H, S, P, G = shape
+    seeds = [philox.step_seed(3, 1, t, 0) for t in range(W)]
+    seeds[min(4, W - 1)] = 2 ** 64 - 1
     before = _build.KERNELS["decode_dropout_scales"].launches
-    got = dec.decode_dropout_scales(seeds, B, n_heads=H, S=2, P=P, G=G,
+    got = dec.decode_dropout_scales(seeds, B, n_heads=H, S=S, P=P, G=G,
                                     rate=0.1, device=cuda)
     assert _build.KERNELS["decode_dropout_scales"].launches == before + 1
-    want = dec.decode_dropout_scales(seeds, B, n_heads=H, S=2, P=P, G=G,
+    assert got.shape == (W * B, H, S, P + G)
+    want = dec.decode_dropout_scales(seeds, B, n_heads=H, S=S, P=P, G=G,
                                      rate=0.1, device="cpu")
     assert torch.equal(got.cpu(), want)
-    assert torch.equal(got[4 * B:5 * B], philox.decode_keep_scale(
-        seeds[4], B, H, 2, P, G, 0.1, device=cuda))
-    assert abs(float((got > 0).float().mean()) - 0.9) < 0.005
+    t = min(4, W - 1)
+    assert torch.equal(got[t * B:(t + 1) * B], philox.decode_keep_scale(
+        seeds[t], B, H, S, P, G, 0.1, device=cuda))
+    # the keep fraction within 4 standard deviations of 0.9 (0.0018 at the
+    # SCST shape, 0.028 at the smallest)
+    assert abs(float((got > 0).float().mean()) - 0.9) < 4 * (
+        0.09 / got.numel()) ** 0.5
     with pytest.raises(ValueError, match="128"):
         dec.decode_dropout_scales(list(range(1, 130)), 1, n_heads=1, S=2,
                                   P=4, G=8, rate=0.1, device=cuda)
+
+
+def _k6_segments(W, B, H, S, cols, grid, seg_rows=8):
+    """decode_dropout.cu's split of the output among `grid` blocks, in
+    Python: units of `unit` rows dealt out evenly (the first units % grid
+    blocks take one more), each block's contiguous rows walked in segments
+    of seg_rows rows; yields (first row, rows)."""
+    rows = W * B * H * S
+    unit = 1 if cols % 4 == 0 else 2 if cols % 2 == 0 else 4
+    units = -(-rows // unit)
+    grid = min(grid, units)
+    per_block, extra = divmod(units, grid)
+    for blk in range(grid):
+        u_begin = blk * per_block + min(blk, extra)
+        begin = min(rows, u_begin * unit)
+        end = min(rows, (u_begin + per_block + (blk < extra)) * unit)
+        for r0 in range(begin, end, seg_rows):
+            yield r0, min(seg_rows, end - r0)
+
+
+@pytest.mark.parametrize("grid", [1, 7, 132 * 12])
+@pytest.mark.parametrize("W", [1, 19, 128])
+@pytest.mark.parametrize("shape", K6_SHAPES)
+def test_decode_dropout_segments_cover_the_output_aligned(shape, W, grid):
+    """Every row of K6's output lies in exactly one segment, every segment
+    starts on a 16-byte boundary, and only the last one of the output can
+    end off it (its tail of n % 4 floats is stored one float at a time)."""
+    B, H, S, P, G = shape
+    cols, rows = P + G, W * B * H * S
+    seen = np.zeros(rows, np.int64)
+    for r0, n in _k6_segments(W, B, H, S, cols, grid):
+        assert (r0 * cols * 4) % 16 == 0
+        assert (n * cols) % 4 == 0 or r0 + n == rows
+        seen[r0:r0 + n] += 1
+    assert (seen == 1).all()
 
 
 @pytest.mark.cuda
@@ -503,10 +554,11 @@ def test_long_forward_matches_plain(cuda, dtype, tol, rate, L):
 @pytest.mark.cuda
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("layout", ["blhd", "bhld"])
-@pytest.mark.parametrize("L", [144, 160, 256])
+@pytest.mark.parametrize("L", [144, 145, 160, 192, 256, 384, 528])
 def test_long_backward_matches_plain(cuda, rate, layout, L):
-    """bf16 past the one-block body (L <= 144): the key-chunked body, in
-    both layouts, against attention_bwd_plain."""
+    """bf16 past the one-block body (L <= 144): the tiled body, in both
+    layouts, against attention_bwd_plain, at lengths that fill their last
+    64-row tile and lengths that do not."""
     g = torch.Generator(device=cuda).manual_seed(13)
     q, k, v, mode, te, ck = _train_inputs(g, cuda, torch.bfloat16, B=2, L=L,
                                           H=3)
@@ -576,3 +628,59 @@ def test_bhld_unaligned_strides_match_plain(cuda, dtype, tol, pad):
                        device=cuda).to(dtype)[..., :D]
     _, _, _, mode, te, ck = _train_inputs(g, cuda, dtype, B=B, L=L, H=1)
     _check_fwd_bwd(q, k, v, mode, te, ck, dout, tol, 0.1, layout="bhld")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_long_fully_masked_example_matches_plain(cuda, rate):
+    """The tiled backward (L = 256) on a bi-mode example whose every column
+    is dropped by colkeep: its rows' softmax spreads over the -10000
+    columns as the plain version's does."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q, k, v, mode, te, ck = _train_inputs(g, cuda, torch.bfloat16, B=4,
+                                          L=256, H=2)
+    mode[1], te[1] = MODE_BI, 256
+    ck[1] = 0.0
+    dout = torch.randn(q.shape, generator=g, device=cuda).to(torch.bfloat16)
+    _check_fwd_bwd(q, k, v, mode, te, ck, dout, BF16_TOL, rate)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pad", [1, 2, 4], ids=["align2", "align4", "align8"])
+def test_long_bhld_unaligned_strides_match_plain(cuda, pad):
+    """The tiled backward on bhld inputs whose row stride (and, for q,
+    base) is not 16-byte aligned: narrower copies into its tiles."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    B, H, L, D = 2, 3, 256, 64
+    qkv = torch.randn(B, H, L, 3 * D + pad, generator=g,
+                      device=cuda).to(torch.bfloat16)
+    q, k, v = (qkv[..., pad + i * D:pad + (i + 1) * D] if i == 0 else
+               qkv[..., i * D:(i + 1) * D] for i in range(3))
+    dout = torch.randn(B, H, L, D + pad, generator=g,
+                       device=cuda).to(torch.bfloat16)[..., :D]
+    _, _, _, mode, te, ck = _train_inputs(g, cuda, torch.bfloat16, B=B, L=L,
+                                          H=1)
+    _check_fwd_bwd(q, k, v, mode, te, ck, dout, BF16_TOL, 0.1,
+                   layout="bhld")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["blhd", "bhld"])
+@pytest.mark.parametrize("L", [128, 256, 528])
+def test_backward_is_deterministic(cuda, layout, L):
+    """Two calls on the same inputs give bit-identical dq, dk and dv: no sum
+    depends on the order in which blocks run."""
+    g = torch.Generator(device=cuda).manual_seed(14)
+    q, k, v, mode, te, ck = _train_inputs(g, cuda, torch.bfloat16, B=2, L=L,
+                                          H=3)
+    dout = torch.randn(q.shape, generator=g, device=cuda).to(torch.bfloat16)
+    if layout == "bhld":
+        q, k, v, dout = (t.transpose(1, 2).contiguous()
+                         for t in (q, k, v, dout))
+    args = (q, k, v, mode, te, ck, dout, 102, 0.1, 0x9E3779B97F4A7C15,
+            layout)
+    first = attn._backward_cuda(*args)
+    second = attn._backward_cuda(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)

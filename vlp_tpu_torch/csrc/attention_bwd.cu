@@ -39,15 +39,32 @@
 //   test_bf16_rounded_backward_fits_the_jax_bf16_backward holds that
 //   arithmetic within the bf16 tolerance of JAX's bf16 backward.  Padded
 //   rows and columns of a ragged L are exact zeros in P o keep and dS.
-// * bf16, 144 < L <= the bf16 forward's limit (vlp::attention_fwd_max_len:
-//   its tiles fit at 528, these at 544 query rows): attention_bwd_long,
-//   the same products, rounding and Philox bits over 128-column key chunks
-//   (the whole problem no longer fits a block).  Q and dO stay staged;
-//   each pass stages one chunk's K (and V) at a time: (1) the row max and
-//   sum, rescaled chunk to chunk, (2) rowsum(dP o keep o P), (3) per chunk
-//   and 32 query rows, P o keep and dS through shared memory into dK and
-//   dV (registers, stored after the chunk) and dQ, added up over the
-//   chunks in fp32 in a scratch that the wrapper allocates.
+// * bf16, 144 < L <= the bf16 forward's limit (vlp::attention_fwd_max_len,
+//   528): FlashAttention-2's backward with the same rounding and Philox
+//   bits, in three kernels (the whole problem no longer fits a block).
+//   Each has a grid of (example, head, 128 rows) blocks of 8 warps, each
+//   warp owning 16 of the rows, and streams the other operand in 64-row
+//   tiles through a double-buffered cp.async ring; an fp32 scratch that
+//   the wrapper allocates (vlp_attention_bwd_scratch_floats) carries the
+//   first kernel's results to the other two:
+//   (a) attention_bwd_stats, per 128 query rows over the key tiles: S and
+//       dP = dO V^T, the row max m, the sum l and rowsum(dP o keep o P),
+//       the last two rescaled online when the max moves; it writes m, 1/l
+//       and rowsum per row, and the keep bits (vlp::keep_frag, one bit per
+//       element): Philox runs once, not in every kernel;
+//   (b) attention_bwd_dkdv, per 128 keys (K and V staged) over the query
+//       tiles: S^T, P^T from (m, 1/l), keep from the bits, dP^T and dS^T
+//       in registers, then dV += (P o keep)^T dO and dK += dS^T Q straight
+//       from those accumulators (an mma's C fragments are the next one's
+//       A), dO and Q as ldmatrix.trans operands;
+//   (c) attention_bwd_dq, per 128 query rows over the key tiles: S, P,
+//       keep, dP and dS likewise, and dQ += dS K in registers, written
+//       once, with no atomics.
+//   Regions that the structural mask hides from rows that see a column of
+//   their own (s2s rows past the prefix against later keys, bi rows
+//   against keys past text_end) hold exact zeros of P and dS and are
+//   skipped (masked_region), by all three kernels alike.  Every sum runs
+//   in a fixed order: two calls give the same bits.
 // * fp32: attention_bwd_fp32, the first version on the CUDA cores (fp32
 //   FMAs), which the card-vs-CPU fp32 gates need: tensor cores give
 //   neither fp32 nor its exact products.  Its block holds two [L][D+1]
@@ -63,6 +80,16 @@
 // per SM, and it takes ~14 us per head at one block per SM (PERF.md):
 // it is bound by the latency of its serial phases (stage, S, softmax, dP,
 // dS, the three products, store) more than by bytes or operations.
+// The tiled body at B=64, L=256, rate 0.1 has to move ~176 MB (~53 us at
+// 3.35 TB/s) and does nine 256 x 256 x 64 products a head where five would
+// do (~58 GFLOP, ~59 us at 989 TFLOP/s), plus ~13 M Philox calls.
+// mma.sync takes its B operands from shared memory (4 clocks an
+// ldmatrix.x4 at 128 bytes a clock), and the per-element softmax, mask and
+// keep work competes with it for issue slots: these, not the tensor cores,
+// bound it (PERF.md), so blocks own 128 rows (half the re-streaming of
+// 64) and two blocks of 8 warps run per SM (at most 128 registers a
+// thread).  The one-block-per-head design before it ran one block of 16
+// warps per SM through three serial passes.
 // Registers and spills:
 // `-Xptxas -v` in the build log (chip_smoke.py prints it).  The wrapper
 // rejects an L whose tiles do not fit (vlp_attention_bwd_max_len, per
@@ -470,49 +497,119 @@ __global__ void __launch_bounds__(kNT * 32, 1)
   vlp::store_rows(dv + out_base, os.l, va, r0, L, lane, 1.f);
 }
 
-// ---- bf16, 144 < L <= the forward's limit: key-chunked, on the tensor
-// cores
+// ---- bf16, 144 < L <= the forward's limit: FlashAttention-2's backward
+// in three kernels: blocks of 8 warps own 128 rows (or keys) and stream
+// the other operand in 64-row tiles
 
-constexpr int kLongWarps = 16;
-constexpr int kKeyChunk = 128;        // key columns staged at a time
-constexpr int kGroup = 32;            // query rows of one gradient step
-constexpr int kCS = kKeyChunk + 8;    // row of a [kGroup][kKeyChunk] tile
+constexpr int kOwn = 128;               // rows (keys) a block owns
+constexpr int kOwnWarps = kOwn / 16;    // one warp per 16 of them
+constexpr int kThreadsT = kOwnWarps * 32;
+constexpr int kTile = 64;               // rows of a streamed tile
+constexpr int kHalf = kTile / 2;        // key columns of one step
+constexpr int kStep = 16;               // query columns of a dK/dV step
+constexpr int kTS = vlp::kTileStride;
+constexpr int kTileElems = kTile * kTS; // bf16 of one staged [64][72] tile
+constexpr int kOwnElems = kOwn * kTS;
+constexpr int kMinBlocksT = 2;          // blocks per SM (launch bounds)
+using u64 = unsigned long long;
 
-__host__ __device__ __forceinline__ int long_rows(int L) {
-  return (L + kGroup - 1) & ~(kGroup - 1);
+// Blocks along L (128 rows each) and 64-row tiles along L.
+__host__ __device__ __forceinline__ int own_blocks(int L) {
+  return (L + kOwn - 1) / kOwn;
 }
-__host__ __device__ __forceinline__ int long_chunks(int L) {
-  return (L + kKeyChunk - 1) / kKeyChunk;
+__host__ __device__ __forceinline__ int long_tiles(int L) {
+  return (L + kTile - 1) / kTile;
+}
+// The scratch of one (example, head), in floats: the row max m (in log2
+// units), 1/l and rowsum(dP o keep o P) of each of the Lt = 128 *
+// own_blocks(L) query rows ([3][Lt] fp32; 0, 0, 0 past L), then the keep
+// bits ([64-key tile][Lt] u64: bit c of word (kt, i) keeps column
+// 64 kt + c of row i).
+__host__ __device__ __forceinline__ int long_scratch(int L) {
+  return (3 + 2 * long_tiles(L)) * own_blocks(L) * kOwn;
 }
 
-// Q and dO [Lq][72], one key chunk of K and V [128][72], P o keep and dS of
-// one group [32][136]; the column bias of every chunk, and the row max,
-// sum and rowsum(dP o keep o P) of every query row.
-size_t smem_bytes_long(int L) {
-  const size_t Lq = long_rows(L);
-  return sizeof(bf16) * (2 * Lq * vlp::kTileStride +
-                         2 * kKeyChunk * vlp::kTileStride + 2 * kGroup * kCS) +
-         sizeof(float) * (long_chunks(L) * kKeyChunk + 3 * Lq);
+// The statistics and dQ kernels: their 128 rows of Q and dO, a ring of
+// two stages of one key tile of K and V and (for dQ) the keep words of
+// the block's rows, and the column bias of every key.
+size_t smem_bytes_rows(int L) {
+  return sizeof(bf16) * (2 * kOwnElems + 4 * kTileElems) +
+         sizeof(u64) * 2 * kOwn + sizeof(float) * long_tiles(L) * kTile;
+}
+// The dK/dV kernel: its 128 keys of K and V, and a ring of two stages of
+// one query tile of Q, dO, their rows' statistics and the keep words of
+// the block's two key tiles.
+constexpr size_t kSmemBytesCols =
+    sizeof(bf16) * (2 * kOwnElems + 4 * kTileElems) +
+    sizeof(float) * 2 * 3 * kTile + sizeof(u64) * 2 * 2 * kTile;
+
+// The first column that colkeep keeps (L if none).
+__device__ __forceinline__ int first_kept(const float* colkeep, int L) {
+  int j = 0;
+  while (j < L && !(colkeep[j] > 0.5f)) ++j;
+  return j;
 }
 
-// s = the masked, scaled scores of query rows r0 + g and r0 + g + 8 against
-// the kN n8 tiles at column c0 of the staged key chunk (whose first column
-// is cb); columns past L are -inf.
-template <int kN>
-__device__ __forceinline__ void chunk_scores(
-    float (&s)[kN][4], const bf16* sq, const bf16* sk, const float* colbias,
-    int r0, int cb, int c0, int lane, const int (&lim)[2], float scale) {
-  vlp::mma_abt<kN>(s, sq, sk, r0, c0, kKeyChunk, lane);
-  const int j0 = cb + c0 + 2 * (lane & 3);
+// Whether query rows [i0, i1) see none of the keys from j0 on through the
+// structural mask while each of them sees a kept column (`first`, from
+// first_kept, lies within its limit).  Such scores sit at -10000 + s
+// beside a row max of at least s' for a visible column, so exp(S - m)
+// underflows to exactly 0 there (for |s - s'| < 9,896) and P o keep and dS
+// are exact zeros: the three kernels skip such regions.  s2s rows see at
+// least the prefix, bi rows every column before text_end.
+__device__ __forceinline__ bool masked_region(int md, int te, int prefix,
+                                              int first, int i0, int i1,
+                                              int j0) {
+  if (md == vlp::kModeS2S) {
+    const int hi = i0 < te ? max(prefix - 1, min(i1, te) - 1) : prefix - 1;
+    return j0 > hi && prefix - 1 >= first;
+  }
+  return j0 > te - 1 && te - 1 >= first;
+}
+
+// The tiled body keeps scores in log2 units (S * log2(e)), so that
+// exp(S - m) is one ex2 of a difference: the masks are scaled alike.
+constexpr float kNegInf2 = vlp::kNegInf * kLog2e;
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// vlp::mask_bias in log2 units: colbias2 is 0, kNegInf2 or -inf.
+__device__ __forceinline__ float mask_bias2(float colbias2, int j,
+                                            int limit) {
+  return j <= limit ? colbias2 : fminf(colbias2, kNegInf2);
+}
+
+// The column bias of key j in log2 units: 0 (kept), kNegInf2 (dropped by
+// colkeep), -inf past L.
+__device__ __forceinline__ float colbias2(const float* colkeep, int j,
+                                          int L) {
+  return j >= L ? -CUDART_INF_F : colkeep[j] > 0.5f ? 0.f : kNegInf2;
+}
+
+// s = the masked, scaled scores in log2 units (scale2 = scale * log2(e)) of
+// query rows r0 + g and r0 + g + 8 of the staged rows sa against the 4 n8
+// tiles of key columns c0 .. c0 + 31 of sb (global column j0 = the tile's
+// first key + c0, whose bias is colbias[0]); columns past L are -inf.
+__device__ __forceinline__ void half_scores(float (&s)[4][4], const bf16* sa,
+                                            const bf16* sb,
+                                            const float* colbias, int r0,
+                                            int c0, int j0, int lane,
+                                            const int (&lim)[2],
+                                            float scale2) {
+  vlp::mma_abt<4>(s, sa, sb, r0, c0, kTile, lane);
+  const int t2 = 2 * (lane & 3);
 #pragma unroll
-  for (int n = 0; n < kN; ++n) {
-    const float2 cb2 = *reinterpret_cast<const float2*>(colbias + j0 + n * 8);
+  for (int n = 0; n < 4; ++n) {
+    const float2 cb = *reinterpret_cast<const float2*>(colbias + n * 8 + t2);
 #pragma unroll
     for (int e = 0; e < 4; ++e)
-      s[n][e] = __fadd_rn(
-          __fmul_rn(s[n][e], scale),
-          vlp::mask_bias(e & 1 ? cb2.y : cb2.x, j0 + n * 8 + (e & 1),
-                         lim[e >> 1]));
+      s[n][e] = fmaf(s[n][e], scale2,
+                     mask_bias2(e & 1 ? cb.y : cb.x,
+                                j0 + n * 8 + t2 + (e & 1), lim[e >> 1]));
   }
 }
 
@@ -527,265 +624,424 @@ __device__ __forceinline__ float quad_max(float x) {
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
 }
 
-// Three passes over 128-column key chunks (K, or K and V, staged once per
-// pass and chunk; Q and dO stay staged throughout):
-//   1. each warp's 16-row query tiles: the row max and sum over all keys,
-//      rescaled from chunk to chunk;
-//   2. the same tiles: rowsum(dP o keep o P), P from the final max and sum;
-//   3. per chunk, 32 query rows at a time: each warp forms P o keep and dS
-//      (bf16, the L <= 144 body's rounding) of one 16 x 16 tile into shared
-//      memory, then owns 16 key rows x 32 d-columns of dK and dV (kept in
-//      registers over the chunk's groups) and 16 query rows x 8 d-columns of
-//      dQ, which it adds up over the chunks in fp32 in dq_acc
-//      ([B*H][Lq][64], the rows this block alone touches) and stores as bf16
-//      after the last.
+// The multiplier of bit `bit` of a 32-bit half of a keep word.
+__device__ __forceinline__ float keep_bit(uint32_t word, int bit,
+                                          float scale) {
+  return (word >> bit) & 1u ? scale : 0.f;
+}
+
+// Stage rows [0, min(n, L - r)) of the n rows at row r of a head's [L][64]
+// slice (src, row stride sl) into dst[n][kTS], zeros past L.
+__device__ __forceinline__ void stage_tile(bf16* dst, const bf16* src,
+                                           long long sl, int r, int n, int L,
+                                           int align) {
+  vlp::stage_rows(dst, src + r * sl, sl, max(0, min(n, L - r)), n, align);
+}
+
+// n keep words (n * 8 bytes, 16-byte aligned) into shared memory.
+__device__ __forceinline__ void stage_bits(u64* dst, const u64* src, int n) {
+  for (int c = threadIdx.x; c < n / 2; c += blockDim.x)
+    vlp::cp_async<16>(dst + 2 * c, src + 2 * c);
+}
+
+// The shared set-up of the statistics and dQ kernels: block (example b,
+// head h, rows q0 .. q0 + 127) stages its Q and dO rows and the column
+// bias.
+struct RowsBlock {
+  int b, h, q0, nk, Lt, first, md, te;
+  long long in_base, do_base;
+  bf16 *sq, *sdo, *ring;
+  u64* sbits;        // [2][128]
+  float* colbias;
+  float* stats;      // this head's scratch
+  u64* bits;
+
+  __device__ RowsBlock(unsigned char* smem, const bf16* q, const bf16* dout,
+                       const float* colkeep, float* scratch,
+                       const int* mode, const int* text_end, int L, int H,
+                       vlp::Strides in, vlp::Strides ds_in, int align) {
+    const int nb = own_blocks(L);
+    nk = long_tiles(L);
+    Lt = nb * kOwn;
+    const int bh = blockIdx.x / nb;
+    b = bh / H;
+    h = bh % H;
+    q0 = (blockIdx.x % nb) * kOwn;
+    in_base = b * in.b + h * in.h;
+    do_base = b * ds_in.b + h * ds_in.h;
+    stats = scratch + (long long)bh * long_scratch(L);
+    bits = reinterpret_cast<u64*>(stats + 3 * Lt);
+    sq = reinterpret_cast<bf16*>(smem);
+    sdo = sq + kOwnElems;
+    ring = sdo + kOwnElems;
+    sbits = reinterpret_cast<u64*>(ring + 4 * kTileElems);
+    colbias = reinterpret_cast<float*>(sbits + 2 * kOwn);
+    stage_tile(sq, q + in_base, in.l, q0, kOwn, L, align);
+    stage_tile(sdo, dout + do_base, ds_in.l, q0, kOwn, L, align);
+    vlp::cp_async_commit();
+    const float* ck = colkeep + (long long)b * L;
+    for (int j = threadIdx.x; j < nk * kTile; j += blockDim.x)
+      colbias[j] = colbias2(ck, j, L);
+    first = first_kept(ck, L);
+    md = mode[b];
+    te = text_end[b];
+  }
+  // key tile kt of K and V (and, with bits, the keep words of this block's
+  // rows against kt) into ring stage kt % 2
+  __device__ void stage_kv(const bf16* k, const bf16* v, vlp::Strides in,
+                           int kt, int L, int align, bool with_bits) {
+    bf16* dst = ring + (kt & 1) * 2 * kTileElems;
+    stage_tile(dst, k + in_base, in.l, kt * kTile, kTile, L, align);
+    stage_tile(dst + kTileElems, v + in_base, in.l, kt * kTile, kTile, L,
+               align);
+    if (with_bits)
+      stage_bits(sbits + (kt & 1) * kOwn, bits + (long long)kt * Lt + q0,
+                 kOwn);
+    vlp::cp_async_commit();
+  }
+};
+
+// Waits for ring stage `it` after issuing stage it + 1 (if any).
+template <typename Issue>
+__device__ __forceinline__ void ring_next(int it, int n, Issue issue) {
+  if (it + 1 < n) {
+    issue(it + 1);
+    vlp::cp_async_wait<1>();
+  } else {
+    vlp::cp_async_wait<0>();
+  }
+  __syncthreads();
+}
+
+// (a) Grid (example, head, 128 query rows): each warp owns 16 rows and
+// streams every key tile: the row max m, the sum l of exp(S - m) and
+// rowsum(dP o keep o exp(S - m)), both rescaled by exp(m_old - m_new) when
+// the running max moves.  Writes m, 1/l and rowsum(dP o keep o P) = that
+// sum / l (0, 0, 0 for rows past L), and with dropout the keep bits of
+// every 16 x 64 region it does not skip, drawn once here for all three
+// kernels (the other two read bits only inside such regions).
 template <bool kDrop>
-__global__ void __launch_bounds__(kLongWarps * 32, 1)
-    attention_bwd_long(const bf16* __restrict__ q, const bf16* __restrict__ k,
+__global__ void __launch_bounds__(kThreadsT, kMinBlocksT)
+    attention_bwd_stats(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v,
+                        const bf16* __restrict__ dout,
+                        float* __restrict__ scratch,
+                        const int* __restrict__ mode,
+                        const int* __restrict__ text_end,
+                        const float* __restrict__ colkeep, int L, int H,
+                        vlp::Strides in, vlp::Strides ds_in, int prefix,
+                        float scale, vlp::Dropout dp, int align) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  RowsBlock blk(smem_raw, q, dout, colkeep, scratch, mode, text_end, L, H,
+                in, ds_in, align);
+  const int nk = blk.nk, b = blk.b, h = blk.h, Lt = blk.Lt;
+  auto issue = [&](int i) { blk.stage_kv(k, v, in, i, L, align, false); };
+  issue(0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = warp * 16, row = blk.q0 + r0 + g;
+  const bool live = blk.q0 + r0 < L;   // the same for the whole warp
+  const int lim[2] = {vlp::row_limit(blk.md, blk.te, prefix, row),
+                      vlp::row_limit(blk.md, blk.te, prefix, row + 8)};
+  const float scale2 = scale * kLog2e;
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f},
+        num[2] = {0.f, 0.f};
+  for (int kt = 0; kt < nk; ++kt) {
+    ring_next(kt, nk, issue);
+    const bf16* sk = blk.ring + (kt & 1) * 2 * kTileElems;
+    const bf16* sv = sk + kTileElems;
+    if (live && !masked_region(blk.md, blk.te, prefix, blk.first,
+                               blk.q0 + r0, blk.q0 + r0 + 16, kt * kTile)) {
+      uint32_t kw[2][2] = {};   // [row g, g + 8][key half]
+#pragma unroll
+      for (int c0 = 0; c0 < kTile; c0 += kHalf) {
+        const int j0 = kt * kTile + c0;
+        if (j0 >= L) break;   // key 0 < L: the first half sets a finite max
+        float s[4][4], dpk[4][4];
+        half_scores(s, blk.sq, sk, blk.colbias + j0, r0, c0, j0, lane, lim,
+                    scale2);
+        vlp::mma_abt<4>(dpk, blk.sdo, sv, r0, c0, kTile, lane);
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          float cm = -CUDART_INF_F;
+#pragma unroll
+          for (auto& tile : s)
+            cm = fmaxf(cm, fmaxf(tile[2 * hh], tile[2 * hh + 1]));
+          const float mn = fmaxf(m[hh], quad_max(cm));
+          const float alpha = ex2(m[hh] - mn);
+          m[hh] = mn;
+          l[hh] *= alpha;
+          num[hh] *= alpha;
+        }
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          float mult[4] = {1.f, 1.f, 1.f, 1.f};
+          if (kDrop && j0 + n * 8 < L) {
+            vlp::keep_frag(dp, b, h, row, j0 + n * 8, lane, mult);
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              kw[e >> 1][c0 / kHalf] |= uint32_t(mult[e] != 0.f)
+                                        << (n * 8 + 2 * t + (e & 1));
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float p = ex2(s[n][e] - m[e >> 1]);
+            l[e >> 1] += p;
+            num[e >> 1] += dpk[n][e] * mult[e] * p;
+          }
+        }
+      }
+      if (kDrop) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          u64 w = kw[hh][0] | (u64)kw[hh][1] << 32;
+          w |= __shfl_xor_sync(0xffffffffu, w, 1);
+          w |= __shfl_xor_sync(0xffffffffu, w, 2);
+          if (t == 0) blk.bits[(long long)kt * Lt + row + 8 * hh] = w;
+        }
+      }
+    }
+    __syncthreads();   // the next stage overwrites this one's K and V
+  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const float lt = quad_sum(l[hh]), nm = quad_sum(num[hh]);
+    const int i = row + 8 * hh;
+    if (t == 0) {
+      const bool in = i < L;
+      blk.stats[i] = in ? m[hh] : 0.f;
+      blk.stats[Lt + i] = in ? 1.f / lt : 0.f;
+      blk.stats[2 * Lt + i] = in ? nm / lt : 0.f;
+    }
+  }
+}
+
+// (b) Grid (example, head, 128 keys): K and V of the keys stay staged;
+// each warp owns 16 of them and streams every query tile of Q, dO, their
+// statistics and keep bits.  Per 16 queries it recomputes S^T and
+// P^T = exp(S^T - m) / l, forms dP^T = V dO^T and dS^T, rounds P o keep
+// and dS to bf16 as attention_bwd_mma does, and adds
+// dV += (P o keep)^T dO and dK += dS^T Q in registers, the transposed
+// products straight from the accumulators (C fragments = A fragments).
+template <bool kDrop>
+__global__ void __launch_bounds__(kThreadsT, kMinBlocksT)
+    attention_bwd_dkdv(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v,
-                       const bf16* __restrict__ dout, bf16* __restrict__ dq,
-                       bf16* __restrict__ dk, bf16* __restrict__ dv,
-                       float* __restrict__ dq_acc,
+                       const bf16* __restrict__ dout, bf16* __restrict__ dk,
+                       bf16* __restrict__ dv,
+                       const float* __restrict__ scratch,
                        const int* __restrict__ mode,
                        const int* __restrict__ text_end,
                        const float* __restrict__ colkeep, int L, int H,
                        vlp::Strides in, vlp::Strides ds_in, vlp::Strides os,
                        int prefix, float scale, vlp::Dropout dp, int align) {
-  constexpr int TS = vlp::kTileStride;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int Lq = long_rows(L), nc = long_chunks(L);
-  bf16* sq = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sdo = sq + Lq * TS;
-  bf16* sk = sdo + Lq * TS;             // key chunk c
-  bf16* sv = sk + kKeyChunk * TS;
-  bf16* spk = sv + kKeyChunk * TS;      // P o keep of a group
-  bf16* sds = spk + kGroup * kCS;       // dS of a group
-  float* colbias = reinterpret_cast<float*>(sds + kGroup * kCS);
-  float* rmax = colbias + nc * kKeyChunk;
-  float* rsum = rmax + Lq;
-  float* rdot = rsum + Lq;
-
-  const int b = blockIdx.x / H;
-  const int h = blockIdx.x % H;
+  const int nb = own_blocks(L), nq = long_tiles(L), Lt = nb * kOwn;
+  const int bh = blockIdx.x / nb, b = bh / H, h = bh % H;
+  const int k0 = (blockIdx.x % nb) * kOwn;
   const long long in_base = b * in.b + h * in.h;
   const long long do_base = b * ds_in.b + h * ds_in.h;
-  const long long out_base = b * os.b + h * os.h;
-  float* acc = dq_acc + (long long)blockIdx.x * Lq * D;
-  vlp::stage_rows(sq, q + in_base, in.l, L, Lq, align);
-  vlp::stage_rows(sdo, dout + do_base, ds_in.l, L, Lq, align);
+  const float* st = scratch + (long long)bh * long_scratch(L);
+  const u64* bits = reinterpret_cast<const u64*>(st + 3 * Lt);
+  bf16* sk = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sv = sk + kOwnElems;
+  bf16* ring = sv + kOwnElems;     // [2][Q, dO]
+  float* sstat = reinterpret_cast<float*>(ring + 4 * kTileElems);  // [2][3][64]
+  u64* sbits = reinterpret_cast<u64*>(sstat + 2 * 3 * kTile);  // [2][2][64]
+  stage_tile(sk, k + in_base, in.l, k0, kOwn, L, align);
+  stage_tile(sv, v + in_base, in.l, k0, kOwn, L, align);
   vlp::cp_async_commit();
-  for (int j = threadIdx.x; j < nc * kKeyChunk; j += blockDim.x)
-    colbias[j] = j >= L ? -CUDART_INF_F
-                 : colkeep[(long long)b * L + j] > 0.5f ? 0.f
-                                                        : vlp::kNegInf;
-  for (int i = threadIdx.x; i < Lq; i += blockDim.x) {
-    rmax[i] = -CUDART_INF_F;
-    rsum[i] = 0.f;
-    rdot[i] = 0.f;
-  }
+  // the block's keys span 64-key tiles kt0 and kt0 + 1 (if < nq)
+  const int kt0 = k0 / kTile;
+  auto stage_q = [&](int qt) {
+    bf16* dst = ring + (qt & 1) * 2 * kTileElems;
+    stage_tile(dst, q + in_base, in.l, qt * kTile, kTile, L, align);
+    stage_tile(dst + kTileElems, dout + do_base, ds_in.l, qt * kTile, kTile,
+               L, align);
+    // m, 1/l and rowsum of the tile's rows: 3 x 16 copies of 16 bytes
+    for (int c = threadIdx.x; c < 3 * kTile / 4; c += blockDim.x)
+      vlp::cp_async<16>(sstat + (qt & 1) * 3 * kTile + 4 * c,
+                        st + (c / 16) * Lt + qt * kTile + (c % 16) * 4);
+    if (kDrop)
+      for (int x = 0; x < 2 && kt0 + x < nq; ++x)
+        stage_bits(sbits + ((qt & 1) * 2 + x) * kTile,
+                   bits + (long long)(kt0 + x) * Lt + qt * kTile, kTile);
+    vlp::cp_async_commit();
+  };
+  stage_q(0);
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
+  const int kr0 = warp * 16;
+  const bool live = k0 + kr0 < L;   // the same for the whole warp
   const int md = mode[b], te = text_end[b];
-  // stages chunk c's K (and V); the barriers fence the previous readers
-  auto stage_chunk = [&](int cb, bool with_v) {
-    __syncthreads();
-    const int Lc = min(kKeyChunk, L - cb);
-    vlp::stage_rows(sk, k + in_base + cb * in.l, in.l, Lc, kKeyChunk, align);
-    if (with_v)
-      vlp::stage_rows(sv, v + in_base + cb * in.l, in.l, Lc, kKeyChunk,
-                      align);
-    vlp::cp_async_commit();
-    vlp::cp_async_wait<0>();
-    __syncthreads();
-  };
-  auto limits = [&](int r0, int (&lim)[2]) {
-    lim[0] = vlp::row_limit(md, te, prefix, r0 + g);
-    lim[1] = vlp::row_limit(md, te, prefix, r0 + g + 8);
-  };
-  // P = exp(S - max) / sum in place; rows past L are 0
-  auto probs = [&](auto& s, int r0) {
-    float m[2], inv[2];
+  const float* ck = colkeep + (long long)b * L;
+  const int first = first_kept(ck, L);
+  int key[2];
+  float kbias[2];
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int i = r0 + g + 8 * hh;
-      m[hh] = rmax[i];
-      inv[hh] = i < L ? 1.f / rsum[i] : 0.f;
-    }
-#pragma unroll
-    for (auto& tile : s)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        tile[e] = exp2f((tile[e] - m[e >> 1]) * kLog2e) * inv[e >> 1];
-  };
-
-  // ---- pass 1: row max and sum, one 128-column chunk in registers
-  for (int c = 0; c < nc; ++c) {
-    const int cb = c * kKeyChunk;
-    stage_chunk(cb, false);
-    for (int r0 = warp * 16; r0 < Lq; r0 += kLongWarps * 16) {
-      int lim[2];
-      limits(r0, lim);
-      float s[kKeyChunk / 8][4];
-      chunk_scores(s, sq, sk, colbias, r0, cb, 0, lane, lim, scale);
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int i = r0 + g + 8 * hh;
-        float cm = -CUDART_INF_F;
-#pragma unroll
-        for (auto& tile : s)
-          cm = fmaxf(cm, fmaxf(tile[2 * hh], tile[2 * hh + 1]));
-        // every chunk holds a column < L, so cm is finite
-        const float m_old = rmax[i];
-        const float m_new = fmaxf(m_old, quad_max(cm));
-        float cs = 0.f;
-#pragma unroll
-        for (auto& tile : s)
-          cs += exp2f((tile[2 * hh] - m_new) * kLog2e) +
-                exp2f((tile[2 * hh + 1] - m_new) * kLog2e);
-        cs = quad_sum(cs);
-        const float l = rsum[i] * exp2f((m_old - m_new) * kLog2e) + cs;
-        __syncwarp();
-        if (t == 0) {
-          rmax[i] = m_new;
-          rsum[i] = l;
-        }
-      }
-    }
+  for (int hh = 0; hh < 2; ++hh) {
+    key[hh] = k0 + kr0 + g + 8 * hh;
+    kbias[hh] = colbias2(ck, key[hh], L);
   }
-
-  // ---- pass 2: rowsum(dP o keep o P) (P without keep), in two halves of
-  // the chunk
-  for (int c = 0; c < nc; ++c) {
-    const int cb = c * kKeyChunk;
-    stage_chunk(cb, true);
-    for (int r0 = warp * 16; r0 < Lq; r0 += kLongWarps * 16) {
-      int lim[2];
-      limits(r0, lim);
-      float rs[2] = {0.f, 0.f};
-#pragma unroll
-      for (int c0 = 0; c0 < kKeyChunk; c0 += kKeyChunk / 2) {
-        float p[kKeyChunk / 16][4], dpk[kKeyChunk / 16][4];
-        chunk_scores(p, sq, sk, colbias, r0, cb, c0, lane, lim, scale);
-        probs(p, r0);
-        vlp::mma_abt<kKeyChunk / 16>(dpk, sdo, sv, r0, c0, kKeyChunk, lane);
-#pragma unroll
-        for (int n = 0; n < kKeyChunk / 16; ++n) {
-          float mult[4] = {1.f, 1.f, 1.f, 1.f};
-          if (kDrop && cb + c0 + n * 8 < L)
-            vlp::keep_frag(dp, b, h, r0 + g, cb + c0 + n * 8, lane, mult);
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            rs[e >> 1] += dpk[n][e] * mult[e] * p[n][e];
-        }
-      }
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const float x = quad_sum(rs[hh]);
-        if (t == 0) rdot[r0 + g + 8 * hh] += x;
-      }
-    }
-  }
-
-  // ---- pass 3: dS, then dK and dV per chunk, dQ over the chunks
-  const int qt = warp >> 3;           // query tile of the group
-  const int kc = (warp & 7) * 16;     // key columns of the chunk (step 1)
-  const int kr0 = (warp >> 1) * 16;   // dK/dV key rows of the chunk
-  const int d0 = (warp & 1) * 32;     // their d-columns
-  const int dn = (warp & 7) * 8;      // dQ d-columns of rows qt
-  for (int c = 0; c < nc; ++c) {
-    const int cb = c * kKeyChunk;
-    stage_chunk(cb, true);
-    float ka[4][4] = {}, va[4][4] = {};
-    for (int g0 = 0; g0 < Lq; g0 += kGroup) {
-      const int r0 = g0 + qt * 16;
-      // this lane's dQ sums of the earlier chunks, loaded ahead of their use
-      float2* dq_sum[2];
-      float2 before[2] = {};
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        dq_sum[hh] = reinterpret_cast<float2*>(acc + (r0 + g + 8 * hh) * D +
-                                               dn + 2 * t);
-        if (c > 0) before[hh] = *dq_sum[hh];
-      }
-      int lim[2];
-      limits(r0, lim);
-      float p[2][4], dpk[2][4];
-      chunk_scores(p, sq, sk, colbias, r0, cb, kc, lane, lim, scale);
-      probs(p, r0);
-      vlp::mma_abt<2>(dpk, sdo, sv, r0, kc, kKeyChunk, lane);
-      const float rs[2] = {rdot[r0 + g], rdot[r0 + g + 8]};
+  const float scale2 = scale * kLog2e;
+  // this lane's keys are bits kbit and kbit + 8 of one 32-bit half of a
+  // keep word of key tile kt0 + kr0 / 64
+  const int kbit = (kr0 & 31) + g;
+  float ka[8][4] = {}, va[8][4] = {};
+  for (int qt = 0; qt < nq; ++qt) {
+    ring_next(qt, nq, stage_q);
+    const bf16* sq = ring + (qt & 1) * 2 * kTileElems;
+    const bf16* sdo = sq + kTileElems;
+    const float* sm = sstat + (qt & 1) * 3 * kTile;
+    const uint32_t* sb =
+        reinterpret_cast<const uint32_t*>(
+            sbits + ((qt & 1) * 2 + kr0 / kTile) * kTile) +
+        ((kr0 & (kTile - 1)) >> 5);
+#pragma unroll 1
+    for (int c0 = 0; c0 < kTile; c0 += kStep) {
+      const int i0 = qt * kTile + c0;
+      if (!live || i0 >= L ||
+          masked_region(md, te, prefix, first, i0, i0 + kStep, k0 + kr0))
+        continue;
+      float s[2][4], dpt[2][4];
+      vlp::mma_abt<2>(s, sk, sq, kr0, c0, kTile, lane);     // S^T
+      vlp::mma_abt<2>(dpt, sv, sdo, kr0, c0, kTile, lane);  // dP^T
+      uint32_t fp[4], fs[4];   // P o keep and dS, as A fragments
 #pragma unroll
       for (int n = 0; n < 2; ++n) {
-        float mult[4] = {1.f, 1.f, 1.f, 1.f};
-        if (kDrop && cb + kc + n * 8 < L)
-          vlp::keep_frag(dp, b, h, r0 + g, cb + kc + n * 8, lane, mult);
-        const int off = (qt * 16 + g) * kCS + kc + n * 8 + 2 * t;
-        bf16* pk_row = spk + off;
-        bf16* ds_row = sds + off;
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const float* x = p[n] + 2 * hh;
-          const float* y = dpk[n] + 2 * hh;
-          *reinterpret_cast<uint32_t*>(pk_row + 8 * hh * kCS) =
-              vlp::pack_bf16(x[0] * mult[2 * hh], x[1] * mult[2 * hh + 1]);
-          *reinterpret_cast<uint32_t*>(ds_row + 8 * hh * kCS) =
-              vlp::pack_bf16(x[0] * (y[0] * mult[2 * hh] - rs[hh]),
-                             x[1] * (y[1] * mult[2 * hh + 1] - rs[hh]));
+        const int c = c0 + n * 8 + 2 * t, i = qt * kTile + c;
+        const int lim[2] = {vlp::row_limit(md, te, prefix, i),
+                            vlp::row_limit(md, te, prefix, i + 1)};
+        const float2 mx = *reinterpret_cast<const float2*>(sm + c);
+        const float2 inv = *reinterpret_cast<const float2*>(sm + kTile + c);
+        const float2 rs = *reinterpret_cast<const float2*>(sm + 2 * kTile + c);
+        uint32_t kw[2] = {0, 0};
+        if (kDrop) {
+          kw[0] = sb[2 * c];
+          kw[1] = sb[2 * c + 2];
         }
-      }
-      __syncthreads();
-
-      // dK = dS^T Q, dV = (P o keep)^T dO over the group's 32 rows
+        float pk[4], ds[4];
 #pragma unroll
-      for (int k0 = 0; k0 < kGroup; k0 += 16) {
-        uint32_t fs[4], fp[4];
-        const int off = (k0 + (lane & 7) + (lane >> 4) * 8) * kCS + kr0 +
-                        ((lane >> 3) & 1) * 8;
-        vlp::ldsm_x4_t(fs, sds + off);
-        vlp::ldsm_x4_t(fp, spk + off);
-#pragma unroll
-        for (int np = 0; np < 2; ++np) {
-          const int boff = (g0 + k0 + (lane & 15)) * TS + d0 + np * 16 +
-                           (lane >> 4) * 8;
-          uint32_t fb[4];
-          vlp::ldsm_x4_t(fb, sq + boff);
-          vlp::mma_bf16(ka[2 * np], fs, fb[0], fb[1]);
-          vlp::mma_bf16(ka[2 * np + 1], fs, fb[2], fb[3]);
-          vlp::ldsm_x4_t(fb, sdo + boff);
-          vlp::mma_bf16(va[2 * np], fp, fb[0], fb[1]);
-          vlp::mma_bf16(va[2 * np + 1], fp, fb[2], fb[3]);
+        for (int e = 0; e < 4; ++e) {
+          const int hh = e >> 1, qq = e & 1;
+          const float mult =
+              kDrop ? keep_bit(kw[qq], kbit + 8 * hh, dp.scale) : 1.f;
+          const float x = fmaf(s[n][e], scale2,
+                               mask_bias2(kbias[hh], key[hh], lim[qq]));
+          const float p = ex2(x - (qq ? mx.y : mx.x)) * (qq ? inv.y : inv.x);
+          pk[e] = p * mult;
+          ds[e] = p * (dpt[n][e] * mult - (qq ? rs.y : rs.x));
         }
-      }
-      // dQ = dS K over the chunk's 128 keys, added up over the chunks
-      float qa[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int k0 = 0; k0 < kKeyChunk; k0 += 16) {
-        uint32_t fa[4], fb[2];
-        vlp::ldsm_x4(fa, sds + (qt * 16 + (lane & 15)) * kCS + k0 +
-                             (lane >> 4) * 8);
-        vlp::ldsm_x2_t(fb, sk + (k0 + (lane & 15)) * TS + dn);
-        vlp::mma_bf16(qa, fa, fb[0], fb[1]);
+        fp[n * 2] = vlp::pack_bf16(pk[0], pk[1]);
+        fp[n * 2 + 1] = vlp::pack_bf16(pk[2], pk[3]);
+        fs[n * 2] = vlp::pack_bf16(ds[0], ds[1]);
+        fs[n * 2 + 1] = vlp::pack_bf16(ds[2], ds[3]);
       }
 #pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int i = r0 + g + 8 * hh;
-        const float x = qa[2 * hh] + before[hh].x;
-        const float y = qa[2 * hh + 1] + before[hh].y;
-        if (c + 1 < nc)
-          *dq_sum[hh] = make_float2(x, y);
-        else if (i < L)
-          *reinterpret_cast<uint32_t*>(dq + out_base + i * os.l + dn +
-                                       2 * t) =
-              vlp::pack_bf16(x * scale, y * scale);
+      for (int np = 0; np < 4; ++np) {
+        const int off = (c0 + (lane & 15)) * kTS + np * 16 + (lane >> 4) * 8;
+        uint32_t fb[4];
+        vlp::ldsm_x4_t(fb, sdo + off);
+        vlp::mma_bf16(va[2 * np], fp, fb[0], fb[1]);
+        vlp::mma_bf16(va[2 * np + 1], fp, fb[2], fb[3]);
+        vlp::ldsm_x4_t(fb, sq + off);
+        vlp::mma_bf16(ka[2 * np], fs, fb[0], fb[1]);
+        vlp::mma_bf16(ka[2 * np + 1], fs, fb[2], fb[3]);
       }
-      __syncthreads();   // the next group rewrites P o keep and dS
     }
-    const long long cbase = out_base + cb * os.l + d0;
-    const int Lc = min(kKeyChunk, L - cb);
-    vlp::store_rows(dk + cbase, os.l, ka, kr0, Lc, lane, scale);
-    vlp::store_rows(dv + cbase, os.l, va, kr0, Lc, lane, 1.f);
+    __syncthreads();   // the next stage overwrites this one's Q and dO
   }
+  const long long out_base = b * os.b + h * os.h + k0 * os.l;
+  vlp::store_rows(dk + out_base, os.l, ka, kr0, L - k0, lane, scale);
+  vlp::store_rows(dv + out_base, os.l, va, kr0, L - k0, lane, 1.f);
+}
+
+// (c) Grid (example, head, 128 query rows): each warp owns 16 rows and
+// streams every key tile (and the keep words of the block's rows): S, P
+// from (m, 1/l), keep, dP and dS as in (b), and dQ += dS K in registers;
+// dQ is written once.
+template <bool kDrop>
+__global__ void __launch_bounds__(kThreadsT, kMinBlocksT)
+    attention_bwd_dq(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v,
+                     const bf16* __restrict__ dout, bf16* __restrict__ dq,
+                     float* __restrict__ scratch,
+                     const int* __restrict__ mode,
+                     const int* __restrict__ text_end,
+                     const float* __restrict__ colkeep, int L, int H,
+                     vlp::Strides in, vlp::Strides ds_in, vlp::Strides os,
+                     int prefix, float scale, vlp::Dropout dp, int align) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  RowsBlock blk(smem_raw, q, dout, colkeep, scratch, mode, text_end, L, H,
+                in, ds_in, align);
+  const int nk = blk.nk, Lt = blk.Lt;
+  auto issue = [&](int i) { blk.stage_kv(k, v, in, i, L, align, kDrop); };
+  issue(0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = warp * 16, row = blk.q0 + r0 + g;
+  const bool live = blk.q0 + r0 < L;   // the same for the whole warp
+  const int lim[2] = {vlp::row_limit(blk.md, blk.te, prefix, row),
+                      vlp::row_limit(blk.md, blk.te, prefix, row + 8)};
+  const float* st = blk.stats;
+  const float m[2] = {st[row], st[row + 8]};
+  const float inv[2] = {st[Lt + row], st[Lt + row + 8]};
+  const float rs[2] = {st[2 * Lt + row], st[2 * Lt + row + 8]};
+  const float scale2 = scale * kLog2e;
+  float qa[8][4] = {};
+  for (int kt = 0; kt < nk; ++kt) {
+    ring_next(kt, nk, issue);
+    const bf16* sk = blk.ring + (kt & 1) * 2 * kTileElems;
+    const bf16* sv = sk + kTileElems;
+    const uint32_t* sb =
+        reinterpret_cast<const uint32_t*>(blk.sbits + (kt & 1) * kOwn);
+#pragma unroll
+    for (int c0 = 0; c0 < kTile; c0 += kHalf) {
+      const int j0 = kt * kTile + c0;
+      if (!live || j0 >= L ||
+          masked_region(blk.md, blk.te, prefix, blk.first, blk.q0 + r0,
+                        blk.q0 + r0 + 16, j0))
+        continue;
+      float s[4][4], dpk[4][4];
+      half_scores(s, blk.sq, sk, blk.colbias + j0, r0, c0, j0, lane, lim,
+                  scale2);
+      vlp::mma_abt<4>(dpk, blk.sdo, sv, r0, c0, kTile, lane);
+      // rows g, g + 8: the keep bits of this half's columns from 2t on
+      uint32_t kw[2] = {0, 0};
+      if (kDrop) {
+        kw[0] = sb[2 * (r0 + g) + c0 / kHalf] >> (2 * t);
+        kw[1] = sb[2 * (r0 + g + 8) + c0 / kHalf] >> (2 * t);
+      }
+      uint32_t fa[2][4];   // dS, as the A fragments of two k-steps
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float mult =
+              kDrop ? keep_bit(kw[e >> 1], n * 8 + (e & 1), dp.scale) : 1.f;
+          const float p = ex2(s[n][e] - m[e >> 1]) * inv[e >> 1];
+          ds[e] = p * (dpk[n][e] * mult - rs[e >> 1]);
+        }
+        fa[n >> 1][(n & 1) * 2] = vlp::pack_bf16(ds[0], ds[1]);
+        fa[n >> 1][(n & 1) * 2 + 1] = vlp::pack_bf16(ds[2], ds[3]);
+      }
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          uint32_t fb[4];
+          vlp::ldsm_x4_t(fb, sk + (c0 + 16 * kk + (lane & 15)) * kTS +
+                                 np * 16 + (lane >> 4) * 8);
+          vlp::mma_bf16(qa[2 * np], fa[kk], fb[0], fb[1]);
+          vlp::mma_bf16(qa[2 * np + 1], fa[kk], fb[2], fb[3]);
+        }
+    }
+    __syncthreads();   // the next stage overwrites this one's K and V
+  }
+  const long long out_base = blk.b * os.b + blk.h * os.h + blk.q0 * os.l;
+  vlp::store_rows(dq + out_base, os.l, qa, r0, L - blk.q0, lane, scale);
 }
 
 template <bool kDrop>
@@ -834,31 +1090,49 @@ int launch_mma(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
-// The key-chunked body, for 8 * kMaxNT < L; dq_acc holds its dQ sums.
+// The tiled body, for 8 * kMaxNT < L: three launches on one stream; the
+// scratch (B * H * long_scratch(L) floats) carries the row statistics and
+// keep bits from the first to the other two.
 template <bool kDrop>
 int launch_long(const void* q, const void* k, const void* v, const void* dout,
-                void* dq, void* dk, void* dv, float* dq_acc, const int* mode,
+                void* dq, void* dk, void* dv, float* scratch, const int* mode,
                 const int* text_end, const float* colkeep, int B, int L,
                 int H, vlp::Strides in, vlp::Strides ds_in, vlp::Strides os,
                 int prefix, float scale, vlp::Dropout dp,
                 cudaStream_t stream) {
-  const size_t smem = smem_bytes_long(L);
-  if (smem > (size_t)vlp::kMaxSmemBytes || dq_acc == nullptr)
+  const size_t smem_rows = smem_bytes_rows(L);
+  if (smem_rows > (size_t)vlp::kMaxSmemBytes || scratch == nullptr)
     return (int)cudaErrorInvalidValue;
   const int align = vlp::common_alignment(
       {(unsigned long long)q, (unsigned long long)k, (unsigned long long)v,
        (unsigned long long)dout, 2ull * in.b, 2ull * in.h, 2ull * in.l,
        2ull * ds_in.b, 2ull * ds_in.h, 2ull * ds_in.l});
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_bwd_long<kDrop>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  attention_bwd_long<kDrop><<<B * H, kLongWarps * 32, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-      dq_acc, mode, text_end, colkeep, L, H, in, ds_in, os, prefix, scale, dp,
-      align);
+  const auto attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
+  cudaError_t err;
+  if ((err = cudaFuncSetAttribute(attention_bwd_stats<kDrop>, attr,
+                                  (int)smem_rows)) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(attention_bwd_dkdv<kDrop>, attr,
+                                  (int)kSmemBytesCols)) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(attention_bwd_dq<kDrop>, attr,
+                                  (int)smem_rows)) != cudaSuccess)
+    return (int)err;
+  const auto* qb = static_cast<const bf16*>(q);
+  const auto* kb = static_cast<const bf16*>(k);
+  const auto* vb = static_cast<const bf16*>(v);
+  const auto* dob = static_cast<const bf16*>(dout);
+  const int blocks = B * H * own_blocks(L);
+  attention_bwd_stats<kDrop><<<blocks, kThreadsT, smem_rows, stream>>>(
+      qb, kb, vb, dob, scratch, mode, text_end, colkeep, L, H, in, ds_in,
+      prefix, scale, dp, align);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  attention_bwd_dkdv<kDrop><<<blocks, kThreadsT, kSmemBytesCols, stream>>>(
+      qb, kb, vb, dob, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+      scratch, mode, text_end, colkeep, L, H, in, ds_in, os, prefix, scale,
+      dp, align);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  attention_bwd_dq<kDrop><<<blocks, kThreadsT, smem_rows, stream>>>(
+      qb, kb, vb, dob, static_cast<bf16*>(dq), scratch, mode, text_end,
+      colkeep, L, H, in, ds_in, os, prefix, scale, dp, align);
   return (int)cudaGetLastError();
 }
 
@@ -872,16 +1146,16 @@ int max_len(int is_bf16) {
 }
 
 // fp32 scratch (floats per example and head) the body for L needs: the
-// key-chunked body's dQ sums.
+// tiled body's row statistics and keep bits (long_scratch).
 int scratch_floats(int L, int is_bf16) {
-  return is_bf16 && L > 8 * kMaxNT ? long_rows(L) * D : 0;
+  return is_bf16 && L > 8 * kMaxNT ? long_scratch(L) : 0;
 }
 
-// bf16: the whole problem in one block up to 8 * kMaxNT, key chunks
+// bf16: the whole problem in one block up to 8 * kMaxNT, 64 x 64 tiles
 // beyond; fp32: the first version.
 template <bool kDrop>
 int launch_any(const void* q, const void* k, const void* v, const void* dout,
-               void* dq, void* dk, void* dv, float* dq_acc, const int* mode,
+               void* dq, void* dk, void* dv, float* scratch, const int* mode,
                const int* text_end, const float* colkeep, int B, int L, int H,
                vlp::Strides in, vlp::Strides ds_in, vlp::Strides os,
                int prefix, float scale, vlp::Dropout dp, int is_bf16,
@@ -898,20 +1172,20 @@ int launch_any(const void* q, const void* k, const void* v, const void* dout,
     return launch_mma<kMaxNT, kDrop>(q, k, v, dout, dq, dk, dv, mode,
                                      text_end, colkeep, B, L, H, in, ds_in,
                                      os, prefix, scale, dp, stream);
-  return launch_long<kDrop>(q, k, v, dout, dq, dk, dv, dq_acc, mode, text_end,
+  return launch_long<kDrop>(q, k, v, dout, dq, dk, dv, scratch, mode, text_end,
                             colkeep, B, L, H, in, ds_in, os, prefix, scale,
                             dp, stream);
 }
 
 int backward(const void* q, const void* k, const void* v, const void* dout,
-             void* dq, void* dk, void* dv, void* dq_acc, const void* mode,
+             void* dq, void* dk, void* dv, void* scratch, const void* mode,
              const void* text_end, const void* colkeep, int B, int L, int H,
              vlp::Strides in, vlp::Strides ds_in, vlp::Strides os, int prefix,
              float scale, vlp::Dropout dp, int is_bf16, void* stream) {
   if (B <= 0 || L <= 0 || H <= 0 || L > max_len(is_bf16))
     return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
-  auto acc = static_cast<float*>(dq_acc);
+  auto acc = static_cast<float*>(scratch);
   auto md = static_cast<const int*>(mode);
   auto te = static_cast<const int*>(text_end);
   auto ck = static_cast<const float*>(colkeep);
@@ -931,28 +1205,28 @@ extern "C" {
 int vlp_attention_bwd_max_len(int is_bf16) { return max_len(is_bf16); }
 
 // The fp32 scratch, in floats per (example, head), that a backward at L
-// needs in dq_acc (0: none; dq_acc may then be null).
+// needs in scratch (0: none; scratch may then be null).
 int vlp_attention_bwd_scratch_floats(int L, int is_bf16) {
   return scratch_floats(L, is_bf16);
 }
 
 // q/k/v: [B, L, H*64] with element strides sb (batch) and sl (row); dout:
 // [B, L, H*64] with strides dsb, dsl; the last dimension contiguous in
-// all four.  dq/dk/dv: contiguous [B, L, H*64]; dq_acc: fp32 scratch of
+// all four.  dq/dk/dv: contiguous [B, L, H*64]; scratch: fp32 scratch of
 // B * H * vlp_attention_bwd_scratch_floats(L, is_bf16) floats.
 // seed/threshold/keep_scale are the forward's dropout (threshold 0 = no
 // dropout).  is_bf16 selects the bf16 tensor-core bodies (1) or the fp32
 // body (0).  Returns cudaGetLastError() after the launch.
 int vlp_attention_bwd(const void* q, const void* k, const void* v,
                       const void* dout, void* dq, void* dk, void* dv,
-                      void* dq_acc, const void* mode, const void* text_end,
+                      void* scratch, const void* mode, const void* text_end,
                       const void* colkeep, int B, int L, int H, long long sb,
                       long long sl, long long dsb, long long dsl, int prefix,
                       float scale, unsigned long long seed,
                       unsigned int threshold, float keep_scale, int is_bf16,
                       void* stream) {
   const long long HD = (long long)H * D;
-  return backward(q, k, v, dout, dq, dk, dv, dq_acc, mode, text_end, colkeep,
+  return backward(q, k, v, dout, dq, dk, dv, scratch, mode, text_end, colkeep,
                   B, L, H, vlp::Strides{sb, D, sl}, vlp::Strides{dsb, D, dsl},
                   vlp::Strides{L * HD, D, HD}, prefix, scale,
                   vlp::Dropout{seed, threshold, keep_scale}, is_bf16, stream);
@@ -964,7 +1238,7 @@ int vlp_attention_bwd(const void* q, const void* k, const void* v,
 // [B, H, L, 64].  Otherwise as vlp_attention_bwd.
 int vlp_attention_bwd_bhld(const void* q, const void* k, const void* v,
                            const void* dout, void* dq, void* dk, void* dv,
-                           void* dq_acc, const void* mode,
+                           void* scratch, const void* mode,
                            const void* text_end, const void* colkeep, int B,
                            int L, int H, long long sb, long long sh,
                            long long sl, long long dsb, long long dsh,
@@ -972,7 +1246,7 @@ int vlp_attention_bwd_bhld(const void* q, const void* k, const void* v,
                            unsigned long long seed, unsigned int threshold,
                            float keep_scale, int is_bf16, void* stream) {
   const long long LD = (long long)L * D;
-  return backward(q, k, v, dout, dq, dk, dv, dq_acc, mode, text_end, colkeep,
+  return backward(q, k, v, dout, dq, dk, dv, scratch, mode, text_end, colkeep,
                   B, L, H, vlp::Strides{sb, sh, sl},
                   vlp::Strides{dsb, dsh, dsl}, vlp::Strides{H * LD, LD, D},
                   prefix, scale, vlp::Dropout{seed, threshold, keep_scale},

@@ -252,15 +252,15 @@ def _backward_cuda(q, k, v, mode, text_end, colkeep, dout, prefix, rate,
         dout = dout.contiguous()
     grads = [torch.empty(q.shape, dtype=q.dtype, device=q.device)
              for _ in range(3)]
-    # the key-chunked bf16 body (L > 144) adds dQ up over its key chunks in
-    # an fp32 scratch
-    n_acc = lib.vlp_attention_bwd_scratch_floats(L, is_bf16)
-    dq_acc = (torch.empty(B * H * n_acc, dtype=torch.float32, device=q.device)
-              if n_acc else None)
+    # the tiled bf16 body (L > 144) keeps each row's softmax statistics
+    # between its kernels in an fp32 scratch
+    n_scratch = lib.vlp_attention_bwd_scratch_floats(L, is_bf16)
+    scratch = (torch.empty(B * H * n_scratch, dtype=torch.float32,
+                           device=q.device) if n_scratch else None)
     err = getattr(lib, "vlp_" + what)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         *(g.data_ptr() for g in grads),
-        None if dq_acc is None else dq_acc.data_ptr(), mode.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), mode.data_ptr(),
         text_end.data_ptr(), colkeep.data_ptr(), B, L, H,
         *q.stride()[:n], *dout.stride()[:n], prefix, 1.0 / math.sqrt(D),
         *_dropout_args(rate, seed), is_bf16, _build.stream_ptr(q.device))
