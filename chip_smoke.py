@@ -13,7 +13,13 @@ synthetic data, B=64, 2 epochs of 20 steps), ``vlp_tpu_torch.cli.train
 --scst`` (B=64, 8 steps), ``vlp_tpu_torch.cli.train --tasks vqa2`` (bi
 mode, B=64, 12 steps), ``vlp_tpu_torch.cli.eval_vqa2`` (B=256, 1,024
 questions) and the ``layout="bhld"`` attention op -- and checks that each
-path launched its kernels.
+path launched its kernels.  Phase 2 also holds the fp32 attention bodies
+past their first versions' lengths (forward L=512, backward L=256 and
+512) against their plain versions; phase 6 runs data parallel: the train,
+decode and VQA CLIs over NCCL at world size 1, which must equal the runs
+without a group bit for bit, and two gloo ranks on the one card (this
+script re-run with ``--dp-worker``), which must stay in sync and, in
+fp32, equal the single-process step on the global batch.
 
     python3 chip_smoke.py
 
@@ -50,9 +56,11 @@ REPS = 20
 ROUNDS = 5
 SPIN_CYCLES = 20_000_000     # ~10 ms of the card's clock
 REPS_STEADY = 5
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 FLOP/s
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 FLOP/s on
+# the tensor cores, fp32 FLOP/s on the CUDA cores
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+FP32_FLOP_PER_S = 67e12
 TRAIN_STEPS = (2, 20)        # main-path train CLI: epochs, steps per epoch
 SCST_STEPS = 8               # main-path SCST CLI: steps of one epoch
 SCST_B, SCST_T = 64, 20      # the reference SCST recipe's 16x4 batch, T
@@ -63,8 +71,8 @@ DECODE_GEN_LENS = (0, 9, 18)   # decode steps timed: first, middle, last
 
 def body(dtype) -> str:
     """The attention kernel body a dtype runs: bf16 the tensor-core one,
-    fp32 the first version on the CUDA cores."""
-    return "v2 mma" if dtype == torch.bfloat16 else "v1 fp32"
+    fp32 the one on the CUDA cores."""
+    return "v2 mma" if dtype == torch.bfloat16 else "fp32 cuda-core"
 
 
 def log(msg: str) -> None:
@@ -97,12 +105,14 @@ def time_ms(fn) -> float:
     return statistics.median(out)
 
 
-def bound(nbytes: float, flops: float) -> dict:
+def bound(nbytes: float, flops: float,
+          flop_rate: float = BF16_FLOP_PER_S) -> dict:
     """The least time the card could take: the larger of the bytes moved
     (each input read once, each output written once) over the HBM rate and
-    the operations over the bf16 tensor-core peak."""
+    the operations over the peak of their type (bf16 on the tensor cores
+    unless ``flop_rate`` says otherwise)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    t_ops = flops / flop_rate * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
@@ -561,6 +571,124 @@ def phase_long_backward(attn, inputs, B, H, D, P, seed, rate):
     return times
 
 
+FP32_LONG_B = 16
+FP32_LONG_FWD_LENS = (512,)        # past the first fp32 forward's 417
+FP32_LONG_BWD_LENS = (256, 512)    # past the one-block fp32 backward (134)
+
+
+def phase_fp32_long(attn, inputs, H, D, P, seed, rate):
+    """fp32 K1 and K2 past the lengths their first versions took (C4's fp32
+    remainder), B=FP32_LONG_B: the forward at FP32_LONG_FWD_LENS and the
+    backward at FP32_LONG_BWD_LENS, both layouts, rate 0 and ``rate``:
+    each against its plain version within FP32_TOL, bhld = blhd on
+    transposed inputs and two calls bit for bit.  Then, at ``rate``, each
+    layout's time beside fp32 SDPA (forward; forward + backward) and the
+    bound (fp32 on the CUDA cores).  Returns (max errors, {name: times})."""
+    B = FP32_LONG_B
+    errs = {"fwd": 0.0, "bwd": 0.0}
+    times = {}
+    for L in sorted(set(FP32_LONG_FWD_LENS + FP32_LONG_BWD_LENS)):
+        q, k, v, mode, te, ck, dout = inputs(torch.float32, L, B)
+        tr = [t.transpose(1, 2).contiguous() for t in (q, k, v, dout)]
+        for r in (0.0, rate):
+            got = {}
+            for layout, (a, b_, c, d) in (("blhd", (q, k, v, dout)),
+                                          ("bhld", tr)):
+                tag = f"fp32 B={B} L={L} {layout} rate={r}"
+                if L in FP32_LONG_FWD_LENS:
+                    call = (lambda a=a, b_=b_, c=c, layout=layout, r=r:
+                            attn._forward_cuda(a, b_, c, mode, te, ck, P,
+                                               dropout=(r, seed),
+                                               layout=layout))
+                    out = call()
+                    errs["fwd"] = max(errs["fwd"], compare(
+                        f"K1 attention_fwd {tag}", out, attn.attention_plain(
+                            a, b_, c, mode, te, ck, prefix=P,
+                            dropout_rate=r, seed=seed, layout=layout),
+                        FP32_TOL))
+                    if not torch.equal(out, call()):
+                        fail(f"attention_fwd {tag}: two calls differ")
+                    got[layout, "fwd"] = (out,)
+                if L in FP32_LONG_BWD_LENS:
+                    args = (a, b_, c, mode, te, ck, d, P, r, seed, layout)
+                    grads = attn._backward_cuda(*args)
+                    want = attn.attention_bwd_plain(
+                        a, b_, c, mode, te, ck, d, prefix=P, dropout_rate=r,
+                        seed=seed, layout=layout)
+                    errs["bwd"] = max([errs["bwd"]] + [
+                        compare(f"K2 attention_bwd {n} {tag}", x, y,
+                                FP32_TOL)
+                        for n, x, y in zip(("dq", "dk", "dv"), grads, want)])
+                    again = attn._backward_cuda(*args)
+                    torch.cuda.synchronize()
+                    if not all(torch.equal(x, y)
+                               for x, y in zip(grads, again)):
+                        fail(f"attention_bwd {tag}: two calls differ")
+                    got[layout, "bwd"] = grads
+            for (layout, what), xs in got.items():
+                if layout == "bhld" and not all(
+                        torch.equal(x.transpose(1, 2), y)
+                        for x, y in zip(xs, got["blhd", what])):
+                    fail(f"fp32 {what} L={L} rate={r}: bhld differs from "
+                         "blhd on transposed inputs")
+        log(f"fp32 L={L}: both layouts within FP32_TOL, bit-identical "
+            "across two calls and to each other")
+
+        act = B * L * H * D * 4              # one fp32 [B, L, H*D] tensor
+        meta = 8 * B + 4 * B * L
+        pd = L * L * D * 2 * B * H           # FLOP of one L x L x D product
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        lib_out = sdpa(*leaves, mode, te, ck, P, rate)
+        sdpa_fwd = time_ms(lambda: sdpa(q, k, v, mode, te, ck, P, rate))
+        sdpa_fwd_bwd = time_ms(lambda: torch.autograd.grad(
+            sdpa(*leaves, mode, te, ck, P, rate), leaves, dout))
+        sdpa_bwd = time_ms(lambda: torch.autograd.grad(
+            lib_out, leaves, dout, retain_graph=True))
+        for layout, (a, b_, c, d) in (("blhd", (q, k, v, dout)),
+                                      ("bhld", tr)):
+            if L in FP32_LONG_FWD_LENS:
+                times[f"fwd_L{L}_{layout}"] = r = dict(
+                    B=B, L=L, rate=rate,
+                    ms=time_ms(lambda: attn._forward_cuda(
+                        a, b_, c, mode, te, ck, P, dropout=(rate, seed),
+                        layout=layout)),
+                    plain_ms=time_ms(lambda: attn.attention_plain(
+                        a, b_, c, mode, te, ck, prefix=P, dropout_rate=rate,
+                        seed=seed, layout=layout)),
+                    library_ms=sdpa_fwd,
+                    **bound(4 * act + meta, 2 * pd, FP32_FLOP_PER_S))
+                log(f"attention_fwd fp32 B={B} L={L} {layout} rate={rate} "
+                    f"time (tiled): kernel {r['ms']:.4f} ms, plain "
+                    f"{r['plain_ms']:.4f} ms, fp32 SDPA {sdpa_fwd:.4f} ms, "
+                    f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+            if L in FP32_LONG_BWD_LENS:
+                lv = [t.detach().requires_grad_() for t in (a, b_, c)]
+
+                def fwd_bwd():
+                    out = attn.FusedAttention.apply(*lv, mode, te, ck, P,
+                                                    rate, seed, layout)
+                    return torch.autograd.grad(out, lv, d)
+
+                times[f"bwd_L{L}_{layout}"] = r = dict(
+                    B=B, L=L, rate=rate,
+                    ms=time_ms(lambda: attn._backward_cuda(
+                        a, b_, c, mode, te, ck, d, P, rate, seed, layout)),
+                    plain_ms=time_ms(lambda: attn.attention_bwd_plain(
+                        a, b_, c, mode, te, ck, d, prefix=P,
+                        dropout_rate=rate, seed=seed, layout=layout)),
+                    library_ms=sdpa_bwd, fwd_bwd_ms=time_ms(fwd_bwd),
+                    library_fwd_bwd_ms=sdpa_fwd_bwd,
+                    **bound(7 * act + meta, 5 * pd, FP32_FLOP_PER_S))
+                log(f"attention_bwd fp32 B={B} L={L} {layout} rate={rate} "
+                    f"time: kernel {r['ms']:.4f} ms (fwd+bwd "
+                    f"{r['fwd_bwd_ms']:.4f}), plain {r['plain_ms']:.4f} ms, "
+                    f"fp32 SDPA backward {sdpa_bwd:.4f} ms (fwd+bwd "
+                    f"{sdpa_fwd_bwd:.4f}), bound {r['bound_ms']:.4f} ms "
+                    f"({r['bound_by']})")
+        del q, k, v, dout, tr, leaves, lib_out
+    return errs, times
+
+
 def phase_train_kernels(dev, results):
     """K1's dropout branch, K2 and dropout_mask at the training shape
     (B=64, L=128, H=12, D=64): fp32 and bf16, mixed modes, zeros in
@@ -575,7 +703,7 @@ def phase_train_kernels(dev, results):
     B, L, H, D, P = 64, 128, 12, 64, 102
     seed, rate = 0x5DEECE66D0123457, 0.1
 
-    def inputs(dtype, L=L):
+    def inputs(dtype, L=L, B=B):
         qkv = torch.randn(B, L, 3 * H * D, generator=g, device=dev).to(dtype)
         q, k, v = (t.view(B, L, H, D) for t in qkv.split(H * D, dim=-1))
         mode = torch.tensor([MODE_S2S, MODE_BI] * (B // 2), device=dev)
@@ -676,6 +804,11 @@ def phase_train_kernels(dev, results):
     long = phase_long_backward(attn, inputs, B, H, D, P, seed, rate)
     bwd["long"] = long[256]
     bwd["long_528"] = long[528]
+    fp32_errs, fp32_times = phase_fp32_long(attn, inputs, H, D, P, seed, rate)
+    fwd["fp32_long"] = dict(max_abs_err=fp32_errs["fwd"], **{
+        k: v for k, v in fp32_times.items() if k.startswith("fwd")})
+    bwd["fp32_long"] = dict(max_abs_err=fp32_errs["bwd"], **{
+        k: v for k, v in fp32_times.items() if k.startswith("bwd")})
     results["attention_fwd_drop"] = fwd
     results["attention_bwd"] = bwd
     for name in ("attention_fwd_drop", "attention_bwd", "dropout_mask"):
@@ -1420,6 +1553,351 @@ def phase_vqa_main_path(vocab_path, answers_path, out_dir, gpu_line):
     return train_counts, eval_counts, rates
 
 
+DP_STEPS = 6                 # phase 6a: train steps at world size 1
+DP_LR = 1e-3                 # phase 6b: constant lr, so the steps move
+
+
+def free_port() -> int:
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def param_hash(model) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for k, v in sorted(model.state_dict().items()):
+        h.update(k.encode())
+        h.update(v.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def phase_dp_world1(vocab_path, answers_path, out_dir, gpu_line):
+    """Data parallel at world size 1 over NCCL against no group, bf16
+    through the kernels: ``cli.train`` at bert-base width (B=64, DP_STEPS
+    steps, dropout 0.1) with ``--jax_distributed`` on a group of one, then
+    ``cli.decode`` (beam 5, B=100, on phase 4b's model.2.bin) and
+    ``cli.eval_vqa2`` (B=256, on phase 4d's model.1.bin) on a group of one
+    passed in.  Losses, final parameters and predictions must be identical
+    to the runs without a group, and the launch counts equal; prints each
+    step's all-reduce time (``--profile_steps 1``, which also traces the
+    second step: the split of its all-reduce between the agreement check
+    and the buckets, on the host and on the device).  The phase runs under
+    ``torch.use_deterministic_algorithms``: PyTorch's own CUDA backward
+    is not reproducible bit for bit from run to run (two train runs
+    without a group once ended with token_type_embeddings 6e-8 apart), so
+    only a deterministic order isolates what the group adds.  Returns the
+    group runs' counts and rates."""
+    flags = ["--do_train", "--new_segment_ids", "--enable_butd",
+             "--bert_model", vocab_path, "--do_lower_case", "--dataset",
+             "coco", "--max_pred", "20", "--mask_prob", "0.15",
+             "--train_batch_size", "64", "--learning_rate", "3e-5",
+             "--num_train_epochs", "1", "--s2s_prob", "1", "--bi_prob", "0",
+             "--synthetic_data", "--steps_per_epoch", str(DP_STEPS),
+             "--device", "cuda", "--profile_steps", "1"]
+    # the deterministic choices only: no NaN fill of new tensors, whose
+    # writes the all-reduce times would include
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        return _dp_world1(flags, vocab_path, answers_path, out_dir, gpu_line)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+
+
+def _dp_world1(flags, vocab_path, answers_path, out_dir, gpu_line):
+    import torch.distributed as tdist
+    from vlp_tpu_torch import parallel
+    from vlp_tpu_torch.cli import decode as decode_cli
+    from vlp_tpu_torch.cli import eval_vqa2 as eval_cli
+    from vlp_tpu_torch.cli import train as train_cli
+    from vlp_tpu_torch.ops import _build
+
+    runs, counts, rates = {}, {}, {}
+    for mode in ("no_group", "nccl"):
+        group = ([] if mode == "no_group" else [
+            "--jax_distributed", "--coordinator_address",
+            f"127.0.0.1:{free_port()}", "--num_processes", "1",
+            "--process_id", "0"])
+        _build.reset_launch_counts()
+        runs[mode] = train_cli.main(flags + group + [
+            "--output_dir", os.path.join(out_dir, f"dp1_train_{mode}")])
+        torch.cuda.synchronize()
+        counts[mode] = {k: v.launches for k, v in _build.KERNELS.items()}
+        step_s = float(np.median(runs[mode]["step_seconds"][2:]))
+        rates[mode] = 64 / step_s
+        log(f"DP world 1 train ({mode}) B=64: {rates[mode]:.2f} samples/s "
+            f"(median step {step_s * 1e3:.2f} ms after 2 warm-up steps, "
+            f"deterministic algorithms) on "
+            f"{gpu_line}; losses {runs[mode]['losses']}")
+    if tdist.is_initialized():
+        fail("cli.train left its process group behind")
+    want = {k: (12 * DP_STEPS if k in ("attention_fwd_drop", "attention_bwd")
+                else 0) for k in counts["nccl"]}
+    if not counts["nccl"] == counts["no_group"] == want:
+        fail(f"DP world 1 train launch counts {counts}, expected {want}")
+    if runs["nccl"]["losses"] != runs["no_group"]["losses"]:
+        fail("DP world 1 train: the losses differ from the run without a "
+             "group")
+    sd = {m: runs[m]["model"].state_dict() for m in runs}
+    if not all(torch.equal(v, sd["no_group"][k])
+               for k, v in sd["nccl"].items()):
+        fail("DP world 1 train: the parameters differ from the run without "
+             "a group")
+    ar = runs["nccl"]["allreduce_ms"]
+    if len(ar) != DP_STEPS or runs["no_group"]["allreduce_ms"]:
+        fail(f"DP world 1 train: {len(ar)} all-reduce times")
+    log(f"DP world 1 train over NCCL: losses and parameters bit-identical "
+        f"to no group, launch counts {counts['nccl']}; all-reduce ms per "
+        f"step {[round(x, 4) for x in ar]} (step 1 under torch.profiler) on "
+        f"{gpu_line}")
+    with open(os.path.join(out_dir, "dp1_train_nccl", "profile.txt")) as f:
+        table = f.read().splitlines()
+    rows = [ln for ln in table if ln.lstrip().startswith(
+        ("dist.grad_", "nccl:all_reduce", "Name"))]
+    if not any("dist.grad_buckets" in ln for ln in rows):
+        fail("DP world 1 train: the profile holds no all-reduce range")
+    log(f"DP world 1 all-reduce trace of step 1 ({ar[1]:.4f} ms between "
+        f"its CUDA events; {table[0]}):\n" + "\n".join(rows))
+
+    dec_args = ["--bert_model", vocab_path, "--new_segment_ids",
+                "--enable_butd", "--synthetic_data", "--num_synthetic", "100",
+                "--batch_size", "100", "--beam_size", "5",
+                "--max_tgt_length", "20", "--forbid_duplicate_ngrams",
+                "--device", "cuda", "--model_recover_path",
+                os.path.join(out_dir, "train", "model.2.bin")]
+    vqa_args = ["--new_segment_ids", "--enable_butd", "--bert_model",
+                vocab_path, "--do_lower_case", "--answer_vocab_file",
+                answers_path, "--device", "cuda", "--synthetic_data",
+                "--num_synthetic", "512", "--batch_size", str(VQA_B),
+                "--model_recover_path",
+                os.path.join(out_dir, "vqa_train", "model.1.bin")]
+    outputs = {}
+    dist = parallel.init("cuda", init_method=f"tcp://127.0.0.1:{free_port()}",
+                         world_size=1, rank=0)
+    try:
+        for mode, d in (("no_group", None), ("nccl", dist)):
+            for name, cli, args, fname in (
+                    ("decode", decode_cli, dec_args,
+                     "preds-model.2.bin-val.json"),
+                    ("vqa", eval_cli, vqa_args,
+                     "vqa2-results-model.1.bin-val.json")):
+                out = os.path.join(out_dir, f"dp1_{name}_{mode}")
+                _build.reset_launch_counts()
+                cli.main(args + ["--output_dir", out], dist=d)
+                torch.cuda.synchronize()
+                counts[name, mode] = {k: v.launches
+                                      for k, v in _build.KERNELS.items()}
+                with open(os.path.join(out, fname), "rb") as f:
+                    outputs[name, mode] = f.read()
+    finally:
+        dist.destroy()
+    for name in ("decode", "vqa"):
+        if outputs[name, "nccl"] != outputs[name, "no_group"]:
+            fail(f"DP world 1 {name}: predictions differ from no group")
+        if counts[name, "nccl"] != counts[name, "no_group"]:
+            fail(f"DP world 1 {name}: launch counts differ: "
+                 f"{counts[name, 'nccl']} vs {counts[name, 'no_group']}")
+    log("DP world 1 decode (beam 5, 100 images) and VQA eval (512 "
+        "questions) over NCCL: predictions identical to no group")
+    return ({"train": counts["nccl"], "decode": counts["decode", "nccl"],
+             "vqa": counts["vqa", "nccl"]},
+            {"dp1_train_samples_per_sec": rates["nccl"],
+             "dp1_train_samples_per_sec_no_group": rates["no_group"],
+             "dp1_allreduce_ms": ar})
+
+
+def dp_worker(rank: int, port: int, vocab_path: str, out: str) -> None:
+    """Rank ``rank`` of 2 on the one card, gloo (NCCL refuses two ranks on
+    one device), bert-base at full width and depth: (a) fp32, dropout 0,
+    global B=16, 2 ``dp_step`` steps, and on rank 0 the single-process
+    step on the global batch beside it; (b) bf16, dropout 0.1, the same 2
+    steps; (c) SCST, bf16, both dropouts 0.1, global B=8, 2 steps.  Writes
+    each run's parameter hash, its launch counts (the single-process
+    reference's and the SCST ground truth's greedy decode not among them)
+    and rank 0's comparison to ``out``."""
+    import vlp_tpu_torch
+    from vlp_tpu_torch import optim, parallel, scst
+    from vlp_tpu_torch import train_step as ts
+    from vlp_tpu_torch.cli.common import resolve_tokenizer
+    from vlp_tpu_torch.config import VLPConfig
+    from vlp_tpu_torch.data.example_builder import TrainExampleBuilder, collate
+    from vlp_tpu_torch.models.model import VLPModel
+    from vlp_tpu_torch.ops import _build
+    from vlp_tpu_torch.parallel.dp_step import make_dp_train_step
+
+    vlp_tpu_torch.configure_precision()
+    dev = torch.device("cuda", 0)
+    dist = parallel.init("cuda", init_method=f"tcp://127.0.0.1:{port}",
+                         world_size=2, rank=rank, local_rank=0,
+                         backend="gloo")
+    dist.time_reductions = True
+    res = {"counts": {}}
+
+    def counted(name, run):
+        """``run()``, with the launches it made alone kept under ``name``."""
+        _build.reset_launch_counts()
+        out = run()
+        torch.cuda.synchronize()
+        res["counts"][name] = {k: v.launches
+                               for k, v in _build.KERNELS.items()}
+        return out
+
+    try:
+        vocab = resolve_tokenizer(vocab_path, False).vocab
+        words = [w for w in vocab if not w.startswith("[")]
+        rng = np.random.default_rng(0)
+        GB, half = 16, 8
+        base = VLPConfig(vocab_size=len(vocab), relax_projection=0,
+                         max_pred=3)
+        nv = base.len_vis_input
+        batches = []
+        for _ in range(2):
+            exs = []
+            for i in range(GB):
+                b = TrainExampleBuilder(base, vocab,
+                                        mode="s2s" if i % 2 else "bi",
+                                        vis_mask_prob=0.2)
+                toks = [words[j] for j in rng.integers(0, len(words), 9)]
+                exs.append(b(toks, rng.normal(size=(nv, base.vis_feat_dim)),
+                             rng.uniform(size=(nv, base.vis_pe_dim)), rng))
+            batches.append(collate(exs))
+
+        def model_of(cfg):
+            m = VLPModel(cfg)
+            m.init_weights(torch.Generator().manual_seed(0))
+            return m.to(dev)
+
+        def train(cfg, step_fn, rows, grad_accum=1):
+            m = model_of(cfg)
+            opt = optim.BertAdam(dict(m.named_parameters()), DP_LR,
+                                 warmup=0.1, t_total=-1)
+            step = step_fn(m, opt, mask_image_regions=True,
+                           grad_accum=grad_accum)
+            losses = [float(step({k: torch.from_numpy(v[rows]).to(dev)
+                                  for k, v in nb.items()},
+                                 ts.step_seed(11, i))["loss"])
+                      for i, nb in enumerate(batches)]
+            return m, losses
+
+        def dp(m, opt, **kw):
+            return make_dp_train_step(m, opt, dist, **kw)
+
+        mine = slice(rank * half, (rank + 1) * half)
+        fp32 = base.replace(dtype="float32", hidden_dropout_prob=0.0,
+                            attention_probs_dropout_prob=0.0)
+        m, res["fp32_losses"] = counted("fp32", lambda: train(fp32, dp, mine))
+        res["fp32_hash"] = param_hash(m)
+        if rank == 0:
+            ref, res["fp32_ref_losses"] = train(
+                fp32, ts.make_train_step, slice(None), grad_accum=2)
+            init = model_of(fp32).state_dict()
+            got, want = m.state_dict(), ref.state_dict()
+            res["fp32_max_abs_err"] = max(
+                (got[k].float() - want[k].float()).abs().max().item()
+                for k in got)
+            res["fp32_within_tol"] = all(
+                torch.allclose(got[k].float(), want[k].float(), **FP32_TOL)
+                for k in got)
+            res["fp32_moved"] = max((got[k].float() - init[k].float()).abs()
+                                    .max().item() for k in got)
+            del ref, init
+        del m
+        m, res["bf16_losses"] = counted("bf16", lambda: train(
+            base.replace(dtype="bfloat16"), dp, mine))
+        res["bf16_hash"] = param_hash(m)
+        del m
+
+        cfg, model, svocab, batch, srng = _scst_setup(vocab_path, 8, 0,
+                                                      dtype="bfloat16")
+        model = model.to(dev)
+        tr = scst.SCSTTrainer(
+            model, cfg, mask_id=svocab["[MASK]"], eos_id=svocab["[SEP]"],
+            max_tgt_length=SCST_T, dist=dist, optimizer=optim.BertAdam(
+                dict(model.named_parameters()), 1e-6))
+        # the ground truth: the global batch's greedy captions for even
+        # examples, random ids for odd ones, so that the greedy n-grams
+        # carry CIDEr weight and the rewards (and the gradients) are not
+        # 0, as they mostly are for random weights
+        greedy, _ = tr.decoder.greedy({k: torch.from_numpy(v).to(dev)
+                                       for k, v in batch.items()})
+        gt = scst.clean_rollout(greedy.cpu().numpy(), svocab["[SEP]"], 0)
+        gt[1::2] = srng.integers(1000, cfg.vocab_size, size=(4, SCST_T))
+        gt = np.concatenate([gt, np.full((8, 1), svocab["[SEP]"])], axis=1)
+        rows = slice(rank * 4, (rank + 1) * 4)
+        tb = {k: torch.from_numpy(v[rows]).to(dev) for k, v in batch.items()}
+        res["scst_losses"] = counted("scst", lambda: [
+            tr.step(tb, gt[rows], ts.step_seed(5, i))[0] for i in range(2)])
+        res["scst_hash"] = param_hash(model)
+        res["allreduce_ms"] = dist.reduction_ms()
+    finally:
+        dist.destroy()
+    with open(out, "w") as f:
+        json.dump(res, f)
+
+
+def phase_dp_two_ranks(vocab_path, out_dir):
+    """Two ranks on the one card (``dp_worker``, spawned as two processes of
+    this script): fp32 DP equals the single-process step on the global
+    batch within FP32_TOL, and after bf16 training and SCST the two ranks'
+    parameters are bit-identical.  Each rank's launches in each of the
+    three runs must be what its steps launch.  Returns the three runs'
+    launch counts, summed over the ranks."""
+    port = free_port()
+    outs = [os.path.join(out_dir, f"dp2_rank{r}.json") for r in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dp-worker", str(r),
+         str(port), vocab_path, outs[r]]) for r in range(2)]
+    try:
+        rcs = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if rcs != [0, 0]:
+        fail(f"DP two ranks: the workers exited with {rcs}")
+    r0, r1 = (json.load(open(o)) for o in outs)
+    log(f"DP two ranks fp32: losses {r0['fp32_losses']} / "
+        f"{r1['fp32_losses']}, single-process {r0['fp32_ref_losses']}; "
+        f"max |param - single-process| {r0['fp32_max_abs_err']:.3e} (tol "
+        f"{FP32_TOL}), params moved up to {r0['fp32_moved']:.3e}")
+    if not (r0["fp32_within_tol"] and r0["fp32_moved"] > 1e-4):
+        fail("DP two ranks fp32: parameters differ from the single-process "
+             "step on the global batch, or did not move")
+    if not all(np.isfinite(x) and x != 0 for x in r0["scst_losses"]):
+        fail(f"DP two ranks SCST: losses {r0['scst_losses']}, not finite "
+             "and non-zero")
+    for what in ("fp32", "bf16", "scst"):
+        if r0[f"{what}_hash"] != r1[f"{what}_hash"]:
+            fail(f"DP two ranks {what}: the ranks' parameters differ")
+        if r0[f"{what}_losses"] != r1[f"{what}_losses"]:
+            fail(f"DP two ranks {what}: the ranks report different losses")
+    log(f"DP two ranks: fp32, bf16 (losses {r0['bf16_losses']}) and SCST "
+        f"(losses {r0['scst_losses']}) replicas bit-identical; gloo "
+        f"all-reduce ms {[round(x, 2) for x in r0['allreduce_ms']]}")
+    # each rank's launches, per run: 2 steps of one micro-batch, 12 layers
+    zero = {k: 0 for k in r0["counts"]["fp32"]}
+    step = dict(zero, attention_fwd_drop=24, attention_bwd=24)
+    dec = 12 * (SCST_T - 1) * 2
+    want = {"fp32": step, "bf16": step,
+            "scst": dict(zero, attention_fwd=24, attention_fwd_drop=48,
+                         attention_bwd=24, decode_attention=dec,
+                         decode_attention_drop=dec,
+                         decode_dropout_scales=24)}
+    for r in (r0, r1):
+        if r["counts"] != want:
+            fail(f"DP two ranks launch counts {r['counts']}, expected {want}")
+    log(f"DP two ranks launch counts per rank as expected: {want}")
+    return {k: sum(r["counts"][run][k] for r in (r0, r1) for run in want)
+            for k in zero}
+
+
 def phase_steady_state(dev, vocab_path):
     """Device-side decode rate at the main path's shapes, without the CLI's
     loader and first-call costs: one prepared batch of B=100, one warm-up
@@ -1509,6 +1987,10 @@ def phase_vqa_steady_state(dev, vocab_path):
 
 
 def main():
+    if sys.argv[1:2] == ["--dp-worker"]:
+        rank, port, vocab_path, out = sys.argv[2:6]
+        dp_worker(int(rank), int(port), vocab_path, out)
+        return
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs an "
              "NVIDIA GPU")
@@ -1573,6 +2055,12 @@ def main():
         vqa_rates["vqa_questions_per_sec_steady"] = phase_vqa_steady_state(
             dev, vocab_path)
         log(f"phase 5: steady-state rates on {smi}")
+        dp_paths, dp_rates = phase_dp_world1(vocab_path, answers_path, tmp,
+                                             smi)
+        paths.update({f"dp1_{k}": v for k, v in dp_paths.items()})
+        log("phase 6a: world size 1 over NCCL identical to no group")
+        paths["dp2"] = phase_dp_two_ranks(vocab_path, tmp)
+        log("phase 6b: two ranks on the one card in sync")
 
     leaked = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "flax", "vlp_tpu")]
@@ -1587,7 +2075,8 @@ def main():
             **results[name]))
     print(json.dumps({"kernels": kernels, "captions_per_sec_cli": rates,
                       "captions_per_sec_steady": steady, **train_rates,
-                      **scst_rates, **vqa_rates, "scst_checks": scst_checks,
+                      **scst_rates, **vqa_rates, **dp_rates,
+                      "scst_checks": scst_checks,
                       "vqa_checks": vqa_checks}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -157,7 +157,8 @@ def test_finetune_decay_accumulation_and_profile(fx):
 
 @pytest.mark.parametrize("flag,item", [
     (["--scst", "--scst_replay", "scan"], "A9"),
-    (["--jax_distributed"], "A10"), (["--tensor_parallel", "2"], "Not to"),
+    (["--scst", "--scst_remat"], "Not to"),
+    (["--tensor_parallel", "2"], "Not to"),
     (["--true_fp16"], "Not to")])
 def test_unported_flags_raise(fx, flag, item):
     with pytest.raises(NotImplementedError, match=item):

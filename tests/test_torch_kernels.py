@@ -381,11 +381,12 @@ def test_dropout_mask_kernel_is_bit_exact(cuda):
 
 @pytest.mark.cuda
 def test_backward_rejects_a_length_that_does_not_fit(cuda):
-    x = torch.randn(1, 200, 1, 64, device=cuda)
+    n = _build.library().vlp_attention_bwd_max_len() + 1
+    x = torch.randn(1, n, 1, 64, device=cuda)
     one = torch.ones(1, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="L <="):
-        attn._backward_cuda(x, x, x, one, one * 200,
-                            torch.ones(1, 200, device=cuda), x, 4, 0.0, None)
+        attn._backward_cuda(x, x, x, one, one * n,
+                            torch.ones(1, n, device=cuda), x, 4, 0.0, None)
 
 
 def _bhld_inputs(g, dev, dtype, strided, B=6, L=128, H=12, P=102):
@@ -538,8 +539,9 @@ def test_fully_masked_example_matches_plain(cuda, rate):
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("L", [256, 417])
 def test_long_forward_matches_plain(cuda, dtype, tol, rate, L):
-    """Lengths past one 128-column chunk, up to the first version's limit
-    (417): the bf16 body's two passes (row max and sum, then P V)."""
+    """Lengths past one 128-column chunk: the bf16 body's two passes (row
+    max and sum, then P V), and the fp32 body over several key tiles up to
+    the first fp32 forward's last length (417)."""
     g = torch.Generator(device=cuda).manual_seed(8)
     q, k, v, mode, te, ck = _train_inputs(g, cuda, dtype, B=2, L=L, H=2)
     te = torch.randint(103, L + 1, (2,), generator=g, device=cuda)
@@ -581,29 +583,30 @@ def test_long_backward_matches_plain(cuda, rate, layout, L):
 
 @pytest.mark.cuda
 def test_bf16_backward_takes_the_forward_lengths(cuda):
-    """The bf16 backward's limit is the bf16 forward's: both take
-    L = max_len, both refuse max_len + 1."""
-    L = _build.library().vlp_attention_bwd_max_len(1)
-    assert L > 417       # the fp32 forward's limit
+    """The backward's limit is the bf16 forward's, in both dtypes: the
+    forward and the backward take L = max_len, both refuse max_len + 1."""
+    lib = _build.library()
+    L = lib.vlp_attention_bwd_max_len()
+    assert L == 528
     one = torch.ones(1, dtype=torch.int32, device=cuda)
-    for n in (L, L + 1):
-        x = torch.randn(1, n, 1, 64, device=cuda).to(torch.bfloat16)
-        args = (x, x, x, one, one * n, torch.ones(1, n, device=cuda))
-        if n == L:
-            attn.attention(*args, prefix=4)
-            attn._backward_cuda(*args, x, 4, 0.0, None)
-            continue
-        with pytest.raises(RuntimeError, match="attention_fwd"):
-            attn.attention(*args, prefix=4)
-        with pytest.raises(ValueError, match="L <="):
-            attn._backward_cuda(*args, x, 4, 0.0, None)
+    for dtype in (torch.bfloat16, torch.float32):
+        for n in (L, L + 1):
+            x = torch.randn(1, n, 1, 64, device=cuda).to(dtype)
+            args = (x, x, x, one, one * n, torch.ones(1, n, device=cuda))
+            if n == L:
+                attn.attention(*args, prefix=4)
+                attn._backward_cuda(*args, x, 4, 0.0, None)
+                continue
+            with pytest.raises(RuntimeError, match="attention_fwd"):
+                attn.attention(*args, prefix=4)
+            with pytest.raises(ValueError, match="L <="):
+                attn._backward_cuda(*args, x, 4, 0.0, None)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", DTYPES)
 def test_backward_at_its_max_len_matches_plain(cuda, dtype, tol):
-    L = _build.library().vlp_attention_bwd_max_len(
-        int(dtype == torch.bfloat16))
+    L = _build.library().vlp_attention_bwd_max_len()
     assert L >= 134      # the first version's limit
     g = torch.Generator(device=cuda).manual_seed(9)
     q, k, v, mode, te, ck = _train_inputs(g, cuda, dtype, B=2, L=L, H=2)
@@ -684,3 +687,104 @@ def test_backward_is_deterministic(cuda, layout, L):
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+def _fp32_long_inputs(g, dev, L, layout, B=4, H=3, pad=0):
+    """fp32 training-shaped inputs at length L in ``layout`` (``pad``: bhld
+    q/k/v/dout sliced off wider rows, so that their row stride, and q's
+    base, are not 16-byte aligned), example 1 bi-mode with every column
+    dropped by colkeep.  That example's q and k are multiples of 1/8 in
+    [-1, 1]: its scores, and -10000 + s, are then exact in fp32 whatever
+    the summation order.  With random q and k, -10000 + s rounds to a
+    multiple of 2^-10, so two summation orders move P by ~1e-3 relative
+    and even two plain versions differ beyond FP32_TOL at L = 512
+    (test_fully_masked_example_matches_plain)."""
+    q, k, v, mode, te, ck = _train_inputs(g, dev, torch.float32, B=B, L=L,
+                                          H=H)
+    te = torch.randint(103, L + 1, (B,), generator=g, device=dev)
+    mode[1], te[1] = MODE_BI, L
+    ck[1] = 0.0
+    q[1], k[1] = (torch.randint(-8, 9, q[1].shape, generator=g,
+                                device=dev) / 8.0 for _ in range(2))
+    dout = torch.randn(q.shape, generator=g, device=dev)
+    if layout == "blhd":
+        return q, k, v, mode, te, ck, dout
+    ts = [t.transpose(1, 2) for t in (q, k, v, dout)]
+    if pad:
+        wide = [torch.zeros(*t.shape[:3], 64 + pad, device=dev) for t in ts]
+        for w, t in zip(wide, ts):
+            w[..., pad:] = t
+        ts = [w[..., pad:] for w in wide]
+    else:
+        ts = [t.contiguous() for t in ts]
+    return (*ts[:3], mode, te, ck, ts[3])
+
+
+FP32_SEED = 0x6A09E667F3BCC909
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("layout", ["blhd", "bhld"])
+@pytest.mark.parametrize("L", [418, 512, 528])
+def test_fp32_long_forward_matches_plain(cuda, rate, layout, L):
+    """fp32 past the first fp32 forward's L <= 417 (its whole K and V in
+    one block): the key-tiled body with its online softmax, both layouts
+    and branches, an all-masked example among them; bhld equals blhd bit
+    for bit."""
+    g = torch.Generator(device=cuda).manual_seed(15)
+    q, k, v, mode, te, ck, _ = _fp32_long_inputs(g, cuda, L, layout)
+    got = attn._forward_cuda(q, k, v, mode, te, ck, 102,
+                             dropout=(rate, FP32_SEED), layout=layout)
+    want = attn.attention_plain(q, k, v, mode, te, ck, prefix=102,
+                                dropout_rate=rate, seed=FP32_SEED,
+                                layout=layout)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **FP32_TOL)
+    if layout == "bhld":
+        blhd = attn._forward_cuda(
+            *(t.transpose(1, 2).contiguous() for t in (q, k, v)), mode, te,
+            ck, 102, dropout=(rate, FP32_SEED))
+        assert torch.equal(got.transpose(1, 2), blhd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("layout", ["blhd", "bhld"])
+@pytest.mark.parametrize("L", [135, 256, 417, 528])
+def test_fp32_long_backward_matches_plain(cuda, rate, layout, L):
+    """The fp32 backward past the one-block first version's L <= 134, both
+    layouts, an all-masked example among them: against its plain version,
+    two calls bit for bit, and bhld = blhd bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(16)
+    q, k, v, mode, te, ck, dout = _fp32_long_inputs(g, cuda, L, layout)
+    args = (q, k, v, mode, te, ck, dout, 102, rate, FP32_SEED, layout)
+    got = attn._backward_cuda(*args)
+    again = attn._backward_cuda(*args)
+    want = attn.attention_bwd_plain(q, k, v, mode, te, ck, dout, prefix=102,
+                                    dropout_rate=rate, seed=FP32_SEED,
+                                    layout=layout)
+    torch.cuda.synchronize()
+    for a, a2, b in zip(got, again, want):
+        assert a.shape == q.shape and torch.isfinite(a).all()
+        torch.testing.assert_close(a, b, **FP32_TOL)
+        assert torch.equal(a, a2)
+    if layout == "bhld":
+        blhd = attn._backward_cuda(
+            *(t.transpose(1, 2).contiguous() for t in (q, k, v)), mode, te,
+            ck, dout.transpose(1, 2).contiguous(), 102, rate, FP32_SEED)
+        for a, b in zip(got, blhd):
+            assert torch.equal(a.transpose(1, 2), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pad", [1, 2, 4], ids=["align2", "align4", "align8"])
+def test_fp32_long_bhld_unaligned_strides_match_plain(cuda, pad):
+    """The fp32 long bodies on bhld inputs whose row stride (and base) is
+    not 16-byte aligned, through the wrappers."""
+    g = torch.Generator(device=cuda).manual_seed(17)
+    q, k, v, mode, te, ck, dout = _fp32_long_inputs(g, cuda, 512, "bhld",
+                                                    pad=pad)
+    assert q.stride(2) == 64 + pad
+    _check_fwd_bwd(q, k, v, mode, te, ck, dout, FP32_TOL, 0.1,
+                   layout="bhld")

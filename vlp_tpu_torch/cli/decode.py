@@ -9,6 +9,12 @@ through their plain versions.  ``--device cuda`` without a GPU raises.
     python -m vlp_tpu_torch.cli.decode --bert_model vocab.txt \\
         --model_recover_path 'model.*.bin' --new_segment_ids --enable_butd \\
         --beam_size 5 --max_tgt_length 20 --forbid_duplicate_ngrams ...
+
+Under torchrun (``torchrun --nproc_per_node=N -m vlp_tpu_torch.cli.decode
+...``) it decodes data parallel, one process per GPU (the JAX CLI's mesh):
+rank r decodes the r-th contiguous slice of the image list (ceil-split),
+and rank 0 gathers the captions, writes ``preds-*.json`` in the
+single-process order and scores them.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import torch
 
 from vlp_tpu_torch import checkpoint as ckpt
 from vlp_tpu_torch import configure_precision
+from vlp_tpu_torch import parallel
 from vlp_tpu_torch.cli import common
 from vlp_tpu_torch.config import VLPConfig
 from vlp_tpu_torch.data.dataset import CaptionExample, load_eval_index
@@ -128,9 +135,24 @@ def to_device(batch, device) -> dict:
             for k, v in batch.items()}
 
 
-def main(argv=None):
+def main(argv=None, dist: parallel.Dist = None):
+    """Returns ``{tag: {"n_images", "decode_seconds", **metrics}}`` per
+    checkpoint (on ranks other than 0: their own share, no metrics).  A
+    caller may pass its own group as ``dist``; otherwise torchrun's
+    environment decides (``parallel.from_cli``)."""
     args = build_parser().parse_args(argv)
-    device = resolve_device(args.device)
+    if dist is not None:
+        return decode(args, dist)
+    dist = parallel.from_cli(resolve_device(args.device))
+    try:
+        return decode(args, dist)
+    finally:
+        dist.destroy()
+
+
+def decode(args, dist: parallel.Dist):
+    """``main`` on this rank of ``dist``."""
+    device = dist.device
     configure_precision()
     dtype = "bfloat16" if device.type == "cuda" else "float32"
     args.max_seq_length = args.max_tgt_length + args.len_vis_input + 3
@@ -188,11 +210,12 @@ def main(argv=None):
         model = model.to(device).cast_for_inference().eval()
         decoder = Decoder(model, cfg, dp)
 
-        loader = EvalLoader(eval_list, store, builder, args.batch_size,
+        mine = [eval_list[i] for i in dist.shard(len(eval_list))]
+        loader = EvalLoader(mine, store, builder, args.batch_size,
                             feature_slab_slots=3, prefetch=True)
         output = {}
         t0 = time.time()
-        for batch, chunk, _pad in loader:
+        for batch, chunk, _pad in (loader if mine else ()):
             tbatch = to_device(batch, device)
             if args.beam_size > 1:
                 out_ids = decoder.beam_search(tbatch)["pred_seq"]
@@ -207,7 +230,13 @@ def main(argv=None):
                         break
                     words.append(t)
                 output[ex.image_id] = " ".join(detokenize(words))
+        parts = dist.gather_objects(list(output.items()))
         dt = time.time() - t0
+        if not dist.is_main:
+            all_stats[os.path.basename(model_recover_path or "random")] = {
+                "n_images": len(output), "decode_seconds": dt}
+            continue
+        output = dict(kv for part in parts for kv in part)
         n_done = len(output)
         print(f"decoded {n_done} images in {dt:.1f}s "
               f"({n_done / max(dt, 1e-9):.1f} img/s) on {device}")

@@ -12,8 +12,12 @@ It runs on the card unless called with ``--device cpu``: bf16 activations
 through the hand-written attention kernel on ``cuda``, fp32 through its
 plain version on ``cpu``; ``--device cuda`` without a GPU raises.  It reads
 reference ``.bin`` checkpoints (the relax projection collapses to head 0);
-a JAX orbax directory raises (ROADMAP A11).  The JAX CLI's data-parallel
-evaluation over several devices is ROADMAP A10; this one runs on one card.
+a JAX orbax directory raises (ROADMAP A11).  Under torchrun
+(``torchrun --nproc_per_node=N -m vlp_tpu_torch.cli.eval_vqa2 ...``) it
+evaluates data parallel, one process per GPU (the JAX CLI's
+``shard_map``): rank r answers the r-th contiguous slice of the questions
+(ceil-split), and rank 0 gathers the answers, writes them in the
+single-process order and scores them.
 ``--no_pallas``, ``--fp16`` and ``--amp`` are no-ops and say so.  The
 decode-only flags of the reference CLI are accepted and unused.
 ``--profile_batches N`` writes a ``torch.profiler`` table of N batches to
@@ -33,6 +37,7 @@ import torch
 
 from vlp_tpu_torch import checkpoint as ckpt
 from vlp_tpu_torch import configure_precision
+from vlp_tpu_torch import parallel
 from vlp_tpu_torch.cli import common
 from vlp_tpu_torch.cli.decode import resolve_device, to_device
 from vlp_tpu_torch.cli.train import make_config, start_profiler, stop_profiler
@@ -100,12 +105,25 @@ def build_parser():
     return p
 
 
-def main(argv=None):
+def main(argv=None, dist: parallel.Dist = None):
     """Writes ``vqa2-results-{tag}-{split}.json`` per checkpoint and returns
     ``{tag: {"n_questions", "eval_seconds", **accuracy}}`` (the accuracy
-    with ``--ref_file``)."""
+    with ``--ref_file``; on ranks other than 0: their own share, no
+    accuracy).  A caller may pass its own group as ``dist``; otherwise
+    torchrun's environment decides (``parallel.from_cli``)."""
     args = build_parser().parse_args(argv)
-    device = resolve_device(args.device)
+    if dist is not None:
+        return evaluate(args, dist)
+    dist = parallel.from_cli(resolve_device(args.device))
+    try:
+        return evaluate(args, dist)
+    finally:
+        dist.destroy()
+
+
+def evaluate(args, dist: parallel.Dist):
+    """``main`` on this rank of ``dist``."""
+    device = dist.device
     configure_precision()
     dtype = "bfloat16" if device.type == "cuda" else "float32"
     for hit, flag in ((args.no_pallas, "--no_pallas"),
@@ -176,12 +194,14 @@ def main(argv=None):
         predictions = []
         rng_np = np.random.default_rng(args.seed)
         B = args.batch_size
+        share = dist.shard(len(eval_list))
+        mine = eval_list[share.start:share.stop]
         # two recycled feature slabs: fresh ~1.4 MB allocations per example
         # cost first-touch page faults, and each batch is copied to the
         # device before the next one is built
         slabs = None
-        if eval_list:
-            f0, p0 = store.get(eval_list[0].feature_key)
+        if mine:
+            f0, p0 = store.get(mine[0].feature_key)
             slabs = [(np.empty((B,) + f0.shape, f0.dtype),
                       np.empty((B,) + p0.shape, p0.dtype)) for _ in range(2)]
 
@@ -199,10 +219,11 @@ def main(argv=None):
         os.makedirs(args.output_dir, exist_ok=True)
         t0 = time.time()
         with torch.no_grad():
-            for bi, lo in enumerate(range(0, len(eval_list), B)):
-                if args.profile_batches and bi == 1 and not all_stats:
+            for bi, lo in enumerate(range(0, len(mine), B)):
+                if (args.profile_batches and bi == 1 and not all_stats
+                        and dist.is_main):
                     profiler = start_profiler()
-                chunk = eval_list[lo:lo + B]
+                chunk = mine[lo:lo + B]
                 fs, ps = slabs[bi % 2]
                 exs = []
                 for j, ex in enumerate(chunk):
@@ -220,7 +241,7 @@ def main(argv=None):
                 out = model.vqa_inference(to_device(batch, device))
                 if pending is not None:
                     flush(pending)
-                pending = (out, chunk, lo)
+                pending = (out, chunk, share.start + lo)
                 if profiler is not None and bi == args.profile_batches:
                     stop_profiler(profiler, args.output_dir)
                     profiler = None
@@ -228,11 +249,17 @@ def main(argv=None):
                 flush(pending)
             if profiler is not None:
                 stop_profiler(profiler, args.output_dir)
+        parts = dist.gather_objects(predictions)
         dt = time.time() - t0
+        tag = os.path.basename(model_recover_path or "random")
+        if not dist.is_main:
+            all_stats[tag] = {"n_questions": len(predictions),
+                              "eval_seconds": dt}
+            continue
+        predictions = [p for part in parts for p in part]
         print(f"answered {len(predictions)} questions in {dt:.1f}s "
               f"({len(predictions) / max(dt, 1e-9):.1f} q/s) on {device}")
 
-        tag = os.path.basename(model_recover_path or "random")
         results_file = os.path.join(
             args.output_dir, f"vqa2-results-{tag}-{args.split}.json")
         with open(results_file, "w") as f:

@@ -21,21 +21,37 @@ checkpoints are ``model.N.bin`` / ``optim.N.bin`` (``checkpoint.py``), and a
 rerun with the same ``--output_dir`` resumes from the newest epoch or
 ``--save_steps`` checkpoint.
 
-Flags of slices not yet ported raise, naming the ROADMAP item:
-``--jax_distributed`` and ``--world_size > 1`` (A10),
-``--tensor_parallel > 1``, ``--true_fp16``, ``--scst_replay scan`` and
-``--scst_remat`` (ROADMAP A, not to port).  The TPU dispatch
+Data parallel, one process per GPU (``parallel/``): launch with torchrun,
+or by hand with the JAX CLI's flags::
+
+    torchrun --nproc_per_node=4 -m vlp_tpu_torch.cli.train ...
+    python -m vlp_tpu_torch.cli.train --jax_distributed \
+        --coordinator_address host:port --num_processes 4 --process_id i ...
+
+``--train_batch_size`` stays global (each rank loads its share, and it must
+divide by world x ``--gradient_accumulation_steps``); the gradients are
+mean-all-reduced once per optimizer step, SCST scores its reward over the
+global batch, rank 0 writes the checkpoints, ``metrics.jsonl`` and the log,
+and the returned losses are global means.  ``--world_size``, when > 1, must
+equal the group's size.
+
+Flags the port leaves out raise: ``--tensor_parallel > 1``,
+``--true_fp16``, ``--scst_replay scan`` and ``--scst_remat`` (ROADMAP A,
+not to port).  The TPU dispatch
 workarounds ``--device_loop_steps``, ``--no_pallas`` and ``--tp_impl`` are
 no-ops here and say so in the log, as are
 ``--fp16/--amp/--fp32_embedding`` (the dtype follows ``--device``).
 ``--profile_steps N`` writes a ``torch.profiler`` table of N steps to
-``output_dir/profile.txt``.
+``output_dir/profile.txt`` and, with a group, times every step's gradient
+all-reduce (``allreduce_ms`` of the result).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import logging
 import os
 import time
 
@@ -45,6 +61,7 @@ import torch
 from vlp_tpu_torch import checkpoint as ckpt
 from vlp_tpu_torch import configure_precision
 from vlp_tpu_torch import optim as optim_lib
+from vlp_tpu_torch import parallel
 from vlp_tpu_torch import train_step as ts
 from vlp_tpu_torch.cli import common
 from vlp_tpu_torch.cli.decode import resolve_device, to_device
@@ -57,6 +74,7 @@ from vlp_tpu_torch.data.loader import TrainLoader
 from vlp_tpu_torch.data.tokenization import WhitespaceTokenizer
 from vlp_tpu_torch.evals.vqa import VQAAnswerProcessor
 from vlp_tpu_torch.models.model import VLPModel
+from vlp_tpu_torch.parallel.dp_step import make_dp_train_step
 from vlp_tpu_torch.scst import SCSTTrainer
 
 # parameters of the heads a BERT checkpoint lacks (reference
@@ -115,8 +133,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--split", type=str, nargs="+",
                    default=["train", "restval"])
     p.add_argument("--world_size", default=1, type=int,
-                   help="> 1 is data-parallel training, ROADMAP A10: "
-                        "raises")
+                   help="> 1: must equal the data-parallel group's size")
     p.add_argument("--file_valid_jpgs", default="", type=str)
     p.add_argument("--sche_mode", default="warmup_linear", type=str)
     p.add_argument("--drop_prob", default=0.1, type=float)
@@ -159,7 +176,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "weights (reference BertAdamFineTune)")
     p.add_argument("--profile_steps", type=int, default=0,
                    help="torch.profiler over N steps of the first epoch "
-                        "(from its second step) -> output_dir/profile.txt")
+                        "(from its second step) -> output_dir/profile.txt; "
+                        "with a group, every step's all-reduce timed")
     p.add_argument("--save_steps", type=int, default=0,
                    help="also checkpoint every N optimizer steps "
                         "(model.sN.bin/optim.sN.bin, latest 2 kept) and "
@@ -176,7 +194,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tp_impl", choices=("shard_map", "gspmd"),
                    default="shard_map", help="no-op (see --tensor_parallel)")
     p.add_argument("--jax_distributed", action="store_true",
-                   help="multi-host training is ROADMAP A10: raises")
+                   help="data parallel: one process per GPU, in a group at "
+                        "--coordinator_address (or use torchrun)")
     p.add_argument("--coordinator_address", default=None,
                    help="only read with --jax_distributed")
     p.add_argument("--num_processes", type=int, default=None,
@@ -198,10 +217,6 @@ def refuse_unported(args) -> None:
          f"--scst_replay scan: the scan replay {not_to_port}"),
         (args.scst and args.scst_remat,
          f"--scst_remat: the scan replay's remat {not_to_port}"),
-        (args.jax_distributed,
-         "--jax_distributed: multi-process training is ROADMAP item A10"),
-        (args.world_size > 1,
-         "--world_size > 1: data-parallel training is ROADMAP item A10"),
         (args.tensor_parallel > 1,
          "--tensor_parallel: manual tensor parallelism is under ROADMAP A "
          "'Not to port'"),
@@ -275,11 +290,15 @@ def scst_decode_batch(tbatch, cfg: VLPConfig) -> dict:
                 vis_pe=tbatch["vis_pe"])
 
 
-def main(argv=None):
-    """Returns ``{"losses", "step_seconds", "iter_seconds", "model"}``:
-    the loss of every step taken, the seconds from a batch in hand to its
-    loss on the host, the seconds between consecutive steps (loader
-    included), and the trained model."""
+def main(argv=None, dist: parallel.Dist = None):
+    """Returns ``{"losses", "step_seconds", "iter_seconds", "model",
+    "allreduce_ms"}``: the loss of every step taken (the mean over the
+    ranks), the seconds from a batch in hand to its loss on the host, the
+    seconds between consecutive steps (loader included), the trained
+    model, and the milliseconds of each step's gradient all-reduce (with
+    ``--profile_steps`` and a group; empty otherwise).  A caller may pass
+    its own group as ``dist``; otherwise the flags and torchrun's
+    environment decide (``parallel.from_cli``)."""
     args = build_parser().parse_args(argv)
     refuse_unported(args)
     if args.scst:
@@ -292,15 +311,38 @@ def main(argv=None):
         if args.gradient_accumulation_steps > 1:
             raise ValueError("--scst does not compose with "
                              "--gradient_accumulation_steps")
-    device = resolve_device(args.device)
+    if dist is not None:
+        return train(args, dist)
+    dist = parallel.from_cli(
+        resolve_device(args.device), jax_distributed=args.jax_distributed,
+        coordinator_address=args.coordinator_address,
+        num_processes=args.num_processes, process_id=args.process_id)
+    try:
+        return train(args, dist)
+    finally:
+        dist.destroy()
+
+
+def train(args, dist: parallel.Dist):
+    """``main`` on this rank of ``dist``."""
+    device = dist.device
+    if args.world_size > 1 and args.world_size != dist.world:
+        raise ValueError(f"--world_size {args.world_size} but the group has "
+                         f"{dist.world} processes")
     configure_precision()
+    if args.profile_steps:
+        dist.time_reductions = True
     if abs(args.s2s_prob + args.bi_prob - 1.0) > 1e-6:
         raise ValueError("--s2s_prob + --bi_prob must be 1")
     args.max_seq_length = args.max_len_b + args.len_vis_input + 3
     args.mask_image_regions = args.vis_mask_prob > 0
     dtype = "bfloat16" if device.type == "cuda" else "float32"
 
-    logger = common.setup_logging(args.output_dir, args.log_file)
+    if dist.is_main:
+        logger = common.setup_logging(args.output_dir, args.log_file)
+    else:  # only rank 0 writes the log; the others print warnings
+        logger = logging.getLogger(f"vlp_tpu.rank{dist.rank}")
+        logger.setLevel(logging.WARNING)
     noops = [(args.device_loop_steps > 1, "--device_loop_steps"),
              (args.no_pallas, "--no_pallas"),
              (args.tp_impl != "shard_map", "--tp_impl"),
@@ -310,7 +352,8 @@ def main(argv=None):
         if hit:
             logger.warning("%s is a no-op in vlp_tpu_torch (activations are "
                            "%s on %s)", flag, dtype, device)
-    common.dump_opts(args, args.output_dir)
+    if dist.is_main:
+        common.dump_opts(args, args.output_dir)
     tokenizer = common.resolve_tokenizer(args.bert_model, args.do_lower_case,
                                          args.max_position_embeddings)
     data_tokenizer = (WhitespaceTokenizer() if args.tokenized_input
@@ -354,13 +397,16 @@ def main(argv=None):
     builders = [TrainExampleBuilder(cfg, tokenizer.vocab, mode=m, **builder_kw)
                 for m in ("s2s", "bi")]
     accum = max(args.gradient_accumulation_steps, 1)
-    if args.train_batch_size % accum:
-        raise ValueError("--train_batch_size must divide into "
-                         "--gradient_accumulation_steps micro-batches")
+    if args.train_batch_size % (dist.world * accum):
+        raise ValueError(f"--train_batch_size (global) must divide into "
+                         f"{dist.world} ranks x --gradient_accumulation_steps "
+                         "micro-batches")
+    # each rank loads its share of the global batch (JAX CLI :341-348)
     loader = TrainLoader(examples, store, builders,
                          [args.s2s_prob, args.bi_prob],
-                         batch_size=args.train_batch_size,
+                         batch_size=args.train_batch_size // dist.world,
                          num_workers=args.num_workers, seed=args.seed,
+                         process_index=dist.rank, process_count=dist.world,
                          feature_slab_slots=4 + 2 + 1)
     steps_per_epoch = len(loader)
     if args.steps_per_epoch:
@@ -371,8 +417,10 @@ def main(argv=None):
     model = VLPModel(cfg, with_vqa=vqa)
     model.init_weights(torch.Generator().manual_seed(args.seed))
     model.to(device)
-    recover_step = ckpt.get_max_epoch_model(args.output_dir)
-    recover_gstep = ckpt.get_latest_step_checkpoint(args.output_dir)
+    # every rank resumes from what rank 0 finds (JAX CLI :397-410)
+    recover_step, recover_gstep = (x or None for x in dist.broadcast_ints([
+        ckpt.get_max_epoch_model(args.output_dir) or 0,
+        ckpt.get_latest_step_checkpoint(args.output_dir) or 0]))
     start_epoch, skip_batches, tag = 1, 0, None
     if recover_gstep and recover_gstep > (recover_step or 0) * steps_per_epoch:
         # a step checkpoint newer than any epoch's: resume inside the epoch
@@ -395,6 +443,7 @@ def main(argv=None):
                 task_idx=task_idx(args.tasks)).items()})
         if missing:
             logger.info("not in the checkpoint, kept at init: %s", missing)
+    dist.broadcast_params(model)
 
     params = dict(model.named_parameters())
     opt_kw = dict(warmup=args.warmup_proportion, t_total=t_total,
@@ -417,7 +466,7 @@ def main(argv=None):
         scst_trainer = SCSTTrainer(
             model, cfg, mask_id=vocab["[MASK]"], eos_id=vocab["[SEP]"],
             pad_id=vocab["[PAD]"], max_tgt_length=cfg.max_len_b,
-            optimizer=optimizer)
+            optimizer=optimizer, dist=dist)
         p0 = cfg.prefix_len
 
         def run_step(batch, tbatch, seed, i_epoch):
@@ -428,8 +477,8 @@ def main(argv=None):
                                         seed)
             return {"loss": loss, **m}
     else:
-        train_step = ts.make_train_step(
-            model, optimizer, mask_image_regions=args.mask_image_regions,
+        train_step = make_dp_train_step(
+            model, optimizer, dist, mask_image_regions=args.mask_image_regions,
             task=args.tasks, grad_accum=accum)
 
         def run_step(batch, tbatch, seed, i_epoch):
@@ -437,16 +486,17 @@ def main(argv=None):
                               if i_epoch > args.drop_after else 0.0)
 
     result = {"losses": [], "step_seconds": [], "iter_seconds": [],
-              "model": model}
+              "model": model, "allreduce_ms": []}
     if not args.do_train:
         return result
-    logger.info("***** Running %straining on %s (%s) *****",
-                "SCST " if args.scst else "", device, dtype)
+    logger.info("***** Running %straining on %s (%s), %d rank(s) *****",
+                "SCST " if args.scst else "", device, dtype, dist.world)
     logger.info("  Batch size = %d  Num steps = %d", args.train_batch_size,
                 t_total)
     last_save = (start_epoch - 1) * steps_per_epoch + skip_batches
     profiler = None
-    with open(os.path.join(args.output_dir, "metrics.jsonl"), "a") as mf:
+    with (open(os.path.join(args.output_dir, "metrics.jsonl"), "a")
+          if dist.is_main else contextlib.nullcontext()) as mf:
         for i_epoch in range(start_epoch, args.num_train_epochs + 1):
             losses = []
             t_ep = t_prev = time.perf_counter()
@@ -455,8 +505,8 @@ def main(argv=None):
                     loader.epoch(i_epoch - 1, start_batch=skip), start=skip):
                 if args.steps_per_epoch and step_i >= args.steps_per_epoch:
                     break
-                if (args.profile_steps and i_epoch == start_epoch
-                        and step_i == skip + 1):
+                if (args.profile_steps and dist.is_main
+                        and i_epoch == start_epoch and step_i == skip + 1):
                     profiler = start_profiler()
                 t0 = time.perf_counter()
                 tbatch = to_device(batch, device)
@@ -477,10 +527,11 @@ def main(argv=None):
                     profiler = None
                 gdone = (i_epoch - 1) * steps_per_epoch + step_i + 1
                 if args.save_steps and gdone - last_save >= args.save_steps:
-                    ckpt.save_step_checkpoint(args.output_dir, gdone, model,
-                                              optimizer)
+                    if dist.is_main:
+                        ckpt.save_step_checkpoint(args.output_dir, gdone,
+                                                  model, optimizer)
                     last_save = gdone
-                if step_i % 100 == 0:
+                if step_i % 100 == 0 and dist.is_main:
                     logger.info("Epoch %d, Iter %d, Loss %.2f", i_epoch,
                                 step_i, float(np.mean(losses)))
                     rec = {"epoch": i_epoch, "step": step_i,
@@ -494,7 +545,12 @@ def main(argv=None):
             logger.info("Epoch %d done in %.1fs, mean loss %.4f", i_epoch,
                         time.perf_counter() - t_ep,
                         float(np.mean(losses)) if losses else float("nan"))
-            ckpt.save_checkpoint(args.output_dir, i_epoch, model, optimizer)
+            if dist.is_main:
+                ckpt.save_checkpoint(args.output_dir, i_epoch, model,
+                                     optimizer)
+            # epoch barrier (run_img2txt_dist.py:604-605; JAX CLI :759-768)
+            dist.barrier()
+    result["allreduce_ms"] = dist.reduction_ms()
     return result
 
 
@@ -510,7 +566,8 @@ def start_profiler():
 
 def stop_profiler(profiler, output_dir: str) -> None:
     """Write the profiled window's wall time, summed device time and
-    busy share, then the per-op table sorted by device time."""
+    busy share, then the per-op table sorted by device time (every row:
+    the host-side ranges, such as ``dist.grad_agreement``, have none)."""
     prof, t0 = profiler
     cuda = torch.cuda.is_available()
     if cuda:
@@ -527,7 +584,7 @@ def stop_profiler(profiler, output_dir: str) -> None:
     with open(os.path.join(output_dir, "profile.txt"), "w") as f:
         f.write(f"wall {wall_ms:.3f} ms, {key} summed {device_ms:.3f} ms, "
                 f"busy share {device_ms / wall_ms:.3f}\n")
-        f.write(events.table(sort_by=key, row_limit=40))
+        f.write(events.table(sort_by=key, row_limit=-1))
 
 
 if __name__ == "__main__":

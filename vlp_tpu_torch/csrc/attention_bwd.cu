@@ -65,12 +65,19 @@
 //   against keys past text_end) hold exact zeros of P and dS and are
 //   skipped (masked_region), by all three kernels alike.  Every sum runs
 //   in a fixed order: two calls give the same bits.
-// * fp32: attention_bwd_fp32, the first version on the CUDA cores (fp32
-//   FMAs), which the card-vs-CPU fp32 gates need: tensor cores give
-//   neither fp32 nor its exact products.  Its block holds two [L][D+1]
-//   fp32 tiles and two [L][L+1] fp32 matrices (P o keep and dS); pass 1 is
-//   one warp per query row, pass 2 forms dQ, dK and dV with each warp
-//   owning kRows output rows and each lane two of the 64 columns.
+// * fp32: on the CUDA cores (fp32 FMAs), which the card-vs-CPU fp32 gates
+//   need: tensor cores give neither fp32 nor its exact products.  Every L
+//   the bf16 bodies take (528), in three kernels over (example, head, 64
+//   rows) blocks of 16 warps, each staging one whole [L][D+1] fp32
+//   operand, with P (then P o keep) and dS in an fp32 scratch of [L][L]
+//   each per head that the wrapper allocates: (1) attention_bwd_fp32_p,
+//   one warp per query row, S against the staged K and the softmax;
+//   (2) attention_bwd_fp32_ds, V staged, dP o keep, rowsum and dS;
+//   (3) attention_bwd_fp32_products, dQ, dK or dV (blockIdx.y), each warp
+//   owning kRows output rows and each lane two of the 64 columns.  The
+//   arithmetic of each element is that of the one-block first version it
+//   replaced (which held both [L][L] matrices in shared memory and so took
+//   L <= 134).  It is not tuned: fp32 only feeds the gates.
 //
 // What bounds it on an H100: at the training shape (B=64, L=128, H=12,
 // D=64, bf16) one call reads q, k, v, dO and writes dq, dk, dv: ~88 MB,
@@ -92,8 +99,8 @@
 // warps per SM through three serial passes.
 // Registers and spills:
 // `-Xptxas -v` in the build log (chip_smoke.py prints it).  The wrapper
-// rejects an L whose tiles do not fit (vlp_attention_bwd_max_len, per
-// dtype).
+// rejects an L past the forward's limit (vlp_attention_bwd_max_len, the
+// same in both dtypes).
 
 #include "common.cuh"
 #include "mma.cuh"
@@ -103,16 +110,22 @@ namespace {
 constexpr int D = vlp::kHeadDim;
 using bf16 = __nv_bfloat16;
 
-// ---- fp32: the first version, on the CUDA cores
+// ---- fp32: on the CUDA cores, every L the bf16 bodies take
 
 constexpr int LDD = D + 1;  // padded row of an [L][D] tile
 constexpr int kWarps = 16;
-constexpr int kRows = 4;    // output rows per warp in the products
+constexpr int kRows = 4;    // rows per warp: of P and dS, and of a product
+constexpr int kRowsFp32 = kWarps * kRows;  // rows a block owns
 
+// The shared memory of each of the three kernels: one staged [L][D+1]
+// operand, and per warp a q or dO row (and in the second, a keep row).
 size_t smem_bytes_fp32(int L) {
-  const size_t Lz = L;
-  return sizeof(float) * (2 * Lz * LDD + 2 * Lz * (Lz + 1) + Lz +
-                          kWarps * Lz + kWarps * 2 * D);
+  return sizeof(float) * (size_t(L) * LDD + L + kWarps * (D + size_t(L)));
+}
+
+// The scratch of one (example, head): P (then P o keep) and dS, [L][L].
+__host__ __device__ __forceinline__ long long fp32_scratch(int L) {
+  return 2ll * L * L;
 }
 
 // dst[j][d] = src[base + j * sl + d], d < D, j < L.
@@ -124,113 +137,129 @@ __device__ void stage(float* dst, const float* __restrict__ src,
   }
 }
 
-// out[out_base + r * ol + d] = scale * sum_j A(r, j) * bt[j][d] for r < L,
-// d < D, where A(r, j) = a[r * lda + j], or a[j * lda + r] when kTrans;
-// ol is the output's row stride (H*D in blhd, D in bhld).
+// out[out_base + r * ol + d] = scale * sum_j A(r, j) * bt[j][d] for the
+// block's rows r0 <= r < min(L, r0 + kRowsFp32), d < D, where A(r, j) =
+// a[r * L + j], or a[j * L + r] when kTrans; ol is the output's row stride
+// (H*D in blhd, D in bhld).
 template <bool kTrans>
 __device__ void product(float* __restrict__ out, long long out_base,
-                        long long ol, const float* a, int lda,
-                        const float* bt, int L, float scale) {
+                        long long ol, const float* __restrict__ a,
+                        const float* bt, int L, int r0, float scale) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r0 = warp * kRows; r0 < L; r0 += kWarps * kRows) {
-    float acc[kRows][2] = {};
-    for (int j = 0; j < L; ++j) {
-      const float b0 = bt[j * LDD + lane], b1 = bt[j * LDD + lane + 32];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const int row = min(r0 + r, L - 1);  // rows past L are not stored
-        const float av = kTrans ? a[j * lda + row] : a[row * lda + j];
-        acc[r][0] = fmaf(av, b0, acc[r][0]);
-        acc[r][1] = fmaf(av, b1, acc[r][1]);
-      }
-    }
+  const int rw = r0 + warp * kRows;
+  float acc[kRows][2] = {};
+  for (int j = 0; j < L; ++j) {
+    const float b0 = bt[j * LDD + lane], b1 = bt[j * LDD + lane + 32];
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
-      if (r0 + r >= L) break;
-      float* o = out + out_base + (r0 + r) * ol;
-      o[lane] = acc[r][0] * scale;
-      o[lane + 32] = acc[r][1] * scale;
+      const int row = min(rw + r, L - 1);  // rows past L are not stored
+      const float av = kTrans ? a[(long long)j * L + row]
+                              : a[(long long)row * L + j];
+      acc[r][0] = fmaf(av, b0, acc[r][0]);
+      acc[r][1] = fmaf(av, b1, acc[r][1]);
     }
+  }
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    if (rw + r >= L) break;
+    float* o = out + out_base + (rw + r) * ol;
+    o[lane] = acc[r][0] * scale;
+    o[lane + 32] = acc[r][1] * scale;
   }
 }
 
-template <bool kDrop>
+// (1) P: one warp per query row i (K staged) -> row i of P in the scratch.
 __global__ void __launch_bounds__(kWarps * 32)
-    attention_bwd_fp32(const float* __restrict__ q,
-                       const float* __restrict__ k,
-                       const float* __restrict__ v,
-                       const float* __restrict__ dout,
-                       float* __restrict__ dq, float* __restrict__ dk,
-                       float* __restrict__ dv, const int* __restrict__ mode,
-                       const int* __restrict__ text_end,
-                       const float* __restrict__ colkeep, int L, int H,
-                       vlp::Strides in, vlp::Strides ds_in, vlp::Strides os,
-                       int prefix, float scale, vlp::Dropout dp) {
+    attention_bwd_fp32_p(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         float* __restrict__ scratch,
+                         const int* __restrict__ mode,
+                         const int* __restrict__ text_end,
+                         const float* __restrict__ colkeep, int L, int H,
+                         vlp::Strides in, int prefix, float scale) {
   extern __shared__ float smem[];
-  const int LDP = L + 1;
-  float* ta = smem;                 // [L][LDD]  K, then dO
-  float* tb = ta + L * LDD;         // [L][LDD]  V, then Q
-  float* pd = tb + L * LDD;         // [L][LDP]  P, then P o keep
-  float* ds = pd + L * LDP;         // [L][LDP]  dP, then dS
-  float* colok = ds + L * LDP;      // [L]       1 = column kept
-  float* kws = colok + L;           // [kWarps][L]    keep of a row
-  float* rws = kws + kWarps * L;    // [kWarps][2*D]  q row, dO row
+  float* ks = smem;                  // [L][LDD]
+  float* colok = ks + L * LDD;       // [L]  1 = column kept
+  float* rws = colok + L;            // [kWarps][D]  q row
 
   const int b = blockIdx.x / H;
   const int h = blockIdx.x % H;
   const long long in_base = b * in.b + h * in.h;
-  const long long do_base = b * ds_in.b + h * ds_in.h;
-  const long long sl = in.l, dsl = ds_in.l;
-  const long long out_base = b * os.b + h * os.h;
-
-  stage(ta, k, in_base, sl, L);
-  stage(tb, v, in_base, sl, L);
+  stage(ks, k, in_base, in.l, L);
   for (int j = threadIdx.x; j < L; j += blockDim.x)
     colok[j] = colkeep[(long long)b * L + j] > 0.5f ? 1.f : 0.f;
   __syncthreads();
 
-  // ---- pass 1: one warp per query row i -> rows i of P o keep and dS
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int md = mode[b], te = text_end[b];
-  float* kw = kws + warp * L;
-  float* rw = rws + warp * 2 * D;
-  for (int i = warp; i < L; i += kWarps) {
-    for (int d = lane; d < D; d += 32) {
-      rw[d] = q[in_base + i * sl + d];
-      rw[D + d] = dout[do_base + i * dsl + d];
-    }
+  float* rw = rws + warp * D;
+  float* pd = scratch + blockIdx.x * fp32_scratch(L);
+  const int row_end = min(L, (int)(blockIdx.y + 1) * kRowsFp32);
+  for (int i = blockIdx.y * kRowsFp32 + warp; i < row_end; i += kWarps) {
+    for (int d = lane; d < D; d += 32) rw[d] = q[in_base + i * in.l + d];
     __syncwarp();
-    float* prow = pd + i * LDP;
-    float* srow = ds + i * LDP;
-    {
-      float qr[D];
+    float qr[D];
 #pragma unroll
-      for (int d = 0; d < D; ++d) qr[d] = rw[d];
-      float mx = -CUDART_INF_F;
-      for (int j = lane; j < L; j += 32) {
-        const float* kr = ta + j * LDD;
-        float acc = 0.f;
+    for (int d = 0; d < D; ++d) qr[d] = rw[d];
+    // each lane reads back only the columns it wrote
+    float* prow = pd + (long long)i * L;
+    float mx = -CUDART_INF_F;
+    for (int j = lane; j < L; j += 32) {
+      const float* kr = ks + j * LDD;
+      float acc = 0.f;
 #pragma unroll
-        for (int d = 0; d < D; ++d) acc = fmaf(qr[d], kr[d], acc);
-        const bool vis =
-            (md == vlp::kModeS2S ? (j < prefix || (j <= i && i < te))
-                                 : (j < te)) &&
-            colok[j] > 0.5f;
-        const float s =
-            __fadd_rn(__fmul_rn(acc, scale), vis ? 0.f : vlp::kNegInf);
-        prow[j] = s;
-        mx = fmaxf(mx, s);
-      }
-      mx = vlp::warp_max(mx);
-      float sum = 0.f;
-      for (int j = lane; j < L; j += 32) {
-        const float e = expf(prow[j] - mx);
-        prow[j] = e;
-        sum += e;
-      }
-      sum = vlp::warp_sum(sum);
-      for (int j = lane; j < L; j += 32) prow[j] = prow[j] / sum;
+      for (int d = 0; d < D; ++d) acc = fmaf(qr[d], kr[d], acc);
+      const bool vis =
+          (md == vlp::kModeS2S ? (j < prefix || (j <= i && i < te))
+                               : (j < te)) &&
+          colok[j] > 0.5f;
+      const float s =
+          __fadd_rn(__fmul_rn(acc, scale), vis ? 0.f : vlp::kNegInf);
+      prow[j] = s;
+      mx = fmaxf(mx, s);
     }
+    mx = vlp::warp_max(mx);
+    float sum = 0.f;
+    for (int j = lane; j < L; j += 32) {
+      const float e = expf(prow[j] - mx);
+      prow[j] = e;
+      sum += e;
+    }
+    sum = vlp::warp_sum(sum);
+    for (int j = lane; j < L; j += 32) prow[j] = prow[j] / sum;
+    __syncwarp();
+  }
+}
+
+// (2) dS: one warp per query row i (V staged): dP = (dO V^T) o keep,
+// dS = P o (dP - rowsum(dP o P)) and P o keep, in place of P.
+template <bool kDrop>
+__global__ void __launch_bounds__(kWarps * 32)
+    attention_bwd_fp32_ds(const float* __restrict__ v,
+                          const float* __restrict__ dout,
+                          float* __restrict__ scratch, int L, int H,
+                          vlp::Strides in, vlp::Strides ds_in,
+                          vlp::Dropout dp) {
+  extern __shared__ float smem[];
+  float* vs = smem;                  // [L][LDD]
+  float* rws = vs + L * LDD + L;     // [kWarps][D]  dO row
+  float* kws = rws + kWarps * D;     // [kWarps][L]  keep of a row
+
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x % H;
+  stage(vs, v, b * in.b + h * in.h, in.l, L);
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long long do_base = b * ds_in.b + h * ds_in.h;
+  float* rw = rws + warp * D;
+  float* kw = kws + warp * L;
+  float* pd = scratch + blockIdx.x * fp32_scratch(L);
+  float* ds = pd + (long long)L * L;
+  const int row_end = min(L, (int)(blockIdx.y + 1) * kRowsFp32);
+  for (int i = blockIdx.y * kRowsFp32 + warp; i < row_end; i += kWarps) {
+    for (int d = lane; d < D; d += 32)
+      rw[d] = dout[do_base + i * ds_in.l + d];
     if constexpr (kDrop) {
       for (int c = lane; 4 * c < L; c += 32) {
         float mult[4];
@@ -239,41 +268,65 @@ __global__ void __launch_bounds__(kWarps * 32)
       }
     }
     __syncwarp();
-    {
-      float dr[D];
+    float dr[D];
 #pragma unroll
-      for (int d = 0; d < D; ++d) dr[d] = rw[D + d];
-      float rs = 0.f;
-      for (int j = lane; j < L; j += 32) {
-        const float* vr = tb + j * LDD;
-        float acc = 0.f;
+    for (int d = 0; d < D; ++d) dr[d] = rw[d];
+    float* prow = pd + (long long)i * L;
+    float* srow = ds + (long long)i * L;
+    float rs = 0.f;
+    for (int j = lane; j < L; j += 32) {
+      const float* vr = vs + j * LDD;
+      float acc = 0.f;
 #pragma unroll
-        for (int d = 0; d < D; ++d) acc = fmaf(dr[d], vr[d], acc);
-        const float dpj = kDrop ? acc * kw[j] : acc;
-        srow[j] = dpj;
-        rs += dpj * prow[j];
-      }
-      rs = vlp::warp_sum(rs);
-      for (int j = lane; j < L; j += 32) {
-        const float p = prow[j];
-        srow[j] = p * (srow[j] - rs);
-        if (kDrop) prow[j] = p * kw[j];
-      }
+      for (int d = 0; d < D; ++d) acc = fmaf(dr[d], vr[d], acc);
+      const float dpj = kDrop ? acc * kw[j] : acc;
+      srow[j] = dpj;
+      rs += dpj * prow[j];
+    }
+    rs = vlp::warp_sum(rs);
+    for (int j = lane; j < L; j += 32) {
+      const float p = prow[j];
+      srow[j] = p * (srow[j] - rs);
+      if (kDrop) prow[j] = p * kw[j];
     }
     __syncwarp();
   }
-  __syncthreads();
+}
 
-  // ---- pass 2: Q takes V's place; dQ = dS K, dK = dS^T Q; then dO takes
-  // K's place; dV = (P o keep)^T dO
-  stage(tb, q, in_base, sl, L);
-  __syncthreads();
-  product<false>(dq, out_base, os.l, ds, LDP, ta, L, scale);
-  product<true>(dk, out_base, os.l, ds, LDP, tb, L, scale);
-  __syncthreads();
-  stage(ta, dout, do_base, dsl, L);
-  __syncthreads();
-  product<true>(dv, out_base, os.l, pd, LDP, ta, L, 1.f);
+// (3) the products, blockIdx.y picking one: dQ = dS K * scale (K staged),
+// dK = dS^T Q * scale (Q staged), dV = (P o keep)^T dO (dO staged); the
+// block owns kRowsFp32 output rows.
+__global__ void __launch_bounds__(kWarps * 32)
+    attention_bwd_fp32_products(const float* __restrict__ q,
+                                const float* __restrict__ k,
+                                const float* __restrict__ dout,
+                                float* __restrict__ dq,
+                                float* __restrict__ dk,
+                                float* __restrict__ dv,
+                                const float* __restrict__ scratch, int L,
+                                int H, vlp::Strides in, vlp::Strides ds_in,
+                                vlp::Strides os, float scale) {
+  extern __shared__ float smem[];
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x % H;
+  const long long in_base = b * in.b + h * in.h;
+  const long long out_base = b * os.b + h * os.h;
+  const float* pd = scratch + blockIdx.x * fp32_scratch(L);
+  const float* ds = pd + (long long)L * L;
+  const int r0 = blockIdx.z * kRowsFp32;
+  if (blockIdx.y == 0) {
+    stage(smem, k, in_base, in.l, L);
+    __syncthreads();
+    product<false>(dq, out_base, os.l, ds, smem, L, r0, scale);
+  } else if (blockIdx.y == 1) {
+    stage(smem, q, in_base, in.l, L);
+    __syncthreads();
+    product<true>(dk, out_base, os.l, ds, smem, L, r0, scale);
+  } else {
+    stage(smem, dout, b * ds_in.b + h * ds_in.h, ds_in.l, L);
+    __syncthreads();
+    product<true>(dv, out_base, os.l, pd, smem, L, r0, 1.f);
+  }
 }
 
 // ---- bf16: on the tensor cores
@@ -1044,25 +1097,42 @@ __global__ void __launch_bounds__(kThreadsT, kMinBlocksT)
   vlp::store_rows(dq + out_base, os.l, qa, r0, L - blk.q0, lane, scale);
 }
 
+// Three launches on one stream; the scratch (B * H * fp32_scratch(L)
+// floats) carries P and dS from the first two to the third.
 template <bool kDrop>
 int launch_fp32(const void* q, const void* k, const void* v, const void* dout,
-                void* dq, void* dk, void* dv, const int* mode,
+                void* dq, void* dk, void* dv, float* scratch, const int* mode,
                 const int* text_end, const float* colkeep, int B, int L,
                 int H, vlp::Strides in, vlp::Strides ds_in, vlp::Strides os,
                 int prefix, float scale, vlp::Dropout dp,
                 cudaStream_t stream) {
   const size_t smem = smem_bytes_fp32(L);
-  if (smem > (size_t)vlp::kMaxSmemBytes) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_bwd_fp32<kDrop>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  attention_bwd_fp32<kDrop><<<B * H, kWarps * 32, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(dout),
-      static_cast<float*>(dq), static_cast<float*>(dk),
-      static_cast<float*>(dv), mode, text_end, colkeep, L, H, in, ds_in, os,
-      prefix, scale, dp);
+  if (smem > (size_t)vlp::kMaxSmemBytes || scratch == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const auto attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
+  cudaError_t err;
+  if ((err = cudaFuncSetAttribute(attention_bwd_fp32_p, attr, (int)smem)) !=
+          cudaSuccess ||
+      (err = cudaFuncSetAttribute(attention_bwd_fp32_ds<kDrop>, attr,
+                                  (int)smem)) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(attention_bwd_fp32_products, attr,
+                                  (int)smem)) != cudaSuccess)
+    return (int)err;
+  const auto* qf = static_cast<const float*>(q);
+  const auto* kf = static_cast<const float*>(k);
+  const auto* dof = static_cast<const float*>(dout);
+  const int row_blocks = (L + kRowsFp32 - 1) / kRowsFp32;
+  const dim3 rows(B * H, row_blocks);
+  attention_bwd_fp32_p<<<rows, kWarps * 32, smem, stream>>>(
+      qf, kf, scratch, mode, text_end, colkeep, L, H, in, prefix, scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  attention_bwd_fp32_ds<kDrop><<<rows, kWarps * 32, smem, stream>>>(
+      static_cast<const float*>(v), dof, scratch, L, H, in, ds_in, dp);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  attention_bwd_fp32_products<<<dim3(B * H, 3, row_blocks), kWarps * 32, smem,
+                                stream>>>(
+      qf, kf, dof, static_cast<float*>(dq), static_cast<float*>(dk),
+      static_cast<float*>(dv), scratch, L, H, in, ds_in, os, scale);
   return (int)cudaGetLastError();
 }
 
@@ -1136,23 +1206,16 @@ int launch_long(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
-// The largest L the body of this dtype takes: in bf16 the forward's own
-// limit, in fp32 the first version's.
-int max_len(int is_bf16) {
-  if (is_bf16) return vlp::attention_fwd_max_len(1);
-  int L = 1;
-  while (smem_bytes_fp32(L + 1) <= (size_t)vlp::kMaxSmemBytes) ++L;
-  return L;
-}
-
 // fp32 scratch (floats per example and head) the body for L needs: the
-// tiled body's row statistics and keep bits (long_scratch).
+// tiled bf16 body's row statistics and keep bits (long_scratch), the fp32
+// body's P and dS (fp32_scratch).
 int scratch_floats(int L, int is_bf16) {
-  return is_bf16 && L > 8 * kMaxNT ? long_scratch(L) : 0;
+  if (!is_bf16) return (int)fp32_scratch(L);
+  return L > 8 * kMaxNT ? long_scratch(L) : 0;
 }
 
 // bf16: the whole problem in one block up to 8 * kMaxNT, 64 x 64 tiles
-// beyond; fp32: the first version.
+// beyond; fp32: the three CUDA-core kernels.
 template <bool kDrop>
 int launch_any(const void* q, const void* k, const void* v, const void* dout,
                void* dq, void* dk, void* dv, float* scratch, const int* mode,
@@ -1161,9 +1224,9 @@ int launch_any(const void* q, const void* k, const void* v, const void* dout,
                int prefix, float scale, vlp::Dropout dp, int is_bf16,
                cudaStream_t stream) {
   if (!is_bf16)
-    return launch_fp32<kDrop>(q, k, v, dout, dq, dk, dv, mode, text_end,
-                              colkeep, B, L, H, in, ds_in, os, prefix, scale,
-                              dp, stream);
+    return launch_fp32<kDrop>(q, k, v, dout, dq, dk, dv, scratch, mode,
+                              text_end, colkeep, B, L, H, in, ds_in, os,
+                              prefix, scale, dp, stream);
   if (L <= 128)
     return launch_mma<16, kDrop>(q, k, v, dout, dq, dk, dv, mode, text_end,
                                  colkeep, B, L, H, in, ds_in, os, prefix,
@@ -1182,7 +1245,7 @@ int backward(const void* q, const void* k, const void* v, const void* dout,
              const void* text_end, const void* colkeep, int B, int L, int H,
              vlp::Strides in, vlp::Strides ds_in, vlp::Strides os, int prefix,
              float scale, vlp::Dropout dp, int is_bf16, void* stream) {
-  if (B <= 0 || L <= 0 || H <= 0 || L > max_len(is_bf16))
+  if (B <= 0 || L <= 0 || H <= 0 || L > vlp::attention_fwd_max_len())
     return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   auto acc = static_cast<float*>(scratch);
@@ -1200,9 +1263,8 @@ int backward(const void* q, const void* k, const void* v, const void* dout,
 
 extern "C" {
 
-// The largest L whose tiles fit the body that is_bf16 selects: the bf16
-// tensor-core bodies (1) or the fp32 body (0).
-int vlp_attention_bwd_max_len(int is_bf16) { return max_len(is_bf16); }
+// The largest L the backward takes, in both dtypes: the forward's limit.
+int vlp_attention_bwd_max_len() { return vlp::attention_fwd_max_len(); }
 
 // The fp32 scratch, in floats per (example, head), that a backward at L
 // needs in scratch (0: none; scratch may then be null).

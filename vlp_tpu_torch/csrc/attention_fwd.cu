@@ -34,11 +34,14 @@
 //   excluded (not given -10000), padded rows are never stored.  For L > 128
 //   a warp makes two passes over 128-column chunks: the row max and sum,
 //   then S again, P, keep, rounding and P V.
-// * fp32: attention_fwd_fp32, the first version on the CUDA cores (fp32
-//   FMAs), which the card-vs-CPU fp32 gates need: tensor cores give neither
-//   fp32 nor its exact products.  Each block stages its head's K and V in
-//   fp32 shared memory (K rows padded to D+1 words), each warp serves whole
-//   query rows with its query row in registers.
+// * fp32: attention_fwd_fp32, on the CUDA cores (fp32 FMAs), which the
+//   card-vs-CPU fp32 gates need: tensor cores give neither fp32 nor its
+//   exact products.  A block owns 32 query rows (its Q staged once in
+//   shared memory) and streams the head's K and V through shared memory in
+//   64-key tiles (K rows padded to D+1 words); each warp keeps four query
+//   rows' running max, sum and output (an online softmax, P V divided by
+//   the sum at the end), so it takes every L the bf16 body takes (528).
+//   It is not tuned: fp32 only feeds the gates.
 //
 // What bounds it on an H100: at the VQA eval shape (B=256, L=128, H=12,
 // D=64, bf16) one call reads q, k, v and writes out, ~201 MB (60 us at
@@ -68,14 +71,21 @@ namespace {
 constexpr int D = vlp::kHeadDim;
 using bf16 = __nv_bfloat16;
 
-// ---- fp32: the first version, on the CUDA cores
+// ---- fp32: on the CUDA cores
 
 constexpr int kWarps = 8;
 constexpr int kRowsPerBlock = 32;
 
-size_t smem_bytes_fp32(int L) {
-  return sizeof(float) *
-         (size_t(L) * (D + 1) + size_t(L) * D + L + kWarps * D + kWarps * L);
+// K and V streamed in kTileK-key tiles, an online softmax per query row.  A
+// block owns kRowsPerBlock query rows (its Q staged once), each warp
+// kRowsPerBlock / kWarps of them, each lane two of a row's 64 output columns
+// (lane, lane + 32) and, per tile, two of its keys.
+constexpr int kTileK = 64;
+constexpr int kRowsPerWarp = kRowsPerBlock / kWarps;
+
+size_t smem_bytes_fp32() {
+  return sizeof(float) * (size_t(kRowsPerBlock) * D + kTileK * (D + 1) +
+                          kTileK * D + kTileK + kWarps * kTileK);
 }
 
 template <bool kDrop>
@@ -88,84 +98,105 @@ __global__ void __launch_bounds__(kWarps * 32)
                        vlp::Strides in, vlp::Strides os, int prefix,
                        float scale, vlp::Dropout dp) {
   extern __shared__ float smem[];
-  float* ks = smem;                  // [L][D+1]
-  float* vs = ks + L * (D + 1);      // [L][D]
-  float* colok = vs + L * D;         // [L]  1 = column kept
-  float* qs = colok + L;             // [kWarps][D]
-  float* ps = qs + kWarps * D;       // [kWarps][L]
+  float* qs = smem;                       // [kRowsPerBlock][D]
+  float* ks = qs + kRowsPerBlock * D;     // [kTileK][D+1]
+  float* vs = ks + kTileK * (D + 1);      // [kTileK][D]
+  float* colok = vs + kTileK * D;         // [kTileK]  1 = column kept
+  float* ps = colok + kTileK;             // [kWarps][kTileK]
 
   const int b = blockIdx.x / H;
   const int h = blockIdx.x % H;
   const long long in_base = b * in.b + h * in.h;
   const long long sl = in.l;
-  const long long out_base = b * os.b + h * os.h;
-
-  for (int idx = threadIdx.x; idx < L * D; idx += blockDim.x) {
-    const int j = idx / D, d = idx % D;
-    ks[j * (D + 1) + d] = k[in_base + j * sl + d];
-    vs[j * D + d] = v[in_base + j * sl + d];
+  const int r0 = blockIdx.y * kRowsPerBlock;
+  for (int idx = threadIdx.x; idx < kRowsPerBlock * D; idx += blockDim.x) {
+    const int r = idx / D, d = idx % D;
+    qs[idx] = r0 + r < L ? q[in_base + (r0 + r) * sl + d] : 0.f;
   }
-  for (int j = threadIdx.x; j < L; j += blockDim.x)
-    colok[j] = colkeep[(long long)b * L + j] > 0.5f ? 1.f : 0.f;
-  __syncthreads();
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int md = mode[b], te = text_end[b];
-  float* qw = qs + warp * D;
-  float* pw = ps + warp * L;
-  const int row_end = min(L, (int)(blockIdx.y + 1) * kRowsPerBlock);
-
-  for (int i = blockIdx.y * kRowsPerBlock + warp; i < row_end; i += kWarps) {
-    for (int d = lane; d < D; d += 32) qw[d] = q[in_base + i * sl + d];
-    __syncwarp();
-    float qr[D];
+  float* pw = ps + warp * kTileK;
+  // row r0 + warp + kWarps * w: running max, sum, and output columns
+  // lane and lane + 32
+  float m[kRowsPerWarp], l[kRowsPerWarp], o[kRowsPerWarp][2];
 #pragma unroll
-    for (int d = 0; d < D; ++d) qr[d] = qw[d];
+  for (int w = 0; w < kRowsPerWarp; ++w) {
+    m[w] = -CUDART_INF_F;
+    l[w] = 0.f;
+    o[w][0] = o[w][1] = 0.f;
+  }
 
-    float mx = -CUDART_INF_F;
-    for (int j = lane; j < L; j += 32) {
-      const float* kr = ks + j * (D + 1);
-      float acc = 0.f;
+  for (int t0 = 0; t0 < L; t0 += kTileK) {
+    const int nk = min(kTileK, L - t0);
+    __syncthreads();  // the previous tile is consumed
+    for (int idx = threadIdx.x; idx < nk * D; idx += blockDim.x) {
+      const int j = idx / D, d = idx % D;
+      ks[j * (D + 1) + d] = k[in_base + (t0 + j) * sl + d];
+      vs[j * D + d] = v[in_base + (t0 + j) * sl + d];
+    }
+    for (int j = threadIdx.x; j < nk; j += blockDim.x)
+      colok[j] = colkeep[(long long)b * L + t0 + j] > 0.5f ? 1.f : 0.f;
+    __syncthreads();
 #pragma unroll
-      for (int d = 0; d < D; ++d) acc = fmaf(qr[d], kr[d], acc);
-      // s2s: the prefix is visible to every row, the caption causally to
-      // caption rows; bi: every column before text_end.  AND colkeep.
-      const bool vis = (md == vlp::kModeS2S ? (j < prefix || (j <= i && i < te))
-                                            : (j < te)) &&
-                       colok[j] > 0.5f;
-      const float s = __fadd_rn(__fmul_rn(acc, scale), vis ? 0.f : vlp::kNegInf);
-      pw[j] = s;
-      mx = fmaxf(mx, s);
-    }
-    mx = vlp::warp_max(mx);
-    float sum = 0.f;
-    for (int j = lane; j < L; j += 32) {
-      const float e = expf(pw[j] - mx);
-      pw[j] = e;
-      sum += e;
-    }
-    sum = vlp::warp_sum(sum);
-    if constexpr (kDrop) {
-      for (int j = lane; j < L; j += 32) pw[j] = pw[j] / sum;
-      __syncwarp();
-      // lane c draws the multipliers of columns 4c .. 4c+3
-      for (int c = lane; 4 * c < L; c += 32) {
-        float mult[4];
-        vlp::keep_scale4(dp, b, h, i, c, mult);
-        for (int w = 0; w < 4 && 4 * c + w < L; ++w)
-          pw[4 * c + w] = pw[4 * c + w] * mult[w];
+    for (int w = 0; w < kRowsPerWarp; ++w) {
+      const int i = r0 + warp + kWarps * w;
+      if (i >= L) break;  // uniform over the warp
+      const float* qr = qs + (warp + kWarps * w) * D;
+      float s[2];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int jj = lane + 32 * c, j = t0 + jj;
+        if (jj >= nk) {
+          s[c] = -CUDART_INF_F;  // past L: no share of the softmax
+          continue;
+        }
+        const float* kr = ks + jj * (D + 1);
+        float acc = 0.f;
+#pragma unroll
+        for (int d = 0; d < D; ++d) acc = fmaf(qr[d], kr[d], acc);
+        const bool vis =
+            (md == vlp::kModeS2S ? (j < prefix || (j <= i && i < te))
+                                 : (j < te)) &&
+            colok[jj] > 0.5f;
+        s[c] = __fadd_rn(__fmul_rn(acc, scale), vis ? 0.f : vlp::kNegInf);
       }
-    } else {
-      for (int j = lane; j < L; j += 32) pw[j] = pw[j] / sum;
+      const float mn = fmaxf(m[w], vlp::warp_max(fmaxf(s[0], s[1])));
+      const float alpha = expf(m[w] - mn);  // 0 on the first tile
+      const float e0 = expf(s[0] - mn), e1 = expf(s[1] - mn);
+      l[w] = l[w] * alpha + vlp::warp_sum(e0 + e1);
+      m[w] = mn;
+      pw[lane] = e0;
+      pw[lane + 32] = e1;
+      __syncwarp();
+      if constexpr (kDrop) {
+        // lane c < 16 draws the multipliers of the tile's columns 4c..4c+3
+        if (lane < kTileK / 4 && 4 * lane < nk) {
+          float mult[4];
+          vlp::keep_scale4(dp, b, h, i, t0 / 4 + lane, mult);
+#pragma unroll
+          for (int x = 0; x < 4; ++x) pw[4 * lane + x] *= mult[x];
+        }
+        __syncwarp();
+      }
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        float acc = 0.f;
+        for (int jj = 0; jj < nk; ++jj)
+          acc = fmaf(pw[jj], vs[jj * D + lane + 32 * c], acc);
+        o[w][c] = o[w][c] * alpha + acc;
+      }
+      __syncwarp();
     }
-    __syncwarp();
-
-    for (int d = lane; d < D; d += 32) {
-      float acc = 0.f;
-      for (int j = 0; j < L; ++j) acc = fmaf(pw[j], vs[j * D + d], acc);
-      out[out_base + (long long)i * os.l + d] = acc;
-    }
-    __syncwarp();
+  }
+  const long long out_base = b * os.b + h * os.h;
+#pragma unroll
+  for (int w = 0; w < kRowsPerWarp; ++w) {
+    const int i = r0 + warp + kWarps * w;
+    if (i >= L) break;
+    const float inv = 1.f / l[w];
+    out[out_base + (long long)i * os.l + lane] = o[w][0] * inv;
+    out[out_base + (long long)i * os.l + lane + 32] = o[w][1] * inv;
   }
 }
 
@@ -390,8 +421,8 @@ int launch_fp32(const void* q, const void* k, const void* v, void* out,
                 int B, int L, int H, vlp::Strides in, vlp::Strides os,
                 int prefix, float scale, vlp::Dropout dp,
                 cudaStream_t stream) {
-  const size_t smem = smem_bytes_fp32(L);
-  if (smem > (size_t)vlp::kMaxSmemBytes) return (int)cudaErrorInvalidValue;
+  if (L > vlp::attention_fwd_max_len()) return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes_fp32();
   cudaError_t err = cudaFuncSetAttribute(
       attention_fwd_fp32<kDrop>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -471,11 +502,10 @@ vlp::Strides bhld_out(int L, int H) {
 
 }  // namespace
 
-int vlp::attention_fwd_max_len(int is_bf16) {
+// The bf16 body's tiles bound L; the fp32 body takes the same lengths.
+int vlp::attention_fwd_max_len() {
   int L = 1;
-  while ((is_bf16 ? smem_bytes_mma((L + 16) & ~15) : smem_bytes_fp32(L + 1))
-         <= (size_t)vlp::kMaxSmemBytes)
-    ++L;
+  while (smem_bytes_mma((L + 16) & ~15) <= (size_t)vlp::kMaxSmemBytes) ++L;
   return L;
 }
 

@@ -15,10 +15,10 @@ constexpr float kNegInf = -10000.0f;  // the reference's additive mask value
 constexpr int kModeS2S = 1;           // vlp_tpu_torch/config.py MODE_S2S
 constexpr int kMaxSmemBytes = 232448; // per-block opt-in limit on sm_90
 
-// The largest L whose tiles fit the attention forward body of this dtype
-// (attention_fwd.cu): the bf16 tensor-core body (1) or the fp32 body (0).
-// The backward takes the same lengths in bf16.
-int attention_fwd_max_len(int is_bf16);
+// The largest L the attention forward takes (attention_fwd.cu): the bf16
+// tensor-core body's tiles bound it, and the fp32 body and the backward
+// take the same lengths.
+int attention_fwd_max_len();
 
 // The structural mask (attention.py:_mask_bias) of query row i as a column
 // limit: s2s rows see the prefix, and caption rows (i < text_end) causally

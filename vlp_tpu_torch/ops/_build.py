@@ -46,7 +46,7 @@ _SIGNATURES = {
     "vlp_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                           _I, _LL, _LL, _LL, _LL, _I, _F, _ULL, _U, _F, _I,
                           _P],
-    "vlp_attention_bwd_max_len": [_I],
+    "vlp_attention_bwd_max_len": [],
     "vlp_attention_bwd_scratch_floats": [_I, _I],
     "vlp_attention_fwd_bhld": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _LL,
                                _LL, _LL, _I, _F, _ULL, _U, _F, _I, _P],

@@ -27,9 +27,10 @@ layout, which every model call uses) and ``layout="bhld"``
 * The dtype picks the kernel body, in both layouts and both directions:
   bf16 (every main path) runs the tensor-core bodies (``mma.sync`` on
   tiles staged with ``cp.async``; the backward rounds P o keep and dS to
-  bf16 before their products), fp32 the first versions on the CUDA cores
-  (fp32 FMAs, which the card-vs-CPU fp32 checks rest on).  Nothing falls
-  back from one body to the other.
+  bf16 before their products), fp32 the bodies on the CUDA cores (fp32
+  FMAs, which the card-vs-CPU fp32 checks rest on).  Both dtypes take
+  every L up to the bf16 forward's limit (528).  Nothing falls back from
+  one body to the other.
 * ``dropout_mask`` — the multipliers themselves (``csrc/dropout_mask.cu``),
   to hold the kernels' bits against ``philox.keep_scale`` on the card.
 
@@ -241,10 +242,10 @@ def _backward_cuda(q, k, v, mode, text_end, colkeep, dout, prefix, rate,
     B, L, H, D = _dims(q, layout)
     lib = _build.library()
     is_bf16 = int(q.dtype == torch.bfloat16)
-    max_len = lib.vlp_attention_bwd_max_len(is_bf16)
+    max_len = lib.vlp_attention_bwd_max_len()
     if L > max_len:
-        raise ValueError(f"attention_bwd kernel takes L <= {max_len} in "
-                         f"{q.dtype} (its tiles must fit a block), got {L}")
+        raise ValueError(f"attention_bwd kernel takes L <= {max_len} (the "
+                         f"forward's limit), got {L}")
     if dout.shape != q.shape or dout.dtype != q.dtype:
         raise ValueError(f"{what}: dout differs from q in shape/dtype")
     n = 3 if layout == "bhld" else 2   # the strides the entry point takes
@@ -253,7 +254,7 @@ def _backward_cuda(q, k, v, mode, text_end, colkeep, dout, prefix, rate,
     grads = [torch.empty(q.shape, dtype=q.dtype, device=q.device)
              for _ in range(3)]
     # the tiled bf16 body (L > 144) keeps each row's softmax statistics
-    # between its kernels in an fp32 scratch
+    # between its kernels in an fp32 scratch, the fp32 body P and dS
     n_scratch = lib.vlp_attention_bwd_scratch_floats(L, is_bf16)
     scratch = (torch.empty(B * H * n_scratch, dtype=torch.float32,
                            device=q.device) if n_scratch else None)

@@ -27,6 +27,16 @@ Dropout: the sampled rollout and the replay take one
 applies exactly the masks the rollout drew (K5's attention multipliers come
 back through K6) and its log-probs equal the rollout's.
 
+Data parallelism (``dist``, one process per GPU; the JAX trainer's
+``mesh``): each rank rolls out and replays its own slice of the global
+batch, its sampling generator and dropout seeded with ``step_seed(seed,
+rank)``.  The CIDEr reward is scored once over the global batch: its
+document frequencies come from the references it is given, so the ranks
+all-gather the cleaned greedy and sampled ids and the ground truth (small
+int arrays), score the whole batch, and each takes its own rows, as the
+JAX mesh path scores the gathered rollouts.  The gradients and the loss are
+mean-all-reduced before the optimizer step.
+
 The JAX package's ``replay="scan"`` and ``remat`` are under ROADMAP A "Not
 to port"; the trainer raises on them.  ``clean_rollout``, ``array_to_str``
 and ``get_self_critical_reward`` are rewritten here because the JAX module
@@ -47,6 +57,7 @@ from vlp_tpu_torch.evals.cider import CiderScorer
 from vlp_tpu_torch.models.model import ExplicitDropout, VLPModel
 from vlp_tpu_torch.ops.philox import step_seed
 from vlp_tpu_torch.optim import BertAdam
+from vlp_tpu_torch.parallel.dist import Dist
 
 
 def clean_rollout(ids: np.ndarray, eos_id: int, pad_id: int) -> np.ndarray:
@@ -90,16 +101,35 @@ def get_self_critical_reward(greedy_res: np.ndarray, gt_ids: np.ndarray,
     return np.repeat(rewards[:, None], T, axis=1).astype(np.float32)
 
 
+def global_reward(greedy_res: np.ndarray, gt_ids: np.ndarray,
+                  gen_result: np.ndarray, dist: Optional[Dist] = None
+                  ) -> Tuple[np.ndarray, float]:
+    """This rank's rows of ``get_self_critical_reward`` scored over every
+    rank's rollouts (the global batch, in rank order), and the global mean
+    reward."""
+    if dist is None or not dist.grouped:
+        reward = get_self_critical_reward(greedy_res, gt_ids, gen_result)
+        return reward, float(reward[:, 0].mean())
+    parts = dist.all_gather_objects((np.asarray(greedy_res),
+                                     np.asarray(gt_ids),
+                                     np.asarray(gen_result)))
+    reward = get_self_critical_reward(
+        *(np.concatenate([p[i] for p in parts]) for i in range(3)))
+    lo = sum(len(p[0]) for p in parts[:dist.rank])
+    return (reward[lo:lo + len(greedy_res)], float(reward[:, 0].mean()))
+
+
 class SCSTTrainer:
     """SCST loss, gradients and (with ``optimizer``) the update for one
     batch of decode-shaped tensors on the model's device.  The randomness of
     a step follows from one 64-bit ``seed``: the sampling generator and the
-    dropout contract are derived from it."""
+    dropout contract are derived from it.  With ``dist`` the batch is this
+    rank's slice of the global batch (module docstring)."""
 
     def __init__(self, model: VLPModel, cfg: VLPConfig, *, mask_id: int,
                  eos_id: int, pad_id: int = 0, max_tgt_length: int = 20,
                  optimizer: Optional[BertAdam] = None, replay: str = "fused",
-                 remat: bool = False):
+                 remat: bool = False, dist: Optional[Dist] = None):
         if replay != "fused":
             raise NotImplementedError(
                 f"replay={replay!r}: the scan replay is under ROADMAP A "
@@ -115,6 +145,7 @@ class SCSTTrainer:
         self.eos_id = eos_id
         self.pad_id = pad_id
         self.optimizer = optimizer
+        self.dist = dist or Dist()
         self.dp = DecodeParams(mask_id=mask_id, eos_id=eos_id, pad_id=pad_id,
                                max_tgt_length=max_tgt_length)
         self.decoder = Decoder(model, cfg, self.dp)
@@ -175,11 +206,21 @@ class SCSTTrainer:
     def loss_and_grads(self, batch, gt_ids: np.ndarray, seed: int
                        ) -> Tuple[torch.Tensor, Dict[str, float]]:
         """Rollouts, reward and the replay's backward; leaves the gradients
-        in the parameters' ``.grad``.  ``gt_ids`` are the ground-truth
-        caption ids [B, T+1] (everything after the prompt, the final [SEP]
-        included).  Returns (loss, metrics)."""
+        (mean over the ranks) in the parameters' ``.grad``.  ``gt_ids`` are
+        the ground-truth caption ids [B, T+1] (everything after the prompt,
+        the final [SEP] included).  Returns (loss, metrics)."""
+        seed = self.dist.rank_seed(seed)
         greedy, sample, raw, _ = self.rollouts(batch, seed)
-        reward = get_self_critical_reward(greedy, gt_ids, sample)
+        reward, mean_reward = global_reward(greedy, gt_ids, sample,
+                                            self.dist)
+        loss = self.replay_grads(batch, raw, sample, reward, seed)
+        return loss, {"scst_loss": loss, "mean_reward": mean_reward}
+
+    def replay_grads(self, batch, raw: np.ndarray, sample: np.ndarray,
+                     reward: np.ndarray, seed: int) -> torch.Tensor:
+        """The policy-gradient loss of given rollouts (raw and cleaned ids,
+        reward, numpy [B, T]) under ``seed``'s dropout, its backward, and
+        the mean over the ranks of the gradients and the loss."""
         dev = batch["input_ids"].device
         for p in self.model.parameters():
             p.grad = None
@@ -188,9 +229,8 @@ class SCSTTrainer:
                             torch.from_numpy(reward).to(dev),
                             self.dropout(seed, dev))
         loss.backward()
-        loss = loss.detach()
-        return loss, {"scst_loss": loss,
-                      "mean_reward": float(reward[:, 0].mean())}
+        self.dist.all_reduce_grads(self.model.parameters())
+        return self.dist.all_reduce_mean({"loss": loss.detach()})["loss"]
 
     def step(self, batch, gt_ids: np.ndarray, seed: int
              ) -> Tuple[float, Dict[str, float]]:
