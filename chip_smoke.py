@@ -14,14 +14,17 @@ synthetic data, B=64, 2 epochs of 20 steps), ``vlp_tpu_torch.cli.train
 mode, B=64, 12 steps), ``vlp_tpu_torch.cli.eval_vqa2`` (B=256, 1,024
 questions) and the ``layout="bhld"`` attention op -- and checks that each
 path launched its kernels.  Phase 2 also holds the fp32 attention bodies
-past their first versions' lengths (forward L=512, backward L=256 and
-512) against their plain versions; phase 6 runs data parallel: the train,
+(split TF32) at L=256 and 512 against their plain versions and times them
+at B=64 L=128 and B=16 L=256 and 512 beside fp32 SDPA, with the
+backward's peak memory, and the fp32 decode step beside fp32 SDPA over the
+joint keys; phase 6 runs data parallel: the train,
 decode and VQA CLIs over NCCL at world size 1, which must equal the runs
 without a group bit for bit, and two gloo ranks on the one card (this
 script re-run with ``--dp-worker``), which must stay in sync and, in
 fp32, equal the single-process step on the global batch.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --ab-times ROOT   # K1/K2 of another checkout
 
 Prints one line per phase, then a JSON line with each kernel's launches,
 error against its plain version, times (kernel, plain version, the bound,
@@ -56,10 +59,11 @@ REPS = 20
 ROUNDS = 5
 SPIN_CYCLES = 20_000_000     # ~10 ms of the card's clock
 REPS_STEADY = 5
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 FLOP/s on
-# the tensor cores, fp32 FLOP/s on the CUDA cores
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 and TF32
+# FLOP/s on the tensor cores, fp32 FLOP/s on the CUDA cores
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+TF32_FLOP_PER_S = 495e12
 FP32_FLOP_PER_S = 67e12
 TRAIN_STEPS = (2, 20)        # main-path train CLI: epochs, steps per epoch
 SCST_STEPS = 8               # main-path SCST CLI: steps of one epoch
@@ -70,8 +74,14 @@ DECODE_GEN_LENS = (0, 9, 18)   # decode steps timed: first, middle, last
 
 
 def body(dtype) -> str:
-    """The attention kernel body a dtype runs: bf16 the tensor-core one,
-    fp32 the one on the CUDA cores."""
+    """The attention kernel body a dtype runs: bf16 the bf16 tensor-core
+    one, fp32 the split-TF32 one."""
+    return "v2 mma" if dtype == torch.bfloat16 else "fp32 split-tf32"
+
+
+def decode_body(dtype) -> str:
+    """The decode-step body a dtype runs: bf16 the tensor-core one, fp32
+    the first version on the CUDA cores."""
     return "v2 mma" if dtype == torch.bfloat16 else "fp32 cuda-core"
 
 
@@ -115,6 +125,30 @@ def bound(nbytes: float, flops: float,
     t_ops = flops / flop_rate * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def fp32_bound(nbytes: float, flops: float) -> dict:
+    """Both least times of fp32 work: fp32 on the CUDA cores (``bound``
+    at 67 TFLOP/s, as ``bound_cuda_core_ms``) and split TF32 on the tensor
+    cores (three TF32 products per fp32 one at 495 TFLOP/s).  The lower,
+    the least time the card could take for fp32-accurate work, is the
+    ``bound_ms`` a kernel is judged on."""
+    core = bound(nbytes, flops, FP32_FLOP_PER_S)
+    tf32 = bound(nbytes, 3 * flops, TF32_FLOP_PER_S)
+    best = min(core, tf32, key=lambda b: b["bound_ms"])
+    return dict(best, bound_cuda_core_ms=core["bound_ms"],
+                bound_tf32_ms=tf32["bound_ms"])
+
+
+def product_flop(mode, text_end, colkeep, prefix, L, H, D=64) -> int:
+    """FLOP of one L x L x D attention product (S = QK^T, P V, ...) over
+    the (row, key) entries these inputs leave visible (the structural mask
+    and colkeep), summed over the batch and H heads.  A hidden entry's
+    probability is an exact 0, so the function needs no work there; a row
+    that sees nothing spreads over all L keys and counts L."""
+    from vlp_tpu_torch.ops.attention import _mask_bias
+    seen = (_mask_bias(mode, text_end, colkeep, prefix, L) == 0).sum(-1)
+    return 2 * D * H * int(torch.where(seen == 0, L, seen).sum())
 
 
 def compare(name, got, want, tol) -> float:
@@ -165,6 +199,7 @@ def phase_kernels(dev, results):
         call, and prebuilt), and the bound."""
         B, L = args[0].shape[:2]
         mask = sdpa_mask(args[0], *args[3:], P)
+        pd = product_flop(*args[3:], P, L, H, D)
         return dict(
             body=body(torch.bfloat16), max_abs_err=err,
             ms=time_ms(lambda: attn.attention(*args, prefix=P)),
@@ -172,8 +207,7 @@ def phase_kernels(dev, results):
             library_ms=time_ms(lambda: sdpa(*args, P)),
             library_prebuilt_mask_ms=time_ms(lambda: sdpa(*args, P,
                                                           mask=mask)),
-            **bound(4 * B * L * H * D * 2 + 8 * B + 4 * B * L,
-                    4 * B * H * L * L * D))
+            **bound(4 * B * L * H * D * 2 + 8 * B + 4 * B * L, 2 * pd))
 
     for label, B, L in (("prefill", 100, P + 1), ("encode", 100, 128),
                         ("vqa", VQA_B, 128)):
@@ -237,22 +271,27 @@ def phase_kernels(dev, results):
                     beam_bias=bias)
                 errs.append(compare(
                     f"{'K4' if anc else 'K3'} {name} B=100 K={K} "
-                    f"gen_len={gen_len} {dtype} ({body(dtype)})", got, want,
-                    tol))
+                    f"gen_len={gen_len} {dtype} ({decode_body(dtype)})", got,
+                    want, tol))
                 if not (torch.equal(gk, gk2) and torch.equal(gv, gv2)):
                     fail(f"{name}: generated-cache writes not bit-exact")
             log(f"{name} K={K} {dtype}: cache writes bit-exact")
-            # time at the main path's shape: greedy K3 (K=1), beam K4 (K=5)
-            if dtype == torch.bfloat16 and (anc or K == 1):
-                results[name] = decode_times(
+            # time at the main path's shape: greedy K3 (K=1), beam K4
+            # (K=5); bf16 (the main paths) and fp32 (the fp32 gates' body)
+            if anc or K == 1:
+                r = decode_times(
                     dec, lambda: dec_inputs(100, K, dtype),
                     (lambda gl: anc_bias(100, K, gl)) if anc else None,
-                    max(errs), name)
+                    max(errs), name, dtype=dtype)
+                if dtype == torch.bfloat16:
+                    results[name].update(r)
+                else:
+                    results[name] = dict(fp32=r)
 
 
 def decode_times(dec, make_inputs, bias_for, err, name, drop_seed=None,
-                 rate=0.0):
-    """bf16 times of one decode-step kernel (K3, K4 or K5) at each of
+                 rate=0.0, dtype=torch.bfloat16):
+    """Times of one decode-step kernel (K3, K4 or K5) in ``dtype`` at each of
     DECODE_GEN_LENS: the kernel, its plain version, SDPA over the joint
     keys (``decode_sdpa``: joint K/V and mask built in the call, and
     prebuilt) and the bound, which counts the visible slots only: q and out
@@ -262,9 +301,11 @@ def decode_times(dec, make_inputs, bias_for, err, name, drop_seed=None,
     read and written.  The row's own numbers are the last
     step's; ``batch_mean`` is the mean over the timed steps, the per-batch
     figure.  SDPA writes no cache slots and draws its own dropout bits
-    (K5): a time bar only."""
+    (K5): a time bar only.  fp32 (the first-version body) gets both fp32
+    bounds (``fp32_bound``)."""
     from vlp_tpu_torch.ops import _build
     per = {}
+    elem = 2 if dtype == torch.bfloat16 else 4
     for gen_len in DECODE_GEN_LENS:
         q, k, v, pk, pv, gk, gv = make_inputs()
         bias = bias_for(gen_len) if bias_for else None
@@ -283,9 +324,11 @@ def decode_times(dec, make_inputs, bias_for, err, name, drop_seed=None,
         cols = P + (K * vis if bias is not None else vis)
         # q read and out written; the prompt's K/V once per example; the
         # committed slots' K/V; the new tokens' K/V read and written
-        nbytes = (2 * BK * S * HD * 2 + 2 * B * P * HD * 2
-                  + 2 * BK * (vis - new) * HD * 2 + 4 * BK * new * HD * 2
+        nbytes = (2 * BK * S * HD * elem + 2 * B * P * HD * elem
+                  + 2 * BK * (vis - new) * HD * elem
+                  + 4 * BK * new * HD * elem
                   + (BK * K * vis * 4 if bias is not None else 0))
+        flops = 4 * BK * S * H * cols * 64
         per[gen_len] = dict(
             ms=time_ms(lambda: dec.decode_attention(
                 q, k, v, pk, pv, gk, gv, gen_len, **kw)),
@@ -295,10 +338,11 @@ def decode_times(dec, make_inputs, bias_for, err, name, drop_seed=None,
                 q, pk, pv, gk, gv, gen_len, H, bias, rate)),
             library_prebuilt_mask_ms=time_ms(lambda: decode_sdpa(
                 q, pk, pv, gk, gv, gen_len, H, bias, rate, parts=parts)),
-            **bound(nbytes, 4 * BK * S * H * cols * 64))
+            **(bound(nbytes, flops) if elem == 2
+               else fp32_bound(nbytes, flops)))
         r = per[gen_len]
-        log(f"{name} B={B} K={K} gen_len={gen_len} bf16 time "
-            f"({body(torch.bfloat16)}): kernel {r['ms']:.4f} ms, plain "
+        log(f"{name} B={B} K={K} gen_len={gen_len} {dtype} time "
+            f"({decode_body(dtype)}): kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms "
             f"(joint K/V and mask prebuilt {r['library_prebuilt_mask_ms']:.4f})"
             f", bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
@@ -306,9 +350,9 @@ def decode_times(dec, make_inputs, bias_for, err, name, drop_seed=None,
             "bound_ms")
     mean = {key: statistics.mean(per[gl][key] for gl in DECODE_GEN_LENS)
             for key in keys}
-    log(f"{name} mean over gen_len {DECODE_GEN_LENS}: " + ", ".join(
+    log(f"{name} {dtype} mean over gen_len {DECODE_GEN_LENS}: " + ", ".join(
         f"{key} {val:.4f}" for key, val in mean.items()))
-    return dict(body=body(torch.bfloat16), max_abs_err=err,
+    return dict(body=decode_body(dtype), max_abs_err=err,
                 gen_len=DECODE_GEN_LENS[-1], **per[DECODE_GEN_LENS[-1]],
                 batch_mean=mean, per_gen_len=per)
 
@@ -349,7 +393,7 @@ def phase_scst_kernels(dev, results):
     log(f"K6 decode_dropout_scales W={W} B={B}: bit-exact, keep fraction "
         f"{frac:.5f}")
 
-    errs = []
+    errs = {torch.float32: [], torch.bfloat16: []}
     for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
         for t, gen_len in enumerate(DECODE_GEN_LENS + (23,)):
             ops = inputs(dtype)
@@ -359,9 +403,9 @@ def phase_scst_kernels(dev, results):
             want = dec.decode_attention_plain(*ops[:5], *copies, gen_len,
                                               n_heads=H, drop_seed=seeds[t],
                                               drop_rate=rate)
-            tag = f"B={B} gen_len={gen_len} {dtype} ({body(dtype)})"
-            errs.append(compare(f"K5 decode_attention_drop {tag}", got, want,
-                                tol))
+            tag = f"B={B} gen_len={gen_len} {dtype} ({decode_body(dtype)})"
+            errs[dtype].append(compare(f"K5 decode_attention_drop {tag}",
+                                       got, want, tol))
             if not (torch.equal(ops[5], copies[0])
                     and torch.equal(ops[6], copies[1])):
                 fail("decode_attention_drop: cache writes not bit-exact")
@@ -371,9 +415,16 @@ def phase_scst_kernels(dev, results):
                 *ops[:5], *[x.clone() for x in copies], gen_len, n_heads=H,
                 drop_mult=mult)
             compare(f"K5 vs K3 x K6 {tag}", got, k3x6, tol)
-    # times at the main path's shape, bf16, at the timed steps
-    k5 = decode_times(dec, lambda: inputs(torch.bfloat16), None, max(errs),
-                      "decode_attention_drop", drop_seed=seeds[0], rate=rate)
+    # times at the main path's shape at the timed steps: bf16, and fp32
+    # (the fp32 gates' body)
+    k5 = decode_times(dec, lambda: inputs(torch.bfloat16), None,
+                      max(errs[torch.bfloat16]), "decode_attention_drop",
+                      drop_seed=seeds[0], rate=rate)
+    k5["fp32"] = decode_times(dec, lambda: inputs(torch.float32), None,
+                              max(errs[torch.float32]),
+                              "decode_attention_drop",
+                              drop_seed=seeds[0], rate=rate,
+                              dtype=torch.float32)
     k6 = dict(
         max_abs_err=0.0,
         ms=time_ms(lambda: dec.decode_dropout_scales(
@@ -554,7 +605,8 @@ def phase_long_backward(attn, inputs, B, H, D, P, seed, rate):
                 lib_out, leaves, dout, retain_graph=True)),
             library_prebuilt_mask_ms=time_ms(lambda: torch.autograd.grad(
                 lib_out_pre, leaves, dout, retain_graph=True)),
-            **bound(7 * act + 8 * B + 4 * B * L, 5 * L * L * D * 2 * B * H))
+            **bound(7 * act + 8 * B + 4 * B * L,
+                    5 * product_flop(mode, te, ck, P, L, H, D)))
         if L == 256:
             r["kernels_us"] = {f"rate {x}": kernel_split(
                 lambda: attn._backward_cuda(q, k, v, mode, te, ck, dout, P, x,
@@ -571,23 +623,59 @@ def phase_long_backward(attn, inputs, B, H, D, P, seed, rate):
     return times
 
 
-FP32_LONG_B = 16
-FP32_LONG_FWD_LENS = (512,)        # past the first fp32 forward's 417
-FP32_LONG_BWD_LENS = (256, 512)    # past the one-block fp32 backward (134)
+TURNS = 5      # readings of each kernel and SDPA, taken in turns
+
+
+def k1_k2_times(attn, q, k, v, mode, te, ck, dout, P, rate, seed,
+                layout="blhd", turns=1) -> dict:
+    """Device ms (``time_ms``) of ``attn``'s K1 (the dropout branch at
+    ``rate``) and K2 and of SDPA's forward and backward on the same inputs
+    in ``layout``, read in turns -- K1, SDPA forward, K2, SDPA backward --
+    ``turns`` times, so that a drift of the card reaches each alike: lists
+    of readings under fwd_ms, sdpa_fwd_ms, bwd_ms, sdpa_bwd_ms."""
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    lib_out = sdpa(*leaves, mode, te, ck, P, rate, layout=layout)
+    fns = dict(
+        fwd_ms=lambda: attn._forward_cuda(q, k, v, mode, te, ck, P,
+                                          dropout=(rate, seed),
+                                          layout=layout),
+        sdpa_fwd_ms=lambda: sdpa(q, k, v, mode, te, ck, P, rate,
+                                 layout=layout),
+        bwd_ms=lambda: attn._backward_cuda(q, k, v, mode, te, ck, dout, P,
+                                           rate, seed, layout),
+        sdpa_bwd_ms=lambda: torch.autograd.grad(lib_out, leaves, dout,
+                                                retain_graph=True))
+    out = {key: [] for key in fns}
+    for _ in range(turns):
+        for key, fn in fns.items():
+            out[key].append(time_ms(fn))
+    return out
+
+
+FP32_GATE_B = 16
+FP32_GATE_LENS = (256, 512)        # past the first fp32 versions' lengths
+# (B, L) at which fp32 K1 and K2 are timed: the fp32 gates' training shape
+# (12 launches of each per fp32 train step), and the gates' lengths
+FP32_TIMED = ((64, 128), (16, 256), (16, 512))
 
 
 def phase_fp32_long(attn, inputs, H, D, P, seed, rate):
-    """fp32 K1 and K2 past the lengths their first versions took (C4's fp32
-    remainder), B=FP32_LONG_B: the forward at FP32_LONG_FWD_LENS and the
-    backward at FP32_LONG_BWD_LENS, both layouts, rate 0 and ``rate``:
-    each against its plain version within FP32_TOL, bhld = blhd on
-    transposed inputs and two calls bit for bit.  Then, at ``rate``, each
-    layout's time beside fp32 SDPA (forward; forward + backward) and the
-    bound (fp32 on the CUDA cores).  Returns (max errors, {name: times})."""
-    B = FP32_LONG_B
+    """fp32 K1 and K2 (the split-TF32 bodies) at FP32_GATE_LENS,
+    B=FP32_GATE_B, both layouts, rate 0 and ``rate``: each against its
+    plain version within FP32_TOL, bhld = blhd on transposed inputs and two
+    calls bit for bit.  Then, at ``rate`` and each (B, L) of FP32_TIMED,
+    each layout's time beside fp32 SDPA (forward and backward in TURNS
+    turns, ``k1_k2_times``: the medians, each turn's readings, and whether
+    every turn was at or under SDPA; forward + backward), both fp32 bounds
+    (``fp32_bound``, over the visible entries, ``product_flop``), and the
+    backward's device time by kernel; at B=16, L=512 its peak memory
+    beside the L x L scratch the first version allocated.  Returns (max errors,
+    {name: times})."""
+    from vlp_tpu_torch.ops import _build
+    B = FP32_GATE_B
     errs = {"fwd": 0.0, "bwd": 0.0}
     times = {}
-    for L in sorted(set(FP32_LONG_FWD_LENS + FP32_LONG_BWD_LENS)):
+    for L in FP32_GATE_LENS:
         q, k, v, mode, te, ck, dout = inputs(torch.float32, L, B)
         tr = [t.transpose(1, 2).contiguous() for t in (q, k, v, dout)]
         for r in (0.0, rate):
@@ -595,36 +683,30 @@ def phase_fp32_long(attn, inputs, H, D, P, seed, rate):
             for layout, (a, b_, c, d) in (("blhd", (q, k, v, dout)),
                                           ("bhld", tr)):
                 tag = f"fp32 B={B} L={L} {layout} rate={r}"
-                if L in FP32_LONG_FWD_LENS:
-                    call = (lambda a=a, b_=b_, c=c, layout=layout, r=r:
-                            attn._forward_cuda(a, b_, c, mode, te, ck, P,
-                                               dropout=(r, seed),
-                                               layout=layout))
-                    out = call()
-                    errs["fwd"] = max(errs["fwd"], compare(
-                        f"K1 attention_fwd {tag}", out, attn.attention_plain(
-                            a, b_, c, mode, te, ck, prefix=P,
-                            dropout_rate=r, seed=seed, layout=layout),
-                        FP32_TOL))
-                    if not torch.equal(out, call()):
-                        fail(f"attention_fwd {tag}: two calls differ")
-                    got[layout, "fwd"] = (out,)
-                if L in FP32_LONG_BWD_LENS:
-                    args = (a, b_, c, mode, te, ck, d, P, r, seed, layout)
-                    grads = attn._backward_cuda(*args)
-                    want = attn.attention_bwd_plain(
-                        a, b_, c, mode, te, ck, d, prefix=P, dropout_rate=r,
-                        seed=seed, layout=layout)
-                    errs["bwd"] = max([errs["bwd"]] + [
-                        compare(f"K2 attention_bwd {n} {tag}", x, y,
-                                FP32_TOL)
-                        for n, x, y in zip(("dq", "dk", "dv"), grads, want)])
-                    again = attn._backward_cuda(*args)
-                    torch.cuda.synchronize()
-                    if not all(torch.equal(x, y)
-                               for x, y in zip(grads, again)):
-                        fail(f"attention_bwd {tag}: two calls differ")
-                    got[layout, "bwd"] = grads
+                call = (lambda a=a, b_=b_, c=c, layout=layout, r=r:
+                        attn._forward_cuda(a, b_, c, mode, te, ck, P,
+                                           dropout=(r, seed), layout=layout))
+                out = call()
+                errs["fwd"] = max(errs["fwd"], compare(
+                    f"K1 attention_fwd {tag}", out, attn.attention_plain(
+                        a, b_, c, mode, te, ck, prefix=P, dropout_rate=r,
+                        seed=seed, layout=layout), FP32_TOL))
+                if not torch.equal(out, call()):
+                    fail(f"attention_fwd {tag}: two calls differ")
+                got[layout, "fwd"] = (out,)
+                args = (a, b_, c, mode, te, ck, d, P, r, seed, layout)
+                grads = attn._backward_cuda(*args)
+                want = attn.attention_bwd_plain(
+                    a, b_, c, mode, te, ck, d, prefix=P, dropout_rate=r,
+                    seed=seed, layout=layout)
+                errs["bwd"] = max([errs["bwd"]] + [
+                    compare(f"K2 attention_bwd {n} {tag}", x, y, FP32_TOL)
+                    for n, x, y in zip(("dq", "dk", "dv"), grads, want)])
+                again = attn._backward_cuda(*args)
+                torch.cuda.synchronize()
+                if not all(torch.equal(x, y) for x, y in zip(grads, again)):
+                    fail(f"attention_bwd {tag}: two calls differ")
+                got[layout, "bwd"] = grads
             for (layout, what), xs in got.items():
                 if layout == "bhld" and not all(
                         torch.equal(x.transpose(1, 2), y)
@@ -633,60 +715,138 @@ def phase_fp32_long(attn, inputs, H, D, P, seed, rate):
                          "blhd on transposed inputs")
         log(f"fp32 L={L}: both layouts within FP32_TOL, bit-identical "
             "across two calls and to each other")
+        del q, k, v, dout, tr
 
+    for B, L in FP32_TIMED:
+        q, k, v, mode, te, ck, dout = inputs(torch.float32, L, B)
+        tr = [t.transpose(1, 2).contiguous() for t in (q, k, v, dout)]
         act = B * L * H * D * 4              # one fp32 [B, L, H*D] tensor
         meta = 8 * B + 4 * B * L
-        pd = L * L * D * 2 * B * H           # FLOP of one L x L x D product
-        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-        lib_out = sdpa(*leaves, mode, te, ck, P, rate)
-        sdpa_fwd = time_ms(lambda: sdpa(q, k, v, mode, te, ck, P, rate))
-        sdpa_fwd_bwd = time_ms(lambda: torch.autograd.grad(
-            sdpa(*leaves, mode, te, ck, P, rate), leaves, dout))
-        sdpa_bwd = time_ms(lambda: torch.autograd.grad(
-            lib_out, leaves, dout, retain_graph=True))
+        pd = product_flop(mode, te, ck, P, L, H, D)
         for layout, (a, b_, c, d) in (("blhd", (q, k, v, dout)),
                                       ("bhld", tr)):
-            if L in FP32_LONG_FWD_LENS:
-                times[f"fwd_L{L}_{layout}"] = r = dict(
-                    B=B, L=L, rate=rate,
-                    ms=time_ms(lambda: attn._forward_cuda(
-                        a, b_, c, mode, te, ck, P, dropout=(rate, seed),
-                        layout=layout)),
-                    plain_ms=time_ms(lambda: attn.attention_plain(
-                        a, b_, c, mode, te, ck, prefix=P, dropout_rate=rate,
-                        seed=seed, layout=layout)),
-                    library_ms=sdpa_fwd,
-                    **bound(4 * act + meta, 2 * pd, FP32_FLOP_PER_S))
-                log(f"attention_fwd fp32 B={B} L={L} {layout} rate={rate} "
-                    f"time (tiled): kernel {r['ms']:.4f} ms, plain "
-                    f"{r['plain_ms']:.4f} ms, fp32 SDPA {sdpa_fwd:.4f} ms, "
-                    f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
-            if L in FP32_LONG_BWD_LENS:
-                lv = [t.detach().requires_grad_() for t in (a, b_, c)]
+            turns = k1_k2_times(attn, a, b_, c, mode, te, ck, d, P, rate,
+                                seed, layout, TURNS)
+            for what, n_bytes, flop in (("fwd", 4 * act + meta, 2 * pd),
+                                        ("bwd", 7 * act + meta, 5 * pd)):
+                ks, ls = turns[f"{what}_ms"], turns[f"sdpa_{what}_ms"]
+                times[f"{what}_L{L}_{layout}"] = dict(
+                    B=B, L=L, rate=rate, ms=statistics.median(ks),
+                    library_ms=statistics.median(ls), ms_turns=ks,
+                    library_turns=ls,
+                    under_library=all(x <= y for x, y in zip(ks, ls)),
+                    **fp32_bound(n_bytes, flop))
+            r = times[f"fwd_L{L}_{layout}"]
+            r["plain_ms"] = time_ms(lambda: attn.attention_plain(
+                a, b_, c, mode, te, ck, prefix=P, dropout_rate=rate,
+                seed=seed, layout=layout))
+            log(f"attention_fwd fp32 B={B} L={L} {layout} rate={rate} "
+                f"time ({body(torch.float32)}): kernel {r['ms']:.4f} ms, "
+                f"plain {r['plain_ms']:.4f} ms, fp32 SDPA "
+                f"{r['library_ms']:.4f} ms (in turns: kernel {r['ms_turns']}"
+                f", SDPA {r['library_turns']}; every turn at or under SDPA: "
+                f"{r['under_library']}), bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']}; fp32 CUDA cores "
+                f"{r['bound_cuda_core_ms']:.4f})")
+            lv = [t.detach().requires_grad_() for t in (a, b_, c)]
 
-                def fwd_bwd():
-                    out = attn.FusedAttention.apply(*lv, mode, te, ck, P,
-                                                    rate, seed, layout)
-                    return torch.autograd.grad(out, lv, d)
+            def fwd_bwd():
+                out = attn.FusedAttention.apply(*lv, mode, te, ck, P, rate,
+                                                seed, layout)
+                return torch.autograd.grad(out, lv, d)
 
-                times[f"bwd_L{L}_{layout}"] = r = dict(
-                    B=B, L=L, rate=rate,
-                    ms=time_ms(lambda: attn._backward_cuda(
-                        a, b_, c, mode, te, ck, d, P, rate, seed, layout)),
-                    plain_ms=time_ms(lambda: attn.attention_bwd_plain(
-                        a, b_, c, mode, te, ck, d, prefix=P,
-                        dropout_rate=rate, seed=seed, layout=layout)),
-                    library_ms=sdpa_bwd, fwd_bwd_ms=time_ms(fwd_bwd),
-                    library_fwd_bwd_ms=sdpa_fwd_bwd,
-                    **bound(7 * act + meta, 5 * pd, FP32_FLOP_PER_S))
-                log(f"attention_bwd fp32 B={B} L={L} {layout} rate={rate} "
-                    f"time: kernel {r['ms']:.4f} ms (fwd+bwd "
-                    f"{r['fwd_bwd_ms']:.4f}), plain {r['plain_ms']:.4f} ms, "
-                    f"fp32 SDPA backward {sdpa_bwd:.4f} ms (fwd+bwd "
-                    f"{sdpa_fwd_bwd:.4f}), bound {r['bound_ms']:.4f} ms "
-                    f"({r['bound_by']})")
-        del q, k, v, dout, tr, leaves, lib_out
+            r = times[f"bwd_L{L}_{layout}"]
+            r.update(
+                plain_ms=time_ms(lambda: attn.attention_bwd_plain(
+                    a, b_, c, mode, te, ck, d, prefix=P, dropout_rate=rate,
+                    seed=seed, layout=layout)),
+                fwd_bwd_ms=time_ms(fwd_bwd),
+                library_fwd_bwd_ms=time_ms(lambda: torch.autograd.grad(
+                    sdpa(*lv, mode, te, ck, P, rate, layout=layout), lv,
+                    d)))
+            log(f"attention_bwd fp32 B={B} L={L} {layout} rate={rate} "
+                f"time ({body(torch.float32)}): kernel {r['ms']:.4f} ms "
+                f"(fwd+bwd {r['fwd_bwd_ms']:.4f}), plain {r['plain_ms']:.4f} "
+                f"ms, fp32 SDPA backward {r['library_ms']:.4f} ms (fwd+bwd "
+                f"{r['library_fwd_bwd_ms']:.4f}; in turns: kernel "
+                f"{r['ms_turns']}, SDPA {r['library_turns']}; every turn at "
+                f"or under SDPA: {r['under_library']}), bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']}; fp32 CUDA cores "
+                f"{r['bound_cuda_core_ms']:.4f})")
+        r = times[f"bwd_L{L}_blhd"]
+        r["kernels_us"] = kernel_split(lambda: attn._backward_cuda(
+            q, k, v, mode, te, ck, dout, P, rate, seed))
+        log(f"attention_bwd fp32 B={B} L={L}, device us per call by kernel: "
+            f"{r['kernels_us']}")
+        if (B, L) == (16, 512):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            attn._backward_cuda(q, k, v, mode, te, ck, dout, P, rate, seed)
+            torch.cuda.synchronize()
+            n = _build.library().vlp_attention_bwd_scratch_floats(L, 0)
+            r["memory_mb"] = mem = dict(
+                peak=(torch.cuda.max_memory_allocated() - base) / 1e6,
+                grads=3 * act / 1e6, scratch=B * H * n * 4 / 1e6,
+                first_version_scratch=B * H * 2 * L * L * 4 / 1e6)
+            log(f"attention_bwd fp32 B={B} L={L}: peak memory of one call "
+                f"{mem['peak']:.1f} MB (gradients {mem['grads']:.1f}, "
+                f"scratch {mem['scratch']:.1f}; the first version's P and "
+                f"dS scratch was {mem['first_version_scratch']:.1f} MB)")
+        del q, k, v, dout, tr
     return errs, times
+
+
+TRAIN_SEED = 0x5DEECE66D0123457
+
+
+def train_inputs(g, dev, dtype, B, L, H=12, D=64, P=102):
+    """Training-shaped attention inputs in blhd: q/k/v, int32 mode (s2s and
+    bi in turn) and text_end, colkeep with zeros among the regions, dout."""
+    from vlp_tpu_torch.config import MODE_BI, MODE_S2S
+    qkv = torch.randn(B, L, 3 * H * D, generator=g, device=dev).to(dtype)
+    q, k, v = (t.view(B, L, H, D) for t in qkv.split(H * D, dim=-1))
+    mode = torch.tensor([MODE_S2S, MODE_BI] * (B // 2), device=dev)
+    te = torch.randint(P + 1, L + 1, (B,), generator=g, device=dev)
+    ck = torch.ones(B, L, device=dev)
+    ck[:, 1:P - 1] = (torch.rand(B, P - 2, generator=g, device=dev)
+                      > 0.3).float()
+    dout = torch.randn(B, L, H, D, generator=g, device=dev).to(dtype)
+    return q, k, v, mode.int(), te.int(), ck, dout
+
+
+# (dtype, B, L) of the parent-vs-change timing (--ab-times): the bf16
+# training shape and the tiled bf16 backward, and FP32_TIMED
+AB_SHAPES = ((torch.bfloat16, 64, 128), (torch.bfloat16, 64, 256),
+             *((torch.float32, B, L) for B, L in FP32_TIMED))
+
+
+def ab_times(root: str) -> None:
+    """``python3 chip_smoke.py --ab-times ROOT``: ``k1_k2_times`` (one
+    turn, blhd, rate 0.1) of the ``vlp_tpu_torch`` under ROOT (another
+    checkout of the repository, built there at first use) at AB_SHAPES;
+    prints one JSON line.  Run it on two trees in turns (A, B, B, A) in one
+    call to compare their kernels on one card."""
+    sys.path.insert(0, os.path.abspath(root))
+    import vlp_tpu_torch
+    from vlp_tpu_torch.ops import _build
+    from vlp_tpu_torch.ops import attention as attn
+    if not vlp_tpu_torch.__file__.startswith(os.path.abspath(root)):
+        fail(f"--ab-times imported {vlp_tpu_torch.__file__}, not {root}")
+    if not torch.cuda.is_available():
+        fail("--ab-times needs an NVIDIA GPU")
+    vlp_tpu_torch.configure_precision()
+    dev = torch.device("cuda", 0)
+    _build.library()
+    g = torch.Generator(device=dev).manual_seed(1)
+    out = {"root": root, "device": torch.cuda.get_device_name(0)}
+    for dtype, B, L in AB_SHAPES:
+        ins = train_inputs(g, dev, dtype, B, L)
+        out[f"{str(dtype)[6:]} B={B} L={L}"] = {
+            key: val[0] for key, val in k1_k2_times(
+                attn, *ins, 102, 0.1, TRAIN_SEED).items()}
+        del ins
+    print(json.dumps(out))
 
 
 def phase_train_kernels(dev, results):
@@ -695,24 +855,15 @@ def phase_train_kernels(dev, results):
     colkeep, rate 0 and 0.1, each against its plain version; the mask bit
     for bit.  Times in bf16 at rate 0.1, and the tiled K2 at L=256 and 528
     beside them (``phase_long_backward``)."""
-    from vlp_tpu_torch.config import MODE_BI, MODE_S2S
     from vlp_tpu_torch.ops import attention as attn
     from vlp_tpu_torch.ops import philox
 
     g = torch.Generator(device=dev).manual_seed(1)
     B, L, H, D, P = 64, 128, 12, 64, 102
-    seed, rate = 0x5DEECE66D0123457, 0.1
+    seed, rate = TRAIN_SEED, 0.1
 
     def inputs(dtype, L=L, B=B):
-        qkv = torch.randn(B, L, 3 * H * D, generator=g, device=dev).to(dtype)
-        q, k, v = (t.view(B, L, H, D) for t in qkv.split(H * D, dim=-1))
-        mode = torch.tensor([MODE_S2S, MODE_BI] * (B // 2), device=dev)
-        te = torch.randint(P + 1, L + 1, (B,), generator=g, device=dev)
-        ck = torch.ones(B, L, device=dev)
-        ck[:, 1:P - 1] = (torch.rand(B, P - 2, generator=g, device=dev)
-                          > 0.3).float()
-        dout = torch.randn(B, L, H, D, generator=g, device=dev).to(dtype)
-        return q, k, v, mode.int(), te.int(), ck, dout
+        return train_inputs(g, dev, dtype, B, L)
 
     # the mask, bit for bit, and its keep fraction
     mask = attn.dropout_mask(B, H, L, rate, seed, dev)
@@ -758,7 +909,7 @@ def phase_train_kernels(dev, results):
     q, k, v, mode, te, ck, dout = inputs(torch.bfloat16)
     meta = 8 * B + 4 * B * L
     act = B * L * H * D * 2               # one bf16 [B, L, H*D] tensor
-    pd = L * L * D * 2 * B * H            # FLOP of one L x L x D product
+    pd = product_flop(mode, te, ck, P, L, H, D)
     mask = sdpa_mask(q, mode, te, ck, P)
     fwd = dict(
         body=body(torch.bfloat16), max_abs_err=errs["attention_fwd_drop"],
@@ -805,9 +956,9 @@ def phase_train_kernels(dev, results):
     bwd["long"] = long[256]
     bwd["long_528"] = long[528]
     fp32_errs, fp32_times = phase_fp32_long(attn, inputs, H, D, P, seed, rate)
-    fwd["fp32_long"] = dict(max_abs_err=fp32_errs["fwd"], **{
+    fwd["fp32"] = dict(max_abs_err=fp32_errs["fwd"], **{
         k: v for k, v in fp32_times.items() if k.startswith("fwd")})
-    bwd["fp32_long"] = dict(max_abs_err=fp32_errs["bwd"], **{
+    bwd["fp32"] = dict(max_abs_err=fp32_errs["bwd"], **{
         k: v for k, v in fp32_times.items() if k.startswith("bwd")})
     results["attention_fwd_drop"] = fwd
     results["attention_bwd"] = bwd
@@ -929,7 +1080,7 @@ def phase_bhld_kernels(dev, results):
     q, k, v, mode, te, ck, dout = bhld_inputs(g, dev, torch.bfloat16)
     meta = 8 * B + 4 * B * L
     act = B * L * H * D * 2               # one bf16 [B, H, L, D] tensor
-    pd = L * L * D * 2 * B * H            # FLOP of one L x L x D product
+    pd = product_flop(mode, te, ck, P, L, H, D)
     kw = dict(prefix=P, layout="bhld")
     mask = sdpa_mask(q, mode, te, ck, P, layout="bhld")
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
@@ -1990,6 +2141,9 @@ def main():
     if sys.argv[1:2] == ["--dp-worker"]:
         rank, port, vocab_path, out = sys.argv[2:6]
         dp_worker(int(rank), int(port), vocab_path, out)
+        return
+    if sys.argv[1:2] == ["--ab-times"]:
+        ab_times(sys.argv[2])
         return
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs an "

@@ -689,19 +689,27 @@ def test_backward_is_deterministic(cuda, layout, L):
         assert torch.equal(a, b)
 
 
+def _fp32_prefix(L):
+    """The prefix of the fp32 length tests: the model's 102 where L leaves
+    a caption after it, else half of L."""
+    return 102 if L > 102 else L // 2
+
+
 def _fp32_long_inputs(g, dev, L, layout, B=4, H=3, pad=0):
     """fp32 training-shaped inputs at length L in ``layout`` (``pad``: bhld
     q/k/v/dout sliced off wider rows, so that their row stride, and q's
-    base, are not 16-byte aligned), example 1 bi-mode with every column
-    dropped by colkeep.  That example's q and k are multiples of 1/8 in
-    [-1, 1]: its scores, and -10000 + s, are then exact in fp32 whatever
-    the summation order.  With random q and k, -10000 + s rounds to a
+    base, are not 16-byte aligned), prefix ``_fp32_prefix(L)``, example 1
+    bi-mode with every column dropped by colkeep.  That example's q and k
+    are multiples of 1/8 in [-1, 1]: its scores, and -10000 + s, are then
+    exact in fp32 whatever the summation order (and exact in TF32: the
+    split's lo parts are 0).  With random q and k, -10000 + s rounds to a
     multiple of 2^-10, so two summation orders move P by ~1e-3 relative
     and even two plain versions differ beyond FP32_TOL at L = 512
     (test_fully_masked_example_matches_plain)."""
+    P = _fp32_prefix(L)
     q, k, v, mode, te, ck = _train_inputs(g, dev, torch.float32, B=B, L=L,
-                                          H=H)
-    te = torch.randint(103, L + 1, (B,), generator=g, device=dev)
+                                          H=H, P=P)
+    te = torch.randint(P + 1, L + 1, (B,), generator=g, device=dev)
     mode[1], te[1] = MODE_BI, L
     ck[1] = 0.0
     q[1], k[1] = (torch.randint(-8, 9, q[1].shape, generator=g,
@@ -726,17 +734,18 @@ FP32_SEED = 0x6A09E667F3BCC909
 @pytest.mark.cuda
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("layout", ["blhd", "bhld"])
-@pytest.mark.parametrize("L", [418, 512, 528])
+@pytest.mark.parametrize("L", [16, 103, 128, 135, 144, 418, 512, 528])
 def test_fp32_long_forward_matches_plain(cuda, rate, layout, L):
-    """fp32 past the first fp32 forward's L <= 417 (its whole K and V in
-    one block): the key-tiled body with its online softmax, both layouts
-    and branches, an all-masked example among them; bhld equals blhd bit
-    for bit."""
+    """The one split-TF32 fp32 forward at every length it serves: short
+    ones (one key tile, a ragged last tile) and those past the first fp32
+    forward's L <= 417, both layouts and branches, an all-masked example
+    among them; bhld equals blhd bit for bit."""
     g = torch.Generator(device=cuda).manual_seed(15)
     q, k, v, mode, te, ck, _ = _fp32_long_inputs(g, cuda, L, layout)
-    got = attn._forward_cuda(q, k, v, mode, te, ck, 102,
+    P = _fp32_prefix(L)
+    got = attn._forward_cuda(q, k, v, mode, te, ck, P,
                              dropout=(rate, FP32_SEED), layout=layout)
-    want = attn.attention_plain(q, k, v, mode, te, ck, prefix=102,
+    want = attn.attention_plain(q, k, v, mode, te, ck, prefix=P,
                                 dropout_rate=rate, seed=FP32_SEED,
                                 layout=layout)
     torch.cuda.synchronize()
@@ -744,24 +753,26 @@ def test_fp32_long_forward_matches_plain(cuda, rate, layout, L):
     if layout == "bhld":
         blhd = attn._forward_cuda(
             *(t.transpose(1, 2).contiguous() for t in (q, k, v)), mode, te,
-            ck, 102, dropout=(rate, FP32_SEED))
+            ck, P, dropout=(rate, FP32_SEED))
         assert torch.equal(got.transpose(1, 2), blhd)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("layout", ["blhd", "bhld"])
-@pytest.mark.parametrize("L", [135, 256, 417, 528])
+@pytest.mark.parametrize("L", [16, 103, 128, 135, 144, 256, 417, 528])
 def test_fp32_long_backward_matches_plain(cuda, rate, layout, L):
-    """The fp32 backward past the one-block first version's L <= 134, both
-    layouts, an all-masked example among them: against its plain version,
-    two calls bit for bit, and bhld = blhd bit for bit."""
+    """The one tiled split-TF32 fp32 backward at every length it serves,
+    short ones among them, both layouts, an all-masked example among them:
+    against its plain version, two calls bit for bit, and bhld = blhd bit
+    for bit."""
     g = torch.Generator(device=cuda).manual_seed(16)
     q, k, v, mode, te, ck, dout = _fp32_long_inputs(g, cuda, L, layout)
-    args = (q, k, v, mode, te, ck, dout, 102, rate, FP32_SEED, layout)
+    P = _fp32_prefix(L)
+    args = (q, k, v, mode, te, ck, dout, P, rate, FP32_SEED, layout)
     got = attn._backward_cuda(*args)
     again = attn._backward_cuda(*args)
-    want = attn.attention_bwd_plain(q, k, v, mode, te, ck, dout, prefix=102,
+    want = attn.attention_bwd_plain(q, k, v, mode, te, ck, dout, prefix=P,
                                     dropout_rate=rate, seed=FP32_SEED,
                                     layout=layout)
     torch.cuda.synchronize()
@@ -772,7 +783,7 @@ def test_fp32_long_backward_matches_plain(cuda, rate, layout, L):
     if layout == "bhld":
         blhd = attn._backward_cuda(
             *(t.transpose(1, 2).contiguous() for t in (q, k, v)), mode, te,
-            ck, dout.transpose(1, 2).contiguous(), 102, rate, FP32_SEED)
+            ck, dout.transpose(1, 2).contiguous(), P, rate, FP32_SEED)
         for a, b in zip(got, blhd):
             assert torch.equal(a.transpose(1, 2), b)
 
@@ -788,3 +799,29 @@ def test_fp32_long_bhld_unaligned_strides_match_plain(cuda, pad):
     assert q.stride(2) == 64 + pad
     _check_fwd_bwd(q, k, v, mode, te, ck, dout, FP32_TOL, 0.1,
                    layout="bhld")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [128, 512])
+def test_fp32_randn_inputs_match_plain(cuda, L):
+    """fp32 forward and backward on torch.randn inputs (no multiples of 1/8,
+    so every TF32 split has a nonzero lo part) and no all-masked example,
+    rate 0.1, against the plain versions at FP32_TOL."""
+    g = torch.Generator(device=cuda).manual_seed(18)
+    q, k, v, mode, te, ck = _train_inputs(g, cuda, torch.float32, B=2, L=L,
+                                          H=4)
+    te = torch.randint(103, L + 1, (2,), generator=g, device=cuda)
+    dout = torch.randn(q.shape, generator=g, device=cuda)
+    _check_fwd_bwd(q, k, v, mode, te, ck, dout, FP32_TOL, 0.1)
+
+
+@pytest.mark.cuda
+def test_fp32_backward_scratch_is_linear_in_L(cuda):
+    """The fp32 backward keeps per (example, head) only each row's m, 1/l
+    and rowsum and one keep word per row and 32 keys: no L x L scratch."""
+    lib = _build.library()
+    for L in (16, 128, 135, 512, 528):
+        rows = -(-L // 64) * 64
+        assert lib.vlp_attention_bwd_scratch_floats(L, 0) == \
+            (3 + -(-L // 32)) * rows
+    assert lib.vlp_attention_bwd_scratch_floats(512, 0) * 50 < 2 * 512 ** 2

@@ -65,20 +65,26 @@
 //   against keys past text_end) hold exact zeros of P and dS and are
 //   skipped (masked_region), by all three kernels alike.  Every sum runs
 //   in a fixed order: two calls give the same bits.
-// * fp32: on the CUDA cores (fp32 FMAs), which the card-vs-CPU fp32 gates
-//   need: tensor cores give neither fp32 nor its exact products.  Every L
-//   the bf16 bodies take (528), in three kernels over (example, head, 64
-//   rows) blocks of 16 warps, each staging one whole [L][D+1] fp32
-//   operand, with P (then P o keep) and dS in an fp32 scratch of [L][L]
-//   each per head that the wrapper allocates: (1) attention_bwd_fp32_p,
-//   one warp per query row, S against the staged K and the softmax;
-//   (2) attention_bwd_fp32_ds, V staged, dP o keep, rowsum and dS;
-//   (3) attention_bwd_fp32_products, dQ, dK or dV (blockIdx.y), each warp
-//   owning kRows output rows and each lane two of the 64 columns.  The
-//   arithmetic of each element is that of the one-block first version it
-//   replaced (which held both [L][L] matrices in shared memory and so took
-//   L <= 134).  It is not tuned: fp32 only feeds the gates.
-//
+// * fp32, every L the bf16 bodies take (528): FlashAttention-2's backward
+//   in split TF32 on the tensor cores (mma.cuh: each operand split into two
+//   TF32 parts, three m16n8k8 products; ~2^-21 relative error per product,
+//   an fp32 summation-order difference), which the card-vs-CPU fp32 gates
+//   need.  The work of the bf16 tiled body (the same skipped regions and
+//   Philox bits) in two kernels: attention_bwd_rows_f32 streams the key
+//   tiles twice, first for the statistics and keep bits (the bf16 body's
+//   (a)), then for dQ (its (c)), so Q and dO are staged once; then
+//   attention_bwd_dkdv_f32 (its (b)).  fp32 arithmetic throughout: scores
+//   in natural units as attention_plain adds them (so an all-masked row's
+//   -10000 + s is exact where s is), P o keep and dS kept in fp32.  fp32
+//   tiles are twice bf16's, so blocks own 64 rows (4 warps) and stream
+//   32-row tiles (~72-76 KB of shared memory: three blocks per SM).  The
+//   scratch holds each row's m, 1/l and rowsum and one keep word per row
+//   and 32 keys (scratch_f32: 7.5 MB at B=16, L=512), no L x L matrix.
+//   At B=16, L=512 the nine L x L x 64 products are 58 GFLOP, 174 GFLOP
+//   of TF32 work (0.35 ms at 495 TFLOP/s) against ~0.03 ms of bytes.
+//   Fragments are read with ldmatrix where the summed index runs along a
+//   staged row (an 8 x 8 b16 matrix is an 8 x 4 fp32 one) and with 8-byte
+//   loads where it runs across rows.
 // What bounds it on an H100: at the training shape (B=64, L=128, H=12,
 // D=64, bf16) one call reads q, k, v, dO and writes dq, dk, dv: ~88 MB,
 // ~26 us at 3.35 TB/s; the five products are 8.1 GFLOP, ~8 us at 989
@@ -109,225 +115,6 @@ namespace {
 
 constexpr int D = vlp::kHeadDim;
 using bf16 = __nv_bfloat16;
-
-// ---- fp32: on the CUDA cores, every L the bf16 bodies take
-
-constexpr int LDD = D + 1;  // padded row of an [L][D] tile
-constexpr int kWarps = 16;
-constexpr int kRows = 4;    // rows per warp: of P and dS, and of a product
-constexpr int kRowsFp32 = kWarps * kRows;  // rows a block owns
-
-// The shared memory of each of the three kernels: one staged [L][D+1]
-// operand, and per warp a q or dO row (and in the second, a keep row).
-size_t smem_bytes_fp32(int L) {
-  return sizeof(float) * (size_t(L) * LDD + L + kWarps * (D + size_t(L)));
-}
-
-// The scratch of one (example, head): P (then P o keep) and dS, [L][L].
-__host__ __device__ __forceinline__ long long fp32_scratch(int L) {
-  return 2ll * L * L;
-}
-
-// dst[j][d] = src[base + j * sl + d], d < D, j < L.
-__device__ void stage(float* dst, const float* __restrict__ src,
-                      long long base, long long sl, int L) {
-  for (int idx = threadIdx.x; idx < L * D; idx += blockDim.x) {
-    const int j = idx / D, d = idx % D;
-    dst[j * LDD + d] = src[base + j * sl + d];
-  }
-}
-
-// out[out_base + r * ol + d] = scale * sum_j A(r, j) * bt[j][d] for the
-// block's rows r0 <= r < min(L, r0 + kRowsFp32), d < D, where A(r, j) =
-// a[r * L + j], or a[j * L + r] when kTrans; ol is the output's row stride
-// (H*D in blhd, D in bhld).
-template <bool kTrans>
-__device__ void product(float* __restrict__ out, long long out_base,
-                        long long ol, const float* __restrict__ a,
-                        const float* bt, int L, int r0, float scale) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int rw = r0 + warp * kRows;
-  float acc[kRows][2] = {};
-  for (int j = 0; j < L; ++j) {
-    const float b0 = bt[j * LDD + lane], b1 = bt[j * LDD + lane + 32];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int row = min(rw + r, L - 1);  // rows past L are not stored
-      const float av = kTrans ? a[(long long)j * L + row]
-                              : a[(long long)row * L + j];
-      acc[r][0] = fmaf(av, b0, acc[r][0]);
-      acc[r][1] = fmaf(av, b1, acc[r][1]);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    if (rw + r >= L) break;
-    float* o = out + out_base + (rw + r) * ol;
-    o[lane] = acc[r][0] * scale;
-    o[lane + 32] = acc[r][1] * scale;
-  }
-}
-
-// (1) P: one warp per query row i (K staged) -> row i of P in the scratch.
-__global__ void __launch_bounds__(kWarps * 32)
-    attention_bwd_fp32_p(const float* __restrict__ q,
-                         const float* __restrict__ k,
-                         float* __restrict__ scratch,
-                         const int* __restrict__ mode,
-                         const int* __restrict__ text_end,
-                         const float* __restrict__ colkeep, int L, int H,
-                         vlp::Strides in, int prefix, float scale) {
-  extern __shared__ float smem[];
-  float* ks = smem;                  // [L][LDD]
-  float* colok = ks + L * LDD;       // [L]  1 = column kept
-  float* rws = colok + L;            // [kWarps][D]  q row
-
-  const int b = blockIdx.x / H;
-  const int h = blockIdx.x % H;
-  const long long in_base = b * in.b + h * in.h;
-  stage(ks, k, in_base, in.l, L);
-  for (int j = threadIdx.x; j < L; j += blockDim.x)
-    colok[j] = colkeep[(long long)b * L + j] > 0.5f ? 1.f : 0.f;
-  __syncthreads();
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int md = mode[b], te = text_end[b];
-  float* rw = rws + warp * D;
-  float* pd = scratch + blockIdx.x * fp32_scratch(L);
-  const int row_end = min(L, (int)(blockIdx.y + 1) * kRowsFp32);
-  for (int i = blockIdx.y * kRowsFp32 + warp; i < row_end; i += kWarps) {
-    for (int d = lane; d < D; d += 32) rw[d] = q[in_base + i * in.l + d];
-    __syncwarp();
-    float qr[D];
-#pragma unroll
-    for (int d = 0; d < D; ++d) qr[d] = rw[d];
-    // each lane reads back only the columns it wrote
-    float* prow = pd + (long long)i * L;
-    float mx = -CUDART_INF_F;
-    for (int j = lane; j < L; j += 32) {
-      const float* kr = ks + j * LDD;
-      float acc = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) acc = fmaf(qr[d], kr[d], acc);
-      const bool vis =
-          (md == vlp::kModeS2S ? (j < prefix || (j <= i && i < te))
-                               : (j < te)) &&
-          colok[j] > 0.5f;
-      const float s =
-          __fadd_rn(__fmul_rn(acc, scale), vis ? 0.f : vlp::kNegInf);
-      prow[j] = s;
-      mx = fmaxf(mx, s);
-    }
-    mx = vlp::warp_max(mx);
-    float sum = 0.f;
-    for (int j = lane; j < L; j += 32) {
-      const float e = expf(prow[j] - mx);
-      prow[j] = e;
-      sum += e;
-    }
-    sum = vlp::warp_sum(sum);
-    for (int j = lane; j < L; j += 32) prow[j] = prow[j] / sum;
-    __syncwarp();
-  }
-}
-
-// (2) dS: one warp per query row i (V staged): dP = (dO V^T) o keep,
-// dS = P o (dP - rowsum(dP o P)) and P o keep, in place of P.
-template <bool kDrop>
-__global__ void __launch_bounds__(kWarps * 32)
-    attention_bwd_fp32_ds(const float* __restrict__ v,
-                          const float* __restrict__ dout,
-                          float* __restrict__ scratch, int L, int H,
-                          vlp::Strides in, vlp::Strides ds_in,
-                          vlp::Dropout dp) {
-  extern __shared__ float smem[];
-  float* vs = smem;                  // [L][LDD]
-  float* rws = vs + L * LDD + L;     // [kWarps][D]  dO row
-  float* kws = rws + kWarps * D;     // [kWarps][L]  keep of a row
-
-  const int b = blockIdx.x / H;
-  const int h = blockIdx.x % H;
-  stage(vs, v, b * in.b + h * in.h, in.l, L);
-  __syncthreads();
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const long long do_base = b * ds_in.b + h * ds_in.h;
-  float* rw = rws + warp * D;
-  float* kw = kws + warp * L;
-  float* pd = scratch + blockIdx.x * fp32_scratch(L);
-  float* ds = pd + (long long)L * L;
-  const int row_end = min(L, (int)(blockIdx.y + 1) * kRowsFp32);
-  for (int i = blockIdx.y * kRowsFp32 + warp; i < row_end; i += kWarps) {
-    for (int d = lane; d < D; d += 32)
-      rw[d] = dout[do_base + i * ds_in.l + d];
-    if constexpr (kDrop) {
-      for (int c = lane; 4 * c < L; c += 32) {
-        float mult[4];
-        vlp::keep_scale4(dp, b, h, i, c, mult);
-        for (int w = 0; w < 4 && 4 * c + w < L; ++w) kw[4 * c + w] = mult[w];
-      }
-    }
-    __syncwarp();
-    float dr[D];
-#pragma unroll
-    for (int d = 0; d < D; ++d) dr[d] = rw[d];
-    float* prow = pd + (long long)i * L;
-    float* srow = ds + (long long)i * L;
-    float rs = 0.f;
-    for (int j = lane; j < L; j += 32) {
-      const float* vr = vs + j * LDD;
-      float acc = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) acc = fmaf(dr[d], vr[d], acc);
-      const float dpj = kDrop ? acc * kw[j] : acc;
-      srow[j] = dpj;
-      rs += dpj * prow[j];
-    }
-    rs = vlp::warp_sum(rs);
-    for (int j = lane; j < L; j += 32) {
-      const float p = prow[j];
-      srow[j] = p * (srow[j] - rs);
-      if (kDrop) prow[j] = p * kw[j];
-    }
-    __syncwarp();
-  }
-}
-
-// (3) the products, blockIdx.y picking one: dQ = dS K * scale (K staged),
-// dK = dS^T Q * scale (Q staged), dV = (P o keep)^T dO (dO staged); the
-// block owns kRowsFp32 output rows.
-__global__ void __launch_bounds__(kWarps * 32)
-    attention_bwd_fp32_products(const float* __restrict__ q,
-                                const float* __restrict__ k,
-                                const float* __restrict__ dout,
-                                float* __restrict__ dq,
-                                float* __restrict__ dk,
-                                float* __restrict__ dv,
-                                const float* __restrict__ scratch, int L,
-                                int H, vlp::Strides in, vlp::Strides ds_in,
-                                vlp::Strides os, float scale) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.x / H;
-  const int h = blockIdx.x % H;
-  const long long in_base = b * in.b + h * in.h;
-  const long long out_base = b * os.b + h * os.h;
-  const float* pd = scratch + blockIdx.x * fp32_scratch(L);
-  const float* ds = pd + (long long)L * L;
-  const int r0 = blockIdx.z * kRowsFp32;
-  if (blockIdx.y == 0) {
-    stage(smem, k, in_base, in.l, L);
-    __syncthreads();
-    product<false>(dq, out_base, os.l, ds, smem, L, r0, scale);
-  } else if (blockIdx.y == 1) {
-    stage(smem, q, in_base, in.l, L);
-    __syncthreads();
-    product<true>(dk, out_base, os.l, ds, smem, L, r0, scale);
-  } else {
-    stage(smem, dout, b * ds_in.b + h * ds_in.h, ds_in.l, L);
-    __syncthreads();
-    product<true>(dv, out_base, os.l, pd, smem, L, r0, 1.f);
-  }
-}
 
 // ---- bf16: on the tensor cores
 
@@ -565,6 +352,11 @@ constexpr int kTileElems = kTile * kTS; // bf16 of one staged [64][72] tile
 constexpr int kOwnElems = kOwn * kTS;
 constexpr int kMinBlocksT = 2;          // blocks per SM (launch bounds)
 using u64 = unsigned long long;
+using vlp::first_kept;
+using vlp::masked_region;
+using vlp::quad_max;
+using vlp::quad_sum;
+using vlp::ring_next;
 
 // Blocks along L (128 rows each) and 64-row tiles along L.
 __host__ __device__ __forceinline__ int own_blocks(int L) {
@@ -595,30 +387,6 @@ size_t smem_bytes_rows(int L) {
 constexpr size_t kSmemBytesCols =
     sizeof(bf16) * (2 * kOwnElems + 4 * kTileElems) +
     sizeof(float) * 2 * 3 * kTile + sizeof(u64) * 2 * 2 * kTile;
-
-// The first column that colkeep keeps (L if none).
-__device__ __forceinline__ int first_kept(const float* colkeep, int L) {
-  int j = 0;
-  while (j < L && !(colkeep[j] > 0.5f)) ++j;
-  return j;
-}
-
-// Whether query rows [i0, i1) see none of the keys from j0 on through the
-// structural mask while each of them sees a kept column (`first`, from
-// first_kept, lies within its limit).  Such scores sit at -10000 + s
-// beside a row max of at least s' for a visible column, so exp(S - m)
-// underflows to exactly 0 there (for |s - s'| < 9,896) and P o keep and dS
-// are exact zeros: the three kernels skip such regions.  s2s rows see at
-// least the prefix, bi rows every column before text_end.
-__device__ __forceinline__ bool masked_region(int md, int te, int prefix,
-                                              int first, int i0, int i1,
-                                              int j0) {
-  if (md == vlp::kModeS2S) {
-    const int hi = i0 < te ? max(prefix - 1, min(i1, te) - 1) : prefix - 1;
-    return j0 > hi && prefix - 1 >= first;
-  }
-  return j0 > te - 1 && te - 1 >= first;
-}
 
 // The tiled body keeps scores in log2 units (S * log2(e)), so that
 // exp(S - m) is one ex2 of a difference: the masks are scaled alike.
@@ -664,17 +432,6 @@ __device__ __forceinline__ void half_scores(float (&s)[4][4], const bf16* sa,
                      mask_bias2(e & 1 ? cb.y : cb.x,
                                 j0 + n * 8 + t2 + (e & 1), lim[e >> 1]));
   }
-}
-
-// A value summed (maxed) over the 4 lanes of a quad, which hold one row of
-// an mma accumulator.
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
 }
 
 // The multiplier of bit `bit` of a 32-bit half of a keep word.
@@ -753,18 +510,6 @@ struct RowsBlock {
     vlp::cp_async_commit();
   }
 };
-
-// Waits for ring stage `it` after issuing stage it + 1 (if any).
-template <typename Issue>
-__device__ __forceinline__ void ring_next(int it, int n, Issue issue) {
-  if (it + 1 < n) {
-    issue(it + 1);
-    vlp::cp_async_wait<1>();
-  } else {
-    vlp::cp_async_wait<0>();
-  }
-  __syncthreads();
-}
 
 // (a) Grid (example, head, 128 query rows): each warp owns 16 rows and
 // streams every key tile: the row max m, the sum l of exp(S - m) and
@@ -1097,8 +842,375 @@ __global__ void __launch_bounds__(kThreadsT, kMinBlocksT)
   vlp::store_rows(dq + out_base, os.l, qa, r0, L - blk.q0, lane, scale);
 }
 
-// Three launches on one stream; the scratch (B * H * fp32_scratch(L)
-// floats) carries P and dS from the first two to the third.
+// ---- fp32: FlashAttention-2's backward in split TF32 on the tensor cores,
+// every L the bf16 bodies take, in two kernels over (example, head, 64
+// rows) blocks of 4 warps that stream the other operand in 32-row tiles
+
+constexpr int kOwnF = 64;                  // rows (keys) a block owns
+constexpr int kWarpsF = kOwnF / 16;        // one warp per 16 of them
+constexpr int kTileF = 32;                 // rows of a streamed tile
+constexpr int kFS = vlp::kF32Stride;
+constexpr int kOwnElemsF = kOwnF * kFS;    // floats of one staged own tile
+constexpr int kTileElemsF = kTileF * kFS;  // and of one streamed tile
+
+__host__ __device__ __forceinline__ int own_blocks_f32(int L) {
+  return (L + kOwnF - 1) / kOwnF;
+}
+__host__ __device__ __forceinline__ int tiles_f32(int L) {
+  return (L + kTileF - 1) / kTileF;
+}
+// The scratch of one (example, head), in floats: the row max m, 1/l and
+// rowsum(dP o keep o P) of each of the Lt = 64 * own_blocks_f32(L) query
+// rows ([3][Lt] fp32; 0, 0, 0 past L), then the keep bits ([32-key
+// tile][Lt] u32: bit c of word (kt, i) keeps column 32 kt + c of row i).
+__host__ __device__ __forceinline__ int scratch_f32(int L) {
+  return (3 + tiles_f32(L)) * own_blocks_f32(L) * kOwnF;
+}
+
+// The rows kernel: its 64 rows of Q and dO, a ring of two stages of one key
+// tile of K and V, the column bias of every key and the keep words of its
+// rows against every key tile.
+size_t smem_bytes_rows_f32(int L) {
+  return sizeof(float) * (2 * kOwnElemsF + 4 * kTileElemsF +
+                          size_t(tiles_f32(L)) * kTileF) +
+         sizeof(uint32_t) * size_t(tiles_f32(L)) * kOwnF;
+}
+// The dK/dV kernel: its 64 keys of K and V, and a ring of two stages of
+// one query tile of Q, dO, their rows' statistics and the keep words of
+// the block's two key tiles.
+constexpr size_t kSmemBytesColsF =
+    sizeof(float) * (2 * kOwnElemsF + 4 * kTileElemsF + 2 * 3 * kTileF) +
+    sizeof(uint32_t) * 2 * 2 * kTileF;
+
+// s = the masked, scaled scores (natural units, as attention_plain adds
+// them) of rows g, g + 8 of a 16 x 32 accumulator whose column 8n + 2t
+// (+1) is key j0 + 8n + 2t (+1); colbias starts at key j0.
+__device__ __forceinline__ void mask_scores_f32(float (&s)[4][4],
+                                                const float* colbias, int j0,
+                                                int lane, const int (&lim)[2],
+                                                float scale) {
+  const int t2 = 2 * (lane & 3);
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = 8 * n + t2 + (e & 1);
+      s[n][e] = __fadd_rn(__fmul_rn(s[n][e], scale),
+                          vlp::mask_bias(colbias[c], j0 + c, lim[e >> 1]));
+    }
+}
+
+// (a) Grid (example, head, 64 query rows), Q and dO of the rows staged;
+// each warp owns 16 rows and streams every 32-key tile of K and V twice,
+// through one ring.  Pass 1: S and dP = dO V^T, the row max m, the sum l
+// of exp(S - m) and rowsum(dP o keep o exp(S - m)), both rescaled by
+// exp(m_old - m_new) when the running max moves; with dropout, the keep
+// bits of every 16 x 32 region it does not skip (Philox runs once, here),
+// kept in shared memory and written out.  It writes m, 1/l and
+// rowsum(dP o keep o P) = that sum / l (0, 0, 0 for rows past L) for (b).
+// Pass 2: S, P from (m, 1/l), keep from the bits, dP and dS, and
+// dQ += dS K in registers; dQ is written once.
+template <bool kDrop>
+__global__ void __launch_bounds__(kWarpsF * 32, 3)
+    attention_bwd_rows_f32(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           const float* __restrict__ dout,
+                           float* __restrict__ dq, float* __restrict__ scratch,
+                           const int* __restrict__ mode,
+                           const int* __restrict__ text_end,
+                           const float* __restrict__ colkeep, int L, int H,
+                           vlp::Strides in, vlp::Strides ds_in,
+                           vlp::Strides os, int prefix, float scale,
+                           vlp::Dropout dp, int align) {
+  extern __shared__ __align__(16) float smem_f[];
+  const int nb = own_blocks_f32(L), nk = tiles_f32(L), Lt = nb * kOwnF;
+  const int bh = blockIdx.x / nb, b = bh / H, h = bh % H;
+  const int q0 = (blockIdx.x % nb) * kOwnF;
+  const long long in_base = b * in.b + h * in.h;
+  float* stats = scratch + (long long)bh * scratch_f32(L);
+  uint32_t* bits = reinterpret_cast<uint32_t*>(stats + 3 * Lt);
+  float* sq = smem_f;
+  float* sdo = sq + kOwnElemsF;
+  float* ring = sdo + kOwnElemsF;             // [2][K, V][32][kF32Stride]
+  float* colbias = ring + 4 * kTileElemsF;    // [nk * 32]
+  uint32_t* sbits =
+      reinterpret_cast<uint32_t*>(colbias + nk * kTileF);   // [nk][64]
+  vlp::stage_rows_f32(sq, q + in_base + q0 * in.l, in.l, L - q0, kOwnF,
+                      align);
+  vlp::stage_rows_f32(sdo, dout + b * ds_in.b + h * ds_in.h + q0 * ds_in.l,
+                      ds_in.l, L - q0, kOwnF, align);
+  vlp::cp_async_commit();
+  // step it < 2 nk stages key tile it % nk into ring stage it % 2
+  auto issue = [&](int it) {
+    float* dst = ring + (it & 1) * 2 * kTileElemsF;
+    const int j0 = (it % nk) * kTileF;
+    vlp::stage_rows_f32(dst, k + in_base + j0 * in.l, in.l, L - j0, kTileF,
+                        align);
+    vlp::stage_rows_f32(dst + kTileElemsF, v + in_base + j0 * in.l, in.l,
+                        L - j0, kTileF, align);
+    vlp::cp_async_commit();
+  };
+  issue(0);
+  const float* ck = colkeep + (long long)b * L;
+  for (int j = threadIdx.x; j < nk * kTileF; j += blockDim.x)
+    colbias[j] = j >= L ? -CUDART_INF_F : ck[j] > 0.5f ? 0.f : vlp::kNegInf;
+  const int first = vlp::first_kept(ck, L);
+  const int md = mode[b], te = text_end[b];
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = warp * 16, row = q0 + r0 + g;
+  const bool live = q0 + r0 < L;   // the same for the whole warp
+  const int lim[2] = {vlp::row_limit(md, te, prefix, row),
+                      vlp::row_limit(md, te, prefix, row + 8)};
+  // whether the warp computes key tile kt (the same in both passes)
+  auto visible = [&](int kt) {
+    return live && !vlp::masked_region(md, te, prefix, first, q0 + r0,
+                                       q0 + r0 + 16, kt * kTileF);
+  };
+
+  // ---- pass 1: the statistics and the keep bits
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f},
+        num[2] = {0.f, 0.f};
+  for (int kt = 0; kt < nk; ++kt) {
+    vlp::ring_next(kt, 2 * nk, issue);
+    const float* sk = ring + (kt & 1) * 2 * kTileElemsF;
+    const float* sv = sk + kTileElemsF;
+    const int j0 = kt * kTileF;
+    if (visible(kt)) {
+      float s[4][4], dpk[4][4];
+      vlp::mma_abt_f32<4>(s, sq, sk, r0, 0, lane);
+      vlp::mma_abt_f32<4>(dpk, sdo, sv, r0, 0, lane);
+      mask_scores_f32(s, colbias + j0, j0, lane, lim, scale);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float cm = -CUDART_INF_F;
+#pragma unroll
+        for (auto& tile : s)
+          cm = fmaxf(cm, fmaxf(tile[2 * hh], tile[2 * hh + 1]));
+        const float mn = fmaxf(m[hh], vlp::quad_max(cm));
+        const float alpha = __expf(m[hh] - mn);
+        m[hh] = mn;
+        l[hh] *= alpha;
+        num[hh] *= alpha;
+      }
+      uint32_t kw[2] = {0u, 0u};   // rows g, g + 8
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        float mult[4] = {1.f, 1.f, 1.f, 1.f};
+        if (kDrop && j0 + 8 * n < L) {
+          vlp::keep_frag(dp, b, h, row, j0 + 8 * n, lane, mult);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            kw[e >> 1] |= uint32_t(mult[e] != 0.f)
+                          << (8 * n + 2 * t + (e & 1));
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = __expf(s[n][e] - m[e >> 1]);
+          l[e >> 1] += p;
+          num[e >> 1] += dpk[n][e] * mult[e] * p;
+        }
+      }
+      if (kDrop) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          uint32_t w = kw[hh];
+          w |= __shfl_xor_sync(0xffffffffu, w, 1);
+          w |= __shfl_xor_sync(0xffffffffu, w, 2);
+          if (t == 0) {
+            sbits[kt * kOwnF + r0 + g + 8 * hh] = w;
+            bits[(long long)kt * Lt + row + 8 * hh] = w;
+          }
+        }
+      }
+    }
+    __syncthreads();   // the next stage overwrites this one's K and V
+  }
+  float inv[2], rs[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const float lt = vlp::quad_sum(l[hh]), nm = vlp::quad_sum(num[hh]);
+    const bool in = row + 8 * hh < L;
+    inv[hh] = in ? 1.f / lt : 0.f;
+    rs[hh] = in ? nm / lt : 0.f;
+    if (!in) m[hh] = 0.f;
+    if (t == 0) {
+      stats[row + 8 * hh] = m[hh];
+      stats[Lt + row + 8 * hh] = inv[hh];
+      stats[2 * Lt + row + 8 * hh] = rs[hh];
+    }
+  }
+
+  // ---- pass 2: dQ
+  float qa[D / 8][4] = {};
+  for (int kt = 0; kt < nk; ++kt) {
+    vlp::ring_next(nk + kt, 2 * nk, issue);
+    const float* sk = ring + ((nk + kt) & 1) * 2 * kTileElemsF;
+    const float* sv = sk + kTileElemsF;
+    const int j0 = kt * kTileF;
+    if (visible(kt)) {
+      float s[4][4], dpk[4][4];
+      vlp::mma_abt_f32<4>(s, sq, sk, r0, 0, lane);
+      vlp::mma_abt_f32<4>(dpk, sdo, sv, r0, 0, lane);
+      mask_scores_f32(s, colbias + j0, j0, lane, lim, scale);
+      // rows g, g + 8: the keep bits of the tile's columns from 2t on
+      uint32_t kw[2] = {0u, 0u};
+      if (kDrop) {
+        kw[0] = sbits[kt * kOwnF + r0 + g] >> (2 * t);
+        kw[1] = sbits[kt * kOwnF + r0 + g + 8] >> (2 * t);
+      }
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float mult =
+              kDrop ? ((kw[e >> 1] >> (8 * n + (e & 1))) & 1u ? dp.scale : 0.f)
+                    : 1.f;
+          const float p = __expf(s[n][e] - m[e >> 1]) * inv[e >> 1];
+          ds[e] = p * (dpk[n][e] * mult - rs[e >> 1]);
+        }
+        vlp::mma_at_f32(qa, vlp::frag_from_acc(ds), sk, 8 * n, lane);
+      }
+    }
+    __syncthreads();   // the next stage overwrites this one's K and V
+  }
+  vlp::store_rows_f32(dq + b * os.b + h * os.h + q0 * os.l, os.l, qa, r0,
+                      L - q0, lane, scale);
+}
+
+// (b) Grid (example, head, 64 keys): K and V of the keys stay staged; each
+// warp owns 16 of them and streams every 32-query tile of Q, dO, their
+// statistics and keep bits.  Per query tile it recomputes S^T and
+// P^T = exp(S^T - m) / l, forms dP^T = V dO^T and dS^T, and adds
+// dV += (P o keep)^T dO and dK += dS^T Q in registers, the transposed
+// products straight from the accumulators (mma.cuh's k permutation).
+// A tile (32 queries) that (a) skipped for one of its 16-row halves has
+// no keep bits there, but P is exactly 0 there, so the multiplier does
+// not matter.
+template <bool kDrop>
+__global__ void __launch_bounds__(kWarpsF * 32, 3)
+    attention_bwd_dkdv_f32(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           const float* __restrict__ dout,
+                           float* __restrict__ dk, float* __restrict__ dv,
+                           const float* __restrict__ scratch,
+                           const int* __restrict__ mode,
+                           const int* __restrict__ text_end,
+                           const float* __restrict__ colkeep, int L, int H,
+                           vlp::Strides in, vlp::Strides ds_in,
+                           vlp::Strides os, int prefix, float scale,
+                           vlp::Dropout dp, int align) {
+  extern __shared__ __align__(16) float smem_f[];
+  const int nb = own_blocks_f32(L), nq = tiles_f32(L), Lt = nb * kOwnF;
+  const int bh = blockIdx.x / nb, b = bh / H, h = bh % H;
+  const int k0 = (blockIdx.x % nb) * kOwnF;
+  const long long in_base = b * in.b + h * in.h;
+  const long long do_base = b * ds_in.b + h * ds_in.h;
+  const float* st = scratch + (long long)bh * scratch_f32(L);
+  const uint32_t* bits = reinterpret_cast<const uint32_t*>(st + 3 * Lt);
+  float* sk = smem_f;
+  float* sv = sk + kOwnElemsF;
+  float* ring = sv + kOwnElemsF;               // [2][Q, dO]
+  float* sstat = ring + 4 * kTileElemsF;       // [2][3][32]
+  uint32_t* sbits =
+      reinterpret_cast<uint32_t*>(sstat + 2 * 3 * kTileF);   // [2][2][32]
+  vlp::stage_rows_f32(sk, k + in_base + k0 * in.l, in.l, L - k0, kOwnF, align);
+  vlp::stage_rows_f32(sv, v + in_base + k0 * in.l, in.l, L - k0, kOwnF, align);
+  vlp::cp_async_commit();
+  // the block's keys span 32-key tiles kt0 and kt0 + 1 (if < nq)
+  const int kt0 = k0 / kTileF;
+  auto stage_q = [&](int qt) {
+    float* dst = ring + (qt & 1) * 2 * kTileElemsF;
+    vlp::stage_rows_f32(dst, q + in_base + (long long)qt * kTileF * in.l,
+                        in.l, L - qt * kTileF, kTileF, align);
+    vlp::stage_rows_f32(dst + kTileElemsF,
+                        dout + do_base + (long long)qt * kTileF * ds_in.l,
+                        ds_in.l, L - qt * kTileF, kTileF, align);
+    // m, 1/l and rowsum of the tile's rows: 3 x 8 copies of 16 bytes
+    for (int c = threadIdx.x; c < 3 * kTileF / 4; c += blockDim.x)
+      vlp::cp_async<16>(sstat + (qt & 1) * 3 * kTileF + 4 * c,
+                        st + (c / 8) * Lt + qt * kTileF + (c % 8) * 4);
+    if (kDrop)
+      for (int c = threadIdx.x; c < 2 * kTileF / 4; c += blockDim.x) {
+        const int x = c / (kTileF / 4);
+        if (kt0 + x < nq)
+          vlp::cp_async<16>(sbits + ((qt & 1) * 2 + x) * kTileF +
+                                4 * (c % (kTileF / 4)),
+                            bits + (long long)(kt0 + x) * Lt + qt * kTileF +
+                                4 * (c % (kTileF / 4)));
+      }
+    vlp::cp_async_commit();
+  };
+  stage_q(0);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int kr0 = warp * 16;
+  const bool live = k0 + kr0 < L;   // the same for the whole warp
+  const int md = mode[b], te = text_end[b];
+  const float* ck = colkeep + (long long)b * L;
+  const int first = vlp::first_kept(ck, L);
+  int key[2];
+  float kbias[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    key[hh] = k0 + kr0 + g + 8 * hh;
+    kbias[hh] = key[hh] >= L ? -CUDART_INF_F
+                : ck[key[hh]] > 0.5f ? 0.f : vlp::kNegInf;
+  }
+  // this lane's keys are bits kbit and kbit + 8 of word kr0 / 32 of the
+  // block's two key tiles
+  const int kbit = (kr0 & 31) + g;
+  float ka[D / 8][4] = {}, va[D / 8][4] = {};
+  for (int qt = 0; qt < nq; ++qt) {
+    vlp::ring_next(qt, nq, stage_q);
+    const float* sq = ring + (qt & 1) * 2 * kTileElemsF;
+    const float* sdo = sq + kTileElemsF;
+    const float* sm = sstat + (qt & 1) * 3 * kTileF;
+    const uint32_t* sb = sbits + ((qt & 1) * 2 + kr0 / kTileF) * kTileF;
+    const int i0 = qt * kTileF;
+    if (live && !vlp::masked_region(md, te, prefix, first, i0, i0 + kTileF,
+                                    k0 + kr0)) {
+      float s[4][4], dpt[4][4];
+      vlp::mma_abt_f32<4>(s, sk, sq, kr0, 0, lane);     // S^T
+      vlp::mma_abt_f32<4>(dpt, sv, sdo, kr0, 0, lane);  // dP^T
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const int c = 8 * n + 2 * t, i = i0 + c;
+        const int lim[2] = {vlp::row_limit(md, te, prefix, i),
+                            vlp::row_limit(md, te, prefix, i + 1)};
+        float pk[4], ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int hh = e >> 1, qq = e & 1;
+          const float mult =
+              kDrop ? ((sb[c + qq] >> (kbit + 8 * hh)) & 1u ? dp.scale : 0.f)
+                    : 1.f;
+          const float x =
+              __fadd_rn(__fmul_rn(s[n][e], scale),
+                        vlp::mask_bias(kbias[hh], key[hh], lim[qq]));
+          const float p = __expf(x - sm[c + qq]) * sm[kTileF + c + qq];
+          pk[e] = p * mult;
+          ds[e] = p * (dpt[n][e] * mult - sm[2 * kTileF + c + qq]);
+        }
+        vlp::mma_at_f32(va, vlp::frag_from_acc(pk), sdo, 8 * n, lane);
+        vlp::mma_at_f32(ka, vlp::frag_from_acc(ds), sq, 8 * n, lane);
+      }
+    }
+    __syncthreads();   // the next stage overwrites this one's Q and dO
+  }
+  const long long out_base = b * os.b + h * os.h + k0 * os.l;
+  vlp::store_rows_f32(dk + out_base, os.l, ka, kr0, L - k0, lane, scale);
+  vlp::store_rows_f32(dv + out_base, os.l, va, kr0, L - k0, lane, 1.f);
+}
+
+// The fp32 body, every L: two launches on one stream; the scratch
+// (B * H * scratch_f32(L) floats) carries the row statistics and keep bits
+// from the first to the second.
 template <bool kDrop>
 int launch_fp32(const void* q, const void* k, const void* v, const void* dout,
                 void* dq, void* dk, void* dv, float* scratch, const int* mode,
@@ -1106,33 +1218,34 @@ int launch_fp32(const void* q, const void* k, const void* v, const void* dout,
                 int H, vlp::Strides in, vlp::Strides ds_in, vlp::Strides os,
                 int prefix, float scale, vlp::Dropout dp,
                 cudaStream_t stream) {
-  const size_t smem = smem_bytes_fp32(L);
-  if (smem > (size_t)vlp::kMaxSmemBytes || scratch == nullptr)
+  const size_t smem_rows = smem_bytes_rows_f32(L);
+  if (smem_rows > (size_t)vlp::kMaxSmemBytes || scratch == nullptr)
     return (int)cudaErrorInvalidValue;
+  const int align = vlp::common_alignment(
+      {(unsigned long long)q, (unsigned long long)k, (unsigned long long)v,
+       (unsigned long long)dout, 4ull * in.b, 4ull * in.h, 4ull * in.l,
+       4ull * ds_in.b, 4ull * ds_in.h, 4ull * ds_in.l});
   const auto attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
   cudaError_t err;
-  if ((err = cudaFuncSetAttribute(attention_bwd_fp32_p, attr, (int)smem)) !=
-          cudaSuccess ||
-      (err = cudaFuncSetAttribute(attention_bwd_fp32_ds<kDrop>, attr,
-                                  (int)smem)) != cudaSuccess ||
-      (err = cudaFuncSetAttribute(attention_bwd_fp32_products, attr,
-                                  (int)smem)) != cudaSuccess)
+  if ((err = cudaFuncSetAttribute(attention_bwd_rows_f32<kDrop>, attr,
+                                  (int)smem_rows)) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(attention_bwd_dkdv_f32<kDrop>, attr,
+                                  (int)kSmemBytesColsF)) != cudaSuccess)
     return (int)err;
   const auto* qf = static_cast<const float*>(q);
   const auto* kf = static_cast<const float*>(k);
+  const auto* vf = static_cast<const float*>(v);
   const auto* dof = static_cast<const float*>(dout);
-  const int row_blocks = (L + kRowsFp32 - 1) / kRowsFp32;
-  const dim3 rows(B * H, row_blocks);
-  attention_bwd_fp32_p<<<rows, kWarps * 32, smem, stream>>>(
-      qf, kf, scratch, mode, text_end, colkeep, L, H, in, prefix, scale);
+  const int blocks = B * H * own_blocks_f32(L);
+  attention_bwd_rows_f32<kDrop><<<blocks, kWarpsF * 32, smem_rows, stream>>>(
+      qf, kf, vf, dof, static_cast<float*>(dq), scratch, mode, text_end,
+      colkeep, L, H, in, ds_in, os, prefix, scale, dp, align);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  attention_bwd_fp32_ds<kDrop><<<rows, kWarps * 32, smem, stream>>>(
-      static_cast<const float*>(v), dof, scratch, L, H, in, ds_in, dp);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  attention_bwd_fp32_products<<<dim3(B * H, 3, row_blocks), kWarps * 32, smem,
-                                stream>>>(
-      qf, kf, dof, static_cast<float*>(dq), static_cast<float*>(dk),
-      static_cast<float*>(dv), scratch, L, H, in, ds_in, os, scale);
+  attention_bwd_dkdv_f32<kDrop>
+      <<<blocks, kWarpsF * 32, kSmemBytesColsF, stream>>>(
+          qf, kf, vf, dof, static_cast<float*>(dk), static_cast<float*>(dv),
+          scratch, mode, text_end, colkeep, L, H, in, ds_in, os, prefix,
+          scale, dp, align);
   return (int)cudaGetLastError();
 }
 
@@ -1207,15 +1320,15 @@ int launch_long(const void* q, const void* k, const void* v, const void* dout,
 }
 
 // fp32 scratch (floats per example and head) the body for L needs: the
-// tiled bf16 body's row statistics and keep bits (long_scratch), the fp32
-// body's P and dS (fp32_scratch).
+// row statistics and keep bits of the tiled bodies (long_scratch in bf16,
+// scratch_f32 in fp32).
 int scratch_floats(int L, int is_bf16) {
-  if (!is_bf16) return (int)fp32_scratch(L);
+  if (!is_bf16) return scratch_f32(L);
   return L > 8 * kMaxNT ? long_scratch(L) : 0;
 }
 
 // bf16: the whole problem in one block up to 8 * kMaxNT, 64 x 64 tiles
-// beyond; fp32: the three CUDA-core kernels.
+// beyond; fp32: the split-TF32 tiled body for every L.
 template <bool kDrop>
 int launch_any(const void* q, const void* k, const void* v, const void* dout,
                void* dq, void* dk, void* dv, float* scratch, const int* mode,

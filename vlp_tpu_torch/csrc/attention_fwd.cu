@@ -34,14 +34,24 @@
 //   excluded (not given -10000), padded rows are never stored.  For L > 128
 //   a warp makes two passes over 128-column chunks: the row max and sum,
 //   then S again, P, keep, rounding and P V.
-// * fp32: attention_fwd_fp32, on the CUDA cores (fp32 FMAs), which the
-//   card-vs-CPU fp32 gates need: tensor cores give neither fp32 nor its
-//   exact products.  A block owns 32 query rows (its Q staged once in
-//   shared memory) and streams the head's K and V through shared memory in
-//   64-key tiles (K rows padded to D+1 words); each warp keeps four query
-//   rows' running max, sum and output (an online softmax, P V divided by
-//   the sum at the end), so it takes every L the bf16 body takes (528).
-//   It is not tuned: fp32 only feeds the gates.
+// * fp32: attention_fwd_fp32, on the tensor cores in split TF32 (mma.cuh:
+//   each operand split into two TF32 parts, three m16n8k8 products; ~2^-21
+//   relative error per product, an fp32 summation-order difference), which
+//   the card-vs-CPU fp32 gates need.  One body for every L the bf16 body
+//   takes (528).  A block owns 64 query rows, 4 warps of 16, each warp's Q
+//   split into fragments in registers; K and V stream in 64-key tiles
+//   through a double-buffered cp.async ring (rows padded to 68 floats, so
+//   the fragment reads are conflict-free), 32 keys a step: S, the mask and
+//   scale as attention_plain adds them, an online softmax in registers
+//   (quad shuffles for the row max; the sum and P V rescaled when the max
+//   moves), the keep multipliers from vlp::keep_frag, and P handed to P V
+//   in registers through a permutation of the summed key index.  Steps
+//   that the structural mask hides from all 16 rows (vlp::masked_region)
+//   hold exact zeros of P and are skipped.  At B=16, L=512 it does 38.7
+//   GFLOP of TF32 work (12.9 of fp32): 0.08 ms at 495 TFLOP/s, against
+//   ~100 MB of bytes (0.03 ms).  It reaches a third of that (PERF.md):
+//   every warp loads and splits each operand it reads, and the count of
+//   shared-memory loads moved it where the split's arithmetic did not.
 //
 // What bounds it on an H100: at the VQA eval shape (B=256, L=128, H=12,
 // D=64, bf16) one call reads q, k, v and writes out, ~201 MB (60 us at
@@ -71,133 +81,164 @@ namespace {
 constexpr int D = vlp::kHeadDim;
 using bf16 = __nv_bfloat16;
 
-// ---- fp32: on the CUDA cores
+// ---- fp32: split TF32 on the tensor cores
 
-constexpr int kWarps = 8;
-constexpr int kRowsPerBlock = 32;
+constexpr int kF32Warps = 4;                 // 16 query rows each
+constexpr int kF32Rows = 16 * kF32Warps;     // query rows a block owns
+constexpr int kF32Tile = 64;                 // keys of a streamed tile
+constexpr int kF32Half = 32;                 // keys of one step
+constexpr int kF32TileElems = kF32Tile * vlp::kF32Stride;
 
-// K and V streamed in kTileK-key tiles, an online softmax per query row.  A
-// block owns kRowsPerBlock query rows (its Q staged once), each warp
-// kRowsPerBlock / kWarps of them, each lane two of a row's 64 output columns
-// (lane, lane + 32) and, per tile, two of its keys.
-constexpr int kTileK = 64;
-constexpr int kRowsPerWarp = kRowsPerBlock / kWarps;
-
-size_t smem_bytes_fp32() {
-  return sizeof(float) * (size_t(kRowsPerBlock) * D + kTileK * (D + 1) +
-                          kTileK * D + kTileK + kWarps * kTileK);
+__host__ __device__ int f32_tiles(int L) {
+  return (L + kF32Tile - 1) / kF32Tile;
 }
 
+// A ring of two stages of one key tile of K and V, and the column bias of
+// every key.  Q waits in stage 1's K slot until its fragments are loaded.
+size_t smem_bytes_fp32(int L) {
+  return sizeof(float) * (4 * size_t(kF32TileElems) + f32_tiles(L) * kF32Tile);
+}
+
+// Grid (example x head, 64 query rows): each warp owns 16 rows, their Q
+// split into TF32 fragments in registers, and streams 64-key tiles of K
+// and V, 32 keys a step: S = Q K^T (split TF32), the mask and scale, an
+// online softmax in registers (quad shuffles for the row max; the running
+// sum and P V rescaled when the max moves), the keep multipliers
+// (vlp::keep_frag), then O += (P o keep) V with P handed over in registers
+// (mma.cuh's k permutation); O / sum at the end.  Steps that the
+// structural mask hides from the warp's rows (vlp::masked_region) hold
+// exact zeros of P and are skipped.
 template <bool kDrop>
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(kF32Warps * 32, 3)
     attention_fwd_fp32(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ out,
                        const int* __restrict__ mode,
                        const int* __restrict__ text_end,
                        const float* __restrict__ colkeep, int L, int H,
                        vlp::Strides in, vlp::Strides os, int prefix,
-                       float scale, vlp::Dropout dp) {
-  extern __shared__ float smem[];
-  float* qs = smem;                       // [kRowsPerBlock][D]
-  float* ks = qs + kRowsPerBlock * D;     // [kTileK][D+1]
-  float* vs = ks + kTileK * (D + 1);      // [kTileK][D]
-  float* colok = vs + kTileK * D;         // [kTileK]  1 = column kept
-  float* ps = colok + kTileK;             // [kWarps][kTileK]
-
+                       float scale, vlp::Dropout dp, int align) {
+  extern __shared__ __align__(16) float smem_f[];
+  float* ring = smem_f;                        // [2][K, V][64][kF32Stride]
+  float* colbias = ring + 4 * kF32TileElems;   // [f32_tiles(L) * 64]
   const int b = blockIdx.x / H;
   const int h = blockIdx.x % H;
+  const int q0 = blockIdx.y * kF32Rows;
+  const int nk = f32_tiles(L);
   const long long in_base = b * in.b + h * in.h;
-  const long long sl = in.l;
-  const int r0 = blockIdx.y * kRowsPerBlock;
-  for (int idx = threadIdx.x; idx < kRowsPerBlock * D; idx += blockDim.x) {
-    const int r = idx / D, d = idx % D;
-    qs[idx] = r0 + r < L ? q[in_base + (r0 + r) * sl + d] : 0.f;
-  }
+  float* sq = ring + 2 * kF32TileElems;
+  vlp::stage_rows_f32(sq, q + in_base + q0 * in.l, in.l, L - q0, kF32Rows,
+                      align);
+  vlp::cp_async_commit();
+  auto issue = [&](int kt) {
+    float* dst = ring + (kt & 1) * 2 * kF32TileElems;
+    const long long off = in_base + (long long)kt * kF32Tile * in.l;
+    vlp::stage_rows_f32(dst, k + off, in.l, L - kt * kF32Tile, kF32Tile,
+                        align);
+    vlp::stage_rows_f32(dst + kF32TileElems, v + off, in.l,
+                        L - kt * kF32Tile, kF32Tile, align);
+    vlp::cp_async_commit();
+  };
+  issue(0);
+  const float* ck = colkeep + (long long)b * L;
+  for (int j = threadIdx.x; j < nk * kF32Tile; j += blockDim.x)
+    colbias[j] = j >= L ? -CUDART_INF_F : ck[j] > 0.5f ? 0.f : vlp::kNegInf;
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r0 = warp * 16, row = q0 + r0 + (lane >> 2);
   const int md = mode[b], te = text_end[b];
-  float* pw = ps + warp * kTileK;
-  // row r0 + warp + kWarps * w: running max, sum, and output columns
-  // lane and lane + 32
-  float m[kRowsPerWarp], l[kRowsPerWarp], o[kRowsPerWarp][2];
+  const int first = vlp::first_kept(ck, L);
+  const bool live = q0 + r0 < L;   // the same for the whole warp
+  const int lim[2] = {vlp::row_limit(md, te, prefix, row),
+                      vlp::row_limit(md, te, prefix, row + 8)};
+  vlp::cp_async_wait<1>();   // Q
+  __syncthreads();
+  vlp::SplitFrag<4> fq[D / 8];
 #pragma unroll
-  for (int w = 0; w < kRowsPerWarp; ++w) {
-    m[w] = -CUDART_INF_F;
-    l[w] = 0.f;
-    o[w][0] = o[w][1] = 0.f;
-  }
+  for (int kk = 0; kk < D / 8; ++kk)
+    fq[kk] = vlp::lds_a_f32(sq, r0, 8 * kk, lane);
+  __syncthreads();   // stage 1 is free for key tile 1
 
-  for (int t0 = 0; t0 < L; t0 += kTileK) {
-    const int nk = min(kTileK, L - t0);
-    __syncthreads();  // the previous tile is consumed
-    for (int idx = threadIdx.x; idx < nk * D; idx += blockDim.x) {
-      const int j = idx / D, d = idx % D;
-      ks[j * (D + 1) + d] = k[in_base + (t0 + j) * sl + d];
-      vs[j * D + d] = v[in_base + (t0 + j) * sl + d];
-    }
-    for (int j = threadIdx.x; j < nk; j += blockDim.x)
-      colok[j] = colkeep[(long long)b * L + t0 + j] > 0.5f ? 1.f : 0.f;
-    __syncthreads();
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
+  float o[D / 8][4] = {};
+  const int j_lane = 2 * (lane & 3);
+  for (int kt = 0; kt < nk; ++kt) {
+    vlp::ring_next(kt, nk, issue);
+    const float* sk = ring + (kt & 1) * 2 * kF32TileElems;
+    const float* sv = sk + kF32TileElems;
+    for (int c0 = 0; live && c0 < kF32Tile; c0 += kF32Half) {
+      const int j0 = kt * kF32Tile + c0;
+      // past L, or hidden from every row of the warp (and so is every
+      // later key: masked_region is monotone)
+      if (j0 >= L || vlp::masked_region(md, te, prefix, first, q0 + r0,
+                                        q0 + r0 + 16, j0))
+        break;
+      float s[4][4] = {};
 #pragma unroll
-    for (int w = 0; w < kRowsPerWarp; ++w) {
-      const int i = r0 + warp + kWarps * w;
-      if (i >= L) break;  // uniform over the warp
-      const float* qr = qs + (warp + kWarps * w) * D;
-      float s[2];
+      for (int kk = 0; kk < D / 8; ++kk)
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int jj = lane + 32 * c, j = t0 + jj;
-        if (jj >= nk) {
-          s[c] = -CUDART_INF_F;  // past L: no share of the softmax
-          continue;
+        for (int n = 0; n < 4; n += 2) {
+          vlp::SplitFrag<2> fb[2];
+          vlp::lds_b2_f32(fb, sk, c0 + 8 * n, 8 * kk, lane);
+          vlp::mma_3xtf32(s[n], fq[kk], fb[0]);
+          vlp::mma_3xtf32(s[n + 1], fq[kk], fb[1]);
         }
-        const float* kr = ks + jj * (D + 1);
-        float acc = 0.f;
+      // the masked, scaled scores (as attention_plain adds them); columns
+      // past L are -inf and take no share of the softmax
 #pragma unroll
-        for (int d = 0; d < D; ++d) acc = fmaf(qr[d], kr[d], acc);
-        const bool vis =
-            (md == vlp::kModeS2S ? (j < prefix || (j <= i && i < te))
-                                 : (j < te)) &&
-            colok[jj] > 0.5f;
-        s[c] = __fadd_rn(__fmul_rn(acc, scale), vis ? 0.f : vlp::kNegInf);
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = j0 + 8 * n + j_lane + (e & 1);
+          s[n][e] = __fadd_rn(__fmul_rn(s[n][e], scale),
+                              vlp::mask_bias(colbias[j], j, lim[e >> 1]));
+        }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float cm = -CUDART_INF_F;
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+          cm = fmaxf(cm, fmaxf(s[n][2 * hh], s[n][2 * hh + 1]));
+        const float mn = fmaxf(m[hh], vlp::quad_max(cm));
+        const float alpha = __expf(m[hh] - mn);   // 0 on the first step
+        m[hh] = mn;
+        l[hh] *= alpha;
+#pragma unroll
+        for (int i = 0; i < D / 8; ++i) {
+          o[i][2 * hh] *= alpha;
+          o[i][2 * hh + 1] *= alpha;
+        }
       }
-      const float mn = fmaxf(m[w], vlp::warp_max(fmaxf(s[0], s[1])));
-      const float alpha = expf(m[w] - mn);  // 0 on the first tile
-      const float e0 = expf(s[0] - mn), e1 = expf(s[1] - mn);
-      l[w] = l[w] * alpha + vlp::warp_sum(e0 + e1);
-      m[w] = mn;
-      pw[lane] = e0;
-      pw[lane + 32] = e1;
-      __syncwarp();
-      if constexpr (kDrop) {
-        // lane c < 16 draws the multipliers of the tile's columns 4c..4c+3
-        if (lane < kTileK / 4 && 4 * lane < nk) {
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        float p[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          p[e] = __expf(s[n][e] - m[e >> 1]);
+          l[e >> 1] += p[e];
+        }
+        if (kDrop && j0 + 8 * n < L) {
           float mult[4];
-          vlp::keep_scale4(dp, b, h, i, t0 / 4 + lane, mult);
+          vlp::keep_frag(dp, b, h, row, j0 + 8 * n, lane, mult);
 #pragma unroll
-          for (int x = 0; x < 4; ++x) pw[4 * lane + x] *= mult[x];
+          for (int e = 0; e < 4; ++e) p[e] *= mult[e];
         }
-        __syncwarp();
+        vlp::mma_at_f32(o, vlp::frag_from_acc(p), sv, c0 + 8 * n, lane);
       }
+    }
+    __syncthreads();   // the next stage overwrites this one's K and V
+  }
+  if (!live) return;
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        float acc = 0.f;
-        for (int jj = 0; jj < nk; ++jj)
-          acc = fmaf(pw[jj], vs[jj * D + lane + 32 * c], acc);
-        o[w][c] = o[w][c] * alpha + acc;
-      }
-      __syncwarp();
+  for (int hh = 0; hh < 2; ++hh) {
+    const float inv = 1.f / vlp::quad_sum(l[hh]);
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+      o[i][2 * hh] *= inv;
+      o[i][2 * hh + 1] *= inv;
     }
   }
-  const long long out_base = b * os.b + h * os.h;
-#pragma unroll
-  for (int w = 0; w < kRowsPerWarp; ++w) {
-    const int i = r0 + warp + kWarps * w;
-    if (i >= L) break;
-    const float inv = 1.f / l[w];
-    out[out_base + (long long)i * os.l + lane] = o[w][0] * inv;
-    out[out_base + (long long)i * os.l + lane + 32] = o[w][1] * inv;
-  }
+  vlp::store_rows_f32(out + b * os.b + h * os.h + q0 * os.l, os.l, o, r0,
+                      L - q0, lane, 1.f);
 }
 
 // ---- bf16: on the tensor cores
@@ -422,16 +463,19 @@ int launch_fp32(const void* q, const void* k, const void* v, void* out,
                 int prefix, float scale, vlp::Dropout dp,
                 cudaStream_t stream) {
   if (L > vlp::attention_fwd_max_len()) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes_fp32();
+  const size_t smem = smem_bytes_fp32(L);
+  const int align = vlp::common_alignment(
+      {(unsigned long long)q, (unsigned long long)k, (unsigned long long)v,
+       4ull * in.b, 4ull * in.h, 4ull * in.l});
   cudaError_t err = cudaFuncSetAttribute(
       attention_fwd_fp32<kDrop>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(B * H, (L + kRowsPerBlock - 1) / kRowsPerBlock);
-  attention_fwd_fp32<kDrop><<<grid, kWarps * 32, smem, stream>>>(
+  dim3 grid(B * H, (L + kF32Rows - 1) / kF32Rows);
+  attention_fwd_fp32<kDrop><<<grid, kF32Warps * 32, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), mode, text_end,
-      colkeep, L, H, in, os, prefix, scale, dp);
+      colkeep, L, H, in, os, prefix, scale, dp, align);
   return (int)cudaGetLastError();
 }
 

@@ -37,6 +37,31 @@ __device__ __forceinline__ float mask_bias(float colbias, int j, int limit) {
   return j <= limit ? colbias : fminf(colbias, kNegInf);
 }
 
+// The first column that colkeep keeps (L if none).
+__device__ __forceinline__ int first_kept(const float* colkeep, int L) {
+  int j = 0;
+  while (j < L && !(colkeep[j] > 0.5f)) ++j;
+  return j;
+}
+
+// Whether query rows [i0, i1) see none of the keys from j0 on through the
+// structural mask while each of them sees a kept column (`first`, from
+// first_kept, lies within its limit).  Such scores sit at -10000 + s
+// beside a row max of at least s' for a visible column, so exp(S - m)
+// underflows to exactly 0 there (for |s - s'| < 9,896) and P o keep and dS
+// are exact zeros: the tiled kernels skip such regions.  s2s rows see at
+// least the prefix, bi rows every column before text_end.  Monotone in j0:
+// a region that is skipped stays skipped for any later j0.
+__device__ __forceinline__ bool masked_region(int md, int te, int prefix,
+                                              int first, int i0, int i1,
+                                              int j0) {
+  if (md == kModeS2S) {
+    const int hi = i0 < te ? max(prefix - 1, min(i1, te) - 1) : prefix - 1;
+    return j0 > hi && prefix - 1 >= first;
+  }
+  return j0 > te - 1 && te - 1 >= first;
+}
+
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
@@ -65,6 +90,17 @@ __device__ __forceinline__ float warp_max(float x) {
 __device__ __forceinline__ float warp_sum(float x) {
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
+}
+
+// A value summed (maxed) over the 4 lanes of a quad, which hold one row of
+// an mma accumulator.
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
 }
 
 // Philox4x32-10 (Random123) under a 64-bit key; the plain PyTorch version

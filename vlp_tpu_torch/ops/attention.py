@@ -27,10 +27,11 @@ layout, which every model call uses) and ``layout="bhld"``
 * The dtype picks the kernel body, in both layouts and both directions:
   bf16 (every main path) runs the tensor-core bodies (``mma.sync`` on
   tiles staged with ``cp.async``; the backward rounds P o keep and dS to
-  bf16 before their products), fp32 the bodies on the CUDA cores (fp32
-  FMAs, which the card-vs-CPU fp32 checks rest on).  Both dtypes take
-  every L up to the bf16 forward's limit (528).  Nothing falls back from
-  one body to the other.
+  bf16 before their products), fp32 the split-TF32 bodies (every product
+  as three TF32 tensor-core products of the operands' two parts, accurate
+  to fp32's summation-order differences, which the card-vs-CPU fp32
+  checks rest on).  Both dtypes take every L up to the bf16 forward's
+  limit (528).  Nothing falls back from one body to the other.
 * ``dropout_mask`` — the multipliers themselves (``csrc/dropout_mask.cu``),
   to hold the kernels' bits against ``philox.keep_scale`` on the card.
 
@@ -146,7 +147,7 @@ def attention(q, k, v, mode, text_end, colkeep, *, prefix: int,
     ``attention_plain``.  No backward on CUDA: training goes through
     ``FusedAttention``.
 
-    CUDA inputs: q/k/v bf16 (the tensor-core body) or fp32 (the CUDA-core
+    CUDA inputs: q/k/v bf16 (the bf16 body) or fp32 (the split-TF32
     body) with identical strides and D == 64.  In blhd the (H, D) dims are
     packed (``x.view(B, L, H, D)`` of a projection output, any batch and
     row stride); in bhld any batch, head and row strides with the last dim
@@ -253,8 +254,9 @@ def _backward_cuda(q, k, v, mode, text_end, colkeep, dout, prefix, rate,
         dout = dout.contiguous()
     grads = [torch.empty(q.shape, dtype=q.dtype, device=q.device)
              for _ in range(3)]
-    # the tiled bf16 body (L > 144) keeps each row's softmax statistics
-    # between its kernels in an fp32 scratch, the fp32 body P and dS
+    # the tiled bodies (bf16 past L = 144, fp32 at every L) keep each row's
+    # softmax statistics and keep bits between their kernels in an fp32
+    # scratch, O(L) floats per (example, head)
     n_scratch = lib.vlp_attention_bwd_scratch_floats(L, is_bf16)
     scratch = (torch.empty(B * H * n_scratch, dtype=torch.float32,
                            device=q.device) if n_scratch else None)
