@@ -16,15 +16,22 @@ questions) and the ``layout="bhld"`` attention op -- and checks that each
 path launched its kernels.  Phase 2 also holds the fp32 attention bodies
 (split TF32) at L=256 and 512 against their plain versions and times them
 at B=64 L=128 and B=16 L=256 and 512 beside fp32 SDPA, with the
-backward's peak memory, and the fp32 decode step beside fp32 SDPA over the
-joint keys; phase 6 runs data parallel: the train,
-decode and VQA CLIs over NCCL at world size 1, which must equal the runs
-without a group bit for bit, and two gloo ranks on the one card (this
-script re-run with ``--dp-worker``), which must stay in sync and, in
+backward's peak memory; times the decode step (K3 greedy, K4 beam 5, K5
+SCST) in bf16 and fp32 at gen_len 0, 9 and 18 beside SDPA over the joint
+keys (fp32: in alternating turns with SDPA's parts prebuilt, and the
+blocks per SM of the fp32 body); and times ``dropout_mask`` beside an
+empty launch and a ``zero_`` of its bytes.  Phase 6 runs data parallel:
+the train, decode and VQA CLIs over NCCL at world size 1, which must equal
+the runs without a group bit for bit, and two gloo ranks on the one card
+(this script re-run with ``--dp-worker``), which must stay in sync and, in
 fp32, equal the single-process step on the global batch.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --ab-times ROOT   # K1/K2 of another checkout
+    python3 chip_smoke.py --ab-times ROOT   # another checkout's kernels
+
+``--ab-times`` times K1/K2, the decode step (bf16 and fp32) and
+``dropout_mask`` of the checkout at ROOT with phase 2's timing; run it on
+two trees in turns (parent, change, change, parent) in one call.
 
 Prints one line per phase, then a JSON line with each kernel's launches,
 error against its plain version, times (kernel, plain version, the bound,
@@ -81,8 +88,8 @@ def body(dtype) -> str:
 
 def decode_body(dtype) -> str:
     """The decode-step body a dtype runs: bf16 the tensor-core one, fp32
-    the first version on the CUDA cores."""
-    return "v2 mma" if dtype == torch.bfloat16 else "fp32 cuda-core"
+    the CUDA-core one over the visible slots (a lane per column)."""
+    return "v2 mma" if dtype == torch.bfloat16 else "fp32 v2 cuda-core"
 
 
 def log(msg: str) -> None:
@@ -234,25 +241,6 @@ def phase_kernels(dev, results):
             results["attention_fwd"]["vqa_encode"] = dict(B=B, L=L, **r)
 
     # ---- K3 (own beam) and K4 (ancestry bias): B = 100, P = 102, G = 24
-    G = 24
-
-    def dec_inputs(B, K, dtype):
-        def r(*shape):
-            return torch.randn(*shape, generator=g, device=dev).to(dtype)
-        q, k, v = (r(B * K, 2, H * D) for _ in range(3))
-        # the prefill hands over [:, :P] views of [B, P+1, H*D] projections
-        pk, pv = (r(B, P + 1, H * D)[:, :P] for _ in range(2))
-        return q, k, v, pk, pv, r(B * K, G, H * D), r(B * K, G, H * D)
-
-    def anc_bias(B, K, gen_len):
-        anc = torch.randint(0, K, (B * K, G), generator=g, device=dev)
-        own = torch.arange(B * K, device=dev) % K
-        anc[:, gen_len:gen_len + 2] = own[:, None]
-        beams = torch.arange(K, device=dev)[None, :, None]
-        bias = torch.full((B * K, K, G), -10000.0, device=dev)
-        return bias.masked_fill(anc[:, None, :] == beams, 0.0).reshape(
-            B * K, K * G)
-
     cases = (("decode_attention", 1, False), ("decode_attention", 5, False),
              ("decode_attention_anc", 5, True))
     for name, K, anc in cases:
@@ -261,8 +249,9 @@ def phase_kernels(dev, results):
             errs = []
             # gen_len 23: the step's second new token falls past slot G-1
             for gen_len in DECODE_GEN_LENS + (23,):
-                q, k, v, pk, pv, gk, gv = dec_inputs(100, K, dtype)
-                bias = anc_bias(100, K, gen_len) if anc else None
+                q, k, v, pk, pv, gk, gv = decode_inputs(g, dev, 100, K, dtype)
+                bias = (decode_anc_bias(g, dev, 100, K, gen_len) if anc
+                        else None)
                 gk2, gv2 = gk.clone(), gv.clone()
                 got = dec.decode_attention(q, k, v, pk, pv, gk, gv, gen_len,
                                            n_heads=H, beam_bias=bias)
@@ -280,13 +269,66 @@ def phase_kernels(dev, results):
             # (K=5); bf16 (the main paths) and fp32 (the fp32 gates' body)
             if anc or K == 1:
                 r = decode_times(
-                    dec, lambda: dec_inputs(100, K, dtype),
-                    (lambda gl: anc_bias(100, K, gl)) if anc else None,
-                    max(errs), name, dtype=dtype)
+                    dec, lambda: decode_inputs(g, dev, 100, K, dtype),
+                    (lambda gl: decode_anc_bias(g, dev, 100, K, gl))
+                    if anc else None, max(errs), name, dtype=dtype)
                 if dtype == torch.bfloat16:
                     results[name].update(r)
                 else:
                     results[name] = dict(fp32=r)
+
+
+DECODE_P, DECODE_G = 102, 24   # the recipes' prompt and generated slots
+
+
+def decode_inputs(g, dev, B, K, dtype, S=2, P=DECODE_P, G=DECODE_G, H=12):
+    """One decode step's operands from ``g``: q/k/v [B*K, S, H*64], the
+    prompt cache pk/pv as the prefill hands it over ([:, :P] views of
+    [B, P+1, H*64] projections) and the generated cache gk/gv
+    [B*K, G, H*64]."""
+    def r(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+    q, k, v = (r(B * K, S, H * 64) for _ in range(3))
+    pk, pv = (r(B, P + 1, H * 64)[:, :P] for _ in range(2))
+    return q, k, v, pk, pv, r(B * K, G, H * 64), r(B * K, G, H * 64)
+
+
+def decode_anc_bias(g, dev, B, K, gen_len, G=DECODE_G):
+    """K4's ancestry bias [B*K, K*G] from ``g``: each slot's lineage a random
+    beam of the example, the step's new slots the row's own."""
+    anc = torch.randint(0, K, (B * K, G), generator=g, device=dev)
+    own = torch.arange(B * K, device=dev) % K
+    anc[:, gen_len:gen_len + 2] = own[:, None]
+    beams = torch.arange(K, device=dev)[None, :, None]
+    bias = torch.full((B * K, K, G), -10000.0, device=dev)
+    return bias.masked_fill(anc[:, None, :] == beams, 0.0).reshape(
+        B * K, K * G)
+
+
+def decode_work(B, K, S, P, G, H, gen_len, elem, anc, D=64):
+    """(bytes, FLOP) that one decode step needs, the visible slots only:
+    q read and out written (B*K*S rows); the prompt's K/V once per example;
+    each beam's committed slots' K/V (min(gen_len, G)); the K/V of the new
+    tokens that get a slot (< G), read and written; with ``anc`` (K4) the
+    ancestry bias of each row's visible columns.  FLOP: QK^T and PV over a
+    row's columns, the prompt and its visible slots (K4: of every beam).
+    ``elem``: bytes per activation element."""
+    BK, HD = B * K, H * D
+    vis = min(G, gen_len + S)        # slots a row can see
+    new = vis - min(G, gen_len)      # new tokens that get a slot
+    cols = P + (K * vis if anc else vis)
+    nbytes = (2 * BK * S * HD * elem + 2 * B * P * HD * elem
+              + 2 * BK * (vis - new) * HD * elem
+              + 4 * BK * new * HD * elem
+              + (BK * K * vis * 4 if anc else 0))
+    return nbytes, 4 * BK * S * H * cols * D
+
+
+def dropout_mask_bound(B, H, L) -> dict:
+    """The least time of ``dropout_mask``: its fp32 [B, H, L, L] output
+    written once (it reads nothing; Philox's integer work is not in the
+    table of peaks)."""
+    return bound(B * H * L * L * 4, 0)
 
 
 def decode_times(dec, make_inputs, bias_for, err, name, drop_seed=None,
@@ -298,11 +340,12 @@ def decode_times(dec, make_inputs, bias_for, err, name, drop_seed=None,
     of the S new rows, the prompt K/V once per example, each beam's
     committed slots' K/V once (and, for K4, the ancestry bias of the
     visible columns), and the K/V of the new tokens that get a slot (< G),
-    read and written.  The row's own numbers are the last
+    read and written (``decode_work``).  The row's own numbers are the last
     step's; ``batch_mean`` is the mean over the timed steps, the per-batch
     figure.  SDPA writes no cache slots and draws its own dropout bits
-    (K5): a time bar only.  fp32 (the first-version body) gets both fp32
-    bounds (``fp32_bound``)."""
+    (K5): a time bar only.  fp32 gets both fp32 bounds (``fp32_bound``),
+    TURNS alternating readings of the kernel and of SDPA with its parts
+    prebuilt, and the blocks of its body that one SM holds."""
     from vlp_tpu_torch.ops import _build
     per = {}
     elem = 2 if dtype == torch.bfloat16 else 4
@@ -319,33 +362,49 @@ def decode_times(dec, make_inputs, bias_for, err, name, drop_seed=None,
         dec.decode_attention(q, k, v, pk, pv, gk, gv, gen_len, **kw)
         if _build.KERNELS[name].launches != before + 1:
             fail(f"{name}: the timed call is not this kernel")
-        vis = min(G, gen_len + S)        # slots a row can see
-        new = vis - min(G, gen_len)      # new tokens that get a slot
-        cols = P + (K * vis if bias is not None else vis)
-        # q read and out written; the prompt's K/V once per example; the
-        # committed slots' K/V; the new tokens' K/V read and written
-        nbytes = (2 * BK * S * HD * elem + 2 * B * P * HD * elem
-                  + 2 * BK * (vis - new) * HD * elem
-                  + 4 * BK * new * HD * elem
-                  + (BK * K * vis * 4 if bias is not None else 0))
-        flops = 4 * BK * S * H * cols * 64
-        per[gen_len] = dict(
-            ms=time_ms(lambda: dec.decode_attention(
-                q, k, v, pk, pv, gk, gv, gen_len, **kw)),
+        nbytes, flops = decode_work(B, K, S, P, G, H, gen_len, elem,
+                                    bias is not None)
+
+        def kernel():
+            return dec.decode_attention(q, k, v, pk, pv, gk, gv, gen_len,
+                                        **kw)
+
+        def prebuilt():
+            return decode_sdpa(q, pk, pv, gk, gv, gen_len, H, bias, rate,
+                               parts=parts)
+
+        per[gen_len] = r = dict(
+            ms=time_ms(kernel),
             plain_ms=time_ms(lambda: dec.decode_attention_plain(
                 q, k, v, pk, pv, gk, gv, gen_len, **kw)),
             library_ms=time_ms(lambda: decode_sdpa(
                 q, pk, pv, gk, gv, gen_len, H, bias, rate)),
-            library_prebuilt_mask_ms=time_ms(lambda: decode_sdpa(
-                q, pk, pv, gk, gv, gen_len, H, bias, rate, parts=parts)),
+            library_prebuilt_mask_ms=time_ms(prebuilt),
             **(bound(nbytes, flops) if elem == 2
                else fp32_bound(nbytes, flops)))
-        r = per[gen_len]
         log(f"{name} B={B} K={K} gen_len={gen_len} {dtype} time "
             f"({decode_body(dtype)}): kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms "
             f"(joint K/V and mask prebuilt {r['library_prebuilt_mask_ms']:.4f})"
             f", bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        if elem == 4:
+            # the fp32 body against SDPA with its parts prebuilt, in TURNS
+            # alternating readings, and the blocks an SM holds
+            ks, ls = [], []
+            for _ in range(TURNS):
+                ks.append(time_ms(kernel))
+                ls.append(time_ms(prebuilt))
+            r.update(
+                ms_turns=ks, library_prebuilt_turns=ls,
+                under_library_prebuilt=all(x <= y for x, y in zip(ks, ls)),
+                blocks_per_sm=_build.library()
+                .vlp_decode_attention_f32_blocks_per_sm(
+                    K, S, P, G, gen_len, int(bias is not None),
+                    int(rate > 0)))
+            log(f"{name} fp32 gen_len={gen_len} in turns: kernel {ks}, SDPA "
+                f"prebuilt {ls}; every turn under SDPA prebuilt: "
+                f"{r['under_library_prebuilt']}; {r['blocks_per_sm']} "
+                f"blocks per SM")
     keys = ("ms", "plain_ms", "library_ms", "library_prebuilt_mask_ms",
             "bound_ms")
     mean = {key: statistics.mean(per[gl][key] for gl in DECODE_GEN_LENS)
@@ -367,16 +426,12 @@ def phase_scst_kernels(dev, results):
     from vlp_tpu_torch.ops import philox
 
     g = torch.Generator(device=dev).manual_seed(4)
-    B, S, P, G, H, D, W = SCST_B, 2, 102, 24, 12, 64, SCST_T - 1
+    B, S, P, G, H, W = SCST_B, 2, DECODE_P, DECODE_G, 12, SCST_T - 1
     rate = 0.1
     seeds = [philox.step_seed(0xC0FFEE, 1, t, 5) for t in range(W)]
 
     def inputs(dtype):
-        def r(*shape):
-            return torch.randn(*shape, generator=g, device=dev).to(dtype)
-        q, k, v = (r(B, S, H * D) for _ in range(3))
-        pk, pv = (r(B, P + 1, H * D)[:, :P] for _ in range(2))
-        return q, k, v, pk, pv, r(B, G, H * D), r(B, G, H * D)
+        return decode_inputs(g, dev, B, 1, dtype, S, P, G, H)
 
     # K6: every row bit for bit, and its keep fraction
     scales = dec.decode_dropout_scales(seeds, B, n_heads=H, S=S, P=P, G=G,
@@ -821,16 +876,45 @@ AB_SHAPES = ((torch.bfloat16, 64, 128), (torch.bfloat16, 64, 256),
              *((torch.float32, B, L) for B, L in FP32_TIMED))
 
 
+# (kernel, B, K) of the decode steps that --ab-times times in bf16 and
+# fp32 at DECODE_GEN_LENS: greedy K3, beam-5 K4, the SCST rollout's K5
+AB_DECODE = (("decode_attention", 100, 1), ("decode_attention_anc", 100, 5),
+             ("decode_attention_drop", SCST_B, 1))
+AB_MASK = (64, 12, 128)    # dropout_mask's B, H, L: the training shape
+
+
+def decode_ab_times(dec, g, dev) -> dict:
+    """Device ms (``time_ms``) of ``dec.decode_attention`` at AB_DECODE, in
+    bf16 and fp32, at each of DECODE_GEN_LENS (K5 at rate 0.1)."""
+    out = {}
+    for name, B, K in AB_DECODE:
+        for dtype in (torch.bfloat16, torch.float32):
+            ms = {}
+            for gen_len in DECODE_GEN_LENS:
+                ops = decode_inputs(g, dev, B, K, dtype)
+                kw = dict(n_heads=12)
+                if name == "decode_attention_anc":
+                    kw["beam_bias"] = decode_anc_bias(g, dev, B, K, gen_len)
+                if name == "decode_attention_drop":
+                    kw.update(drop_seed=TRAIN_SEED, drop_rate=0.1)
+                ms[gen_len] = time_ms(lambda: dec.decode_attention(
+                    *ops, gen_len, **kw))
+            out[f"{name} {str(dtype)[6:]} B={B} K={K}"] = ms
+    return out
+
+
 def ab_times(root: str) -> None:
-    """``python3 chip_smoke.py --ab-times ROOT``: ``k1_k2_times`` (one
-    turn, blhd, rate 0.1) of the ``vlp_tpu_torch`` under ROOT (another
-    checkout of the repository, built there at first use) at AB_SHAPES;
-    prints one JSON line.  Run it on two trees in turns (A, B, B, A) in one
-    call to compare their kernels on one card."""
+    """``python3 chip_smoke.py --ab-times ROOT``: with the ``vlp_tpu_torch``
+    under ROOT (another checkout of the repository, built there at first
+    use), ``k1_k2_times`` (one turn, blhd, rate 0.1) at AB_SHAPES, the
+    decode step at AB_DECODE (``decode_ab_times``) and ``dropout_mask`` at
+    AB_MASK; prints one JSON line.  Run it on two trees in turns (A, B, B,
+    A) in one call to compare their kernels on one card."""
     sys.path.insert(0, os.path.abspath(root))
     import vlp_tpu_torch
     from vlp_tpu_torch.ops import _build
     from vlp_tpu_torch.ops import attention as attn
+    from vlp_tpu_torch.ops import decode_attention as dec
     if not vlp_tpu_torch.__file__.startswith(os.path.abspath(root)):
         fail(f"--ab-times imported {vlp_tpu_torch.__file__}, not {root}")
     if not torch.cuda.is_available():
@@ -846,6 +930,10 @@ def ab_times(root: str) -> None:
             key: val[0] for key, val in k1_k2_times(
                 attn, *ins, 102, 0.1, TRAIN_SEED).items()}
         del ins
+    out.update(decode_ab_times(dec, g, dev))
+    B, H, L = AB_MASK
+    out[f"dropout_mask [{B},{H},{L},{L}]"] = time_ms(
+        lambda: attn.dropout_mask(B, H, L, 0.1, TRAIN_SEED, dev))
     print(json.dumps(out))
 
 
@@ -877,12 +965,21 @@ def phase_train_kernels(dev, results):
         fail(f"dropout_mask keeps {frac:.5f}, not {1 - rate} +- 0.005")
     log(f"dropout_mask B={B} H={H} L={L}: bit-exact, keep fraction "
         f"{frac:.5f}")
-    results["dropout_mask"] = dict(
+    # beside it, what holds it back: an empty launch (the card's per-launch
+    # floor in this timing) and a fill of the same bytes by one PyTorch call
+    filled = torch.empty((B, H, L, L), device=dev)
+    results["dropout_mask"] = dm = dict(
         max_abs_err=0.0,
         ms=time_ms(lambda: attn.dropout_mask(B, H, L, rate, seed, dev)),
         plain_ms=time_ms(lambda: philox.keep_scale(seed, B, H, L, rate,
                                                    device=dev)),
-        library_ms=None, **bound(B * H * L * L * 4, 0))
+        library_ms=None, launch_floor_ms=time_ms(
+            lambda: torch.cuda._sleep(0)),
+        fill_ms=time_ms(filled.zero_), **dropout_mask_bound(B, H, L))
+    log(f"dropout_mask [{B},{H},{L},{L}]: an empty launch "
+        f"{dm['launch_floor_ms']:.4f} ms, zero_ of the same bytes "
+        f"{dm['fill_ms']:.4f} ms")
+    del filled
 
     errs = {"attention_fwd_drop": 0.0, "attention_bwd": 0.0}
     for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):

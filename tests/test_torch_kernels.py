@@ -178,16 +178,21 @@ def _decode_inputs(g, dev, dtype, B, K, S, P, G, H):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", DTYPES)
 @pytest.mark.parametrize("anc", [False, True], ids=["K3", "K4"])
-@pytest.mark.parametrize("case", ["two_mtiles", "P37"])
+@pytest.mark.parametrize("case", ["two_mtiles", "P37", "K13"])
 def test_decode_kernel_edge_shapes_match_plain(cuda, dtype, tol, anc, case):
     """Shapes past the main path's: K*S = 20 query rows (two m16 tiles of
-    the bf16 body) and a prompt of 37 columns (the generated columns start
-    off an 8-column tile), with gen_len = G - 1 among the steps (one new
-    token dropped, every slot visible)."""
+    the bf16 body, two passes of the fp32 one), a prompt of 37 columns (the
+    generated columns start off an 8-column tile) and 13 beams (414 joint
+    columns at gen_len = G - 1, within P + K*G <= 417, the first fp32
+    body's limit: the fp32 body runs passes of 2 rows, K4's bias read from
+    global memory), with gen_len = G - 1 among the steps (one new token
+    dropped, every slot visible)."""
     g = torch.Generator(device=cuda).manual_seed(11)
     B, K, S, P, G, H = 3, 5, 2, 102, 24, 4
     if case == "two_mtiles":
         K = 10
+    elif case == "K13":
+        K = 13
     else:
         P = 37
     for gen_len in (0, 9, G - 1):
@@ -227,6 +232,40 @@ def test_decode_dropout_kernel_is_plain_times_the_regenerated_mask(cuda, dtype,
         torch.testing.assert_close(got.float(), want.float(), **tol)
         assert torch.equal(ops[5], copies[0]) and torch.equal(ops[6],
                                                               copies[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("kind", ["K3", "K4", "K5"])
+def test_decode_kernel_reads_only_the_visible_slots(cuda, dtype, tol, kind):
+    """Cache slots from gen_len + S on are never read: filled with NaN, the
+    kernel's output equals the plain version's on clean copies, and its
+    cache writes are bit-exact (the NaN slots left as they were), up to
+    gen_len = G - 1 (one new token dropped)."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    B, S, P, G, H = 4, 2, 102, 24, 12
+    K = 5 if kind == "K4" else 1
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    for gen_len in (0, 9, G - 2, G - 1):
+        q, k, v, pk, pv, gk, gv = _decode_inputs(g, cuda, dtype, B, K, S, P,
+                                                 G, H)
+        kw = dict(n_heads=H)
+        if kind == "K4":
+            kw["beam_bias"] = _anc_bias(g, B, K, G, gen_len, cuda)
+        if kind == "K5":
+            kw.update(drop_seed=2 ** 63 + 5, drop_rate=0.1)
+        clean_k, clean_v = gk.clone(), gv.clone()
+        gk[:, gen_len + S:] = float("nan")
+        gv[:, gen_len + S:] = float("nan")
+        want = dec.decode_attention_plain(q, k, v, pk, pv, clean_k, clean_v,
+                                          gen_len, **kw)
+        got = dec.decode_attention(q, k, v, pk, pv, gk, gv, gen_len, **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+        clean_k[:, gen_len + S:] = float("nan")
+        clean_v[:, gen_len + S:] = float("nan")
+        assert torch.equal(gk.view(bits), clean_k.view(bits))
+        assert torch.equal(gv.view(bits), clean_v.view(bits))
 
 
 # (B, H, S, P, G): the SCST shape at a small B; an odd B with P+G = 125;
@@ -377,6 +416,20 @@ def test_dropout_mask_kernel_is_bit_exact(cuda):
     # an L that is not a multiple of 4
     assert torch.equal(attn.dropout_mask(2, 3, 103, rate, seed, cuda).cpu(),
                        philox.keep_scale(seed, 2, 3, 103, rate))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [1, 4, 5, 103, 128, 256])
+def test_dropout_mask_kernel_is_bit_exact_at_length(cuda, L):
+    """Rows of L floats that are 16-byte aligned (L % 4 == 0: one 16-byte
+    store a counter) and that are not, a last block of rows that L leaves
+    short, and two blocks of columns (L = 256)."""
+    seed, rate, B, H = 0x9E3779B97F4A7C15, 0.1, 3, 5
+    before = _build.KERNELS["dropout_mask"].launches
+    got = attn.dropout_mask(B, H, L, rate, seed, cuda)
+    assert _build.KERNELS["dropout_mask"].launches == before + 1
+    assert got.shape == (B, H, L, L)
+    assert torch.equal(got.cpu(), philox.keep_scale(seed, B, H, L, rate))
 
 
 @pytest.mark.cuda

@@ -1,8 +1,8 @@
 // Helpers shared by the attention kernels: the structural mask as a row
 // limit and a column bias, dtype conversion, the rounding of probabilities
 // to the activation dtype, warp reductions, and the Philox generator of
-// the attention-dropout bits (per block of 4 columns, per column, and per
-// lane of an mma tile).
+// the attention-dropout bits (per block of 4 columns, and per lane of an
+// mma tile).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -155,18 +155,6 @@ __device__ __forceinline__ void keep_scale4(const Dropout& dp, int b, int h,
   out[1] = w.y >= dp.threshold ? dp.scale : 0.f;
   out[2] = w.z >= dp.threshold ? dp.scale : 0.f;
   out[3] = w.w >= dp.threshold ? dp.scale : 0.f;
-}
-
-// The multiplier of column j alone: word j % 4 of counter (j / 4, i, h, b).
-// The decode kernel's lanes own single columns, not blocks of four.
-__device__ __forceinline__ float keep_scale1(const Dropout& dp, int b, int h,
-                                             int i, int j) {
-  const uint4 w = philox4x32_10(
-      make_uint4((unsigned)(j >> 2), (unsigned)i, (unsigned)h, (unsigned)b),
-      dp.seed);
-  const int r = j & 3;
-  const unsigned int x = r == 0 ? w.x : r == 1 ? w.y : r == 2 ? w.z : w.w;
-  return x >= dp.threshold ? dp.scale : 0.f;
 }
 
 // The multipliers of one lane's four elements of an mma accumulator tile

@@ -30,9 +30,11 @@
 // gen_len + 2 = 20 slots of each of the five beams at the last step:
 // 31 MB) and the ancestry bias, and writes ~0.6 MB: 9-21 us at 3.35 TB/s,
 // against ~0.2 GFLOP.  At the SCST rollout (K5: B=64, K=1) the prompt K/V
-// is 20 MB and the generated K/V at most 4 MB, ~7.5 us.  A memory- and
-// latency-bound kernel: what counts is how many bytes are in flight per SM
-// and how short the serial phases of a block are.
+// is 20 MB and the generated K/V at most 4 MB, ~7.5 us.  fp32 doubles the
+// bytes (K4 137 MB at gen_len 18: 41 us) beside ~0.6 GFLOP (9 us of the
+// CUDA cores' FMAs).  A memory- and latency-bound kernel: what counts is
+// how many bytes are in flight per SM and how short the serial phases of a
+// block are.
 //
 // Two bodies, chosen by dtype (never by a failure):
 // * bf16, every main path: decode_attention_mma, on the tensor cores.  One
@@ -57,14 +59,35 @@
 //   to bf16 and reused from the accumulator registers as the A operand of
 //   P V; the warps' fp32 partial contexts are added in shared memory (in
 //   K's place when one m-tile holds every row) and rounded once.
-// * fp32: decode_attention_kernel, the first version on the CUDA cores
-//   (fp32 FMAs), which the card-vs-CPU fp32 beam traces need: the block
-//   copies its head's prompt and all K*G generated rows into shared memory
-//   with 16-byte loads, and one warp serves each query row, lane c owning
-//   columns c, c+32, ... of the joint row and output dims 2*lane,
-//   2*lane+1.  K rows are padded by two elements so that the 32 lanes
-//   reading 32 different rows hit distinct banks.  In K5 a lane draws its
-//   own columns' multipliers (one Philox call per column).
+// * fp32: decode_attention_f32, on the CUDA cores (fp32 FMAs: the step is
+//   bound by bytes and latency, its FLOP a quarter of the bytes' time, and
+//   the card-vs-CPU fp32 beam traces want fp32 arithmetic).  It stages like
+//   the bf16 body -- the query rows, then the prompt and each beam's visible
+//   slots only, K in one 16-byte cp.async group and V in the next, K4's
+//   bias of the staged columns by cp.async too, the new tokens through
+//   registers into the HBM cache and their staged rows while the copies
+//   land -- so that its shared memory follows the visible columns (two or
+//   three blocks share an SM at beam 5 and greedy).  One warp per 32 joint
+//   columns, a lane owning one: each K element is read from shared memory
+//   once, for every query row of the pass (2, 10 or 16 rows, a template
+//   each, so that no row is guarded; rows past K*S run on zero queries and
+//   are not stored), the rows broadcast; K's 16-byte chunks
+//   are XOR-swizzled by the row, so that the 8 lanes of a quarter-warp hit
+//   8 distinct bank groups.  A lane knows its column's (beam, slot) from
+//   one division, so the mask needs none per row.  Each warp keeps
+//   exp(s - its row max) and its sum; after one barrier (which also sees V
+//   landed) lane r combines row r's maxima and sums over the warps in a
+//   fixed order and hands each lane the warp's factor exp(max_w - max) /
+//   total: P in fp32, times K5's keep (the four lanes of a counter block
+//   draw four rows' words at once and exchange them: one Philox call per
+//   four columns of a row).  P V: a lane owns two output dims of every row
+//   over its warp's columns (P broadcast from shared memory); the warps'
+//   partial contexts are added in a fixed order in shared memory.  With one
+//   pass of rows, a warp's P and partial context take its own K rows, read
+//   by then.  A step too large for one pass (none of the recipes': K*S >
+//   16, or columns near the 227 KB limit) runs passes of 2 rows over the
+//   staged K/V, each pass staging its own query rows and its beams' bias;
+//   that fits every step of at most 417 joint columns.
 
 #include <stdint.h>
 
@@ -74,167 +97,9 @@
 namespace {
 
 constexpr int D = 64;
-constexpr int kWarps = 8;
-constexpr int kRowStride = D + 2;  // padded K rows (elements)
-
-size_t smem_bytes(int P, int K, int G) {
-  const size_t cols = size_t(P) + size_t(K) * G;
-  return sizeof(float) * (kWarps * D + kWarps * cols + cols * kRowStride +
-                          cols * D);
-}
-
-__device__ __forceinline__ float2 load_pair(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ void store_pair(float* p, float x, float y) {
-  *reinterpret_cast<float2*>(p) = make_float2(x, y);
-}
-
-// 16 bytes into shared memory that is only 4-byte aligned (padded rows)
-__device__ __forceinline__ void stage16(void* dst, const uint4& v) {
-  uint32_t* d = static_cast<uint32_t*>(dst);
-  d[0] = v.x;
-  d[1] = v.y;
-  d[2] = v.z;
-  d[3] = v.w;
-}
 
 __device__ __forceinline__ uint4 ld16(const void* p) {
   return *static_cast<const uint4*>(p);
-}
-
-template <bool kHasAnc, bool kDrop>
-__global__ void __launch_bounds__(kWarps * 32) decode_attention_kernel(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const float* __restrict__ pk,
-    const float* __restrict__ pv, float* __restrict__ gk,
-    float* __restrict__ gv, const float* __restrict__ beam_bias,
-    float* __restrict__ out, int K, int S, int P, int G, int H, long long psb,
-    int gen_len, float scale, vlp::Dropout dp) {
-  static_assert(!(kHasAnc && kDrop), "dropout is for sampling (K == 1)");
-  constexpr int E = 4;        // floats per 16-byte chunk
-  constexpr int CPR = D / E;  // chunks per head row
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int KG = K * G;
-  const int cols = P + KG;
-  float* qs = reinterpret_cast<float*>(smem_raw);  // [kWarps][D]
-  float* ps = qs + kWarps * D;                     // [kWarps][P + K*G]
-  float* pks = ps + kWarps * cols;                 // [P][kRowStride]
-  float* pvs = pks + P * kRowStride;               // [P][D]
-  float* gks = pvs + P * D;          // [K*G][kRowStride], rows beam-major
-  float* gvs = gks + KG * kRowStride;  // [K*G][D]
-
-  const int b = blockIdx.x / H;
-  const int h = blockIdx.x % H;
-  const int HD = H * D;
-  const int hc = h * D;
-
-#pragma unroll 4
-  for (int c = threadIdx.x; c < P * CPR; c += blockDim.x) {
-    const int j = c / CPR, e = (c % CPR) * E;
-    const long long src = b * psb + (long long)j * HD + hc + e;
-    const uint4 kx = ld16(pk + src), vx = ld16(pv + src);
-    stage16(pks + j * kRowStride + e, kx);
-    stage16(pvs + j * D + e, vx);
-  }
-  // generated caches of the example's K beams; the step's new K/V go to
-  // slots gen_len.. both in HBM (in place) and in the staged copy
-#pragma unroll 4
-  for (int c = threadIdx.x; c < KG * CPR; c += blockDim.x) {
-    const int r = c / CPR, e = (c % CPR) * E;
-    const long long row = (long long)b * K + r / G;
-    const int j = r % G;
-    const long long g = (row * G + j) * HD + hc + e;
-    const int s = j - gen_len;
-    uint4 kx, vx;
-    if (s >= 0 && s < S) {
-      const long long src = (row * S + s) * HD + hc + e;
-      kx = ld16(k + src);
-      vx = ld16(v + src);
-      *reinterpret_cast<uint4*>(gk + g) = kx;
-      *reinterpret_cast<uint4*>(gv + g) = vx;
-    } else {
-      kx = ld16(gk + g);
-      vx = ld16(gv + g);
-    }
-    stage16(gks + r * kRowStride + e, kx);
-    stage16(gvs + r * D + e, vx);
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int ncol = P + (kHasAnc ? KG : G);
-  float* qw = qs + warp * D;
-  float* pw = ps + warp * cols;
-
-  for (int r = warp; r < K * S; r += kWarps) {
-    const int kk = r / S, s = r % S;
-    const long long row = (long long)b * K + kk;
-    const long long qo = (row * S + s) * HD + hc;
-    const float2 q2 = load_pair(q + qo + 2 * lane);
-    qw[2 * lane] = q2.x;
-    qw[2 * lane + 1] = q2.y;
-    __syncwarp();
-
-    float mx = -CUDART_INF_F;
-    for (int c = lane; c < ncol; c += 32) {
-      const float* kr;
-      float bias = 0.f;
-      if (c < P) {
-        kr = pks + c * kRowStride;  // prompt: always visible
-      } else {
-        const int cg = c - P;
-        const int grow = kHasAnc ? cg : kk * G + cg;
-        kr = gks + grow * kRowStride;
-        bias = (grow % G) <= gen_len + s ? 0.f : vlp::kNegInf;
-        if (kHasAnc) bias = __fadd_rn(bias, beam_bias[row * KG + cg]);
-      }
-      float acc = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < D; d += 2) {
-        const float2 kv = load_pair(kr + d);
-        const float2 qv = *reinterpret_cast<const float2*>(qw + d);
-        acc = fmaf(qv.x, kv.x, acc);
-        acc = fmaf(qv.y, kv.y, acc);
-      }
-      const float sc = __fadd_rn(__fmul_rn(acc, scale), bias);
-      pw[c] = sc;
-      mx = fmaxf(mx, sc);
-    }
-    mx = vlp::warp_max(mx);
-    float sum_p = 0.f, sum_g = 0.f;
-    for (int c = lane; c < ncol; c += 32) {
-      const float e = expf(pw[c] - mx);
-      pw[c] = e;
-      if (c < P) sum_p += e; else sum_g += e;
-    }
-    const float denom = vlp::warp_sum(sum_p) + vlp::warp_sum(sum_g);
-    for (int c = lane; c < ncol; c += 32) {
-      float p = pw[c] / denom;
-      // K == 1, so the row's counter row is its query row s
-      if constexpr (kDrop) p = p * vlp::keep_scale1(dp, b, h, s, c);
-      pw[c] = p;
-    }
-    __syncwarp();
-
-    const int d0 = 2 * lane;
-    const float* gv_rows = gvs + (kHasAnc ? 0 : kk * G * D);
-    float px = 0.f, py = 0.f, gx = 0.f, gy = 0.f;
-    for (int j = 0; j < P; ++j) {
-      const float p = pw[j];
-      const float2 vv = load_pair(pvs + j * D + d0);
-      px = fmaf(p, vv.x, px);
-      py = fmaf(p, vv.y, py);
-    }
-    for (int c = 0; c < ncol - P; ++c) {
-      const float p = pw[P + c];
-      const float2 vv = load_pair(gv_rows + c * D + d0);
-      gx = fmaf(p, vv.x, gx);
-      gy = fmaf(p, vv.y, gy);
-    }
-    store_pair(out + qo + d0, px + gx, py + gy);
-    __syncwarp();
-  }
 }
 
 // ---- bf16: on the tensor cores
@@ -600,21 +465,391 @@ int launch_mma(const void* q, const void* k, const void* v, const void* pk,
   return (int)cudaGetLastError();
 }
 
-// ---- launch: bf16 the tensor-core body, fp32 the first version
+// ---- fp32: on the CUDA cores
+
+constexpr int kF32Rows = 16;      // query rows a pass holds at most
+constexpr int kF32MaxWarps = 16;  // one per 32 joint columns
+
+// The rows a pass computes for `r` query rows: one of the bodies' row
+// counts, 2 (greedy K3 and K5, S = 2), 10 (beam 5) or 16.
+__host__ __device__ constexpr int f32_pass_rows(int r) {
+  return r <= 2 ? 2 : r <= 10 ? 10 : kF32Rows;
+}
+
+// Shared-memory layout of decode_attention_f32 at `rows` query rows a
+// pass, computed alike on the host (launch size) and in the kernel.
+struct F32Layout {
+  int nv;      // staged (visible) slots of a beam: min(G, gen_len + S)
+  int gcols;   // generated columns: K * nv
+  int ncols;   // joint columns: the prompt, then each beam's nv slots
+  int nw;      // warps, one per 32 columns
+  int ks;      // query rows K * S
+  int nb;      // K4: beams whose bias rows a pass stages (those of its rows)
+  bool alias;  // one pass: a warp's P and partial context in its own K rows
+  int sk, sv, sbias, sx, sscr, bytes;  // byte offsets, total
+};
+
+__host__ __device__ __forceinline__ F32Layout f32_layout(int K, int S, int P,
+                                                         int G, int gen_len,
+                                                         bool anc,
+                                                         int rows) {
+  F32Layout l;
+  l.nv = gen_len < G - S ? gen_len + S : G;
+  l.gcols = K * l.nv;
+  l.ncols = P + l.gcols;
+  l.nw = (l.ncols + 31) / 32;
+  l.ks = K * S;
+  l.alias = rows >= l.ks;
+  // rows r0 .. r0 + rows - 1 belong to at most (rows - 1) / S + 2 beams
+  const int span = (rows - 1) / S + 2;
+  l.nb = l.alias || span > K ? K : span;
+  // staged K rows; aliased, the last warp's scratch may reach past them
+  const int tail = 32 * (l.nw - 1) + rows;
+  const int krows = l.alias && tail > l.ncols ? tail : l.ncols;
+  l.sk = rows * D * 4;  // after the pass's query rows
+  l.sv = l.sk + krows * D * 4;
+  l.sbias = l.sv + l.ncols * D * 4;
+  l.sx = round16(l.sbias + (anc ? l.nb * l.gcols * 4 : 0));
+  l.sscr = l.sx + 2 * l.nw * kF32Rows * 4;
+  l.bytes = l.sscr + (l.alias ? 0 : l.nw * rows * D * 4);
+  return l;
+}
+
+// Query rows a pass takes: all K*S in one pass if that layout fits a block
+// (every recipe's step), else passes of 2 rows; 0 if neither fits.  At 2
+// rows a pass a block needs at most 512 ncols + 640 nw + 12 ncols + 512
+// bytes, so every step of at most 417 joint columns fits.
+int f32_rows(int K, int S, int P, int G, int gen_len, bool anc) {
+  auto fits = [&](int rows) {
+    const F32Layout l = f32_layout(K, S, P, G, gen_len, anc, rows);
+    return l.nw <= kF32MaxWarps && l.bytes <= vlp::kMaxSmemBytes;
+  };
+  const int ks = K * S;
+  if (ks <= kF32Rows && fits(f32_pass_rows(ks))) return f32_pass_rows(ks);
+  return fits(2) ? 2 : 0;
+}
+
+// One warp per 32 columns of the joint (prompt | generated) axis, a lane
+// per column, each pass over kRows query rows (rows past K*S are computed on
+// zero queries and not stored), one pass unless kPasses (whose restaging
+// would cost the one-pass bodies registers); see the file comment.
+template <bool kHasAnc, bool kDrop, int kRows, bool kPasses>
+__global__ void __launch_bounds__(kF32MaxWarps * 32)
+    decode_attention_f32(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ pk,
+                         const float* __restrict__ pv, float* __restrict__ gk,
+                         float* __restrict__ gv,
+                         const float* __restrict__ beam_bias,
+                         float* __restrict__ out, int K, int S, int P, int G,
+                         int H, long long psb, int gen_len, float scale,
+                         vlp::Dropout dp) {
+  static_assert(!(kHasAnc && kDrop), "dropout is for sampling (K == 1)");
+  constexpr int E = 4;         // floats per 16-byte chunk
+  constexpr int CPR = D / E;   // chunks per head row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const F32Layout lay = f32_layout(K, S, P, G, gen_len, kHasAnc, kRows);
+  float* sq = reinterpret_cast<float*>(smem_raw);            // [kRows][64]
+  float* sk = reinterpret_cast<float*>(smem_raw + lay.sk);   // [][64] swizzled
+  float* sv = reinterpret_cast<float*>(smem_raw + lay.sv);   // [ncols][64]
+  float* sbias = reinterpret_cast<float*>(smem_raw + lay.sbias);  // [nb][gcols]
+  float* xmax = reinterpret_cast<float*>(smem_raw + lay.sx);  // [nw][16]
+  float* xsum = xmax + lay.nw * kF32Rows;                      // [nw][16]
+  // warp w's probabilities [kRows][32], then in their place its partial
+  // context [kRows][64]
+  auto scratch = [&](int w) {
+    return lay.alias ? sk + w * 32 * D
+                     : reinterpret_cast<float*>(smem_raw + lay.sscr) +
+                           w * kRows * D;
+  };
+
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x % H;
+  const int HD = H * D;
+  const int hc = h * D;
+  const int nv = lay.nv;
+  const long long row0 = (long long)b * K;  // the example's first beam row
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // a thread copies chunk e0 of rows r, r + rstep, ... (blockDim.x is a
+  // multiple of 32): no division per copy
+  const int e0 = threadIdx.x % CPR, rstep = blockDim.x / CPR;
+
+  // a pass's query rows r0 .. r0 + kRows - 1 (example b's are the
+  // contiguous rows b*K*S ..), zeros past K*S, and K4's ancestry bias of
+  // the staged columns for the beams of those rows, by the original (beam,
+  // slot): one warp per (query beam, key beam), one lane per slot
+  auto stage_pass = [&](int r0) {
+    for (int r = threadIdx.x / CPR; r < kRows; r += rstep) {
+      if (r0 + r < lay.ks)
+        vlp::cp_async<16>(sq + r * D + e0 * E,
+                          q + (row0 * S + r0 + r) * HD + hc + e0 * E);
+      else
+        st16(sq + r * D + e0 * E, make_uint4(0, 0, 0, 0));
+    }
+    if constexpr (kHasAnc) {
+      const int kb = r0 / S, nb = min(lay.nb, K - kb);
+      for (int pr = warp; pr < nb * K; pr += lay.nw)
+        for (int j = lane; j < nv; j += 32)
+          vlp::cp_async<4>(sbias + (pr / K) * lay.gcols + (pr % K) * nv + j,
+                           beam_bias + (row0 + kb + pr / K) * K * G +
+                               (pr % K) * G + j);
+    }
+  };
+
+  // ---- staging, copies first: the first pass's query rows and bias, then
+  // the prompt and each beam's committed slots, K (16-byte chunks
+  // XOR-swizzled by the row) in one copy group and V in the next
+  stage_pass(0);
+  const int committed = gen_len < G ? gen_len : G;
+  auto stage_cache = [&](float* dst, bool swizzled, const float* prompt,
+                         const float* cache) {
+    auto at = [&](int r) {
+      return dst + r * D + (swizzled ? e0 ^ (r & 7) : e0) * E;
+    };
+    const float* src = prompt + b * psb + hc + e0 * E;
+    for (int r = threadIdx.x / CPR; r < P; r += rstep)
+      vlp::cp_async<16>(at(r), src + (long long)r * HD);
+    for (int kk = 0; kk < K; ++kk) {
+      const float* src = cache + (row0 + kk) * G * HD + hc + e0 * E;
+      for (int j = threadIdx.x / CPR; j < committed; j += rstep)
+        vlp::cp_async<16>(at(P + kk * nv + j), src + (long long)j * HD);
+    }
+    vlp::cp_async_commit();
+  };
+  stage_cache(sk, true, pk, gk);
+  stage_cache(sv, false, pv, gv);
+  // while those land: the S new tokens' K/V, from k/v into their cache
+  // slots (in place) and into their staged rows (slots >= G are dropped)
+  for (int r = threadIdx.x / CPR; r < lay.ks; r += rstep) {
+    const int kk = r / S, j = gen_len + r % S;
+    if (j >= G) continue;
+    const long long src = ((row0 + kk) * S + r % S) * HD + hc + e0 * E;
+    const long long dst = ((row0 + kk) * G + j) * HD + hc + e0 * E;
+    const uint4 kx = ld16(k + src), vx = ld16(v + src);
+    st16(gk + dst, kx);
+    st16(gv + dst, vx);
+    const int sr = P + kk * nv + j;
+    st16(sk + sr * D + (e0 ^ (sr & 7)) * E, kx);
+    st16(sv + sr * D + e0 * E, vx);
+  }
+  vlp::cp_async_wait<1>();
+  __syncthreads();
+
+  // this lane's column: its (beam, slot) once, by one division; a lane
+  // past the columns reads the last staged row and is excluded
+  const int c = warp * 32 + lane;
+  const bool valid = c < lay.ncols;
+  const bool gen = valid && c >= P;
+  const int beam = gen ? (c - P) / nv : 0;
+  const int slot = gen ? c - P - beam * nv : 0;
+  const int kr = valid ? c : lay.ncols - 1;
+  const float* krow = sk + kr * D;
+  const int ncw = min(32, lay.ncols - warp * 32);  // this warp's columns
+  float* scr = scratch(warp);
+
+  for (int r0 = 0; r0 < lay.ks; r0 += kRows) {
+    if constexpr (kPasses)
+      if (r0 > 0) {  // the pass's query rows and bias
+        stage_pass(r0);
+        vlp::cp_async_commit();
+        vlp::cp_async_wait<0>();
+        __syncthreads();
+      }
+    // ---- the lane's column's scores against the pass's rows: each K
+    // element read once, the q rows broadcast, d in order
+    float s[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) s[r] = 0.f;
+#pragma unroll 4
+    for (int e = 0; e < CPR; ++e) {
+      const float4 kx =
+          *reinterpret_cast<const float4*>(krow + (e ^ (kr & 7)) * E);
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const float4 qx =
+            *reinterpret_cast<const float4*>(sq + r * D + e * E);
+        s[r] = fmaf(qx.x, kx.x, s[r]);
+        s[r] = fmaf(qx.y, kx.y, s[r]);
+        s[r] = fmaf(qx.z, kx.z, s[r]);
+        s[r] = fmaf(qx.w, kx.w, s[r]);
+      }
+    }
+    // ---- masked (padding, and another beam's columns in K3, are
+    // excluded: -inf); this warp's row max, exp(s - max) and its sum
+    // row r0 + r: beam kk, new token ss (rows past K*S keep the last's)
+    const int kb = r0 / S;  // the pass's first beam: bias row 0
+    int kk = kb, ss = r0 - kk * S;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      float bias = 0.f;  // prompt columns: always visible
+      bool excluded = !valid;
+      if (gen) {
+        bias = slot <= gen_len + ss ? 0.f : vlp::kNegInf;
+        if constexpr (kHasAnc)
+          bias = __fadd_rn(bias, sbias[(kk - kb) * lay.gcols + c - P]);
+        else
+          excluded = beam != kk;  // K3: its own beam only
+      }
+      const float x = excluded ? -CUDART_INF_F
+                               : __fadd_rn(__fmul_rn(s[r], scale), bias);
+      const float m = vlp::warp_max(x);
+      // a warp whose columns are all excluded holds 0s, sum 0
+      s[r] = expf(x - (m == -CUDART_INF_F ? 0.f : m));
+      const float l = vlp::warp_sum(s[r]);
+      if (lane == 0) {
+        xmax[warp * kF32Rows + r] = m;
+        xsum[warp * kF32Rows + r] = l;
+      }
+      if (r0 + r + 1 < lay.ks && ++ss == S) {
+        ss = 0;
+        ++kk;
+      }
+    }
+    vlp::cp_async_wait<0>();  // V, visible after the barrier
+    __syncthreads();
+    // ---- one softmax over (prompt | generated): lane r combines row r's
+    // maxima and sums over the warps in a fixed order, and hands each
+    // lane this warp's factor exp(max_w - max) / total; P in fp32
+    float f = 0.f;
+    if (lane < kRows) {
+      float mx = -CUDART_INF_F;
+      for (int w = 0; w < lay.nw; ++w)
+        mx = fmaxf(mx, xmax[w * kF32Rows + lane]);
+      float total = 0.f;
+      for (int w = 0; w < lay.nw; ++w)
+        total += xsum[w * kF32Rows + lane] *
+                 expf(xmax[w * kF32Rows + lane] - mx);
+      f = expf(xmax[warp * kF32Rows + lane] - mx) / total;
+    }
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) s[r] *= __shfl_sync(0xffffffffu, f, r);
+    // K5 (K == 1: pass row r is query row r0 + r): the four lanes of a
+    // counter block (columns 4i..4i+3) draw four rows at once, lane i' row
+    // r0 + g + i', and pass the words round the quad so that each lane
+    // gets its column's word (c % 4) of every row: one Philox call per four
+    // columns of a row, keep_scale4's bits
+    if constexpr (kDrop) {
+      const int i = lane & 3;
+#pragma unroll
+      for (int g = 0; g < kRows; g += 4) {
+        const uint4 w = vlp::philox4x32_10(
+            make_uint4((unsigned)(c >> 2), (unsigned)(r0 + g + i),
+                       (unsigned)h, (unsigned)b),
+            dp.seed);
+        unsigned got[4];  // got[t]: word i of row g + (i - t) % 4
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          const int sel = (i + t) & 3;
+          const unsigned x = sel == 0   ? w.x
+                             : sel == 1 ? w.y
+                             : sel == 2 ? w.z
+                                        : w.w;
+          got[t] = __shfl_sync(0xffffffffu, x, (lane & ~3) | ((i - t) & 3));
+        }
+#pragma unroll
+        for (int rr = 0; rr < 4 && g + rr < kRows; ++rr) {
+          const int t = (i - rr) & 3;
+          const unsigned x = t == 0   ? got[0]
+                             : t == 1 ? got[1]
+                             : t == 2 ? got[2]
+                                      : got[3];
+          s[g + rr] *= x >= dp.threshold ? dp.scale : 0.f;
+        }
+      }
+    }
+
+    // ---- this warp's share of the context: a lane owns output dims
+    // 2*lane, 2*lane+1 of every row, over the warp's columns in order
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) scr[r * 32 + lane] = s[r];
+    __syncwarp();
+    float cx[kRows], cy[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) cx[r] = cy[r] = 0.f;
+    const float* vcol = sv + warp * 32 * D + 2 * lane;
+    int j = 0;
+    for (; j + 4 <= ncw; j += 4) {
+      float2 vv[4];
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        vv[t] = *reinterpret_cast<const float2*>(vcol + (j + t) * D);
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const float4 p4 = *reinterpret_cast<const float4*>(scr + r * 32 + j);
+        cx[r] = fmaf(p4.x, vv[0].x, cx[r]);
+        cy[r] = fmaf(p4.x, vv[0].y, cy[r]);
+        cx[r] = fmaf(p4.y, vv[1].x, cx[r]);
+        cy[r] = fmaf(p4.y, vv[1].y, cy[r]);
+        cx[r] = fmaf(p4.z, vv[2].x, cx[r]);
+        cy[r] = fmaf(p4.z, vv[2].y, cy[r]);
+        cx[r] = fmaf(p4.w, vv[3].x, cx[r]);
+        cy[r] = fmaf(p4.w, vv[3].y, cy[r]);
+      }
+    }
+    for (; j < ncw; ++j) {
+      const float2 vv = *reinterpret_cast<const float2*>(vcol + j * D);
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const float p = scr[r * 32 + j];
+        cx[r] = fmaf(p, vv.x, cx[r]);
+        cy[r] = fmaf(p, vv.y, cy[r]);
+      }
+    }
+    __syncwarp();  // P read: the partial context takes its place
+#pragma unroll
+    for (int r = 0; r < kRows; ++r)
+      *reinterpret_cast<float2*>(scr + r * D + 2 * lane) =
+          make_float2(cx[r], cy[r]);
+    __syncthreads();
+    // ---- the warps' contexts added in fp32 in a fixed order, the pass's
+    // rows below K*S stored
+    const int nr = min(kRows, lay.ks - r0);
+    for (int i = threadIdx.x; i < nr * (D / 2); i += blockDim.x) {
+      const int rr = i / (D / 2), d = (i % (D / 2)) * 2;
+      float x = 0.f, y = 0.f;
+      for (int w = 0; w < lay.nw; ++w) {
+        const float2 c2 =
+            *reinterpret_cast<const float2*>(scratch(w) + rr * D + d);
+        x += c2.x;
+        y += c2.y;
+      }
+      *reinterpret_cast<float2*>(out + (row0 * S + r0 + rr) * HD + hc + d) =
+          make_float2(x, y);
+    }
+    // the next pass rewrites xmax, xsum and the scratch
+    if (kPasses && r0 + kRows < lay.ks) __syncthreads();
+  }
+}
+
+using F32Kernel = void (*)(const float*, const float*, const float*,
+                           const float*, const float*, float*, float*,
+                           const float*, float*, int, int, int, int, int,
+                           long long, int, float, vlp::Dropout);
+
+// The body for `rows` (from f32_rows) query rows a pass of K*S.
+template <bool kHasAnc, bool kDrop>
+F32Kernel f32_kernel(int rows, int ks) {
+  return rows < ks      ? decode_attention_f32<kHasAnc, kDrop, 2, true>
+         : rows == 2  ? decode_attention_f32<kHasAnc, kDrop, 2, false>
+         : rows == 10 ? decode_attention_f32<kHasAnc, kDrop, 10, false>
+                      : decode_attention_f32<kHasAnc, kDrop, kF32Rows, false>;
+}
 
 template <bool kHasAnc, bool kDrop>
-int launch_fp32(const void* q, const void* k, const void* v, const void* pk,
-                const void* pv, void* gk, void* gv, const float* beam_bias,
-                void* out, int B, int K, int S, int P, int G, int H,
-                long long psb, int gen_len, float scale, vlp::Dropout dp,
-                cudaStream_t stream) {
-  const size_t smem = smem_bytes(P, K, G);
-  if (smem > (size_t)vlp::kMaxSmemBytes) return (int)cudaErrorInvalidValue;
+int launch_f32(const void* q, const void* k, const void* v, const void* pk,
+               const void* pv, void* gk, void* gv, const float* beam_bias,
+               void* out, int B, int K, int S, int P, int G, int H,
+               long long psb, int gen_len, float scale, vlp::Dropout dp,
+               cudaStream_t stream) {
+  const int rows = f32_rows(K, S, P, G, gen_len, kHasAnc);
+  if (rows == 0) return (int)cudaErrorInvalidValue;
+  const F32Layout lay = f32_layout(K, S, P, G, gen_len, kHasAnc, rows);
+  const F32Kernel kernel = f32_kernel<kHasAnc, kDrop>(rows, K * S);
   cudaError_t err = cudaFuncSetAttribute(
-      decode_attention_kernel<kHasAnc, kDrop>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.bytes);
   if (err != cudaSuccess) return (int)err;
-  decode_attention_kernel<kHasAnc, kDrop><<<B * H, kWarps * 32, smem, stream>>>(
+  kernel<<<B * H, lay.nw * 32, lay.bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(pk),
       static_cast<const float*>(pv), static_cast<float*>(gk),
@@ -623,10 +858,30 @@ int launch_fp32(const void* q, const void* k, const void* v, const void* pk,
   return (int)cudaGetLastError();
 }
 
+// Blocks of the fp32 body one SM holds at once at this shape (the
+// occupancy calculator's count), or a negative cudaError.
+template <bool kHasAnc, bool kDrop>
+int f32_blocks_per_sm(int K, int S, int P, int G, int gen_len) {
+  const int rows = f32_rows(K, S, P, G, gen_len, kHasAnc);
+  if (rows == 0) return -(int)cudaErrorInvalidValue;
+  const F32Layout lay = f32_layout(K, S, P, G, gen_len, kHasAnc, rows);
+  const F32Kernel kernel = f32_kernel<kHasAnc, kDrop>(rows, K * S);
+  int n = 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.bytes);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel,
+                                                        lay.nw * 32,
+                                                        lay.bytes);
+  return err == cudaSuccess ? n : -(int)err;
+}
+
+// ---- launch: bf16 the tensor-core body, fp32 the CUDA-core one
+
 template <bool kHasAnc, bool kDrop, typename... Args>
 int launch(int is_bf16, Args... args) {
   return is_bf16 ? launch_mma<kHasAnc, kDrop>(args...)
-                 : launch_fp32<kHasAnc, kDrop>(args...);
+                 : launch_f32<kHasAnc, kDrop>(args...);
 }
 
 // dp.threshold == 0 (no dropout) selects K3 or K4; otherwise K5, which the
@@ -690,6 +945,17 @@ int vlp_decode_attention_drop(const void* q, const void* k, const void* v,
                   G, H, psb, gen_len, scale,
                   vlp::Dropout{seed, threshold, keep_scale},
                   static_cast<cudaStream_t>(stream));
+}
+
+// Blocks of the fp32 body (K3; K4 with anc; K5 with drop, K == 1) that one
+// SM holds at once for a step of this shape; negative if it refuses it.
+int vlp_decode_attention_f32_blocks_per_sm(int K, int S, int P, int G,
+                                           int gen_len, int anc, int drop) {
+  if (K <= 0 || S <= 0 || P <= 0 || G <= 0 || gen_len < 0 || (anc && drop))
+    return -(int)cudaErrorInvalidValue;
+  if (drop) return f32_blocks_per_sm<false, true>(1, S, P, G, gen_len);
+  return anc ? f32_blocks_per_sm<true, false>(K, S, P, G, gen_len)
+             : f32_blocks_per_sm<false, false>(K, S, P, G, gen_len);
 }
 
 }  // extern "C"

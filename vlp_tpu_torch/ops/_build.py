@@ -58,6 +58,7 @@ _SIGNATURES = {
                              _I, _I, _I, _LL, _I, _F, _I, _P],
     "vlp_decode_attention_drop": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                   _I, _I, _LL, _I, _F, _ULL, _U, _F, _I, _P],
+    "vlp_decode_attention_f32_blocks_per_sm": [_I, _I, _I, _I, _I, _I, _I],
     "vlp_decode_dropout_scales": [_P, _P, _I, _I, _I, _I, _I, _U, _F, _P],
 }
 
