@@ -12,19 +12,29 @@ greedy, B=100), ``vlp_tpu_torch.cli.train`` (the COCO fine-tune flags on
 synthetic data, B=64, 2 epochs of 20 steps), ``vlp_tpu_torch.cli.train
 --scst`` (B=64, 8 steps), ``vlp_tpu_torch.cli.train --tasks vqa2`` (bi
 mode, B=64, 12 steps), ``vlp_tpu_torch.cli.eval_vqa2`` (B=256, 1,024
-questions) and the ``layout="bhld"`` attention op -- and checks that each
-path launched its kernels.  Phase 2 also holds the fp32 attention bodies
+questions), the ``layout="bhld"`` attention op (bf16 and fp16),
+``vlp_tpu_torch.cli.train --true_fp16`` (fp16 K1 dropout + K2, dynamic
+loss scaling, B=64, 1 epoch of 20 steps then a resume to epoch 2, and a
+skipped step on an overflow) and the nine legacy BERT heads (two layers
+deep: card vs CPU in fp32, one fp16 forward, a bf16 fine-tune step) -- and
+checks that each path launched its kernels.  Phase 2 also holds the fp32 attention bodies
 (split TF32) at L=256 and 512 against their plain versions and times them
 at B=64 L=128 and B=16 L=256 and 512 beside fp32 SDPA, with the
 backward's peak memory; times the decode step (K3 greedy, K4 beam 5, K5
 SCST) in bf16 and fp32 at gen_len 0, 9 and 18 beside SDPA over the joint
 keys (fp32: in alternating turns with SDPA's parts prebuilt, and the
-blocks per SM of the fp32 body); and times ``dropout_mask`` beside an
-empty launch and a ``zero_`` of its bytes.  Phase 6 runs data parallel:
+blocks per SM of the fp32 body); times ``dropout_mask`` beside an
+empty launch and a ``zero_`` of its bytes; and holds the fp16 forms of K1
+and K2 (``--true_fp16``) against their plain versions at B=64 L=128 (as
+the bf16 and fp32 ones) and at L = 103-528 in both layouts, bit for bit
+across layouts and against ``dropout_mask``'s keep bits, with a non-finite
+dO reaching every gradient, and times every 16-bit form of K1 and K2
+beside SDPA in its dtype and the bound at L = 128 and 256 (plain
+versions with PLAIN_REPS calls a round).  Phase 6 runs data parallel:
 the train, decode and VQA CLIs over NCCL at world size 1, which must equal
 the runs without a group bit for bit, and two gloo ranks on the one card
-(this script re-run with ``--dp-worker``), which must stay in sync and, in
-fp32, equal the single-process step on the global batch.
+(this script re-run with ``--dp-worker``, DP2_LAYERS deep), which must stay
+in sync and, in fp32, equal the single-process step on the global batch.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --ab-times ROOT   # another checkout's kernels
@@ -61,8 +71,13 @@ import torch
 T0 = time.time()
 
 BF16_TOL = dict(atol=3e-2, rtol=1e-2)   # one bf16 ulp at 2-4 is 1.6e-2
+FP16_TOL = dict(atol=4e-3, rtol=2e-3)   # two fp16 ulps at 2-4 (1.95e-3
+# each), four relative (2^-11 each): tests/test_torch_kernels.py's
 FP32_TOL = dict(atol=1e-4, rtol=1e-4)
+TOL = {torch.float32: FP32_TOL, torch.bfloat16: BF16_TOL,
+       torch.float16: FP16_TOL}
 REPS = 20
+PLAIN_REPS = 2             # a plain version's calls per timed round
 ROUNDS = 5
 SPIN_CYCLES = 20_000_000     # ~10 ms of the card's clock
 REPS_STEADY = 5
@@ -82,8 +97,23 @@ DECODE_GEN_LENS = (0, 9, 18)   # decode steps timed: first, middle, last
 
 def body(dtype) -> str:
     """The attention kernel body a dtype runs: bf16 the bf16 tensor-core
-    one, fp32 the split-TF32 one."""
-    return "v2 mma" if dtype == torch.bfloat16 else "fp32 split-tf32"
+    one, fp16 the same body instantiated for fp16, fp32 the split-TF32
+    one."""
+    return {torch.bfloat16: "v2 mma", torch.float16: "v2 mma (fp16)"}.get(
+        dtype, "fp32 split-tf32")
+
+
+def kname(name: str, dtype) -> str:
+    """The kernel entry (launch counter) of attention kernel ``name`` in
+    ``dtype``: the fp16 forms count apart, under ``name + "_fp16"``."""
+    return name + "_fp16" if dtype == torch.float16 else name
+
+
+def note_err(results, name: str, err: float) -> None:
+    """Keep the largest error of kernel ``name`` against its plain version
+    over every gate of the script as its ``max_abs_err``."""
+    r = results.setdefault(name, {})
+    r["max_abs_err"] = max(r.get("max_abs_err", 0.0), err)
 
 
 def decode_body(dtype) -> str:
@@ -100,8 +130,8 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke FAILED: {msg}")
 
 
-def time_ms(fn) -> float:
-    """Device milliseconds of one call: REPS calls queued back to back
+def time_ms(fn, reps=REPS) -> float:
+    """Device milliseconds of one call: ``reps`` calls queued back to back
     behind a spin of the card (``torch.cuda._sleep``), so that the host's
     launch latency hides behind it, timed by CUDA events; the median of
     ROUNDS rounds.  A function that synchronises (or launches more than the
@@ -114,12 +144,18 @@ def time_ms(fn) -> float:
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(SPIN_CYCLES)
         start.record()
-        for _ in range(REPS):
+        for _ in range(reps):
             fn()
         end.record()
         end.synchronize()
-        out.append(start.elapsed_time(end) / REPS)
+        out.append(start.elapsed_time(end) / reps)
     return statistics.median(out)
+
+
+def plain_ms(fn) -> float:
+    """``time_ms`` of a plain PyTorch version, PLAIN_REPS calls a round:
+    tens to thousands of times a kernel's time, it needs fewer calls."""
+    return time_ms(fn, PLAIN_REPS)
 
 
 def bound(nbytes: float, flops: float,
@@ -210,7 +246,7 @@ def phase_kernels(dev, results):
         return dict(
             body=body(torch.bfloat16), max_abs_err=err,
             ms=time_ms(lambda: attn.attention(*args, prefix=P)),
-            plain_ms=time_ms(lambda: attn.attention_plain(*args, prefix=P)),
+            plain_ms=plain_ms(lambda: attn.attention_plain(*args, prefix=P)),
             library_ms=time_ms(lambda: sdpa(*args, P)),
             library_prebuilt_mask_ms=time_ms(lambda: sdpa(*args, P,
                                                           mask=mask)),
@@ -375,7 +411,7 @@ def decode_times(dec, make_inputs, bias_for, err, name, drop_seed=None,
 
         per[gen_len] = r = dict(
             ms=time_ms(kernel),
-            plain_ms=time_ms(lambda: dec.decode_attention_plain(
+            plain_ms=plain_ms(lambda: dec.decode_attention_plain(
                 q, k, v, pk, pv, gk, gv, gen_len, **kw)),
             library_ms=time_ms(lambda: decode_sdpa(
                 q, pk, pv, gk, gv, gen_len, H, bias, rate)),
@@ -484,7 +520,7 @@ def phase_scst_kernels(dev, results):
         max_abs_err=0.0,
         ms=time_ms(lambda: dec.decode_dropout_scales(
             seeds, B, n_heads=H, S=S, P=P, G=G, rate=rate, device=dev)),
-        plain_ms=time_ms(lambda: torch.cat([
+        plain_ms=plain_ms(lambda: torch.cat([
             philox.decode_keep_scale(sd, B, H, S, P, G, rate, device=dev)
             for sd in seeds])),
         library_ms=None, **bound(W * B * H * S * (P + G) * 4, 0))
@@ -600,85 +636,135 @@ def kernel_split(fn, calls=10) -> dict:
     return out
 
 
+# the attention kernels of each layout: the deterministic forward, its
+# dropout branch and the backward
+FORMS = {"blhd": ("attention_fwd", "attention_fwd_drop", "attention_bwd"),
+         "bhld": ("attention_fwd_bhld", "attention_fwd_bhld_drop",
+                  "attention_bwd_bhld")}
+
+
+def form_times(attn, q, k, v, mode, te, ck, dout, P, rate, seed,
+               layout="blhd", forms=(0, 1, 2)) -> dict:
+    """Device ms (``time_ms``) of the attention kernels ``FORMS[layout][i]``
+    for i in ``forms`` on these inputs (the dropout branch at ``rate``),
+    each beside its plain version (``plain_ms``), SDPA in the same layout
+    (mask built in the call, and prebuilt) and the bound:
+    {kernel entry (``kname``): times}."""
+    B, L = ck.shape
+    H, D = q.shape[2 if layout == "blhd" else 1], q.shape[3]
+    act = q.numel() * q.element_size()     # one [B, L, H, D] tensor
+    meta = 8 * B + 4 * B * L
+    pd = product_flop(mode, te, ck, P, L, H, D)
+    mask = sdpa_mask(q, mode, te, ck, P, layout=layout)
+    kw = dict(prefix=P, layout=layout)
+    drop = dict(dropout_rate=rate, seed=seed, **kw)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    # SDPA's graphs for its backward: mask built in the call, and prebuilt
+    built, pre = (sdpa(*leaves, mode, te, ck, P, rate, mask=m, layout=layout)
+                  for m in (None, mask))
+    fwd_bound = bound(4 * act + meta, 2 * pd)
+    calls = (
+        (lambda: attn.attention(q, k, v, mode, te, ck, **kw),
+         lambda: attn.attention_plain(q, k, v, mode, te, ck, **kw),
+         lambda m=None: sdpa(q, k, v, mode, te, ck, P, layout=layout,
+                             mask=m), fwd_bound),
+        (lambda: attn._forward_cuda(q, k, v, mode, te, ck, P,
+                                    dropout=(rate, seed), layout=layout),
+         lambda: attn.attention_plain(q, k, v, mode, te, ck, **drop),
+         lambda m=None: sdpa(q, k, v, mode, te, ck, P, rate, layout=layout,
+                             mask=m), fwd_bound),
+        (lambda: attn._backward_cuda(q, k, v, mode, te, ck, dout, P, rate,
+                                     seed, layout),
+         lambda: attn.attention_bwd_plain(q, k, v, mode, te, ck, dout,
+                                          **drop),
+         lambda m=None: torch.autograd.grad(built if m is None else pre,
+                                            leaves, dout, retain_graph=True),
+         bound(7 * act + meta, 5 * pd)))
+    out = {}
+    for i in forms:
+        fn, plain_fn, lib, bnd = calls[i]
+        out[kname(FORMS[layout][i], q.dtype)] = dict(
+            B=B, L=L, body=body(q.dtype), ms=time_ms(fn),
+            plain_ms=plain_ms(plain_fn), library_ms=time_ms(lib),
+            library_prebuilt_mask_ms=time_ms(lambda: lib(mask)), **bnd)
+    return out
+
+
+def log_times(name, r, what="") -> None:
+    log(f"{name} B={r['B']} L={r['L']} time ({r['body']}{what}): kernel "
+        f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, SDPA "
+        f"{r['library_ms']:.4f} ms (prebuilt mask "
+        f"{r['library_prebuilt_mask_ms']:.4f}), bound {r['bound_ms']:.4f} ms "
+        f"({r['bound_by']})")
+
+
 LONG_GATE_LENS = (160, 256, 528)   # the tiled backward's gates
 LONG_TIMED_LENS = (256, 528)       # and its times
 
 
-def phase_long_backward(attn, inputs, B, H, D, P, seed, rate):
-    """K2 in bf16 past the one-block body's L <= 144: the tiled body (any
-    --max_len_b >= 26 with 100 regions rounds the training length up to
-    256; 528 is the bf16 forward's limit) at B=64, rate 0.1.  At each of
-    LONG_GATE_LENS, in both layouts: against its plain version, two calls
-    bit for bit, and bhld = blhd on transposed inputs bit for bit.  Then
-    its time at LONG_TIMED_LENS beside SDPA's backward (mask built in the
-    forward, and prebuilt) and the bound.  Returns {L: times}."""
-    err = 0.0
-    for L in LONG_GATE_LENS:
-        q, k, v, mode, te, ck, dout = inputs(torch.bfloat16, L)
-        tr = [t.transpose(1, 2).contiguous() for t in (q, k, v, dout)]
-        got = {}
-        for layout, (a, b_, c, d) in (("blhd", (q, k, v, dout)),
-                                      ("bhld", tr)):
-            args = (a, b_, c, mode, te, ck, d, P, rate, seed, layout)
-            got[layout] = attn._backward_cuda(*args)
-            want = attn.attention_bwd_plain(
-                a, b_, c, mode, te, ck, d, prefix=P, dropout_rate=rate,
-                seed=seed, layout=layout)
-            tag = (f"B={B} L={L} bf16 ({body(torch.bfloat16)}, tiled) "
-                   f"{layout} rate={rate}")
-            err = max([err] + [compare(f"K2 attention_bwd {name} {tag}", x,
-                                       y, BF16_TOL)
-                               for name, x, y in zip(("dq", "dk", "dv"),
-                                                     got[layout], want)])
-            again = attn._backward_cuda(*args)
-            torch.cuda.synchronize()
-            if not all(torch.equal(x, y)
-                       for x, y in zip(got[layout], again)):
-                fail(f"attention_bwd {tag}: two calls differ")
-        if not all(torch.equal(x.transpose(1, 2), y)
-                   for x, y in zip(got["bhld"], got["blhd"])):
-            fail(f"attention_bwd L={L}: bhld differs from blhd on "
-                 "transposed inputs")
-        log(f"K2 tiled L={L}: both layouts bit-identical across two calls "
-            "and to each other")
-    times = {}
+def phase_long_backward(attn, inputs, B, P, seed, rate, results):
+    """K2 in bf16 and fp16 past the one-block body's L <= 144: the tiled
+    body (any --max_len_b >= 26 with 100 regions rounds the training length
+    up to 256; 528 is the 16-bit forward's limit) at B=64, rate 0.1.  At
+    each of LONG_GATE_LENS, in both layouts: against its plain version,
+    two calls bit for bit, and bhld = blhd on transposed inputs bit for
+    bit.  Then, under ``L256`` / ``L528`` of each kernel's entry, times
+    (``form_times``) at L=256 of every form of K1 and K2 in both layouts
+    and both 16-bit dtypes, at L=528 of bf16 K1's dropout branch and K2
+    (blhd), and the bf16 backward's device time by kernel at L=256."""
+    for dtype in (torch.bfloat16, torch.float16):
+        for L in LONG_GATE_LENS:
+            q, k, v, mode, te, ck, dout = inputs(dtype, L)
+            tr = [t.transpose(1, 2).contiguous() for t in (q, k, v, dout)]
+            got = {}
+            for layout, (a, b_, c, d) in (("blhd", (q, k, v, dout)),
+                                          ("bhld", tr)):
+                args = (a, b_, c, mode, te, ck, d, P, rate, seed, layout)
+                got[layout] = attn._backward_cuda(*args)
+                want = attn.attention_bwd_plain(
+                    a, b_, c, mode, te, ck, d, prefix=P, dropout_rate=rate,
+                    seed=seed, layout=layout)
+                name = kname(FORMS[layout][2], dtype)
+                tag = f"B={B} L={L} {dtype} ({body(dtype)}, tiled) rate={rate}"
+                for n, x, y in zip(("dq", "dk", "dv"), got[layout], want):
+                    note_err(results, name, compare(f"K2 {name} {n} {tag}",
+                                                    x, y, TOL[dtype]))
+                again = attn._backward_cuda(*args)
+                torch.cuda.synchronize()
+                if not all(torch.equal(x, y)
+                           for x, y in zip(got[layout], again)):
+                    fail(f"{name} {tag}: two calls differ")
+            if not all(torch.equal(x.transpose(1, 2), y)
+                       for x, y in zip(got["bhld"], got["blhd"])):
+                fail(f"attention_bwd {dtype} L={L}: bhld differs from blhd "
+                     "on transposed inputs")
+            log(f"K2 tiled {dtype} L={L}: both layouts bit-identical across "
+                "two calls and to each other")
     for L in LONG_TIMED_LENS:
-        q, k, v, mode, te, ck, dout = inputs(torch.bfloat16, L)
-        mask = sdpa_mask(q, mode, te, ck, P)
-        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-        lib_out = sdpa(*leaves, mode, te, ck, P, rate)
-        lib_out_pre = sdpa(*leaves, mode, te, ck, P, rate, mask=mask)
-        act = B * L * H * D * 2
-        r = dict(
-            B=B, L=L, max_abs_err=err,
-            ms=time_ms(lambda: attn._backward_cuda(
-                q, k, v, mode, te, ck, dout, P, rate, seed)),
-            plain_ms=time_ms(lambda: attn.attention_bwd_plain(
-                q, k, v, mode, te, ck, dout, prefix=P, dropout_rate=rate,
-                seed=seed)),
-            library_ms=time_ms(lambda: torch.autograd.grad(
-                lib_out, leaves, dout, retain_graph=True)),
-            library_prebuilt_mask_ms=time_ms(lambda: torch.autograd.grad(
-                lib_out_pre, leaves, dout, retain_graph=True)),
-            **bound(7 * act + 8 * B + 4 * B * L,
-                    5 * product_flop(mode, te, ck, P, L, H, D)))
-        if L == 256:
-            r["kernels_us"] = {f"rate {x}": kernel_split(
-                lambda: attn._backward_cuda(q, k, v, mode, te, ck, dout, P, x,
-                                            seed)) for x in (0.0, rate)}
-            log(f"attention_bwd tiled L={L}, device us per call by kernel: "
-                f"{r['kernels_us']}")
-        log(f"attention_bwd bf16 B={B} L={L} time (tiled): kernel "
-            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, SDPA backward "
-            f"{r['library_ms']:.4f} ms (prebuilt mask "
-            f"{r['library_prebuilt_mask_ms']:.4f}), bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
-        times[L] = r
-        del q, k, v, dout, mask, leaves, lib_out, lib_out_pre
-    return times
+        for dtype in ((torch.bfloat16, torch.float16) if L == 256
+                      else (torch.bfloat16,)):
+            q, k, v, mode, te, ck, dout = inputs(dtype, L)
+            for layout in ("blhd", "bhld") if L == 256 else ("blhd",):
+                ins = (q, k, v, dout) if layout == "blhd" else [
+                    t.transpose(1, 2).contiguous() for t in (q, k, v, dout)]
+                times = form_times(attn, *ins[:3], mode, te, ck, ins[3], P,
+                                   rate, seed, layout,
+                                   (0, 1, 2) if L == 256 else (1, 2))
+                for name, r in times.items():
+                    results.setdefault(name, {})[f"L{L}"] = r
+                    log_times(name, r)
+            if dtype == torch.bfloat16 and L == 256:
+                r = results["attention_bwd"]["L256"]
+                r["kernels_us"] = {f"rate {x}": kernel_split(
+                    lambda: attn._backward_cuda(q, k, v, mode, te, ck, dout,
+                                                P, x, seed))
+                    for x in (0.0, rate)}
+                log(f"attention_bwd tiled L={L}, device us per call by "
+                    f"kernel: {r['kernels_us']}")
+            del q, k, v, dout
 
 
-TURNS = 5      # readings of each kernel and SDPA, taken in turns
+TURNS = 3      # readings of each kernel and SDPA, taken in turns
 
 
 def k1_k2_times(attn, q, k, v, mode, te, ck, dout, P, rate, seed,
@@ -792,7 +878,7 @@ def phase_fp32_long(attn, inputs, H, D, P, seed, rate):
                     under_library=all(x <= y for x, y in zip(ks, ls)),
                     **fp32_bound(n_bytes, flop))
             r = times[f"fwd_L{L}_{layout}"]
-            r["plain_ms"] = time_ms(lambda: attn.attention_plain(
+            r["plain_ms"] = plain_ms(lambda: attn.attention_plain(
                 a, b_, c, mode, te, ck, prefix=P, dropout_rate=rate,
                 seed=seed, layout=layout))
             log(f"attention_fwd fp32 B={B} L={L} {layout} rate={rate} "
@@ -812,7 +898,7 @@ def phase_fp32_long(attn, inputs, H, D, P, seed, rate):
 
             r = times[f"bwd_L{L}_{layout}"]
             r.update(
-                plain_ms=time_ms(lambda: attn.attention_bwd_plain(
+                plain_ms=plain_ms(lambda: attn.attention_bwd_plain(
                     a, b_, c, mode, te, ck, d, prefix=P, dropout_rate=rate,
                     seed=seed, layout=layout)),
                 fwd_bwd_ms=time_ms(fwd_bwd),
@@ -938,11 +1024,12 @@ def ab_times(root: str) -> None:
 
 
 def phase_train_kernels(dev, results):
-    """K1's dropout branch, K2 and dropout_mask at the training shape
-    (B=64, L=128, H=12, D=64): fp32 and bf16, mixed modes, zeros in
+    """K1 (both branches), K2 and dropout_mask at the training shape
+    (B=64, L=128, H=12, D=64): fp32, bf16 and fp16, mixed modes, zeros in
     colkeep, rate 0 and 0.1, each against its plain version; the mask bit
-    for bit.  Times in bf16 at rate 0.1, and the tiled K2 at L=256 and 528
-    beside them (``phase_long_backward``)."""
+    for bit.  Times in bf16 and fp16 at rate 0.1 (``form_times``), the
+    tiled K2 at L=256 and 528 beside them (``phase_long_backward``), and
+    the fp32 bodies (``phase_fp32_long``)."""
     from vlp_tpu_torch.ops import attention as attn
     from vlp_tpu_torch.ops import philox
 
@@ -971,7 +1058,7 @@ def phase_train_kernels(dev, results):
     results["dropout_mask"] = dm = dict(
         max_abs_err=0.0,
         ms=time_ms(lambda: attn.dropout_mask(B, H, L, rate, seed, dev)),
-        plain_ms=time_ms(lambda: philox.keep_scale(seed, B, H, L, rate,
+        plain_ms=plain_ms(lambda: philox.keep_scale(seed, B, H, L, rate,
                                                    device=dev)),
         library_ms=None, launch_floor_ms=time_ms(
             lambda: torch.cuda._sleep(0)),
@@ -981,99 +1068,78 @@ def phase_train_kernels(dev, results):
         f"{dm['fill_ms']:.4f} ms")
     del filled
 
-    errs = {"attention_fwd_drop": 0.0, "attention_bwd": 0.0}
-    for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
         q, k, v, mode, te, ck, dout = inputs(dtype)
+        tag = f"B={B} L={L} {dtype} ({body(dtype)})"
+        name = kname("attention_fwd", dtype)
+        note_err(results, name, compare(
+            f"K1 {name} {tag}", attn.attention(q, k, v, mode, te, ck,
+                                               prefix=P),
+            attn.attention_plain(q, k, v, mode, te, ck, prefix=P),
+            TOL[dtype]))
         for r in (0.0, rate):
             fwd = attn._forward_cuda(q, k, v, mode, te, ck, P,
                                      dropout=(r, seed))
             want = attn.attention_plain(q, k, v, mode, te, ck, prefix=P,
                                         dropout_rate=r, seed=seed)
-            tag = f"B={B} L={L} {dtype} ({body(dtype)}) rate={r}"
-            errs["attention_fwd_drop"] = max(
-                errs["attention_fwd_drop"],
-                compare(f"K1 attention_fwd_drop {tag}", fwd, want, tol))
+            name = kname("attention_fwd_drop", dtype)
+            note_err(results, name, compare(f"K1 {name} {tag} rate={r}", fwd,
+                                            want, TOL[dtype]))
             got = attn._backward_cuda(q, k, v, mode, te, ck, dout, P, r, seed)
             want = attn.attention_bwd_plain(q, k, v, mode, te, ck, dout,
                                             prefix=P, dropout_rate=r,
                                             seed=seed)
-            for name, a, b_ in zip(("dq", "dk", "dv"), got, want):
-                errs["attention_bwd"] = max(
-                    errs["attention_bwd"],
-                    compare(f"K2 attention_bwd {name} {tag}", a, b_, tol))
+            name = kname("attention_bwd", dtype)
+            for n, a, b_ in zip(("dq", "dk", "dv"), got, want):
+                note_err(results, name, compare(f"K2 {name} {n} {tag} "
+                                                f"rate={r}", a, b_,
+                                                TOL[dtype]))
 
-    # times at the main path's shape: bf16, rate 0.1
-    q, k, v, mode, te, ck, dout = inputs(torch.bfloat16)
-    meta = 8 * B + 4 * B * L
-    act = B * L * H * D * 2               # one bf16 [B, L, H*D] tensor
-    pd = product_flop(mode, te, ck, P, L, H, D)
-    mask = sdpa_mask(q, mode, te, ck, P)
-    fwd = dict(
-        body=body(torch.bfloat16), max_abs_err=errs["attention_fwd_drop"],
-        ms=time_ms(lambda: attn._forward_cuda(q, k, v, mode, te, ck, P,
-                                              dropout=(rate, seed))),
-        plain_ms=time_ms(lambda: attn.attention_plain(
-            q, k, v, mode, te, ck, prefix=P, dropout_rate=rate, seed=seed)),
-        library_ms=time_ms(lambda: sdpa(q, k, v, mode, te, ck, P, rate)),
-        library_prebuilt_mask_ms=time_ms(lambda: sdpa(
-            q, k, v, mode, te, ck, P, rate, mask=mask)),
-        **bound(4 * act + meta, 2 * pd))
-    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-    lib_out = sdpa(*leaves, mode, te, ck, P, rate)
-    lib_out_pre = sdpa(*leaves, mode, te, ck, P, rate, mask=mask)
-    bwd = dict(
-        body=body(torch.bfloat16), max_abs_err=errs["attention_bwd"],
-        ms=time_ms(lambda: attn._backward_cuda(q, k, v, mode, te, ck, dout,
-                                               P, rate, seed)),
-        plain_ms=time_ms(lambda: attn.attention_bwd_plain(
-            q, k, v, mode, te, ck, dout, prefix=P, dropout_rate=rate,
-            seed=seed)),
-        library_ms=time_ms(lambda: torch.autograd.grad(
-            lib_out, leaves, dout, retain_graph=True)),
-        library_prebuilt_mask_ms=time_ms(lambda: torch.autograd.grad(
-            lib_out_pre, leaves, dout, retain_graph=True)),
-        **bound(7 * act + meta, 5 * pd))
+    # times at the main path's shape, rate 0.1, in bf16 and fp16 (bf16's
+    # deterministic forward under "train_shape": its entry is the decode
+    # prefill's), with K1 + K2 through autograd beside SDPA's
+    for dtype in (torch.bfloat16, torch.float16):
+        q, k, v, mode, te, ck, dout = inputs(dtype)
+        times = form_times(attn, q, k, v, mode, te, ck, dout, P, rate, seed)
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        mask = sdpa_mask(q, mode, te, ck, P)
 
-    def fused_step():
-        out = attn.FusedAttention.apply(*leaves, mode, te, ck, P, rate, seed)
-        return torch.autograd.grad(out, leaves, dout)
+        def fused_step():
+            out = attn.FusedAttention.apply(*leaves, mode, te, ck, P, rate,
+                                            seed)
+            return torch.autograd.grad(out, leaves, dout)
 
-    def library_step(mask=None):
-        return torch.autograd.grad(
-            sdpa(*leaves, mode, te, ck, P, rate, mask=mask), leaves, dout)
+        def library_step(mask=None):
+            return torch.autograd.grad(
+                sdpa(*leaves, mode, te, ck, P, rate, mask=mask), leaves, dout)
 
-    fwd_bwd = dict(ms=time_ms(fused_step), library_ms=time_ms(library_step),
-                   library_prebuilt_mask_ms=time_ms(
-                       lambda: library_step(mask)))
-    bwd.update(fwd_bwd_ms=fwd_bwd["ms"],
-               library_fwd_bwd_ms=fwd_bwd["library_ms"],
-               library_prebuilt_mask_fwd_bwd_ms=fwd_bwd[
-                   "library_prebuilt_mask_ms"])
-    long = phase_long_backward(attn, inputs, B, H, D, P, seed, rate)
-    bwd["long"] = long[256]
-    bwd["long_528"] = long[528]
+        times[kname("attention_bwd", dtype)].update(
+            fwd_bwd_ms=time_ms(fused_step),
+            library_fwd_bwd_ms=time_ms(library_step),
+            library_prebuilt_mask_fwd_bwd_ms=time_ms(
+                lambda: library_step(mask)))
+        for name, r in times.items():
+            if name == "attention_fwd":
+                results[name]["train_shape"] = r
+            else:
+                results[name].update(r)
+            log_times(name, r)
+        r = times[kname("attention_bwd", dtype)]
+        log(f"K1+K2 fwd+bwd {dtype} ({body(dtype)}): {r['fwd_bwd_ms']:.4f} "
+            f"ms; SDPA fwd+bwd {r['library_fwd_bwd_ms']:.4f} ms (prebuilt "
+            f"mask {r['library_prebuilt_mask_fwd_bwd_ms']:.4f})")
+        del q, k, v, dout, leaves, mask
+    phase_long_backward(attn, inputs, B, P, seed, rate, results)
     fp32_errs, fp32_times = phase_fp32_long(attn, inputs, H, D, P, seed, rate)
-    fwd["fp32"] = dict(max_abs_err=fp32_errs["fwd"], **{
-        k: v for k, v in fp32_times.items() if k.startswith("fwd")})
-    bwd["fp32"] = dict(max_abs_err=fp32_errs["bwd"], **{
+    results["attention_fwd_drop"]["fp32"] = dict(
+        max_abs_err=fp32_errs["fwd"], **{
+            k: v for k, v in fp32_times.items() if k.startswith("fwd")})
+    results["attention_bwd"]["fp32"] = dict(max_abs_err=fp32_errs["bwd"], **{
         k: v for k, v in fp32_times.items() if k.startswith("bwd")})
-    results["attention_fwd_drop"] = fwd
-    results["attention_bwd"] = bwd
-    for name in ("attention_fwd_drop", "attention_bwd", "dropout_mask"):
-        r = results[name]
-        which = f" ({r['body']})" if "body" in r else ""
-        pre = r.get("library_prebuilt_mask_ms")
-        log(f"{name} bf16 B={B} time{which}: kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms"
-            + ("" if pre is None else f" (prebuilt mask {pre:.4f})")
-            + f", bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
-    log(f"K1+K2 fwd+bwd bf16 ({body(torch.bfloat16)}): "
-        f"{fwd_bwd['ms']:.4f} ms; SDPA fwd+bwd "
-        f"{fwd_bwd['library_ms']:.4f} ms (prebuilt mask "
-        f"{fwd_bwd['library_prebuilt_mask_ms']:.4f})")
-
-
-BHLD = ("attention_fwd_bhld", "attention_fwd_bhld_drop", "attention_bwd_bhld")
+    r = results["dropout_mask"]
+    log(f"dropout_mask bf16 B={B} time: kernel {r['ms']:.4f} ms, plain "
+        f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
+        f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
 
 
 def bhld_inputs(g, dev, dtype, strided=False, B=64, L=128, H=12, P=102):
@@ -1101,49 +1167,47 @@ def phase_bhld_kernels(dev, results):
     """The [B, H, L, D] pair (counterparts of ``_fwd_kernel`` and
     ``_bwd_kernel``) at the training shape B=64, L=128, H=12, D=64: the
     forward (both branches) and the backward against their plain versions
-    in fp32 and bf16, on contiguous and on strided inputs; then, with
+    in fp32, bf16 and fp16, on contiguous and on strided inputs; then, with
     dropout 0.1, bit for bit against the blhd kernels (K1, K2) on the
-    transposed inputs.  Times in bf16 (the dropout branch at rate 0.1); the
-    library call is SDPA in its own [B, H, L, D] layout."""
+    transposed inputs.  Times in bf16 and fp16 (``form_times``, the
+    dropout branch at rate 0.1; the library call is SDPA in its own
+    [B, H, L, D] layout)."""
     from vlp_tpu_torch.ops import attention as attn
 
     g = torch.Generator(device=dev).manual_seed(6)
     B, L, H, D, P = 64, 128, 12, 64, 102
     seed, rate = 0x243F6A8885A308D3, 0.1
-    errs = dict.fromkeys(BHLD, 0.0)
 
-    def track(name, err):
-        errs[name] = max(errs[name], err)
-
-    for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        fwd, drop, bwd = (kname(n, dtype) for n in FORMS["bhld"])
         for strided in (False, True):
             q, k, v, mode, te, ck, dout = bhld_inputs(g, dev, dtype, strided)
             tag = (f"B={B} L={L} {dtype} ({body(dtype)})"
                    f"{' strided' if strided else ''}")
-            track("attention_fwd_bhld", compare(
-                f"attention_fwd_bhld {tag}",
+            note_err(results, fwd, compare(
+                f"{fwd} {tag}",
                 attn.attention(q, k, v, mode, te, ck, prefix=P,
                                layout="bhld"),
                 attn.attention_plain(q, k, v, mode, te, ck, prefix=P,
-                                     layout="bhld"), tol))
+                                     layout="bhld"), TOL[dtype]))
             for r in (0.0, rate):
                 kw = dict(prefix=P, dropout_rate=r, seed=seed, layout="bhld")
-                track("attention_fwd_bhld_drop", compare(
-                    f"attention_fwd_bhld_drop {tag} rate={r}",
+                note_err(results, drop, compare(
+                    f"{drop} {tag} rate={r}",
                     attn._forward_cuda(q, k, v, mode, te, ck, P,
                                        dropout=(r, seed), layout="bhld"),
-                    attn.attention_plain(q, k, v, mode, te, ck, **kw), tol))
+                    attn.attention_plain(q, k, v, mode, te, ck, **kw),
+                    TOL[dtype]))
                 got = attn._backward_cuda(q, k, v, mode, te, ck, dout, P, r,
                                           seed, "bhld")
                 want = attn.attention_bwd_plain(q, k, v, mode, te, ck, dout,
                                                 **kw)
                 for name, a, b_ in zip(("dq", "dk", "dv"), got, want):
                     if a.shape != (B, H, L, D) or not a.is_contiguous():
-                        fail(f"attention_bwd_bhld {name}: not a contiguous "
-                             f"[B, H, L, D] tensor")
-                    track("attention_bwd_bhld", compare(
-                        f"attention_bwd_bhld {name} {tag} rate={r}", a, b_,
-                        tol))
+                        fail(f"{bwd} {name}: not a contiguous [B, H, L, D] "
+                             "tensor")
+                    note_err(results, bwd, compare(
+                        f"{bwd} {name} {tag} rate={r}", a, b_, TOL[dtype]))
 
         # the same seed draws the same multipliers in both layouts
         q, k, v, mode, te, ck, dout = bhld_inputs(g, dev, dtype)
@@ -1173,86 +1237,405 @@ def phase_bhld_kernels(dev, results):
         log(f"bhld vs blhd on transposed inputs, {dtype}, dropout {rate}: "
             f"forward and dq/dk/dv bit for bit")
 
-    # times at the main path's shape: bf16, contiguous, rate 0.1
-    q, k, v, mode, te, ck, dout = bhld_inputs(g, dev, torch.bfloat16)
-    meta = 8 * B + 4 * B * L
-    act = B * L * H * D * 2               # one bf16 [B, H, L, D] tensor
-    pd = product_flop(mode, te, ck, P, L, H, D)
-    kw = dict(prefix=P, layout="bhld")
-    mask = sdpa_mask(q, mode, te, ck, P, layout="bhld")
-    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-    lib_out = sdpa(*leaves, mode, te, ck, P, rate, layout="bhld")
-    lib_out_pre = sdpa(*leaves, mode, te, ck, P, rate, layout="bhld",
-                       mask=mask)
-    results["attention_fwd_bhld"] = dict(
-        body=body(torch.bfloat16), max_abs_err=errs["attention_fwd_bhld"],
-        ms=time_ms(lambda: attn.attention(q, k, v, mode, te, ck, **kw)),
-        plain_ms=time_ms(lambda: attn.attention_plain(q, k, v, mode, te, ck,
-                                                      **kw)),
-        library_ms=time_ms(lambda: sdpa(q, k, v, mode, te, ck, P,
-                                        layout="bhld")),
-        library_prebuilt_mask_ms=time_ms(lambda: sdpa(
-            q, k, v, mode, te, ck, P, layout="bhld", mask=mask)),
-        **bound(4 * act + meta, 2 * pd))
-    results["attention_fwd_bhld_drop"] = dict(
-        body=body(torch.bfloat16), max_abs_err=errs["attention_fwd_bhld_drop"],
-        ms=time_ms(lambda: attn._forward_cuda(
-            q, k, v, mode, te, ck, P, dropout=(rate, seed), layout="bhld")),
-        plain_ms=time_ms(lambda: attn.attention_plain(
-            q, k, v, mode, te, ck, dropout_rate=rate, seed=seed, **kw)),
-        library_ms=time_ms(lambda: sdpa(q, k, v, mode, te, ck, P, rate,
-                                        layout="bhld")),
-        library_prebuilt_mask_ms=time_ms(lambda: sdpa(
-            q, k, v, mode, te, ck, P, rate, layout="bhld", mask=mask)),
-        **bound(4 * act + meta, 2 * pd))
-    results["attention_bwd_bhld"] = dict(
-        body=body(torch.bfloat16), max_abs_err=errs["attention_bwd_bhld"],
-        ms=time_ms(lambda: attn._backward_cuda(q, k, v, mode, te, ck, dout,
-                                               P, rate, seed, "bhld")),
-        plain_ms=time_ms(lambda: attn.attention_bwd_plain(
-            q, k, v, mode, te, ck, dout, dropout_rate=rate, seed=seed,
-            **kw)),
-        library_ms=time_ms(lambda: torch.autograd.grad(
-            lib_out, leaves, dout, retain_graph=True)),
-        library_prebuilt_mask_ms=time_ms(lambda: torch.autograd.grad(
-            lib_out_pre, leaves, dout, retain_graph=True)),
-        **bound(7 * act + meta, 5 * pd))
-    for name in BHLD:
-        r = results[name]
-        log(f"{name} bf16 B={B} time ({r['body']}): kernel {r['ms']:.4f} "
-            f"ms, plain {r['plain_ms']:.4f} ms, SDPA (bhld) "
-            f"{r['library_ms']:.4f} ms (prebuilt mask "
-            f"{r['library_prebuilt_mask_ms']:.4f}), bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    # times at the main path's shape: contiguous, rate 0.1
+    for dtype in (torch.bfloat16, torch.float16):
+        for name, r in form_times(attn, *bhld_inputs(g, dev, dtype), P, rate,
+                                  seed, "bhld").items():
+            results[name].update(r)
+            log_times(name, r, ", SDPA in bhld")
+
+
+FP16_GATE_LENS = (103, 128, 256, 528)   # ragged, one block, the tiled body
+
+
+def phase_fp16_kernels(dev, results):
+    """The fp16 forms of K1 and K2 (``--true_fp16``; the 16-bit bodies
+    instantiated for fp16) beyond the B=64 gates of the phases above: at
+    FP16_GATE_LENS, B=16, both layouts, rate 0 and 0.1, each against its
+    plain version run in fp16 within FP16_TOL, and bhld = blhd on
+    transposed inputs bit for bit; the keep bits of the forward and the
+    backward equal ``dropout_mask``'s (q = k = 0 in bi mode makes
+    P = 1/L, and an identity V or dO shows P o keep); one inf or NaN in dO
+    leaves dQ, dK and dV non-finite.  Then each fp16 form's time beside
+    its bf16 body's (``bf16_ms``, from the phases above) at L=128 and
+    256."""
+    from vlp_tpu_torch.config import MODE_BI
+    from vlp_tpu_torch.ops import attention as attn
+
+    g = torch.Generator(device=dev).manual_seed(16)
+    B, H, P = 16, 12, 102
+    seed, rate = 0x6A09E667F3BCC908, 0.1
+    f16 = torch.float16
+
+    for L in FP16_GATE_LENS:
+        q, k, v, mode, te, ck, dout = train_inputs(g, dev, f16, B, L)
+        te = torch.randint(P + 1, L + 1, (B,), generator=g,
+                           device=dev).int()
+        tr = [t.transpose(1, 2).contiguous() for t in (q, k, v, dout)]
+        got = {}
+        for layout, (a, b_, c, d) in (("blhd", (q, k, v, dout)),
+                                      ("bhld", tr)):
+            fwd, drop, bwd = (kname(n, f16) for n in FORMS[layout])
+            kw = dict(prefix=P, layout=layout)
+            tag = f"B={B} L={L} {layout}"
+            note_err(results, fwd, compare(
+                f"{fwd} {tag}", attn.attention(a, b_, c, mode, te, ck, **kw),
+                attn.attention_plain(a, b_, c, mode, te, ck, **kw),
+                FP16_TOL))
+            for r in (0.0, rate):
+                outs = [attn._forward_cuda(a, b_, c, mode, te, ck, P,
+                                           dropout=(r, seed), layout=layout),
+                        *attn._backward_cuda(a, b_, c, mode, te, ck, d, P, r,
+                                             seed, layout)]
+                note_err(results, drop, compare(
+                    f"{drop} {tag} rate={r}", outs[0], attn.attention_plain(
+                        a, b_, c, mode, te, ck, dropout_rate=r, seed=seed,
+                        **kw), FP16_TOL))
+                want = attn.attention_bwd_plain(a, b_, c, mode, te, ck, d,
+                                                dropout_rate=r, seed=seed,
+                                                **kw)
+                for name, x, y in zip(("dq", "dk", "dv"), outs[1:], want):
+                    note_err(results, bwd, compare(
+                        f"{bwd} {name} {tag} rate={r}", x, y, FP16_TOL))
+                if r:
+                    got[layout] = outs
+        torch.cuda.synchronize()
+        if not all(torch.equal(x.transpose(1, 2), y)
+                   for x, y in zip(got["bhld"], got["blhd"])):
+            fail(f"fp16 L={L}: bhld differs from blhd on transposed inputs")
+        log(f"fp16 K1/K2 L={L}: bhld = blhd bit for bit (rate {rate})")
+        del q, k, v, dout, tr, got
+
+    # the keep bits the fp16 kernels drew are dropout_mask's
+    for Bk, L in ((64, 128), (16, 528)):
+        z = torch.zeros(Bk, L, H, 64, dtype=f16, device=dev)
+        eye = torch.zeros_like(z)
+        eye[:, torch.arange(64), :, torch.arange(64)] = 1.0
+        md = torch.full((Bk,), MODE_BI, dtype=torch.int32, device=dev)
+        full = torch.full((Bk,), L, dtype=torch.int32, device=dev)
+        ones = torch.ones(Bk, L, device=dev)
+        out = attn._forward_cuda(z, z, eye, md, full, ones, P,
+                                 dropout=(rate, seed))
+        dv = attn._backward_cuda(z, z, z, md, full, ones, eye, P, rate,
+                                 seed)[2]
+        keep = attn.dropout_mask(Bk, H, L, rate, seed, dev) > 0
+        torch.cuda.synchronize()
+        if not (torch.equal(out[..., :64].permute(0, 2, 1, 3) != 0,
+                            keep[..., :64])
+                and torch.equal(dv[..., :64].permute(0, 2, 3, 1) != 0,
+                                keep[:, :, :64, :])):
+            fail(f"fp16 B={Bk} L={L}: the kernels' keep bits differ from "
+                 "dropout_mask's")
+        log(f"fp16 K1/K2 B={Bk} L={L}: keep bits = dropout_mask's "
+            f"(forward: every row x keys 0-63; backward: rows 0-63 x every "
+            f"key)")
+        del z, eye, out, dv, keep
+
+    # a non-finite dO reaches every gradient (the loss scaler reads them)
+    for L in (128, 256):
+        q, k, v, mode, te, ck, dout = train_inputs(g, dev, f16, B, L)
+        for bad in (float("inf"), float("nan")):
+            d = dout.clone()
+            d[0, 5, 1, 7] = bad
+            grads = attn._backward_cuda(q, k, v, mode, te, ck, d, P, rate,
+                                        seed)
+            torch.cuda.synchronize()
+            if any(torch.isfinite(x).all() for x in grads):
+                fail(f"fp16 K2 L={L}: a {bad} in dO left a gradient finite")
+        log(f"fp16 K2 L={L}: an inf or a NaN in dO makes dq, dk, dv "
+            "non-finite")
+
+    # each fp16 form beside its bf16 body, both timed in the phases above
+    for name in FORMS["blhd"] + FORMS["bhld"]:
+        r16, r = results[name + "_fp16"], results[name]
+        r16["bf16_ms"] = r.get("train_shape", r)["ms"]
+        r16["L256"]["bf16_ms"] = r["L256"]["ms"]
+        log(f"{name}_fp16 B=64: L=128 {r16['ms']:.4f} ms (bf16 body "
+            f"{r16['bf16_ms']:.4f}), L=256 {r16['L256']['ms']:.4f} ms (bf16 "
+            f"body {r16['L256']['bf16_ms']:.4f})")
+
+
+def phase_fp16_main_path(vocab_path, out_dir, gpu_line, bf16_rates):
+    """``cli.train --true_fp16`` at bert-base width through the fp16 K1
+    dropout and K2, with dynamic loss scaling: the COCO fine-tune flags of
+    phase 4b, B=64, 1 epoch of 20 steps, then a rerun for 2 epochs that
+    resumes at epoch 2.  Exact launch counts over both runs; finite
+    losses; the scale state of optim.1.bin and optim.2.bin consistent with
+    the steps each holds (each skipped step halves the scale from 2^15 and
+    does not advance BertAdam's step) and restored across the resume.
+    Then, outside the counts, a skipped step on the card: an inf feature
+    leaves params and moments as they were and halves the scale."""
+    from vlp_tpu_torch.cli import train as train_cli
+    from vlp_tpu_torch.ops import _build
+
+    spe = TRAIN_STEPS[1]
+    out = os.path.join(out_dir, "train_fp16")
+    base = ["--do_train", "--true_fp16", "--new_segment_ids",
+            "--enable_butd", "--bert_model", vocab_path, "--do_lower_case",
+            "--dataset", "coco", "--max_pred", "20", "--mask_prob", "0.15",
+            "--train_batch_size", "64", "--learning_rate", "3e-5",
+            "--s2s_prob", "1", "--bi_prob", "0", "--synthetic_data",
+            "--steps_per_epoch", str(spe), "--output_dir", out,
+            "--device", "cuda"]
+    _build.reset_launch_counts()
+    first = train_cli.main(base + ["--num_train_epochs", "1"])
+    second = train_cli.main(base + ["--num_train_epochs", "2"])
+    torch.cuda.synchronize()
+    counts = {k: v.launches for k, v in _build.KERNELS.items()}
+    n = 12 * 2 * spe
+    want = {k: (n if k in ("attention_fwd_drop_fp16", "attention_bwd_fp16")
+                else 0) for k in counts}
+    log(f"true-fp16 train launch counts {counts}, expected {want}")
+    if counts != want:
+        fail("the --true_fp16 train path did not launch the fp16 kernels "
+             "as expected")
+    losses = np.asarray(first["losses"] + second["losses"])
+    if len(losses) != 2 * spe or not np.isfinite(losses).all():
+        fail(f"--true_fp16 main path: bad losses {losses}")
+    if first["model"].dtype != torch.float16:
+        fail("--true_fp16 did not train in fp16")
+    with open(os.path.join(out, "training.log")) as f:
+        text = f.read()
+    for line in ("true-fp16: fp16 activations + dynamic loss scaling",
+                 "Recover model: 1"):
+        if line not in text:
+            fail(f"--true_fp16 main path: {line!r} not in the log")
+    states = {}
+    for epoch in (1, 2):
+        opt = torch.load(os.path.join(out, f"optim.{epoch}.bin"),
+                         map_location="cpu", weights_only=True)
+        ls, step = opt["loss_scale"], opt["step"]
+        skipped = epoch * spe - step
+        states[epoch] = dict(ls, step=step, skipped=skipped)
+        if ls["scale"] * 2.0 ** skipped != 2.0 ** 15:
+            fail(f"optim.{epoch}.bin: scale {ls['scale']} after {skipped} "
+                 f"skipped steps of {epoch * spe} (from 2^15)")
+    log(f"true-fp16 scale state: optim.1.bin {states[1]}, optim.2.bin "
+        f"{states[2]}; losses first 10 mean {losses[:10].mean():.4f}, "
+        f"last 10 {losses[-10:].mean():.4f}")
+    warm = 5
+    step_s = float(np.median(first["step_seconds"][warm:]))
+    iter_s = float(np.median(first["iter_seconds"][warm:]))
+    rates = {"train_fp16_samples_per_sec": 64 / step_s,
+             "train_fp16_samples_per_sec_with_loader": 64 / iter_s,
+             "train_fp16_scale_state": states}
+    log(f"true-fp16 train B=64: {rates['train_fp16_samples_per_sec']:.2f} "
+        f"samples/s (median step {step_s * 1e3:.2f} ms after {warm} warm-up "
+        f"steps), bf16 {bf16_rates['train_samples_per_sec']:.2f} (phase "
+        f"4b), on {gpu_line}")
+    rates["train_fp16_skip"] = fp16_skipped_step(torch.device("cuda"))
+    return counts, rates
+
+
+def fp16_skipped_step(dev, B=8, seed=3, cfg=None) -> dict:
+    """One good loss-scaled step of an fp16 model (bert-base unless
+    ``cfg``) on ``dev``, then a batch with an inf region feature: the step
+    is skipped, so every parameter and both moments stay as they were (bit
+    for bit), BertAdam's step does not advance, and the scale halves."""
+    from vlp_tpu_torch import optim as optim_lib
+    from vlp_tpu_torch import train_step as ts
+    from vlp_tpu_torch.config import VLPConfig
+    from vlp_tpu_torch.models.model import VLPModel
+
+    cfg = cfg or VLPConfig(dtype="float16", vocab_size=28996,
+                           type_vocab_size=6)
+    model = VLPModel(cfg)
+    model.init_weights(torch.Generator().manual_seed(seed))
+    model.to(dev)
+    opt = optim_lib.BertAdam(dict(model.named_parameters()), 3e-5,
+                             warmup=0.1, t_total=100)
+    ls = optim_lib.DynamicLossScale()
+    step = ts.make_train_step(model, opt, loss_scale=ls)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    batch = ts.dummy_batch(cfg, B, device=dev)
+    batch["input_ids"] = torch.randint(5, cfg.vocab_size, batch[
+        "input_ids"].shape, generator=g, device=dev).int()
+    batch["masked_pos"] = torch.randint(cfg.prefix_len, cfg.seq_len, batch[
+        "masked_pos"].shape, generator=g, device=dev).int()
+    batch["masked_ids"] = torch.randint(5, cfg.vocab_size, batch[
+        "masked_ids"].shape, generator=g, device=dev).int()
+    batch["masked_weights"].fill_(1.0)
+    batch["vis_feats"] = torch.randn(batch["vis_feats"].shape, generator=g,
+                                     device=dev)
+    good = step(batch, 1)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    m_before = {n: t.clone() for n, t in opt.m.items()}
+    v_before = {n: t.clone() for n, t in opt.v.items()}
+    scale, n_step = float(opt.loss_scale["scale"]), int(opt.step_count)
+    bad = dict(batch, vis_feats=batch["vis_feats"].clone())
+    bad["vis_feats"][0, 0, 0] = float("inf")
+    m = step(bad, 2)
+    torch.cuda.synchronize()
+    kept = all(torch.equal(p, before[n]) and torch.equal(opt.m[n], m_before[n])
+               and torch.equal(opt.v[n], v_before[n])
+               for n, p in model.named_parameters())
+    out = dict(good_loss=float(good["loss"]),
+               good_skipped=float(good["skipped_step"]),
+               skipped=float(m["skipped_step"]), scale_before=scale,
+               scale_after=float(opt.loss_scale["scale"]),
+               step_before=n_step, step_after=int(opt.step_count),
+               params_and_moments_kept=kept)
+    log(f"true-fp16 skipped step at bert-base, B={B}: {out}")
+    if not (out["skipped"] == 1.0 and kept
+            and out["scale_after"] == scale / 2
+            and out["step_after"] == n_step
+            and out["good_skipped"] == 0.0
+            and np.isfinite(out["good_loss"])):
+        fail("an overflow did not skip the fp16 step as it should")
+    return out
+
+
+HEADS_LAYERS = 2   # the legacy heads' depth (width stays bert-base): the
+# CPU's fp32 forward of every head is the phase's cost
+
+
+def phase_legacy_heads(dev):
+    """The nine legacy BERT heads at bert-base width, HEADS_LAYERS deep:
+    each forward on the card against the CPU in fp32 (the same seeded
+    weights and inputs, FP32_TOL; B=2, L=128, text-only in bi mode), one
+    forward in fp16 on the card against the fp32 one
+    (BertForSequenceClassification, within 5e-2 of its logits' size), and
+    a BertForSequenceClassification train step in bf16 through K1 dropout
+    and K2 (bi mode) and BertAdam.  Launches, per layer: K1 fp32 one per
+    card forward, K1 fp16 one, K1 dropout and K2 bf16 one each."""
+    from vlp_tpu_torch import optim as optim_lib
+    from vlp_tpu_torch.config import VLPConfig
+    from vlp_tpu_torch.models import heads_legacy as heads
+    from vlp_tpu_torch.models.model import DropoutRNG
+    from vlp_tpu_torch.ops import _build
+
+    cfg = VLPConfig(vocab_size=28996, dtype="float32",
+                    num_hidden_layers=HEADS_LAYERS)
+    B, C, L, H = 2, 2, cfg.seq_len, cfg.hidden_size
+    rng = np.random.default_rng(9)
+    ids = torch.from_numpy(rng.integers(5, cfg.vocab_size, (B, L)))
+    alen = torch.from_numpy(rng.integers(L // 2, L + 1, (B,))).int()
+    text = dict(input_ids=ids, attention_len=alen)
+    calls = {
+        "BertForMaskedLM": ({}, text),
+        "BertForPreTraining": ({}, text),
+        "BertForNextSentencePrediction": ({}, text),
+        "BertForSequenceClassification": (dict(num_labels=3), text),
+        "BertForMultipleChoice": (dict(num_choices=C), dict(
+            input_ids=torch.from_numpy(rng.integers(5, cfg.vocab_size,
+                                                    (B, C, L))),
+            attention_len=torch.from_numpy(rng.integers(
+                L // 2, L + 1, (B, C))).int())),
+        "BertForTokenClassification": (dict(num_labels=5), text),
+        "BertForQuestionAnswering": ({}, text),
+        "BertForExtractiveSummarization": ({}, dict(
+            text, sentence_positions=torch.from_numpy(
+                rng.integers(0, L, (B, 4))))),
+        "PairRelHead": (dict(num_rel=4), dict(
+            pair_x=torch.from_numpy(rng.normal(size=(B, 6, H))).float(),
+            pair_y=torch.from_numpy(rng.normal(size=(B, 6, H))).float(),
+            pair_r=torch.from_numpy(rng.integers(0, 4, (B, 6))),
+            pair_pos_neg_mask=torch.from_numpy(
+                np.where(rng.random((B, 6)) > 0.5, 1.0, -1.0)).float())),
+    }
+
+    def flat(x):
+        return list(x) if isinstance(x, tuple) else [x]
+
+    _build.reset_launch_counts()
+    errs = {}
+    for name, (ctor, call) in calls.items():
+        head = getattr(heads, name)(cfg, **ctor)
+        gen = torch.Generator().manual_seed(1)
+        if hasattr(head, "init_weights"):
+            head.init_weights(gen)
+        else:
+            for prm in head.parameters():
+                prm.data.normal_(0.0, 0.02, generator=gen)
+        head.eval()
+        with torch.no_grad():
+            want = flat(head(**call))
+            head.to(dev)
+            got = flat(head(**{k: v.to(dev) for k, v in call.items()}))
+        errs[name] = max(compare(f"{name} card vs CPU, fp32", a,
+                                 b.to(dev), FP32_TOL)
+                         for a, b in zip(got, want))
+        if name == "BertForSequenceClassification":
+            fp32_logits = got[0]
+            half = getattr(heads, name)(cfg.replace(dtype="float16"), **ctor)
+            half.load_state_dict(head.state_dict())
+            half.to(dev).eval()
+            with torch.no_grad():
+                logits16 = half(**{k: v.to(dev) for k, v in call.items()})
+            tol = 5e-2 * float(fp32_logits.abs().max())
+            err16 = float((logits16 - fp32_logits).abs().max())
+            log(f"{name} fp16 on the card vs fp32: max abs err {err16:.3e} "
+                f"(tol {tol:.3e})")
+            if not torch.isfinite(logits16).all() or err16 > tol:
+                fail(f"{name}: the fp16 forward disagrees with fp32")
+            errs[name + " fp16"] = err16
+            del half
+        del head
+        torch.cuda.empty_cache()
+
+    # a train step of the sequence classifier in bf16 (bi mode: K1 dropout
+    # and K2), as a user fine-tunes it
+    head = heads.BertForSequenceClassification(
+        cfg.replace(dtype="bfloat16"), num_labels=3)
+    head.init_weights(torch.Generator().manual_seed(1))
+    head.to(dev).train()
+    opt = optim_lib.BertAdam(dict(head.named_parameters()), 3e-5)
+    labels = torch.tensor([0, 2], device=dev)
+    before = head.classifier.weight.detach().clone()
+    loss = head(ids.to(dev), attention_len=alen.to(dev), labels=labels,
+                drop=DropoutRNG(11, dev))
+    loss.backward()
+    opt.step()
+    torch.cuda.synchronize()
+    if not torch.isfinite(loss) or torch.equal(head.classifier.weight,
+                                               before):
+        fail("BertForSequenceClassification: the train step did not move")
+    log(f"BertForSequenceClassification bf16 train step on the card: loss "
+        f"{float(loss.detach()):.4f}")
+    counts = {k: v.launches for k, v in _build.KERNELS.items()}
+    # every head but PairRelHead runs the encoder once on the card
+    n = HEADS_LAYERS
+    want = dict({k: 0 for k in counts}, attention_fwd=n * (len(calls) - 1),
+                attention_fwd_fp16=n, attention_fwd_drop=n, attention_bwd=n)
+    log(f"legacy heads launch counts {counts}, expected {want}")
+    if counts != want:
+        fail("the legacy heads did not launch the kernels as expected")
+    del head, opt
+    torch.cuda.empty_cache()
+    return counts, errs
 
 
 def phase_bhld_main_path(dev):
     """The public [B, H, L, D] op as a user calls it, at the training shape
-    (B=64, L=128, H=12, D=64, bf16): one inference call
+    (B=64, L=128, H=12, D=64), in bf16 and in fp16: one inference call
     (``attention(..., layout="bhld")``) and one training forward and
-    backward through autograd (``FusedAttention``, dropout 0.1).  Each
-    launches its bhld kernel once and no other kernel."""
+    backward through autograd (``FusedAttention``, dropout 0.1) each.
+    Each launches its bhld kernel of that dtype once and no other
+    kernel."""
     from vlp_tpu_torch.ops import _build
     from vlp_tpu_torch.ops import attention as attn
 
     g = torch.Generator(device=dev).manual_seed(7)
-    q, k, v, mode, te, ck, dout = bhld_inputs(g, dev, torch.bfloat16)
-    leaves = [t.requires_grad_() for t in (q, k, v)]
     _build.reset_launch_counts()
-    with torch.no_grad():
-        out = attn.attention(q, k, v, mode, te, ck, prefix=102,
-                             layout="bhld")
-    y = attn.FusedAttention.apply(*leaves, mode, te, ck, 102, 0.1, 99,
-                                  "bhld")
-    grads = torch.autograd.grad(y, leaves, dout)
+    outs = []
+    for dtype in (torch.bfloat16, torch.float16):
+        q, k, v, mode, te, ck, dout = bhld_inputs(g, dev, dtype)
+        leaves = [t.requires_grad_() for t in (q, k, v)]
+        with torch.no_grad():
+            out = attn.attention(q, k, v, mode, te, ck, prefix=102,
+                                 layout="bhld")
+        y = attn.FusedAttention.apply(*leaves, mode, te, ck, 102, 0.1, 99,
+                                      "bhld")
+        grads = torch.autograd.grad(y, leaves, dout)
+        outs += [(t, q.shape) for t in (out, y, *grads)]
     torch.cuda.synchronize()
     counts = {k: v.launches for k, v in _build.KERNELS.items()}
-    want = {k: (1 if k in BHLD else 0) for k in counts}
+    want = {k: int(k.removesuffix("_fp16") in FORMS["bhld"]) for k in counts}
     log(f"bhld op launch counts {counts}, expected {want}")
     if counts != want:
         fail("the bhld op did not launch its kernels as expected")
-    if not all(torch.isfinite(t).all() and t.shape == q.shape
-               for t in (out, y, *grads)):
+    if not all(torch.isfinite(t).all() and t.shape == shape
+               for t, shape in outs):
         fail("the bhld op returned non-finite or misshapen tensors")
     return counts
 
@@ -1314,7 +1697,7 @@ def phase_end_to_end(dev, vocab_path, seed=0, word_scale=5.0):
     return err
 
 
-def phase_train_end_to_end(dev, vocab_path, steps=3, B=8):
+def phase_train_end_to_end(dev, vocab_path, steps=2, B=8):
     """fp32 bert-base, same weights and batches: ``steps`` train steps on
     the card (K1 dropout + K2 kernels) and on the CPU (plain versions),
     hidden dropout 0 and attention dropout 0.1 from the same seeds, so the
@@ -1367,7 +1750,7 @@ def phase_train_end_to_end(dev, vocab_path, steps=3, B=8):
     return err
 
 
-def phase_vqa_end_to_end(dev, vocab_path, steps=3, B=8):
+def phase_vqa_end_to_end(dev, vocab_path, steps=2, B=8):
     """fp32 bert-base with the 3,129-way answer head, same weights: the
     answer logits of bi-mode questions on the card (K1) and on the CPU
     (plain versions) within 1e-4, the answer ids identical wherever the
@@ -1802,6 +2185,7 @@ def phase_vqa_main_path(vocab_path, answers_path, out_dir, gpu_line):
 
 
 DP_STEPS = 6                 # phase 6a: train steps at world size 1
+DP2_LAYERS = 4               # phase 6b: the two ranks' depth
 DP_LR = 1e-3                 # phase 6b: constant lr, so the steps move
 
 
@@ -1962,7 +2346,7 @@ def _dp_world1(flags, vocab_path, answers_path, out_dir, gpu_line):
 
 def dp_worker(rank: int, port: int, vocab_path: str, out: str) -> None:
     """Rank ``rank`` of 2 on the one card, gloo (NCCL refuses two ranks on
-    one device), bert-base at full width and depth: (a) fp32, dropout 0,
+    one device), bert-base width, DP2_LAYERS deep: (a) fp32, dropout 0,
     global B=16, 2 ``dp_step`` steps, and on rank 0 the single-process
     step on the global batch beside it; (b) bf16, dropout 0.1, the same 2
     steps; (c) SCST, bf16, both dropouts 0.1, global B=8, 2 steps.  Writes
@@ -2002,7 +2386,7 @@ def dp_worker(rank: int, port: int, vocab_path: str, out: str) -> None:
         rng = np.random.default_rng(0)
         GB, half = 16, 8
         base = VLPConfig(vocab_size=len(vocab), relax_projection=0,
-                         max_pred=3)
+                         max_pred=3, num_hidden_layers=DP2_LAYERS)
         nv = base.len_vis_input
         batches = []
         for _ in range(2):
@@ -2061,8 +2445,8 @@ def dp_worker(rank: int, port: int, vocab_path: str, out: str) -> None:
         res["bf16_hash"] = param_hash(m)
         del m
 
-        cfg, model, svocab, batch, srng = _scst_setup(vocab_path, 8, 0,
-                                                      dtype="bfloat16")
+        cfg, model, svocab, batch, srng = _scst_setup(
+            vocab_path, 8, 0, dtype="bfloat16", num_hidden_layers=DP2_LAYERS)
         model = model.to(dev)
         tr = scst.SCSTTrainer(
             model, cfg, mask_id=svocab["[MASK]"], eos_id=svocab["[SEP]"],
@@ -2129,15 +2513,17 @@ def phase_dp_two_ranks(vocab_path, out_dir):
     log(f"DP two ranks: fp32, bf16 (losses {r0['bf16_losses']}) and SCST "
         f"(losses {r0['scst_losses']}) replicas bit-identical; gloo "
         f"all-reduce ms {[round(x, 2) for x in r0['allreduce_ms']]}")
-    # each rank's launches, per run: 2 steps of one micro-batch, 12 layers
+    # each rank's launches, per run: 2 steps of one micro-batch,
+    # DP2_LAYERS layers
+    n = 2 * DP2_LAYERS
     zero = {k: 0 for k in r0["counts"]["fp32"]}
-    step = dict(zero, attention_fwd_drop=24, attention_bwd=24)
-    dec = 12 * (SCST_T - 1) * 2
+    step = dict(zero, attention_fwd_drop=n, attention_bwd=n)
+    dec = n * (SCST_T - 1)
     want = {"fp32": step, "bf16": step,
-            "scst": dict(zero, attention_fwd=24, attention_fwd_drop=48,
-                         attention_bwd=24, decode_attention=dec,
+            "scst": dict(zero, attention_fwd=n, attention_fwd_drop=2 * n,
+                         attention_bwd=n, decode_attention=dec,
                          decode_attention_drop=dec,
-                         decode_dropout_scales=24)}
+                         decode_dropout_scales=n)}
     for r in (r0, r1):
         if r["counts"] != want:
             fail(f"DP two ranks launch counts {r['counts']}, expected {want}")
@@ -2273,6 +2659,7 @@ def main():
     phase_train_kernels(dev, results)
     phase_scst_kernels(dev, results)
     phase_bhld_kernels(dev, results)
+    phase_fp16_kernels(dev, results)
     log("phase 2: kernels agree with their plain versions")
 
     paths = {}
@@ -2302,6 +2689,12 @@ def main():
         log("phase 4d: VQA train and eval paths went through their kernels")
         paths["bhld"] = phase_bhld_main_path(dev)
         log("phase 4e: the bhld op went through its kernels")
+        paths["train_fp16"], fp16_rates = phase_fp16_main_path(
+            vocab_path, tmp, smi, train_rates)
+        log("phase 4f: --true_fp16 train main path went through the fp16 "
+            "kernels")
+        paths["legacy_heads"], heads_errs = phase_legacy_heads(dev)
+        log("phase 4g: the legacy heads agree card vs CPU and train")
         steady = phase_steady_state(dev, vocab_path)
         vqa_rates["vqa_questions_per_sec_steady"] = phase_vqa_steady_state(
             dev, vocab_path)
@@ -2326,6 +2719,7 @@ def main():
             **results[name]))
     print(json.dumps({"kernels": kernels, "captions_per_sec_cli": rates,
                       "captions_per_sec_steady": steady, **train_rates,
+                      **fp16_rates, "legacy_heads_max_abs_err": heads_errs,
                       **scst_rates, **vqa_rates, **dp_rates,
                       "scst_checks": scst_checks,
                       "vqa_checks": vqa_checks}))

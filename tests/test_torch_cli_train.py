@@ -158,8 +158,7 @@ def test_finetune_decay_accumulation_and_profile(fx):
 @pytest.mark.parametrize("flag,item", [
     (["--scst", "--scst_replay", "scan"], "A9"),
     (["--scst", "--scst_remat"], "Not to"),
-    (["--tensor_parallel", "2"], "Not to"),
-    (["--true_fp16"], "Not to")])
+    (["--tensor_parallel", "2"], "Not to")])
 def test_unported_flags_raise(fx, flag, item):
     with pytest.raises(NotImplementedError, match=item):
         train_cli.main(train_args(fx, os.path.join(fx["dir"], "no"), *flag,

@@ -878,3 +878,137 @@ def test_fp32_backward_scratch_is_linear_in_L(cuda):
         assert lib.vlp_attention_bwd_scratch_floats(L, 0) == \
             (3 + -(-L // 32)) * rows
     assert lib.vlp_attention_bwd_scratch_floats(512, 0) * 50 < 2 * 512 ** 2
+
+
+# fp16 (--true_fp16): the 16-bit bodies instantiated for fp16.  They round
+# P o keep and dS to fp16 (2^-11 relative, 8x finer than bf16's 2^-8) where
+# the plain versions keep fp32, and both round their outputs to fp16: two
+# fp16 ulps at [2, 4) (1.95e-3 each) absolute and four ulps relative,
+# against bf16's 3e-2 / 1e-2.
+FP16_TOL = dict(atol=4e-3, rtol=2e-3)
+FP16_LENGTHS = [103, 128, 256, 528]   # ragged, one block, and the tiled body
+
+
+def _fp16_inputs(g, dev, L, layout, B=2, H=3):
+    q, k, v, mode, te, ck = _train_inputs(g, dev, torch.float16, B=B, L=L,
+                                          H=H)
+    te = torch.randint(103, L + 1, (B,), generator=g, device=dev)
+    dout = torch.randn(q.shape, generator=g, device=dev).half()
+    if layout == "bhld":
+        q, k, v, dout = (t.transpose(1, 2).contiguous()
+                         for t in (q, k, v, dout))
+    return q, k, v, mode, te, ck, dout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("layout", ["blhd", "bhld"])
+@pytest.mark.parametrize("L", FP16_LENGTHS)
+def test_fp16_attention_kernels_match_plain(cuda, rate, layout, L):
+    """K1 (deterministic through ``attention``, dropout through
+    ``FusedAttention``) and K2 in fp16 against their plain versions run in
+    fp16; each launch counts under its ``_fp16`` name only."""
+    g = torch.Generator(device=cuda).manual_seed(21)
+    q, k, v, mode, te, ck, dout = _fp16_inputs(g, cuda, L, layout)
+    seed = 0x0DDB1A5E5BAD5EED
+    sfx = "_bhld" if layout == "bhld" else ""
+    names = [f"attention_fwd{sfx}{x}" for x in ("", "_drop")] + \
+        [f"attention_bwd{sfx}"]
+    before = {n: _build.KERNELS[n].launches for n in _build.KERNELS}
+    det = attn.attention(q, k, v, mode, te, ck, prefix=102, layout=layout)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = attn.FusedAttention.apply(*leaves, mode, te, ck, 102, rate, seed,
+                                    layout)
+    grads = torch.autograd.grad(out, leaves, dout)
+    after = {n: _build.KERNELS[n].launches for n in _build.KERNELS}
+    assert {n: after[n] - before[n] for n in after if after[n] != before[n]} \
+        == {n + "_fp16": 1 for n in names}
+    kw = dict(prefix=102, layout=layout)
+    want_det = attn.attention_plain(q, k, v, mode, te, ck, **kw)
+    want = attn.attention_plain(q, k, v, mode, te, ck, dropout_rate=rate,
+                                seed=seed, **kw)
+    want_grads = attn.attention_bwd_plain(q, k, v, mode, te, ck, dout,
+                                          dropout_rate=rate, seed=seed, **kw)
+    torch.cuda.synchronize()
+    for got, exp in ((det, want_det), (out, want), *zip(grads, want_grads)):
+        assert got.dtype == torch.float16 and got.shape == q.shape
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got.float(), exp.float(), **FP16_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", FP16_LENGTHS)
+def test_fp16_bhld_equals_blhd_bit_for_bit(cuda, L):
+    g = torch.Generator(device=cuda).manual_seed(22)
+    q, k, v, mode, te, ck, dout = _fp16_inputs(g, cuda, L, "blhd")
+    seed, rate = 0x5EED0F16, 0.1
+    tr = [t.transpose(1, 2).contiguous() for t in (q, k, v, dout)]
+    blhd = [attn.attention(q, k, v, mode, te, ck, prefix=102),
+            attn._forward_cuda(q, k, v, mode, te, ck, 102,
+                               dropout=(rate, seed)),
+            *attn._backward_cuda(q, k, v, mode, te, ck, dout, 102, rate,
+                                 seed)]
+    bhld = [attn.attention(*tr[:3], mode, te, ck, prefix=102, layout="bhld"),
+            attn._forward_cuda(*tr[:3], mode, te, ck, 102,
+                               dropout=(rate, seed), layout="bhld"),
+            *attn._backward_cuda(*tr[:3], mode, te, ck, tr[3], 102, rate,
+                                 seed, "bhld")]
+    torch.cuda.synchronize()
+    for a, b in zip(bhld, blhd):
+        assert torch.equal(a.transpose(1, 2), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [128, 528])
+def test_fp16_keep_bits_equal_dropout_mask(cuda, L):
+    """With q = k = 0 in bi mode over the whole row, P = 1/L everywhere,
+    so the forward with V the identity on its first 64 keys shows P o keep
+    of keys 0..63 of every row, and the backward's dV with dO the identity
+    on rows 0..63 shows rows 0..63 against every key: their zeros are the
+    keep bits the kernels drew, and they are dropout_mask's."""
+    B, H, seed, rate = 2, 3, 0xFEEDFACECAFEBEEF, 0.1
+    z = torch.zeros(B, L, H, 64, dtype=torch.float16, device=cuda)
+    eye = torch.zeros_like(z)
+    n = min(L, 64)
+    eye[:, torch.arange(n), :, torch.arange(n)] = 1.0
+    mode = torch.full((B,), MODE_BI, dtype=torch.int32, device=cuda)
+    te = torch.full((B,), L, dtype=torch.int32, device=cuda)
+    ck = torch.ones(B, L, device=cuda)
+    out = attn._forward_cuda(z, z, eye, mode, te, ck, 102,
+                             dropout=(rate, seed))
+    _, _, dv = attn._backward_cuda(z, z, z, mode, te, ck, eye, 102, rate,
+                                   seed)
+    keep = attn.dropout_mask(B, H, L, rate, seed, cuda) > 0
+    torch.cuda.synchronize()
+    # out[b, i, h, d] = P o keep[b, h, i, d]; dv[b, j, h, d] = P o keep
+    # [b, h, d, j]
+    assert torch.equal(out[..., :n].permute(0, 2, 1, 3) != 0,
+                       keep[..., :n])
+    assert torch.equal(dv[..., :n].permute(0, 2, 3, 1) != 0,
+                       keep[:, :, :n, :])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", [float("inf"), float("nan")])
+@pytest.mark.parametrize("layout", ["blhd", "bhld"])
+@pytest.mark.parametrize("L", [128, 256])
+def test_fp16_backward_passes_a_nonfinite_dout_through(cuda, bad, layout, L):
+    """The loss scaler's overflow check reads the gradients: one inf or
+    NaN in dO must leave dQ, dK and dV non-finite, not clamped or masked
+    away."""
+    g = torch.Generator(device=cuda).manual_seed(23)
+    q, k, v, mode, te, ck, dout = _fp16_inputs(g, cuda, L, layout)
+    if layout == "blhd":
+        dout[0, 5, 1, 7] = bad
+    else:
+        dout[0, 1, 5, 7] = bad
+    grads = attn._backward_cuda(q, k, v, mode, te, ck, dout, 102, 0.1,
+                                0x1234, layout)
+    torch.cuda.synchronize()
+    for x in grads:
+        assert not torch.isfinite(x).all()
+    finite = attn._backward_cuda(q, k, v, mode, te, ck,
+                                 torch.nan_to_num(dout, posinf=0.0), 102,
+                                 0.1, 0x1234, layout)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(x).all() for x in finite)

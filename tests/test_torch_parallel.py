@@ -17,6 +17,8 @@ step.  ``VLPConfig.tiny`` (2 layers, hidden 32, 2 heads), fp32, dropout 0.
   single-process gradient of the global batch when every rank's loss mask
   has the same weight, and the mean of the two halves' when the masks
   differ (a sampled EOS and a pad).
+* The loss-scaled step (``--true_fp16``): an inf in one rank's rows
+  skips the step on both ranks.
 * The helpers: the mean all-reduce with a parameter that has no gradient
   (and the refusal when the ranks disagree on it), the broadcasts, the
   metric mean, the gathers' rank order and the ceil-split.
@@ -87,6 +89,23 @@ for accum, (state, batch) in job["steps"].items():
     res[("step", accum)] = ({k: v.detach().clone()
                              for k, v in model.state_dict().items()},
                             float(m["loss"]))
+
+# the loss-scaled step: an inf in one rank's rows skips the step everywhere
+state, good, bad = job["skip"]
+model = VLPModel(job["cfg"])
+model.load_state_dict(state)
+opt = optim.BertAdam(dict(model.named_parameters()), job["lr"], warmup=0.1,
+                     t_total=-1)
+step = make_dp_train_step(model, opt, dist,
+                          loss_scale=optim.DynamicLossScale(init_scale=8.0))
+res["skip"] = []
+for b in (good, bad):
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    m = step({k: torch.from_numpy(rows(v)) for k, v in b.items()}, 7)
+    res["skip"].append((
+        float(m["skipped_step"]), float(opt.loss_scale["scale"]),
+        int(opt.loss_scale["good_steps"]), int(opt.step_count),
+        all(torch.equal(v, before[k]) for k, v in model.state_dict().items())))
 
 greedy, gt, sample = job["reward"]
 res["reward"] = scst.global_reward(rows(greedy), rows(gt), rows(sample),
@@ -203,8 +222,11 @@ def dp(tmp_path_factory):
     greedy[::2, -3:] = rng.integers(1, 9, (B // 2, 3))
     sample = rng.integers(1, 9, (B, T))
     sample[1] = gt[1, :T]
+    bad = {k: v.copy() for k, v in batches[1].items()}
+    bad["vis_feats"][B - 3, 0, 0] = np.inf     # a row of rank 1 only
     job = dict(world=WORLD, cfg=torch_cfg(cfg), lr=LR,
                steps={a: (state, batches[a]) for a in ACCUMS},
+               skip=(state, batches[2], bad),
                reward=(greedy, gt, sample),
                scst_cfg=torch_cfg(scfg), scst_state=_by_name(sparams, scfg),
                scst_batch=sbatch, mask=MASK, eos=EOS, T=T,
@@ -261,6 +283,15 @@ def test_dp_step_matches_jax_shard_map_and_the_global_step(dp, accum):
     for name, p in model.state_dict().items():
         np.testing.assert_allclose(p0[name].numpy(), p.numpy(), **TOL,
                                    err_msg=name)
+
+
+def test_dp_loss_scaled_step_skips_on_every_rank(dp):
+    """--true_fp16 under data parallel: the ranks unscale and check the
+    all-reduced gradients, so an overflow in rank 1's rows alone skips the
+    step (parameters, moments and BertAdam's step kept, scale halved) on
+    rank 0 too, and the replicas stay equal."""
+    want = [(0.0, 8.0, 1, 1, False), (1.0, 4.0, 0, 1, True)]
+    assert [o["skip"] for o in dp["outs"]] == [want, want]
 
 
 def test_reward_is_scored_over_the_global_batch(dp):

@@ -32,7 +32,8 @@ def configure_precision() -> None:
 
 def torch_dtype(name: str) -> torch.dtype:
     """``VLPConfig.dtype`` string -> torch dtype."""
-    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+              "float16": torch.float16}
     if name not in dtypes:
         raise ValueError(f"unsupported activation dtype {name!r}")
     return dtypes[name]

@@ -12,7 +12,8 @@ A training run writes, under its output directory:
 * ``model.{N}.bin`` — after epoch N, a torch state dict under the reference
   keys (the tied decoder shares the word embeddings' storage), loadable by
   :func:`load_reference_bin` and by the reference stack;
-* ``optim.{N}.bin`` — BertAdam's ``{"step", "m", "v"}``;
+* ``optim.{N}.bin`` — BertAdam's ``{"step", "m", "v"}``, plus
+  ``"loss_scale"`` (``{"scale", "good_steps"}``) under ``--true_fp16``;
 * ``model.s{S}.bin`` / ``optim.s{S}.bin`` — the same after optimizer step S
   (``--save_steps``), the latest two kept.
 
@@ -159,14 +160,40 @@ TIED_DECODER = "cls.predictions.decoder.weight"
 WORD_EMBEDDINGS = "bert.embeddings.word_embeddings.weight"
 
 
-def state_dict_from_flax(np_params, cfg: VLPConfig
+# the legacy BERT heads' own parameters (models/heads_legacy.py): reference
+# name -> (flax path in a vlp_tpu heads_legacy module, transpose?).  The
+# JAX package's LEGACY_HEAD_MAP plus ``extract``, which it leaves out.
+LEGACY_HEAD_MAP: Dict[str, tuple] = {
+    "cls.seq_relationship.weight": (("seq_relationship", "kernel"), True),
+    "cls.seq_relationship.bias": (("seq_relationship", "bias"), False),
+    "classifier.weight": (("classifier", "kernel"), True),
+    "classifier.bias": (("classifier", "bias"), False),
+    "qa_outputs.weight": (("qa_outputs", "kernel"), True),
+    "qa_outputs.bias": (("qa_outputs", "bias"), False),
+    "R_xy.dense.weight": (("pair_dense", "kernel"), True),
+    "R_xy.dense.bias": (("pair_dense", "bias"), False),
+    "rel_emb.weight": (("rel_emb", "embedding"), False),
+    "extract.weight": (("extract", "kernel"), True),
+    "extract.bias": (("extract", "bias"), False),
+}
+
+
+def state_dict_from_flax(np_params, cfg: VLPConfig, legacy: bool = False
                          ) -> Dict[str, torch.Tensor]:
     """JAX params as a numpy tree (``tree_map(np.asarray, params)``) ->
     the port's state dict: dense kernels transposed, the tied decoder set to
-    the word embeddings.  Paths absent from the tree (the VQA head of a
-    caption model) are skipped."""
+    the word embeddings (where the tree has an MLM head).  Paths absent from the tree (the VQA head of a
+    caption model) are skipped.  ``legacy``: the tree of a
+    ``vlp_tpu.models.heads_legacy`` module, whose backbone sits under
+    ``("backbone", "vlp")`` and whose head parameters follow
+    :data:`LEGACY_HEAD_MAP`."""
+    mapping = _torch_to_flax_map(cfg)
+    if legacy:
+        mapping = {tk: (("backbone", "vlp") + path, t)
+                   for tk, (path, t) in mapping.items()}
+        mapping.update(LEGACY_HEAD_MAP)
     out: Dict[str, torch.Tensor] = {}
-    for tk, (path, transpose) in _torch_to_flax_map(cfg).items():
+    for tk, (path, transpose) in mapping.items():
         node = np_params
         for p in path:
             node = node.get(p) if isinstance(node, dict) else None
@@ -178,8 +205,25 @@ def state_dict_from_flax(np_params, cfg: VLPConfig
         # a copy: JAX hands out read-only buffers
         out[tk] = torch.from_numpy(np.array(v.T if transpose else v,
                                             order="C"))
-    out[TIED_DECODER] = out[WORD_EMBEDDINGS]
+    if WORD_EMBEDDINGS in out and "cls.predictions.bias" in out:
+        out[TIED_DECODER] = out[WORD_EMBEDDINGS]
     return out
+
+
+def require_bin(path: str) -> None:
+    """Raise on a directory: the JAX train CLI writes its ``model.N`` as
+    orbax directories, which the port cannot read (orbax needs ``jax``).
+    The JAX package's convert CLI writes the reference ``.bin`` that the
+    port loads."""
+    if os.path.isdir(path):
+        raise IsADirectoryError(
+            f"{path} is a directory (an orbax checkpoint of the JAX "
+            "package?); vlp_tpu_torch loads reference .bin files.  Convert "
+            "it where the JAX package is installed: python -m "
+            f"vlp_tpu.cli.convert --direction jax2torch --input {path} "
+            f"--output {path.rstrip(os.sep)}.bin, with the run's "
+            "--vocab_size / --new_segment_ids / --relax_projection / "
+            "--tasks / --config_path")
 
 
 def load_reference_bin(path: str, cfg: VLPConfig,
@@ -187,7 +231,10 @@ def load_reference_bin(path: str, cfg: VLPConfig,
                        ) -> Dict[str, torch.Tensor]:
     """A reference ``model.N.bin`` after the ``from_pretrained`` surgery
     (gamma/beta rename, type-vocab expansion, position tiling,
-    relax-projection select to head ``task_idx``), as torch tensors."""
+    relax-projection select to head ``task_idx``), as torch tensors.
+    Every CLI loads its weights through here; a directory raises
+    (:func:`require_bin`)."""
+    require_bin(path)
     sd = apply_surgery(load_torch_state_dict(path), cfg, task_idx)
     return {k: torch.from_numpy(np.ascontiguousarray(v))
             for k, v in sd.items()}
@@ -265,9 +312,8 @@ def save_checkpoint(output_dir: str, tag, model: torch.nn.Module,
                          "not the model's")
     os.makedirs(output_dir, exist_ok=True)
     opt = optimizer.state_dict()
-    opt = {"step": opt["step"],
-           "m": {n: t.detach().cpu() for n, t in opt["m"].items()},
-           "v": {n: t.detach().cpu() for n, t in opt["v"].items()}}
+    opt.update(m={n: t.detach().cpu() for n, t in opt["m"].items()},
+               v={n: t.detach().cpu() for n, t in opt["v"].items()})
     _save(_model_state_cpu(model),
           os.path.join(output_dir, f"model.{tag}.bin"))
     _save(opt, os.path.join(output_dir, f"optim.{tag}.bin"))
@@ -304,8 +350,9 @@ def restore_model(output_dir: str, tag, model: torch.nn.Module) -> None:
 
 
 def restore_optimizer(output_dir: str, tag, optimizer) -> None:
-    """Load ``optim.{tag}.bin`` into ``optimizer``; raises on moments that
-    do not match its parameters."""
+    """Load ``optim.{tag}.bin`` into ``optimizer`` (the loss scale too,
+    when it scales its loss); raises on moments that do not match its
+    parameters."""
     optimizer.load_state_dict(torch.load(
         os.path.join(output_dir, f"optim.{tag}.bin"), map_location="cpu",
         weights_only=True))

@@ -5,6 +5,9 @@ minus the TPU-only ``--approx_topk/--topk_impl/--topk_block/--reorder_impl/
 --no_pallas``, plus ``--device`` (default ``cuda``).  On CUDA the model runs
 bf16 activations through the hand-written kernels; on CPU it runs fp32
 through their plain versions.  ``--device cuda`` without a GPU raises.
+It reads reference ``.bin`` checkpoints; a JAX orbax ``model.N`` directory
+raises with the remedy, ``python -m vlp_tpu.cli.convert --direction
+jax2torch`` (``checkpoint.require_bin``).
 
     python -m vlp_tpu_torch.cli.decode --bert_model vocab.txt \\
         --model_recover_path 'model.*.bin' --new_segment_ids --enable_butd \\
@@ -201,10 +204,6 @@ def decode(args, dist: parallel.Dist):
         model.init_weights(torch.Generator().manual_seed(args.seed))
         if model_recover_path:
             print(f"***** Recover model: {model_recover_path} *****")
-            if os.path.isdir(model_recover_path):
-                raise NotImplementedError(
-                    "the torch port loads reference .bin checkpoints; "
-                    f"{model_recover_path} is a JAX orbax directory")
             ckpt.load_into(model, ckpt.load_reference_bin(
                 model_recover_path, cfg, task_idx=3))
         model = model.to(device).cast_for_inference().eval()

@@ -12,7 +12,8 @@ It runs on the card unless called with ``--device cpu``: bf16 activations
 through the hand-written attention kernel on ``cuda``, fp32 through its
 plain version on ``cpu``; ``--device cuda`` without a GPU raises.  It reads
 reference ``.bin`` checkpoints (the relax projection collapses to head 0);
-a JAX orbax directory raises (ROADMAP A11).  Under torchrun
+a JAX orbax directory raises with the remedy, ``python -m
+vlp_tpu.cli.convert --direction jax2torch`` (``checkpoint.require_bin``).  Under torchrun
 (``torchrun --nproc_per_node=N -m vlp_tpu_torch.cli.eval_vqa2 ...``) it
 evaluates data parallel, one process per GPU (the JAX CLI's
 ``shard_map``): rank r answers the r-th contiguous slice of the questions
@@ -182,11 +183,6 @@ def evaluate(args, dist: parallel.Dist):
         model.init_weights(torch.Generator().manual_seed(args.seed))
         if model_recover_path:
             print(f"***** Recover model: {model_recover_path} *****")
-            if os.path.isdir(model_recover_path):
-                raise NotImplementedError(
-                    "the torch port loads reference .bin checkpoints; "
-                    f"{model_recover_path} is a JAX orbax directory "
-                    "(ROADMAP A11)")
             ckpt.load_into(model, ckpt.load_reference_bin(
                 model_recover_path, cfg, task_idx=0))
         model = model.to(device).cast_for_inference().eval()

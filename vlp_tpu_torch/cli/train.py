@@ -13,10 +13,17 @@ fused replay, ``scst.py``).
     # SCST from a fine-tuned checkpoint (reference recipe: lr 1e-6)
     python -m vlp_tpu_torch.cli.train --do_train --scst --dataset coco \\
         --max_pred 0 --mask_prob 0 --learning_rate 1e-6 ...
+    # fp16 activations with dynamic loss scaling (--loss_scale N: static)
+    python -m vlp_tpu_torch.cli.train --do_train --true_fp16 ...
 
 It runs on the card unless called with ``--device cpu``: bf16 activations
 through the hand-written kernels on ``cuda``, fp32 through their plain
-versions on ``cpu``; ``--device cuda`` without a GPU raises.  Epoch
+versions on ``cpu``; ``--device cuda`` without a GPU raises.
+``--true_fp16`` (MLE and ``--tasks vqa2``, not ``--scst``) makes the
+activations fp16 on either device, through the fp16 forms of K1 and K2 on
+the card, with dynamic loss scaling (``--loss_scale N > 0``: a static
+scale); the scale state is saved in ``optim.N.bin`` and restored on
+resume.  Epoch
 checkpoints are ``model.N.bin`` / ``optim.N.bin`` (``checkpoint.py``), and a
 rerun with the same ``--output_dir`` resumes from the newest epoch or
 ``--save_steps`` checkpoint.
@@ -36,8 +43,7 @@ and the returned losses are global means.  ``--world_size``, when > 1, must
 equal the group's size.
 
 Flags the port leaves out raise: ``--tensor_parallel > 1``,
-``--true_fp16``, ``--scst_replay scan`` and ``--scst_remat`` (ROADMAP A,
-not to port).  The TPU dispatch
+``--scst_replay scan`` and ``--scst_remat`` (ROADMAP A, not to port).  The TPU dispatch
 workarounds ``--device_loop_steps``, ``--no_pallas`` and ``--tp_impl`` are
 no-ops here and say so in the log, as are
 ``--fp16/--amp/--fp32_embedding`` (the dtype follows ``--device``).
@@ -107,10 +113,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "(bf16 on cuda, fp32 on cpu)")
     p.add_argument("--amp", action="store_true", help="no-op, as --fp16")
     p.add_argument("--true_fp16", action="store_true",
-                   help="not ported (fp16 + loss scaling, ROADMAP A): "
-                        "raises")
+                   help="fp16 activations + dynamic loss scaling (the "
+                        "reference FP16_Optimizer_State path, "
+                        "optimization_fp16.py:7-80), on either device; "
+                        "not with --scst")
     p.add_argument("--loss_scale", type=float, default=0,
-                   help="only read with --true_fp16")
+                   help="with --true_fp16: 0 = dynamic loss scaling, >0 = "
+                        "static scale (run_img2txt_dist.py:119,415-420)")
     p.add_argument("--fp32_embedding", action="store_true",
                    help="no-op: parameters, embedding tables included, "
                         "stay fp32")
@@ -220,9 +229,6 @@ def refuse_unported(args) -> None:
         (args.tensor_parallel > 1,
          "--tensor_parallel: manual tensor parallelism is under ROADMAP A "
          "'Not to port'"),
-        (args.true_fp16,
-         "--true_fp16: fp16 with loss scaling is under ROADMAP A "
-         "'Not to port'"),
     ]
     for hit, what in unported:
         if hit:
@@ -311,6 +317,10 @@ def main(argv=None, dist: parallel.Dist = None):
         if args.gradient_accumulation_steps > 1:
             raise ValueError("--scst does not compose with "
                              "--gradient_accumulation_steps")
+        if args.true_fp16:
+            # the JAX CLI's message (vlp_tpu/cli/train.py:385)
+            raise ValueError("--true_fp16 is not supported with --scst "
+                             "(use the default bf16 path)")
     if dist is not None:
         return train(args, dist)
     dist = parallel.from_cli(
@@ -336,7 +346,9 @@ def train(args, dist: parallel.Dist):
         raise ValueError("--s2s_prob + --bi_prob must be 1")
     args.max_seq_length = args.max_len_b + args.len_vis_input + 3
     args.mask_image_regions = args.vis_mask_prob > 0
-    dtype = "bfloat16" if device.type == "cuda" else "float32"
+    # --true_fp16: fp16 on either device (JAX CLI :216)
+    dtype = ("float16" if args.true_fp16
+             else "bfloat16" if device.type == "cuda" else "float32")
 
     if dist.is_main:
         logger = common.setup_logging(args.output_dir, args.log_file)
@@ -459,8 +471,14 @@ def train(args, dist: parallel.Dist):
             missing_key_substrings=FRESH_HEADS, **opt_kw)
     else:
         optimizer = optim_lib.BertAdam(params, args.learning_rate, **opt_kw)
-    if tag is not None:
-        ckpt.restore_optimizer(args.output_dir, tag, optimizer)
+    loss_scale = None
+    if args.true_fp16:
+        loss_scale = (optim_lib.DynamicLossScale() if args.loss_scale == 0
+                      else optim_lib.DynamicLossScale(
+                          init_scale=args.loss_scale, static=True))
+        logger.info("true-fp16: fp16 activations + %s loss scaling",
+                    "dynamic" if args.loss_scale == 0
+                    else f"static {args.loss_scale:g}")
     if args.scst:
         vocab = tokenizer.vocab
         scst_trainer = SCSTTrainer(
@@ -479,11 +497,15 @@ def train(args, dist: parallel.Dist):
     else:
         train_step = make_dp_train_step(
             model, optimizer, dist, mask_image_regions=args.mask_image_regions,
-            task=args.tasks, grad_accum=accum)
+            task=args.tasks, grad_accum=accum, loss_scale=loss_scale)
 
         def run_step(batch, tbatch, seed, i_epoch):
             return train_step(tbatch, seed, args.max_drop_worst_ratio
                               if i_epoch > args.drop_after else 0.0)
+    if tag is not None:
+        # after the step builder, which put the loss scale's state on the
+        # optimizer: the saved one replaces it
+        ckpt.restore_optimizer(args.output_dir, tag, optimizer)
 
     result = {"losses": [], "step_seconds": [], "iter_seconds": [],
               "model": model, "allreduce_ms": []}

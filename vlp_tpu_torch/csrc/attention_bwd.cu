@@ -18,7 +18,12 @@
 // is the logical (column/4, row, head, example), so bhld and blhd
 // regenerate the same multipliers for one seed.
 //
-// The body is chosen by dtype and length (never by a failure):
+// The body is chosen by dtype and length (never by a failure).  fp16
+// (--true_fp16 training) runs the bf16 bodies below instantiated for
+// __half: the same tiles, Philox bits and order of rounding, with P o keep
+// and dS rounded to fp16 and mma.m16n8k16 taking .f16 operands at the bf16
+// rate.  Nothing is clamped: a dS or gradient past fp16's 65504 becomes
+// inf and a NaN stays NaN, which is how the loss scaler sees an overflow.
 // * bf16, every main path, L <= 144: attention_bwd_mma, on the tensor
 //   cores (mma.m16n8k16, bf16 operands, fp32 accumulation).  One block per
 //   (example, head) holds the whole problem: Q, K, V and dO staged once
@@ -114,9 +119,9 @@
 namespace {
 
 constexpr int D = vlp::kHeadDim;
-using bf16 = __nv_bfloat16;
+using bf16 = __nv_bfloat16;  // the 16-bit element size below (fp16's too)
 
-// ---- bf16: on the tensor cores
+// ---- bf16 and fp16 (T): on the tensor cores
 
 constexpr int kMaxNT = 18;  // n8 key tiles of a row: L <= 144
 constexpr float kLog2e = 1.4426950408889634f;
@@ -135,12 +140,12 @@ size_t smem_bytes_mma(int Lp, int kNT) {
 // the pair adding up its row max, sum and rowsum through shared memory;
 // after P o keep and dS are in shared memory it owns the 16 rows of dQ, dK
 // and dV of tile w / 2 in d-columns 32 (w % 2) .. +31.
-template <int kNT, bool kDrop>
+template <typename T, int kNT, bool kDrop>
 __global__ void __launch_bounds__(kNT * 32, 1)
-    attention_bwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v,
-                      const bf16* __restrict__ dout, bf16* __restrict__ dq,
-                      bf16* __restrict__ dk, bf16* __restrict__ dv,
+    attention_bwd_mma(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v,
+                      const T* __restrict__ dout, T* __restrict__ dq,
+                      T* __restrict__ dk, T* __restrict__ dv,
                       const int* __restrict__ mode,
                       const int* __restrict__ text_end,
                       const float* __restrict__ colkeep, int L, int H,
@@ -152,12 +157,12 @@ __global__ void __launch_bounds__(kNT * 32, 1)
   const int Lp = (L + 15) & ~15;    // blockDim.x == 4 * Lp
   const int LS = Lp + 8;            // row of an [Lp][Lp] bf16 tile
   const int nw = Lp / 8;
-  bf16* sq = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sk = sq + Lp * TS;
-  bf16* sv = sk + Lp * TS;
-  bf16* sdo = sv + Lp * TS;
-  bf16* spk = sdo + Lp * TS;        // P o keep
-  bf16* sds = spk + Lp * LS;        // dS
+  T* sq = reinterpret_cast<T*>(smem_raw);
+  T* sk = sq + Lp * TS;
+  T* sv = sk + Lp * TS;
+  T* sdo = sv + Lp * TS;
+  T* spk = sdo + Lp * TS;           // P o keep
+  T* sds = spk + Lp * LS;           // dS
   float* colbias = reinterpret_cast<float*>(sds + Lp * LS);  // [kNT * 8]
   float* xmax = colbias + kNT * 8;  // [nw][16] each
   float* xsum = xmax + nw * 16;
@@ -262,11 +267,11 @@ __global__ void __launch_bounds__(kNT * 32, 1)
         if (mult[e] != 0.f) kb[(n * 4 + e) / 32] |= 1u << ((n * 4 + e) % 32);
     }
     if (c0 + n * 8 < Lp) {
-      bf16* row = spk + (r0 + g) * LS + c0 + n * 8 + 2 * t;
+      T* row = spk + (r0 + g) * LS + c0 + n * 8 + 2 * t;
       *reinterpret_cast<uint32_t*>(row) =
-          vlp::pack_bf16(p[n][0] * mult[0], p[n][1] * mult[1]);
+          vlp::pack16<T>(p[n][0] * mult[0], p[n][1] * mult[1]);
       *reinterpret_cast<uint32_t*>(row + 8 * LS) =
-          vlp::pack_bf16(p[n][2] * mult[2], p[n][3] * mult[3]);
+          vlp::pack16<T>(p[n][2] * mult[2], p[n][3] * mult[3]);
     }
   }
 
@@ -291,12 +296,12 @@ __global__ void __launch_bounds__(kNT * 32, 1)
 #pragma unroll
   for (int n = 0; n < kH; ++n) {
     if (c0 + n * 8 < Lp) {
-      bf16* row = sds + (r0 + g) * LS + c0 + n * 8 + 2 * t;
+      T* row = sds + (r0 + g) * LS + c0 + n * 8 + 2 * t;
       *reinterpret_cast<uint32_t*>(row) =
-          vlp::pack_bf16(p[n][0] * (dpk[n][0] - rs[0]),
+          vlp::pack16<T>(p[n][0] * (dpk[n][0] - rs[0]),
                          p[n][1] * (dpk[n][1] - rs[0]));
       *reinterpret_cast<uint32_t*>(row + 8 * LS) =
-          vlp::pack_bf16(p[n][2] * (dpk[n][2] - rs[1]),
+          vlp::pack16<T>(p[n][2] * (dpk[n][2] - rs[1]),
                          p[n][3] * (dpk[n][3] - rs[1]));
     }
   }
@@ -321,14 +326,14 @@ __global__ void __launch_bounds__(kNT * 32, 1)
                        (lane >> 4) * 8;
       uint32_t fb[4];
       vlp::ldsm_x4_t(fb, sk + boff);
-      vlp::mma_bf16(qa[2 * np], fa, fb[0], fb[1]);
-      vlp::mma_bf16(qa[2 * np + 1], fa, fb[2], fb[3]);
+      vlp::mma16<T>(qa[2 * np], fa, fb[0], fb[1]);
+      vlp::mma16<T>(qa[2 * np + 1], fa, fb[2], fb[3]);
       vlp::ldsm_x4_t(fb, sq + boff);
-      vlp::mma_bf16(ka[2 * np], fs, fb[0], fb[1]);
-      vlp::mma_bf16(ka[2 * np + 1], fs, fb[2], fb[3]);
+      vlp::mma16<T>(ka[2 * np], fs, fb[0], fb[1]);
+      vlp::mma16<T>(ka[2 * np + 1], fs, fb[2], fb[3]);
       vlp::ldsm_x4_t(fb, sdo + boff);
-      vlp::mma_bf16(va[2 * np], fp, fb[0], fb[1]);
-      vlp::mma_bf16(va[2 * np + 1], fp, fb[2], fb[3]);
+      vlp::mma16<T>(va[2 * np], fp, fb[0], fb[1]);
+      vlp::mma16<T>(va[2 * np + 1], fp, fb[2], fb[3]);
     }
   }
   const long long out_base = b * os.b + h * os.h + d0;
@@ -337,8 +342,8 @@ __global__ void __launch_bounds__(kNT * 32, 1)
   vlp::store_rows(dv + out_base, os.l, va, r0, L, lane, 1.f);
 }
 
-// ---- bf16, 144 < L <= the forward's limit: FlashAttention-2's backward
-// in three kernels: blocks of 8 warps own 128 rows (or keys) and stream
+// ---- bf16 and fp16, 144 < L <= the forward's limit: FlashAttention-2's
+// backward in three kernels: blocks of 8 warps own 128 rows (or keys) and stream
 // the other operand in 64-row tiles
 
 constexpr int kOwn = 128;               // rows (keys) a block owns
@@ -415,8 +420,9 @@ __device__ __forceinline__ float colbias2(const float* colkeep, int j,
 // query rows r0 + g and r0 + g + 8 of the staged rows sa against the 4 n8
 // tiles of key columns c0 .. c0 + 31 of sb (global column j0 = the tile's
 // first key + c0, whose bias is colbias[0]); columns past L are -inf.
-__device__ __forceinline__ void half_scores(float (&s)[4][4], const bf16* sa,
-                                            const bf16* sb,
+template <typename T>
+__device__ __forceinline__ void half_scores(float (&s)[4][4], const T* sa,
+                                            const T* sb,
                                             const float* colbias, int r0,
                                             int c0, int j0, int lane,
                                             const int (&lim)[2],
@@ -442,7 +448,8 @@ __device__ __forceinline__ float keep_bit(uint32_t word, int bit,
 
 // Stage rows [0, min(n, L - r)) of the n rows at row r of a head's [L][64]
 // slice (src, row stride sl) into dst[n][kTS], zeros past L.
-__device__ __forceinline__ void stage_tile(bf16* dst, const bf16* src,
+template <typename T>
+__device__ __forceinline__ void stage_tile(T* dst, const T* src,
                                            long long sl, int r, int n, int L,
                                            int align) {
   vlp::stage_rows(dst, src + r * sl, sl, max(0, min(n, L - r)), n, align);
@@ -457,16 +464,17 @@ __device__ __forceinline__ void stage_bits(u64* dst, const u64* src, int n) {
 // The shared set-up of the statistics and dQ kernels: block (example b,
 // head h, rows q0 .. q0 + 127) stages its Q and dO rows and the column
 // bias.
+template <typename T>
 struct RowsBlock {
   int b, h, q0, nk, Lt, first, md, te;
   long long in_base, do_base;
-  bf16 *sq, *sdo, *ring;
+  T *sq, *sdo, *ring;
   u64* sbits;        // [2][128]
   float* colbias;
   float* stats;      // this head's scratch
   u64* bits;
 
-  __device__ RowsBlock(unsigned char* smem, const bf16* q, const bf16* dout,
+  __device__ RowsBlock(unsigned char* smem, const T* q, const T* dout,
                        const float* colkeep, float* scratch,
                        const int* mode, const int* text_end, int L, int H,
                        vlp::Strides in, vlp::Strides ds_in, int align) {
@@ -481,7 +489,7 @@ struct RowsBlock {
     do_base = b * ds_in.b + h * ds_in.h;
     stats = scratch + (long long)bh * long_scratch(L);
     bits = reinterpret_cast<u64*>(stats + 3 * Lt);
-    sq = reinterpret_cast<bf16*>(smem);
+    sq = reinterpret_cast<T*>(smem);
     sdo = sq + kOwnElems;
     ring = sdo + kOwnElems;
     sbits = reinterpret_cast<u64*>(ring + 4 * kTileElems);
@@ -498,9 +506,9 @@ struct RowsBlock {
   }
   // key tile kt of K and V (and, with bits, the keep words of this block's
   // rows against kt) into ring stage kt % 2
-  __device__ void stage_kv(const bf16* k, const bf16* v, vlp::Strides in,
+  __device__ void stage_kv(const T* k, const T* v, vlp::Strides in,
                            int kt, int L, int align, bool with_bits) {
-    bf16* dst = ring + (kt & 1) * 2 * kTileElems;
+    T* dst = ring + (kt & 1) * 2 * kTileElems;
     stage_tile(dst, k + in_base, in.l, kt * kTile, kTile, L, align);
     stage_tile(dst + kTileElems, v + in_base, in.l, kt * kTile, kTile, L,
                align);
@@ -518,11 +526,11 @@ struct RowsBlock {
 // sum / l (0, 0, 0 for rows past L), and with dropout the keep bits of
 // every 16 x 64 region it does not skip, drawn once here for all three
 // kernels (the other two read bits only inside such regions).
-template <bool kDrop>
+template <typename T, bool kDrop>
 __global__ void __launch_bounds__(kThreadsT, kMinBlocksT)
-    attention_bwd_stats(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v,
-                        const bf16* __restrict__ dout,
+    attention_bwd_stats(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v,
+                        const T* __restrict__ dout,
                         float* __restrict__ scratch,
                         const int* __restrict__ mode,
                         const int* __restrict__ text_end,
@@ -530,8 +538,8 @@ __global__ void __launch_bounds__(kThreadsT, kMinBlocksT)
                         vlp::Strides in, vlp::Strides ds_in, int prefix,
                         float scale, vlp::Dropout dp, int align) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  RowsBlock blk(smem_raw, q, dout, colkeep, scratch, mode, text_end, L, H,
-                in, ds_in, align);
+  RowsBlock<T> blk(smem_raw, q, dout, colkeep, scratch, mode, text_end, L,
+                   H, in, ds_in, align);
   const int nk = blk.nk, b = blk.b, h = blk.h, Lt = blk.Lt;
   auto issue = [&](int i) { blk.stage_kv(k, v, in, i, L, align, false); };
   issue(0);
@@ -546,8 +554,8 @@ __global__ void __launch_bounds__(kThreadsT, kMinBlocksT)
         num[2] = {0.f, 0.f};
   for (int kt = 0; kt < nk; ++kt) {
     ring_next(kt, nk, issue);
-    const bf16* sk = blk.ring + (kt & 1) * 2 * kTileElems;
-    const bf16* sv = sk + kTileElems;
+    const T* sk = blk.ring + (kt & 1) * 2 * kTileElems;
+    const T* sv = sk + kTileElems;
     if (live && !masked_region(blk.md, blk.te, prefix, blk.first,
                                blk.q0 + r0, blk.q0 + r0 + 16, kt * kTile)) {
       uint32_t kw[2][2] = {};   // [row g, g + 8][key half]
@@ -618,15 +626,15 @@ __global__ void __launch_bounds__(kThreadsT, kMinBlocksT)
 // each warp owns 16 of them and streams every query tile of Q, dO, their
 // statistics and keep bits.  Per 16 queries it recomputes S^T and
 // P^T = exp(S^T - m) / l, forms dP^T = V dO^T and dS^T, rounds P o keep
-// and dS to bf16 as attention_bwd_mma does, and adds
+// and dS to T as attention_bwd_mma does, and adds
 // dV += (P o keep)^T dO and dK += dS^T Q in registers, the transposed
 // products straight from the accumulators (C fragments = A fragments).
-template <bool kDrop>
+template <typename T, bool kDrop>
 __global__ void __launch_bounds__(kThreadsT, kMinBlocksT)
-    attention_bwd_dkdv(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v,
-                       const bf16* __restrict__ dout, bf16* __restrict__ dk,
-                       bf16* __restrict__ dv,
+    attention_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v,
+                       const T* __restrict__ dout, T* __restrict__ dk,
+                       T* __restrict__ dv,
                        const float* __restrict__ scratch,
                        const int* __restrict__ mode,
                        const int* __restrict__ text_end,
@@ -641,9 +649,9 @@ __global__ void __launch_bounds__(kThreadsT, kMinBlocksT)
   const long long do_base = b * ds_in.b + h * ds_in.h;
   const float* st = scratch + (long long)bh * long_scratch(L);
   const u64* bits = reinterpret_cast<const u64*>(st + 3 * Lt);
-  bf16* sk = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sv = sk + kOwnElems;
-  bf16* ring = sv + kOwnElems;     // [2][Q, dO]
+  T* sk = reinterpret_cast<T*>(smem_raw);
+  T* sv = sk + kOwnElems;
+  T* ring = sv + kOwnElems;        // [2][Q, dO]
   float* sstat = reinterpret_cast<float*>(ring + 4 * kTileElems);  // [2][3][64]
   u64* sbits = reinterpret_cast<u64*>(sstat + 2 * 3 * kTile);  // [2][2][64]
   stage_tile(sk, k + in_base, in.l, k0, kOwn, L, align);
@@ -652,7 +660,7 @@ __global__ void __launch_bounds__(kThreadsT, kMinBlocksT)
   // the block's keys span 64-key tiles kt0 and kt0 + 1 (if < nq)
   const int kt0 = k0 / kTile;
   auto stage_q = [&](int qt) {
-    bf16* dst = ring + (qt & 1) * 2 * kTileElems;
+    T* dst = ring + (qt & 1) * 2 * kTileElems;
     stage_tile(dst, q + in_base, in.l, qt * kTile, kTile, L, align);
     stage_tile(dst + kTileElems, dout + do_base, ds_in.l, qt * kTile, kTile,
                L, align);
@@ -689,8 +697,8 @@ __global__ void __launch_bounds__(kThreadsT, kMinBlocksT)
   float ka[8][4] = {}, va[8][4] = {};
   for (int qt = 0; qt < nq; ++qt) {
     ring_next(qt, nq, stage_q);
-    const bf16* sq = ring + (qt & 1) * 2 * kTileElems;
-    const bf16* sdo = sq + kTileElems;
+    const T* sq = ring + (qt & 1) * 2 * kTileElems;
+    const T* sdo = sq + kTileElems;
     const float* sm = sstat + (qt & 1) * 3 * kTile;
     const uint32_t* sb =
         reinterpret_cast<const uint32_t*>(
@@ -731,21 +739,21 @@ __global__ void __launch_bounds__(kThreadsT, kMinBlocksT)
           pk[e] = p * mult;
           ds[e] = p * (dpt[n][e] * mult - (qq ? rs.y : rs.x));
         }
-        fp[n * 2] = vlp::pack_bf16(pk[0], pk[1]);
-        fp[n * 2 + 1] = vlp::pack_bf16(pk[2], pk[3]);
-        fs[n * 2] = vlp::pack_bf16(ds[0], ds[1]);
-        fs[n * 2 + 1] = vlp::pack_bf16(ds[2], ds[3]);
+        fp[n * 2] = vlp::pack16<T>(pk[0], pk[1]);
+        fp[n * 2 + 1] = vlp::pack16<T>(pk[2], pk[3]);
+        fs[n * 2] = vlp::pack16<T>(ds[0], ds[1]);
+        fs[n * 2 + 1] = vlp::pack16<T>(ds[2], ds[3]);
       }
 #pragma unroll
       for (int np = 0; np < 4; ++np) {
         const int off = (c0 + (lane & 15)) * kTS + np * 16 + (lane >> 4) * 8;
         uint32_t fb[4];
         vlp::ldsm_x4_t(fb, sdo + off);
-        vlp::mma_bf16(va[2 * np], fp, fb[0], fb[1]);
-        vlp::mma_bf16(va[2 * np + 1], fp, fb[2], fb[3]);
+        vlp::mma16<T>(va[2 * np], fp, fb[0], fb[1]);
+        vlp::mma16<T>(va[2 * np + 1], fp, fb[2], fb[3]);
         vlp::ldsm_x4_t(fb, sq + off);
-        vlp::mma_bf16(ka[2 * np], fs, fb[0], fb[1]);
-        vlp::mma_bf16(ka[2 * np + 1], fs, fb[2], fb[3]);
+        vlp::mma16<T>(ka[2 * np], fs, fb[0], fb[1]);
+        vlp::mma16<T>(ka[2 * np + 1], fs, fb[2], fb[3]);
       }
     }
     __syncthreads();   // the next stage overwrites this one's Q and dO
@@ -759,11 +767,11 @@ __global__ void __launch_bounds__(kThreadsT, kMinBlocksT)
 // streams every key tile (and the keep words of the block's rows): S, P
 // from (m, 1/l), keep, dP and dS as in (b), and dQ += dS K in registers;
 // dQ is written once.
-template <bool kDrop>
+template <typename T, bool kDrop>
 __global__ void __launch_bounds__(kThreadsT, kMinBlocksT)
-    attention_bwd_dq(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v,
-                     const bf16* __restrict__ dout, bf16* __restrict__ dq,
+    attention_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v,
+                     const T* __restrict__ dout, T* __restrict__ dq,
                      float* __restrict__ scratch,
                      const int* __restrict__ mode,
                      const int* __restrict__ text_end,
@@ -771,8 +779,8 @@ __global__ void __launch_bounds__(kThreadsT, kMinBlocksT)
                      vlp::Strides in, vlp::Strides ds_in, vlp::Strides os,
                      int prefix, float scale, vlp::Dropout dp, int align) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  RowsBlock blk(smem_raw, q, dout, colkeep, scratch, mode, text_end, L, H,
-                in, ds_in, align);
+  RowsBlock<T> blk(smem_raw, q, dout, colkeep, scratch, mode, text_end, L,
+                   H, in, ds_in, align);
   const int nk = blk.nk, Lt = blk.Lt;
   auto issue = [&](int i) { blk.stage_kv(k, v, in, i, L, align, kDrop); };
   issue(0);
@@ -790,8 +798,8 @@ __global__ void __launch_bounds__(kThreadsT, kMinBlocksT)
   float qa[8][4] = {};
   for (int kt = 0; kt < nk; ++kt) {
     ring_next(kt, nk, issue);
-    const bf16* sk = blk.ring + (kt & 1) * 2 * kTileElems;
-    const bf16* sv = sk + kTileElems;
+    const T* sk = blk.ring + (kt & 1) * 2 * kTileElems;
+    const T* sv = sk + kTileElems;
     const uint32_t* sb =
         reinterpret_cast<const uint32_t*>(blk.sbits + (kt & 1) * kOwn);
 #pragma unroll
@@ -822,8 +830,8 @@ __global__ void __launch_bounds__(kThreadsT, kMinBlocksT)
           const float p = ex2(s[n][e] - m[e >> 1]) * inv[e >> 1];
           ds[e] = p * (dpk[n][e] * mult - rs[e >> 1]);
         }
-        fa[n >> 1][(n & 1) * 2] = vlp::pack_bf16(ds[0], ds[1]);
-        fa[n >> 1][(n & 1) * 2 + 1] = vlp::pack_bf16(ds[2], ds[3]);
+        fa[n >> 1][(n & 1) * 2] = vlp::pack16<T>(ds[0], ds[1]);
+        fa[n >> 1][(n & 1) * 2 + 1] = vlp::pack16<T>(ds[2], ds[3]);
       }
 #pragma unroll
       for (int kk = 0; kk < 2; ++kk)
@@ -832,8 +840,8 @@ __global__ void __launch_bounds__(kThreadsT, kMinBlocksT)
           uint32_t fb[4];
           vlp::ldsm_x4_t(fb, sk + (c0 + 16 * kk + (lane & 15)) * kTS +
                                  np * 16 + (lane >> 4) * 8);
-          vlp::mma_bf16(qa[2 * np], fa[kk], fb[0], fb[1]);
-          vlp::mma_bf16(qa[2 * np + 1], fa[kk], fb[2], fb[3]);
+          vlp::mma16<T>(qa[2 * np], fa[kk], fb[0], fb[1]);
+          vlp::mma16<T>(qa[2 * np + 1], fa[kk], fb[2], fb[3]);
         }
     }
     __syncthreads();   // the next stage overwrites this one's K and V
@@ -1249,7 +1257,7 @@ int launch_fp32(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
-template <int kNT, bool kDrop>
+template <typename T, int kNT, bool kDrop>
 int launch_mma(const void* q, const void* k, const void* v, const void* dout,
                void* dq, void* dk, void* dv, const int* mode,
                const int* text_end, const float* colkeep, int B, int L, int H,
@@ -1262,13 +1270,13 @@ int launch_mma(const void* q, const void* k, const void* v, const void* dout,
        (unsigned long long)dout, 2ull * in.b, 2ull * in.h, 2ull * in.l,
        2ull * ds_in.b, 2ull * ds_in.h, 2ull * ds_in.l});
   cudaError_t err = cudaFuncSetAttribute(
-      attention_bwd_mma<kNT, kDrop>,
+      attention_bwd_mma<T, kNT, kDrop>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  attention_bwd_mma<kNT, kDrop><<<B * H, 4 * Lp, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+  attention_bwd_mma<T, kNT, kDrop><<<B * H, 4 * Lp, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv),
       mode, text_end, colkeep, L, H, in, ds_in, os, prefix, scale, dp, align);
   return (int)cudaGetLastError();
 }
@@ -1276,7 +1284,7 @@ int launch_mma(const void* q, const void* k, const void* v, const void* dout,
 // The tiled body, for 8 * kMaxNT < L: three launches on one stream; the
 // scratch (B * H * long_scratch(L) floats) carries the row statistics and
 // keep bits from the first to the other two.
-template <bool kDrop>
+template <typename T, bool kDrop>
 int launch_long(const void* q, const void* k, const void* v, const void* dout,
                 void* dq, void* dk, void* dv, float* scratch, const int* mode,
                 const int* text_end, const float* colkeep, int B, int L,
@@ -1292,72 +1300,94 @@ int launch_long(const void* q, const void* k, const void* v, const void* dout,
        2ull * ds_in.b, 2ull * ds_in.h, 2ull * ds_in.l});
   const auto attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
   cudaError_t err;
-  if ((err = cudaFuncSetAttribute(attention_bwd_stats<kDrop>, attr,
+  if ((err = cudaFuncSetAttribute(attention_bwd_stats<T, kDrop>, attr,
                                   (int)smem_rows)) != cudaSuccess ||
-      (err = cudaFuncSetAttribute(attention_bwd_dkdv<kDrop>, attr,
+      (err = cudaFuncSetAttribute(attention_bwd_dkdv<T, kDrop>, attr,
                                   (int)kSmemBytesCols)) != cudaSuccess ||
-      (err = cudaFuncSetAttribute(attention_bwd_dq<kDrop>, attr,
+      (err = cudaFuncSetAttribute(attention_bwd_dq<T, kDrop>, attr,
                                   (int)smem_rows)) != cudaSuccess)
     return (int)err;
-  const auto* qb = static_cast<const bf16*>(q);
-  const auto* kb = static_cast<const bf16*>(k);
-  const auto* vb = static_cast<const bf16*>(v);
-  const auto* dob = static_cast<const bf16*>(dout);
+  const auto* qb = static_cast<const T*>(q);
+  const auto* kb = static_cast<const T*>(k);
+  const auto* vb = static_cast<const T*>(v);
+  const auto* dob = static_cast<const T*>(dout);
   const int blocks = B * H * own_blocks(L);
-  attention_bwd_stats<kDrop><<<blocks, kThreadsT, smem_rows, stream>>>(
+  attention_bwd_stats<T, kDrop><<<blocks, kThreadsT, smem_rows, stream>>>(
       qb, kb, vb, dob, scratch, mode, text_end, colkeep, L, H, in, ds_in,
       prefix, scale, dp, align);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  attention_bwd_dkdv<kDrop><<<blocks, kThreadsT, kSmemBytesCols, stream>>>(
-      qb, kb, vb, dob, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+  attention_bwd_dkdv<T, kDrop><<<blocks, kThreadsT, kSmemBytesCols, stream>>>(
+      qb, kb, vb, dob, static_cast<T*>(dk), static_cast<T*>(dv),
       scratch, mode, text_end, colkeep, L, H, in, ds_in, os, prefix, scale,
       dp, align);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  attention_bwd_dq<kDrop><<<blocks, kThreadsT, smem_rows, stream>>>(
-      qb, kb, vb, dob, static_cast<bf16*>(dq), scratch, mode, text_end,
+  attention_bwd_dq<T, kDrop><<<blocks, kThreadsT, smem_rows, stream>>>(
+      qb, kb, vb, dob, static_cast<T*>(dq), scratch, mode, text_end,
       colkeep, L, H, in, ds_in, os, prefix, scale, dp, align);
   return (int)cudaGetLastError();
 }
 
 // fp32 scratch (floats per example and head) the body for L needs: the
-// row statistics and keep bits of the tiled bodies (long_scratch in bf16,
-// scratch_f32 in fp32).
-int scratch_floats(int L, int is_bf16) {
-  if (!is_bf16) return scratch_f32(L);
+// row statistics and keep bits of the tiled bodies (long_scratch in bf16
+// and fp16, scratch_f32 in fp32).
+int scratch_floats(int L, int dtype) {
+  if (dtype == vlp::kFloat32) return scratch_f32(L);
   return L > 8 * kMaxNT ? long_scratch(L) : 0;
 }
 
-// bf16: the whole problem in one block up to 8 * kMaxNT, 64 x 64 tiles
-// beyond; fp32: the split-TF32 tiled body for every L.
+// 16-bit T: the whole problem in one block up to 8 * kMaxNT, 64 x 64 tiles
+// beyond.
+template <typename T, bool kDrop>
+int launch_16(const void* q, const void* k, const void* v, const void* dout,
+              void* dq, void* dk, void* dv, float* scratch, const int* mode,
+              const int* text_end, const float* colkeep, int B, int L, int H,
+              vlp::Strides in, vlp::Strides ds_in, vlp::Strides os,
+              int prefix, float scale, vlp::Dropout dp,
+              cudaStream_t stream) {
+  if (L <= 128)
+    return launch_mma<T, 16, kDrop>(q, k, v, dout, dq, dk, dv, mode, text_end,
+                                    colkeep, B, L, H, in, ds_in, os, prefix,
+                                    scale, dp, stream);
+  if (L <= 8 * kMaxNT)
+    return launch_mma<T, kMaxNT, kDrop>(q, k, v, dout, dq, dk, dv, mode,
+                                        text_end, colkeep, B, L, H, in, ds_in,
+                                        os, prefix, scale, dp, stream);
+  return launch_long<T, kDrop>(q, k, v, dout, dq, dk, dv, scratch, mode,
+                               text_end, colkeep, B, L, H, in, ds_in, os,
+                               prefix, scale, dp, stream);
+}
+
+// bf16 and fp16: launch_16; fp32: the split-TF32 tiled body for every L.
 template <bool kDrop>
 int launch_any(const void* q, const void* k, const void* v, const void* dout,
                void* dq, void* dk, void* dv, float* scratch, const int* mode,
                const int* text_end, const float* colkeep, int B, int L, int H,
                vlp::Strides in, vlp::Strides ds_in, vlp::Strides os,
-               int prefix, float scale, vlp::Dropout dp, int is_bf16,
+               int prefix, float scale, vlp::Dropout dp, int dtype,
                cudaStream_t stream) {
-  if (!is_bf16)
-    return launch_fp32<kDrop>(q, k, v, dout, dq, dk, dv, scratch, mode,
-                              text_end, colkeep, B, L, H, in, ds_in, os,
-                              prefix, scale, dp, stream);
-  if (L <= 128)
-    return launch_mma<16, kDrop>(q, k, v, dout, dq, dk, dv, mode, text_end,
-                                 colkeep, B, L, H, in, ds_in, os, prefix,
-                                 scale, dp, stream);
-  if (L <= 8 * kMaxNT)
-    return launch_mma<kMaxNT, kDrop>(q, k, v, dout, dq, dk, dv, mode,
-                                     text_end, colkeep, B, L, H, in, ds_in,
-                                     os, prefix, scale, dp, stream);
-  return launch_long<kDrop>(q, k, v, dout, dq, dk, dv, scratch, mode, text_end,
-                            colkeep, B, L, H, in, ds_in, os, prefix, scale,
-                            dp, stream);
+  switch (dtype) {
+    case vlp::kBFloat16:
+      return launch_16<bf16, kDrop>(q, k, v, dout, dq, dk, dv, scratch, mode,
+                                    text_end, colkeep, B, L, H, in, ds_in, os,
+                                    prefix, scale, dp, stream);
+    case vlp::kFloat16:
+      return launch_16<__half, kDrop>(q, k, v, dout, dq, dk, dv, scratch,
+                                      mode, text_end, colkeep, B, L, H, in,
+                                      ds_in, os, prefix, scale, dp, stream);
+    case vlp::kFloat32:
+      return launch_fp32<kDrop>(q, k, v, dout, dq, dk, dv, scratch, mode,
+                                text_end, colkeep, B, L, H, in, ds_in, os,
+                                prefix, scale, dp, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 int backward(const void* q, const void* k, const void* v, const void* dout,
              void* dq, void* dk, void* dv, void* scratch, const void* mode,
              const void* text_end, const void* colkeep, int B, int L, int H,
              vlp::Strides in, vlp::Strides ds_in, vlp::Strides os, int prefix,
-             float scale, vlp::Dropout dp, int is_bf16, void* stream) {
+             float scale, vlp::Dropout dp, int dtype, void* stream) {
   if (B <= 0 || L <= 0 || H <= 0 || L > vlp::attention_fwd_max_len())
     return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
@@ -1367,44 +1397,45 @@ int backward(const void* q, const void* k, const void* v, const void* dout,
   auto ck = static_cast<const float*>(colkeep);
   if (dp.threshold == 0)  // rate 0: every element kept with scale 1
     return launch_any<false>(q, k, v, dout, dq, dk, dv, acc, md, te, ck, B, L,
-                             H, in, ds_in, os, prefix, scale, dp, is_bf16, s);
+                             H, in, ds_in, os, prefix, scale, dp, dtype, s);
   return launch_any<true>(q, k, v, dout, dq, dk, dv, acc, md, te, ck, B, L, H,
-                          in, ds_in, os, prefix, scale, dp, is_bf16, s);
+                          in, ds_in, os, prefix, scale, dp, dtype, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// The largest L the backward takes, in both dtypes: the forward's limit.
+// The largest L the backward takes, in every dtype: the forward's limit.
 int vlp_attention_bwd_max_len() { return vlp::attention_fwd_max_len(); }
 
 // The fp32 scratch, in floats per (example, head), that a backward at L
 // needs in scratch (0: none; scratch may then be null).
-int vlp_attention_bwd_scratch_floats(int L, int is_bf16) {
-  return scratch_floats(L, is_bf16);
+int vlp_attention_bwd_scratch_floats(int L, int dtype) {
+  return scratch_floats(L, dtype);
 }
 
 // q/k/v: [B, L, H*64] with element strides sb (batch) and sl (row); dout:
 // [B, L, H*64] with strides dsb, dsl; the last dimension contiguous in
 // all four.  dq/dk/dv: contiguous [B, L, H*64]; scratch: fp32 scratch of
-// B * H * vlp_attention_bwd_scratch_floats(L, is_bf16) floats.
+// B * H * vlp_attention_bwd_scratch_floats(L, dtype) floats.
 // seed/threshold/keep_scale are the forward's dropout (threshold 0 = no
-// dropout).  is_bf16 selects the bf16 tensor-core bodies (1) or the fp32
-// body (0).  Returns cudaGetLastError() after the launch.
+// dropout).  dtype (vlp::DType) selects the 16-bit tensor-core bodies in
+// bf16 (1) or fp16 (2), or the fp32 body (0).  Returns cudaGetLastError()
+// after the launch.
 int vlp_attention_bwd(const void* q, const void* k, const void* v,
                       const void* dout, void* dq, void* dk, void* dv,
                       void* scratch, const void* mode, const void* text_end,
                       const void* colkeep, int B, int L, int H, long long sb,
                       long long sl, long long dsb, long long dsl, int prefix,
                       float scale, unsigned long long seed,
-                      unsigned int threshold, float keep_scale, int is_bf16,
+                      unsigned int threshold, float keep_scale, int dtype,
                       void* stream) {
   const long long HD = (long long)H * D;
   return backward(q, k, v, dout, dq, dk, dv, scratch, mode, text_end, colkeep,
                   B, L, H, vlp::Strides{sb, D, sl}, vlp::Strides{dsb, D, dsl},
                   vlp::Strides{L * HD, D, HD}, prefix, scale,
-                  vlp::Dropout{seed, threshold, keep_scale}, is_bf16, stream);
+                  vlp::Dropout{seed, threshold, keep_scale}, dtype, stream);
 }
 
 // The bhld layout: q/k/v [B, H, L, 64] with element strides sb (batch), sh
@@ -1419,13 +1450,13 @@ int vlp_attention_bwd_bhld(const void* q, const void* k, const void* v,
                            long long sl, long long dsb, long long dsh,
                            long long dsl, int prefix, float scale,
                            unsigned long long seed, unsigned int threshold,
-                           float keep_scale, int is_bf16, void* stream) {
+                           float keep_scale, int dtype, void* stream) {
   const long long LD = (long long)L * D;
   return backward(q, k, v, dout, dq, dk, dv, scratch, mode, text_end, colkeep,
                   B, L, H, vlp::Strides{sb, sh, sl},
                   vlp::Strides{dsb, dsh, dsl}, vlp::Strides{H * LD, LD, D},
                   prefix, scale, vlp::Dropout{seed, threshold, keep_scale},
-                  is_bf16, stream);
+                  dtype, stream);
 }
 
 }  // extern "C"

@@ -17,7 +17,11 @@
 // layouts, and the output layout is the input's.
 //
 // Two bodies, chosen by dtype (never by a failure):
-// * bf16, every main path: attention_fwd_mma, on the tensor cores.  One
+// * bf16 (every main path) and fp16 (--true_fp16 training): one template,
+//   attention_fwd_mma<T>, on the tensor cores (mma.m16n8k16 with bf16 or
+//   fp16 operands at the same rate; fp16 is the bf16 body instantiated for
+//   __half, with P and the output rounded to fp16, where a value past
+//   65504 becomes inf and a NaN stays NaN, as the loss scaler needs).  One
 //   block per (example, head) stages the head's Q, K and V once in shared
 //   memory with 16-byte cp.async (narrower copies when a base pointer or
 //   stride is not 16-byte aligned), rows padded to 72 bf16 so ldmatrix
@@ -79,7 +83,7 @@
 namespace {
 
 constexpr int D = vlp::kHeadDim;
-using bf16 = __nv_bfloat16;
+using bf16 = __nv_bfloat16;  // the 16-bit element size below (fp16's too)
 
 // ---- fp32: split TF32 on the tensor cores
 
@@ -241,7 +245,7 @@ __global__ void __launch_bounds__(kF32Warps * 32, 3)
                       L - q0, lane, 1.f);
 }
 
-// ---- bf16: on the tensor cores
+// ---- bf16 and fp16: on the tensor cores
 
 constexpr int kMaxWarps = 8;
 constexpr int kChunk = 128;          // key columns a warp holds in registers
@@ -258,10 +262,11 @@ size_t smem_bytes_mma(int Lp) {
          size_t(bias_cols(Lp)) * sizeof(float);
 }
 
+template <typename T>
 struct FwdTiles {
-  const bf16* q;  // [Lp][kTileStride] each, in shared memory
-  const bf16* k;
-  const bf16* v;
+  const T* q;  // [Lp][kTileStride] each, in shared memory
+  const T* k;
+  const T* v;
   const float* colbias;  // vlp::mask_bias's column bias, -inf past L
 };
 
@@ -269,7 +274,9 @@ struct FwdTiles {
 // c0..c0+127: a lane holds columns c0 + 8n + 2t (+1) of rows r0 + g
 // (limit lim[0]) and r0 + g + 8 (lim[1]).  Columns past L are -inf, so
 // they take no part in the max and sum.
-__device__ __forceinline__ void scores(float (&s)[kNT][4], const FwdTiles& t,
+template <typename T>
+__device__ __forceinline__ void scores(float (&s)[kNT][4],
+                                       const FwdTiles<T>& t,
                                        int r0, int c0, int Lp, int lane,
                                        const int (&lim)[2], float scale) {
   vlp::mma_abt<kNT>(s, t.q, t.k, r0, c0, Lp, lane);
@@ -320,11 +327,11 @@ __device__ __forceinline__ void exp_rows(float (&s)[kNT][4],
   }
 }
 
-// o += bf16(p o keep) V over key columns c0..c0+127, p the normalized
+// o += T(p o keep) V over key columns c0..c0+127, p the normalized
 // probabilities in s's layout.
-template <bool kDrop>
+template <typename T, bool kDrop>
 __device__ __forceinline__ void pv(float (&o)[D / 8][4], float (&p)[kNT][4],
-                                   const FwdTiles& t, int c0, int L, int Lp,
+                                   const FwdTiles<T>& t, int c0, int L, int Lp,
                                    int lane, int b, int h, int i0,
                                    const vlp::Dropout& dp) {
   if constexpr (kDrop) {
@@ -343,28 +350,28 @@ __device__ __forceinline__ void pv(float (&o)[D / 8][4], float (&p)[kNT][4],
     const int k0 = c0 + kk * 16;
     if (k0 >= Lp) continue;
     const uint32_t a[4] = {
-        vlp::pack_bf16(p[2 * kk][0], p[2 * kk][1]),
-        vlp::pack_bf16(p[2 * kk][2], p[2 * kk][3]),
-        vlp::pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-        vlp::pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
+        vlp::pack16<T>(p[2 * kk][0], p[2 * kk][1]),
+        vlp::pack16<T>(p[2 * kk][2], p[2 * kk][3]),
+        vlp::pack16<T>(p[2 * kk + 1][0], p[2 * kk + 1][1]),
+        vlp::pack16<T>(p[2 * kk + 1][2], p[2 * kk + 1][3])};
 #pragma unroll
     for (int np = 0; np < D / 16; ++np) {
       uint32_t bv[4];
       vlp::ldsm_x4_t(bv, t.v + (k0 + (lane & 15)) * vlp::kTileStride +
                              np * 16 + (lane >> 4) * 8);
-      vlp::mma_bf16(o[2 * np], a, bv[0], bv[1]);
-      vlp::mma_bf16(o[2 * np + 1], a, bv[2], bv[3]);
+      vlp::mma16<T>(o[2 * np], a, bv[0], bv[1]);
+      vlp::mma16<T>(o[2 * np + 1], a, bv[2], bv[3]);
     }
   }
 }
 
 // kLong: L > 128, two passes over 128-column chunks per 16-row tile, the
 // 8 warps of a block taking the tiles in turn; otherwise one chunk and one
-// tile per warp.
-template <bool kDrop, bool kLong>
+// tile per warp.  T: __nv_bfloat16 or __half.
+template <typename T, bool kDrop, bool kLong>
 __global__ void __launch_bounds__(kMaxWarps * 32, 2)
-    attention_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, bf16* __restrict__ out,
+    attention_fwd_mma(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, T* __restrict__ out,
                       const int* __restrict__ mode,
                       const int* __restrict__ text_end,
                       const float* __restrict__ colkeep, int L, int H,
@@ -372,9 +379,9 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 2)
                       float scale, vlp::Dropout dp, int align) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int Lp = (L + 15) & ~15;
-  bf16* sq = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sk = sq + Lp * vlp::kTileStride;
-  bf16* sv = sk + Lp * vlp::kTileStride;
+  T* sq = reinterpret_cast<T*>(smem_raw);
+  T* sk = sq + Lp * vlp::kTileStride;
+  T* sv = sk + Lp * vlp::kTileStride;
   float* colbias = reinterpret_cast<float*>(sv + Lp * vlp::kTileStride);
 
   const int b = blockIdx.x / H;
@@ -390,7 +397,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 2)
                  : colkeep[(long long)b * L + j] > 0.5f ? 0.f
                                                         : vlp::kNegInf;
 
-  const FwdTiles t{sq, sk, sv, colbias};
+  const FwdTiles<T> t{sq, sk, sv, colbias};
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2;
   const int md = mode[b], te = text_end[b];
@@ -415,7 +422,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 2)
     vlp::cp_async_wait<0>();
     __syncthreads();
     float o[D / 8][4] = {};
-    pv<kDrop>(o, s, t, 0, L, Lp, lane, b, h, r0 + g, dp);
+    pv<T, kDrop>(o, s, t, 0, L, Lp, lane, b, h, r0 + g, dp);
     vlp::store_rows(out + out_base, os.l, o, r0, L, lane, 1.f);
   } else {
     vlp::cp_async_wait<0>();
@@ -449,7 +456,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 2)
 #pragma unroll
           for (int e = 0; e < 4; ++e)
             s[n][e] = exp2f((s[n][e] - m[e >> 1]) * kLog2e) * inv[e >> 1];
-        pv<kDrop>(o, s, t, c0, L, Lp, lane, b, h, r0 + g, dp);
+        pv<T, kDrop>(o, s, t, c0, L, Lp, lane, b, h, r0 + g, dp);
       }
       vlp::store_rows(out + out_base, os.l, o, r0, L, lane, 1.f);
     }
@@ -479,7 +486,7 @@ int launch_fp32(const void* q, const void* k, const void* v, void* out,
   return (int)cudaGetLastError();
 }
 
-template <bool kDrop>
+template <typename T, bool kDrop>
 int launch_mma(const void* q, const void* k, const void* v, void* out,
                const int* mode, const int* text_end, const float* colkeep,
                int B, int L, int H, vlp::Strides in, vlp::Strides os,
@@ -490,14 +497,14 @@ int launch_mma(const void* q, const void* k, const void* v, void* out,
   const int align = vlp::common_alignment(
       {(unsigned long long)q, (unsigned long long)k, (unsigned long long)v,
        2ull * in.b, 2ull * in.h, 2ull * in.l});
-  auto kernel = Lp <= kChunk ? attention_fwd_mma<kDrop, false>
-                             : attention_fwd_mma<kDrop, true>;
+  auto kernel = Lp <= kChunk ? attention_fwd_mma<T, kDrop, false>
+                             : attention_fwd_mma<T, kDrop, true>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<B * H, 32 * (Lp <= kChunk ? Lp / 16 : kMaxWarps), smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), mode, text_end,
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out), mode, text_end,
       colkeep, L, H, in, os, prefix, scale, dp, align);
   return (int)cudaGetLastError();
 }
@@ -506,18 +513,26 @@ template <bool kDrop>
 int dispatch(const void* q, const void* k, const void* v, void* out,
              const void* mode, const void* text_end, const void* colkeep,
              int B, int L, int H, vlp::Strides in, vlp::Strides os,
-             int prefix, float scale, vlp::Dropout dp, int is_bf16,
+             int prefix, float scale, vlp::Dropout dp, int dtype,
              void* stream) {
   if (B <= 0 || L <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   auto md = static_cast<const int*>(mode);
   auto te = static_cast<const int*>(text_end);
   auto ck = static_cast<const float*>(colkeep);
-  if (is_bf16)
-    return launch_mma<kDrop>(q, k, v, out, md, te, ck, B, L, H, in, os,
-                             prefix, scale, dp, s);
-  return launch_fp32<kDrop>(q, k, v, out, md, te, ck, B, L, H, in, os,
-                            prefix, scale, dp, s);
+  switch (dtype) {
+    case vlp::kBFloat16:
+      return launch_mma<bf16, kDrop>(q, k, v, out, md, te, ck, B, L, H, in,
+                                     os, prefix, scale, dp, s);
+    case vlp::kFloat16:
+      return launch_mma<__half, kDrop>(q, k, v, out, md, te, ck, B, L, H, in,
+                                       os, prefix, scale, dp, s);
+    case vlp::kFloat32:
+      return launch_fp32<kDrop>(q, k, v, out, md, te, ck, B, L, H, in, os,
+                                prefix, scale, dp, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // Both branches behind one entry: threshold 0 (rate 0) keeps every element
@@ -525,13 +540,13 @@ int dispatch(const void* q, const void* k, const void* v, void* out,
 int forward(const void* q, const void* k, const void* v, void* out,
             const void* mode, const void* text_end, const void* colkeep,
             int B, int L, int H, vlp::Strides in, vlp::Strides os, int prefix,
-            float scale, vlp::Dropout dp, int is_bf16, void* stream) {
+            float scale, vlp::Dropout dp, int dtype, void* stream) {
   if (dp.threshold == 0)
     return dispatch<false>(q, k, v, out, mode, text_end, colkeep, B, L, H, in,
                            os, prefix, scale, vlp::Dropout{0, 0, 1.f},
-                           is_bf16, stream);
+                           dtype, stream);
   return dispatch<true>(q, k, v, out, mode, text_end, colkeep, B, L, H, in,
-                        os, prefix, scale, dp, is_bf16, stream);
+                        os, prefix, scale, dp, dtype, stream);
 }
 
 // blhd: q/k/v rows of H*D columns at strides (sb, sl); out contiguous
@@ -559,17 +574,18 @@ extern "C" {
 // (row), the last dimension contiguous; out: contiguous [B, L, H*64].
 // Attention-prob dropout is keyed on the 64-bit seed (threshold =
 // uint32(rate * 2^32), keep_scale = 1 / (1 - rate)); threshold 0 is the
-// deterministic kernel.  is_bf16 selects the bf16 tensor-core body (1) or
-// the fp32 body (0).  Returns cudaGetLastError() after the launch.
+// deterministic kernel.  dtype (vlp::DType) selects the 16-bit
+// tensor-core body in bf16 (1) or fp16 (2), or the fp32 body (0).  Returns
+// cudaGetLastError() after the launch.
 int vlp_attention_fwd(const void* q, const void* k, const void* v, void* out,
                       const void* mode, const void* text_end,
                       const void* colkeep, int B, int L, int H, long long sb,
                       long long sl, int prefix, float scale,
                       unsigned long long seed, unsigned int threshold,
-                      float keep_scale, int is_bf16, void* stream) {
+                      float keep_scale, int dtype, void* stream) {
   return forward(q, k, v, out, mode, text_end, colkeep, B, L, H,
                  blhd_in(sb, sl), blhd_out(L, H), prefix, scale,
-                 vlp::Dropout{seed, threshold, keep_scale}, is_bf16, stream);
+                 vlp::Dropout{seed, threshold, keep_scale}, dtype, stream);
 }
 
 // The bhld layout, both branches: q/k/v [B, H, L, 64] with element strides
@@ -582,10 +598,10 @@ int vlp_attention_fwd_bhld(const void* q, const void* k, const void* v,
                            long long sb, long long sh, long long sl,
                            int prefix, float scale, unsigned long long seed,
                            unsigned int threshold, float keep_scale,
-                           int is_bf16, void* stream) {
+                           int dtype, void* stream) {
   return forward(q, k, v, out, mode, text_end, colkeep, B, L, H,
                  vlp::Strides{sb, sh, sl}, bhld_out(L, H), prefix, scale,
-                 vlp::Dropout{seed, threshold, keep_scale}, is_bf16, stream);
+                 vlp::Dropout{seed, threshold, keep_scale}, dtype, stream);
 }
 
 }  // extern "C"

@@ -15,6 +15,11 @@ constexpr float kNegInf = -10000.0f;  // the reference's additive mask value
 constexpr int kModeS2S = 1;           // vlp_tpu_torch/config.py MODE_S2S
 constexpr int kMaxSmemBytes = 232448; // per-block opt-in limit on sm_90
 
+// The activation dtype of an attention call, as the C entry points take it
+// (ops/attention.py DTYPE_CODES): fp32 runs the split-TF32 bodies, bf16 and
+// fp16 the 16-bit tensor-core bodies (one template over the element type).
+enum DType { kFloat32 = 0, kBFloat16 = 1, kFloat16 = 2 };
+
 // The largest L the attention forward takes (attention_fwd.cu): the bf16
 // tensor-core body's tiles bound it, and the fp32 body and the backward
 // take the same lengths.

@@ -1,28 +1,31 @@
 // PTX helpers of the tensor-core attention bodies: 16-byte (or narrower)
-// asynchronous copies into shared memory, ldmatrix, the m16n8k16 bf16 mma
-// with fp32 accumulation, the split-TF32 m16n8k8 products of the fp32
-// bodies, and the tile geometry they share.
+// asynchronous copies into shared memory, ldmatrix, the m16n8k16 mma with
+// 16-bit operands (bf16 or fp16: the 16-bit bodies are templates over the
+// element type T) and fp32 accumulation, the split-TF32 m16n8k8 products
+// of the fp32 bodies, and the tile geometry they share.
 //
 // Fragment layout of mma.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16 x 16, row major)  a0 (g, 2t..2t+1)  a1 (g+8, 2t..)  a2 (g, 2t+8..)
 //                           a3 (g+8, 2t+8..)
 //   B (16 x 8, "col")       b0 (k 2t..2t+1, n g)  b1 (k 2t+8.., n g)
 //   C (16 x 8, fp32)        c0 c1 (g, 2t..2t+1)   c2 c3 (g+8, 2t..2t+1)
-// so the C fragments of n-tiles 2s and 2s+1 are, packed to bf16 pairs,
+// so the C fragments of n-tiles 2s and 2s+1 are, packed to 16-bit pairs,
 // the A fragment of k-step s: a probability or dS tile feeds the next
 // product straight from registers.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 #include <initializer_list>
+#include <type_traits>
 
 namespace vlp {
 
 constexpr int kHeadDim = 64;           // D: every config in the repository
-constexpr int kTileStride = kHeadDim + 8;  // bf16 per staged [L][64] row:
-// 144 bytes, so the 8 rows an ldmatrix reads fall on 8 distinct 16-byte
+constexpr int kTileStride = kHeadDim + 8;  // 16-bit elements per staged
+// [L][64] row: 144 bytes, so the 8 rows an ldmatrix reads fall on 8 distinct 16-byte
 // bank groups, and every row start stays 16-byte aligned for cp.async
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -77,10 +80,46 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// The same with fp16 operands: one instruction, the bf16 rate.
+__device__ __forceinline__ void mma_f16(float (&d)[4], const uint32_t (&a)[4],
+                                        uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // Two floats rounded to bf16 (round to nearest even), lo in the low half.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Two floats rounded to fp16 (round to nearest even; past 65504 the
+// result is inf, which the loss scaler reads as an overflow), lo in the low
+// half.
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+  const __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// mma_bf16 / mma_f16 and pack_bf16 / pack_f16 by element type, for the
+// 16-bit bodies (T = __nv_bfloat16 or __half).
+template <typename T>
+__device__ __forceinline__ void mma16(float (&d)[4], const uint32_t (&a)[4],
+                                      uint32_t b0, uint32_t b1) {
+  if constexpr (std::is_same_v<T, __half>)
+    mma_f16(d, a, b0, b1);
+  else
+    mma_bf16(d, a, b0, b1);
+}
+
+template <typename T>
+__device__ __forceinline__ uint32_t pack16(float lo, float hi) {
+  if constexpr (std::is_same_v<T, __half>)
+    return pack_f16(lo, hi);
+  else
+    return pack_bf16(lo, hi);
 }
 
 template <int kBytes>
@@ -120,22 +159,24 @@ __device__ __forceinline__ void ring_next(int it, int n, Issue issue) {
   __syncthreads();
 }
 
-// Stage rows [0, L) of one head's [L][64] bf16 tile (row r at src + r*sl)
-// into dst[Lp][kTileStride], zeros in rows [L, Lp), kBytes per copy.
-// Asynchronous for kBytes >= 4 (the caller commits and waits); 2-byte
-// copies are plain loads and stores.
-template <int kBytes>
-__device__ __forceinline__ void stage_rows_w(__nv_bfloat16* dst,
-                                             const __nv_bfloat16* src,
+// Stage rows [0, L) of one head's [L][64] tile of 16-bit elements T (row
+// r at src + r*sl) into dst[Lp][kTileStride], zeros in rows [L, Lp),
+// kBytes per copy.  Asynchronous for kBytes >= 4 (the caller commits and
+// waits); 2-byte copies are plain loads and stores.
+template <int kBytes, typename T>
+__device__ __forceinline__ void stage_rows_w(T* dst, const T* src,
                                              long long sl, int L, int Lp) {
+  static_assert(sizeof(T) == 2, "16-bit elements");
   constexpr int kElems = kBytes / 2;
   constexpr int kPerRow = kHeadDim / kElems;
   for (int idx = threadIdx.x; idx < Lp * kPerRow; idx += blockDim.x) {
     const int r = idx / kPerRow, c = (idx % kPerRow) * kElems;
-    __nv_bfloat16* d = dst + r * kTileStride + c;
+    T* d = dst + r * kTileStride + c;
     if (r >= L) {
+      // +0 has all bits clear in both 16-bit types
 #pragma unroll
-      for (int e = 0; e < kElems; ++e) d[e] = __float2bfloat16_rn(0.f);
+      for (int e = 0; e < kElems; ++e)
+        reinterpret_cast<uint16_t*>(d)[e] = 0;
     } else if constexpr (kBytes >= 4) {
       cp_async<kBytes>(d, src + r * sl + c);
     } else {
@@ -146,8 +187,8 @@ __device__ __forceinline__ void stage_rows_w(__nv_bfloat16* dst,
 
 // stage_rows_w at the widest copy that `align` (the common power-of-two
 // byte alignment of every base pointer and stride, capped at 16) allows.
-__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* src,
+template <typename T>
+__device__ __forceinline__ void stage_rows(T* dst, const T* src,
                                            long long sl, int L, int Lp,
                                            int align) {
   switch (align) {
@@ -159,15 +200,14 @@ __device__ __forceinline__ void stage_rows(__nv_bfloat16* dst,
 }
 
 // acc[n] = A(rows r0 .. r0+15) * B(rows c0 + 8n .. c0 + 8n + 7)^T for
-// n < kN, A and B [.][kTileStride] bf16 tiles of 64 columns, and B rows
-// below Lp only (the other tiles stay 0): S = Q K^T and dP = dO V^T over
-// kN key tiles.  kN may be odd: the last tile then takes a two-matrix
+// n < kN, A and B [.][kTileStride] tiles of 64 columns of 16-bit T, and B
+// rows below Lp only (the other tiles stay 0): S = Q K^T and dP = dO V^T
+// over kN key tiles.  kN may be odd: the last tile then takes a two-matrix
 // ldmatrix.
-template <int kN>
-__device__ __forceinline__ void mma_abt(float (&acc)[kN][4],
-                                        const __nv_bfloat16* a,
-                                        const __nv_bfloat16* bt, int r0,
-                                        int c0, int Lp, int lane) {
+template <int kN, typename T>
+__device__ __forceinline__ void mma_abt(float (&acc)[kN][4], const T* a,
+                                        const T* bt, int r0, int c0, int Lp,
+                                        int lane) {
   constexpr int TS = kTileStride;
 #pragma unroll
   for (int n = 0; n < kN; ++n)
@@ -181,27 +221,26 @@ __device__ __forceinline__ void mma_abt(float (&acc)[kN][4],
     for (int np = 0; np < (kN + 1) / 2; ++np) {
       const int n0 = c0 + np * 16;
       if (n0 >= Lp) continue;
-      const __nv_bfloat16* row = bt +
-                                 (n0 + (lane & 7) + (lane >> 4) * 8) * TS +
-                                 kk * 16 + ((lane >> 3) & 1) * 8;
+      const T* row = bt + (n0 + (lane & 7) + (lane >> 4) * 8) * TS +
+                     kk * 16 + ((lane >> 3) & 1) * 8;
       if (2 * np + 1 < kN) {   // folded: the loop is unrolled
         uint32_t fb[4];
         ldsm_x4(fb, row);
-        mma_bf16(acc[2 * np], fa, fb[0], fb[1]);
-        mma_bf16(acc[2 * np + 1], fa, fb[2], fb[3]);
+        mma16<T>(acc[2 * np], fa, fb[0], fb[1]);
+        mma16<T>(acc[2 * np + 1], fa, fb[2], fb[3]);
       } else {
         uint32_t fb[2];
         ldsm_x2(fb, row);
-        mma_bf16(acc[2 * np], fa, fb[0], fb[1]);
+        mma16<T>(acc[2 * np], fa, fb[0], fb[1]);
       }
     }
   }
 }
 
 // Rows r0 + g and r0 + g + 8 (g = lane / 4) of a 16 x 8kN fp32
-// accumulator, times scale, as bf16 at out + row * ol (rows < L only).
-template <int kN>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* out, long long ol,
+// accumulator, times scale, as 16-bit T at out + row * ol (rows < L only).
+template <int kN, typename T>
+__device__ __forceinline__ void store_rows(T* out, long long ol,
                                            const float (&acc)[kN][4], int r0,
                                            int L, int lane, float scale) {
   const int g = lane >> 2, t = lane & 3;
@@ -209,10 +248,10 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* out, long long ol,
   for (int hh = 0; hh < 2; ++hh) {
     const int i = r0 + g + 8 * hh;
     if (i >= L) continue;
-    __nv_bfloat16* row = out + (long long)i * ol + 2 * t;
+    T* row = out + (long long)i * ol + 2 * t;
 #pragma unroll
     for (int n = 0; n < kN; ++n)
-      *reinterpret_cast<uint32_t*>(row + n * 8) = pack_bf16(
+      *reinterpret_cast<uint32_t*>(row + n * 8) = pack16<T>(
           acc[n][2 * hh] * scale, acc[n][2 * hh + 1] * scale);
   }
 }

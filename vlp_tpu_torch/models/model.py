@@ -9,8 +9,10 @@ Submodules carry the reference state-dict names
 loads with ``load_state_dict`` after the shared ``apply_surgery``.
 
 Precision policy, as in the JAX package: parameters fp32, activations in
-``cfg.dtype`` (bf16 on the card), every LayerNorm (eps 1e-5) and GELU (erf)
-in fp32 with the result cast back, attention softmax in fp32, and the tied
+``cfg.dtype`` (bf16 on the card; fp16 under ``--true_fp16``), every
+LayerNorm (eps 1e-5) and GELU (erf) in fp32 with the result cast back
+(``cfg.hidden_act`` relu and swish run in the activation dtype, as JAX's
+``ACT`` table does), attention softmax in fp32, and the tied
 MLM vocab product accumulated and returned in fp32.  Dense layers and
 embedding tables are used in the activation dtype, cast per call, so that
 gradients reach the fp32 parameters; :meth:`VLPModel.cast_for_inference`
@@ -151,6 +153,12 @@ def gelu_exact(x: torch.Tensor) -> torch.Tensor:
     return (xf * 0.5 * (1.0 + torch.erf(xf / math.sqrt(2.0)))).to(x.dtype)
 
 
+# cfg.hidden_act -> the activation of every FFN and of the MLM head's
+# transform (JAX model.py:53-54; a reference bert_config.json sets it)
+ACT = {"gelu": gelu_exact, "relu": F.relu,
+       "swish": lambda x: x * torch.sigmoid(x)}
+
+
 def _linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     """Dense in the activation dtype (flax ``Dense(dtype=...)``)."""
     return F.linear(x, lin.weight.to(x.dtype), lin.bias.to(x.dtype))
@@ -233,8 +241,7 @@ class TransformerLayer(nn.Module):
         self.attention = _Attention(H)
         self.intermediate = _Dense(H, cfg.intermediate_size)
         self.output = _DenseLN(cfg.intermediate_size, H)
-        if cfg.hidden_act != "gelu":
-            raise NotImplementedError(f"hidden_act {cfg.hidden_act!r}")
+        self.act = ACT[cfg.hidden_act]
 
     def _qkv(self, x):
         sa = self.attention.self
@@ -258,7 +265,7 @@ class TransformerLayer(nn.Module):
         h = hdrop(_linear(ao.dense, ctx), 0)
         h = _layer_norm(ao.LayerNorm, h + residual).to(ctx.dtype)
         f = hdrop(_linear(self.output.dense,
-                          gelu_exact(_linear(self.intermediate.dense, h))), 1)
+                          self.act(_linear(self.intermediate.dense, h))), 1)
         return _layer_norm(self.output.LayerNorm, f + h).to(ctx.dtype)
 
     def forward(self, x, mode, text_end, colkeep,
@@ -400,13 +407,14 @@ class MLMHead(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.predictions = _Predictions(cfg)
+        self.act = ACT[cfg.hidden_act]
 
     def forward(self, hidden, task_idx, word_embedding) -> torch.Tensor:
         """hidden: [B, P, H]; task_idx: int[B]; returns fp32 [B, P, V]."""
         cfg = self.cfg
         r = max(cfg.relax_projection, 1)
         t = self.predictions.transform
-        h = gelu_exact(_linear(t.dense, hidden))
+        h = self.act(_linear(t.dense, hidden))
         h = _layer_norm(t.LayerNorm, h).to(hidden.dtype)  # LN over r*H
         if cfg.relax_projection > 1:
             B, P, _ = h.shape
@@ -463,7 +471,8 @@ class VLPModel(nn.Module):
             elif isinstance(m, nn.LayerNorm):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
-        self.cls.predictions.bias.zero_()
+            elif isinstance(m, _Predictions):
+                m.bias.zero_()
 
     def cast_for_inference(self) -> "VLPModel":
         """Store dense layers and embedding tables in the activation dtype

@@ -47,7 +47,7 @@ _SIGNATURES = {
                           _I, _LL, _LL, _LL, _LL, _I, _F, _ULL, _U, _F, _I,
                           _P],
     "vlp_attention_bwd_max_len": [],
-    "vlp_attention_bwd_scratch_floats": [_I, _I],
+    "vlp_attention_bwd_scratch_floats": [_I, _I],   # (L, dtype code)
     "vlp_attention_fwd_bhld": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _LL,
                                _LL, _LL, _I, _F, _ULL, _U, _F, _I, _P],
     "vlp_attention_bwd_bhld": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -112,6 +112,15 @@ KERNELS = {
         "attention_bwd_bhld", "vlp_tpu_torch/csrc/attention_bwd.cu",
         "vlp_tpu/ops/attention.py:155"),
 }
+# the fp16 forms of K1 and K2 (--true_fp16 training): the 16-bit bodies
+# instantiated for fp16, counted apart from their bf16 and fp32 forms
+for _name in ("attention_fwd", "attention_fwd_drop", "attention_bwd",
+              "attention_fwd_bhld", "attention_fwd_bhld_drop",
+              "attention_bwd_bhld"):
+    _k = KERNELS[_name]
+    KERNELS[_name + "_fp16"] = Kernel(_name + "_fp16", _k.source,
+                                      _k.replaces)
+del _name, _k
 
 
 def reset_launch_counts() -> None:

@@ -27,11 +27,16 @@ layout, which every model call uses) and ``layout="bhld"``
 * The dtype picks the kernel body, in both layouts and both directions:
   bf16 (every main path) runs the tensor-core bodies (``mma.sync`` on
   tiles staged with ``cp.async``; the backward rounds P o keep and dS to
-  bf16 before their products), fp32 the split-TF32 bodies (every product
+  bf16 before their products), fp16 (``--true_fp16`` training) the same
+  bodies instantiated for fp16 (rounding to fp16 where bf16 rounds to
+  bf16; an overflow becomes inf and a NaN stays NaN, so the loss scaler
+  sees it), fp32 the split-TF32 bodies (every product
   as three TF32 tensor-core products of the operands' two parts, accurate
   to fp32's summation-order differences, which the card-vs-CPU fp32
-  checks rest on).  Both dtypes take every L up to the bf16 forward's
-  limit (528).  Nothing falls back from one body to the other.
+  checks rest on).  Every dtype takes every L up to the 16-bit forward's
+  limit (528).  Nothing falls back from one body to another.  fp16 has
+  launch counts of its own (``attention_fwd_fp16``, ...: the name of the
+  bf16 and fp32 form plus ``_fp16``).
 * ``dropout_mask`` — the multipliers themselves (``csrc/dropout_mask.cu``),
   to hold the kernels' bits against ``philox.keep_scale`` on the card.
 
@@ -50,6 +55,8 @@ from vlp_tpu_torch.ops.masks import NEG_INF
 
 HEAD_DIM = 64  # the only head width the kernels are built for
 LAYOUTS = ("blhd", "bhld")
+# the kernels' dtype code (csrc/common.cuh vlp::DType)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def _check_layout(layout: str) -> None:
@@ -147,8 +154,8 @@ def attention(q, k, v, mode, text_end, colkeep, *, prefix: int,
     ``attention_plain``.  No backward on CUDA: training goes through
     ``FusedAttention``.
 
-    CUDA inputs: q/k/v bf16 (the bf16 body) or fp32 (the split-TF32
-    body) with identical strides and D == 64.  In blhd the (H, D) dims are
+    CUDA inputs: q/k/v bf16 or fp16 (the 16-bit tensor-core body) or fp32
+    (the split-TF32 body) with identical strides and D == 64.  In blhd the (H, D) dims are
     packed (``x.view(B, L, H, D)`` of a projection output, any batch and
     row stride); in bhld any batch, head and row strides with the last dim
     contiguous.  Base pointers or strides that are not 16-byte aligned
@@ -177,8 +184,9 @@ def _check_qkv(q, k, v, mode, text_end, colkeep, what, layout="blhd"):
     B, L, H, D = _dims(q, layout)
     if D != HEAD_DIM:
         raise ValueError(f"{what} kernel takes D == {HEAD_DIM}, got {D}")
-    if q.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"{what} kernel takes bf16 or fp32, got {q.dtype}")
+    if q.dtype not in DTYPE_CODES:
+        raise TypeError(f"{what} kernel takes bf16, fp16 or fp32, got "
+                        f"{q.dtype}")
     for t in (k, v):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"{what}: q, k, v differ in shape/dtype/device")
@@ -209,6 +217,12 @@ def _dropout_args(dropout_rate: float, seed):
             1.0 / (1.0 - dropout_rate))
 
 
+def _count_name(name: str, dtype: torch.dtype) -> str:
+    """The launch count a call of kernel ``name`` in ``dtype`` adds to:
+    fp16 forms count apart from the bf16 and fp32 ones."""
+    return name + ("_fp16" if dtype == torch.float16 else "")
+
+
 def _forward_cuda(q, k, v, mode, text_end, colkeep, prefix,
                   dropout=None, layout="blhd"):
     """K1 (``_fwd_kernel``'s counterpart in bhld); ``dropout`` = (rate,
@@ -216,7 +230,7 @@ def _forward_cuda(q, k, v, mode, text_end, colkeep, prefix,
     for both branches (rate 0 is the deterministic kernel); each branch
     keeps its own launch count."""
     entry = "attention_fwd" + ("_bhld" if layout == "bhld" else "")
-    what = entry + ("" if dropout is None else "_drop")
+    what = _count_name(entry + ("" if dropout is None else "_drop"), q.dtype)
     mode, text_end, colkeep = _check_qkv(q, k, v, mode, text_end, colkeep,
                                          what, layout)
     B, L, H, D = _dims(q, layout)
@@ -227,7 +241,7 @@ def _forward_cuda(q, k, v, mode, text_end, colkeep, prefix,
               B, L, H, *strides, prefix, 1.0 / math.sqrt(D))
     err = getattr(_build.library(), "vlp_" + entry)(
         *common, *_dropout_args(*(dropout or (0.0, None))),
-        int(q.dtype == torch.bfloat16), _build.stream_ptr(q.device))
+        DTYPE_CODES[q.dtype], _build.stream_ptr(q.device))
     _build.check(err, what)
     _build.KERNELS[what].launches += 1
     return out
@@ -237,12 +251,13 @@ def _backward_cuda(q, k, v, mode, text_end, colkeep, dout, prefix, rate,
                    seed, layout="blhd"):
     """K2 (``_bwd_kernel``'s counterpart in bhld): (dq, dk, dv), each
     contiguous in q's layout and dtype."""
-    what = "attention_bwd" + ("_bhld" if layout == "bhld" else "")
+    entry = "attention_bwd" + ("_bhld" if layout == "bhld" else "")
+    what = _count_name(entry, q.dtype)
     mode, text_end, colkeep = _check_qkv(q, k, v, mode, text_end, colkeep,
                                          what, layout)
     B, L, H, D = _dims(q, layout)
     lib = _build.library()
-    is_bf16 = int(q.dtype == torch.bfloat16)
+    dtype = DTYPE_CODES[q.dtype]
     max_len = lib.vlp_attention_bwd_max_len()
     if L > max_len:
         raise ValueError(f"attention_bwd kernel takes L <= {max_len} (the "
@@ -254,19 +269,19 @@ def _backward_cuda(q, k, v, mode, text_end, colkeep, dout, prefix, rate,
         dout = dout.contiguous()
     grads = [torch.empty(q.shape, dtype=q.dtype, device=q.device)
              for _ in range(3)]
-    # the tiled bodies (bf16 past L = 144, fp32 at every L) keep each row's
-    # softmax statistics and keep bits between their kernels in an fp32
-    # scratch, O(L) floats per (example, head)
-    n_scratch = lib.vlp_attention_bwd_scratch_floats(L, is_bf16)
+    # the tiled bodies (bf16 and fp16 past L = 144, fp32 at every L) keep
+    # each row's softmax statistics and keep bits between their kernels in
+    # an fp32 scratch, O(L) floats per (example, head)
+    n_scratch = lib.vlp_attention_bwd_scratch_floats(L, dtype)
     scratch = (torch.empty(B * H * n_scratch, dtype=torch.float32,
                            device=q.device) if n_scratch else None)
-    err = getattr(lib, "vlp_" + what)(
+    err = getattr(lib, "vlp_" + entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         *(g.data_ptr() for g in grads),
         None if scratch is None else scratch.data_ptr(), mode.data_ptr(),
         text_end.data_ptr(), colkeep.data_ptr(), B, L, H,
         *q.stride()[:n], *dout.stride()[:n], prefix, 1.0 / math.sqrt(D),
-        *_dropout_args(rate, seed), is_bf16, _build.stream_ptr(q.device))
+        *_dropout_args(rate, seed), dtype, _build.stream_ptr(q.device))
     _build.check(err, what)
     _build.KERNELS[what].launches += 1
     return tuple(grads)

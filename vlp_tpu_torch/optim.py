@@ -13,12 +13,18 @@ to the reference optimizer (``optimization.py:33-182``):
 State is fp32.  Parameters and moments are dicts keyed by the parameters'
 reference names (``model.named_parameters()``); the step updates the
 parameters in place.
+
+``DynamicLossScale`` is the fp16 loss scaling of ``--true_fp16`` (the
+reference's apex ``FP16_Optimizer``, optimization_fp16.py:7-80; JAX
+``optim.DynamicLossScale``).  Its state, ``{"scale", "good_steps"}`` as
+device tensors, rides on the optimizer (``BertAdam.loss_scale``) and in
+its ``state_dict``, as apex keeps it in the optimizer's.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import torch
 
@@ -61,7 +67,10 @@ class BertAdam:
     by the caller; ``None`` counts as zero) and increments ``step_count``.
 
     ``anchors`` (name -> fp32 tensor) switches on the fine-tune decay
-    ``wd * (2 p - anchor)``; see :func:`bert_adam_finetune`."""
+    ``wd * (2 p - anchor)``; see :func:`bert_adam_finetune`.
+
+    ``loss_scale`` holds a :class:`DynamicLossScale` state when the run
+    scales its loss (None otherwise); ``state_dict`` carries it."""
 
     def __init__(self, params: Dict[str, torch.Tensor], lr: float, *,
                  warmup: float = -1.0, t_total: int = -1,
@@ -80,11 +89,13 @@ class BertAdam:
         self.v = {n: torch.zeros_like(p, dtype=torch.float32)
                   for n, p in self.params.items()}
         self.step_count = 0
+        self.loss_scale: Optional[Dict[str, torch.Tensor]] = None
 
-    def lr_at(self, step: int) -> torch.Tensor:
-        """fp32 learning rate of the update after ``step`` completed ones."""
+    def lr_at(self, step) -> torch.Tensor:
+        """fp32 learning rate of the update after ``step`` completed ones
+        (an int, or an integer tensor on the parameters' device)."""
         if self.t_total > 0 and self.warmup >= 0:
-            x = torch.tensor(float(step), dtype=torch.float32) / self.t_total
+            x = torch.as_tensor(step).to(torch.float32) / self.t_total
             return self.lr * self.schedule(x, self.warmup)
         return torch.tensor(self.lr, dtype=torch.float32)
 
@@ -96,8 +107,17 @@ class BertAdam:
                                MAX_GRAD_NORM / (norm + 1e-6), one)
 
     @torch.no_grad()
-    def step(self) -> None:
+    def step(self, finite: Optional[torch.Tensor] = None) -> None:
+        """One update.  ``finite`` (a 0-d bool tensor on the parameters'
+        device: the loss scaler's verdict on this step's gradients) makes
+        the update conditional on the device, with no sync: where it is
+        False the parameters, both moments and the schedule's step count
+        stay as they were (JAX ``_apply_grads`` keeps ``opt_state``
+        whole).  ``step_count`` is then a device tensor."""
         lr_t = None
+        if finite is not None:
+            dev = finite.device
+            self.step_count = torch.as_tensor(self.step_count, device=dev)
         for n, p in self.params.items():
             if lr_t is None:
                 lr_t = self.lr_at(self.step_count).to(p.device)
@@ -108,23 +128,38 @@ class BertAdam:
                  else self._clip(p.grad.float()))
             m = B1 * self.m[n] + (1 - B1) * g
             v = B2 * self.v[n] + (1 - B2) * g * g
-            self.m[n], self.v[n] = m, v
             u = m / (torch.sqrt(v) + EPS)
             if self.weight_decay > 0:
                 wd = self.weight_decay if self.decay[n] else 0.0
                 p32 = p.float()
                 u = u + wd * (p32 if self.anchors is None
                               else 2.0 * p32 - self.anchors[n])
-            p.add_((-lr_t * u).to(p.dtype))
-        self.step_count += 1
+            upd = -lr_t * u
+            if finite is not None:
+                m = torch.where(finite, m, self.m[n])
+                v = torch.where(finite, v, self.v[n])
+                upd = torch.where(finite, upd, torch.zeros_like(upd))
+            self.m[n], self.v[n] = m, v
+            p.add_(upd.to(p.dtype))
+        self.step_count = self.step_count + (
+            1 if finite is None else finite.to(torch.int64))
 
     def state_dict(self) -> dict:
-        return {"step": self.step_count, "m": dict(self.m),
-                "v": dict(self.v)}
+        """``{"step", "m", "v"}``, plus ``"loss_scale"`` (``{"scale",
+        "good_steps"}`` as Python numbers) when the run scales its loss."""
+        out = {"step": int(self.step_count), "m": dict(self.m),
+               "v": dict(self.v)}
+        if self.loss_scale is not None:
+            out["loss_scale"] = {
+                "scale": float(self.loss_scale["scale"]),
+                "good_steps": int(self.loss_scale["good_steps"])}
+        return out
 
     def load_state_dict(self, state: dict) -> None:
-        """Restore (m, v, step); the saved moments must cover exactly this
-        optimizer's parameters, with the same shapes."""
+        """Restore (m, v, step) and, when this optimizer scales its loss
+        and the state has one, the loss scale; the saved moments must
+        cover exactly this optimizer's parameters, with the same
+        shapes."""
         for key in ("m", "v"):
             saved = state[key]
             if set(saved) != set(self.params):
@@ -141,6 +176,14 @@ class BertAdam:
                 {n: t.to(device=self.params[n].device, dtype=torch.float32)
                  for n, t in saved.items()})
         self.step_count = int(state["step"])
+        if self.loss_scale is not None and "loss_scale" in state:
+            dev = self.loss_scale["scale"].device
+            saved = state["loss_scale"]
+            self.loss_scale = {
+                "scale": torch.tensor(float(saved["scale"]),
+                                      dtype=torch.float32, device=dev),
+                "good_steps": torch.tensor(int(saved["good_steps"]),
+                                           dtype=torch.int32, device=dev)}
 
 
 def bert_adam_finetune(params: Dict[str, torch.Tensor], lr: float, *,
@@ -157,3 +200,60 @@ def bert_adam_finetune(params: Dict[str, torch.Tensor], lr: float, *,
             a = torch.zeros_like(a)
         anchors[n] = a.clone()
     return BertAdam(params, lr, anchors=anchors, **kw)
+
+
+class DynamicLossScale:
+    """fp16 dynamic loss scaling (JAX ``optim.DynamicLossScale``; the
+    reference ``FP16_Optimizer_State``, optimization_fp16.py:7-80): scale
+    the loss, unscale the gradients, skip the update on non-finite
+    gradients and halve the scale; double it after ``growth_interval``
+    good steps in a row.
+
+    ``static=True`` freezes the scale at ``init_scale`` (apex
+    ``static_loss_scale``, run_img2txt_dist.py:419-420): an overflow still
+    skips the update, but the scale never halves or grows.  Every decision
+    is a device tensor: nothing here syncs with the host.  The skip itself
+    is ``BertAdam.step(finite=...)`` (JAX's ``apply_or_skip`` and the
+    ``opt_state`` select of ``_apply_grads``)."""
+
+    def __init__(self, init_scale: float = 2.0 ** 15,
+                 growth_interval: int = 2000, factor: float = 2.0,
+                 static: bool = False):
+        self.init_scale = init_scale
+        self.growth_interval = growth_interval
+        self.factor = factor
+        self.static = static
+
+    def init(self, device="cpu") -> Dict[str, torch.Tensor]:
+        return {"scale": torch.tensor(self.init_scale, dtype=torch.float32,
+                                      device=device),
+                "good_steps": torch.tensor(0, dtype=torch.int32,
+                                           device=device)}
+
+    def scale_loss(self, loss: torch.Tensor,
+                   state: Dict[str, torch.Tensor]) -> torch.Tensor:
+        return loss * state["scale"]
+
+    def unscale_and_check(self, grads: Dict[str, torch.Tensor],
+                          state: Dict[str, torch.Tensor]
+                          ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+        """(fp32 gradients times 1 / scale, whether every element of every
+        one is finite: a 0-d bool tensor)."""
+        inv = 1.0 / state["scale"]
+        grads = {n: g.float() * inv for n, g in grads.items()}
+        finite = torch.stack([torch.isfinite(g).all()
+                              for g in grads.values()]).all()
+        return grads, finite
+
+    def update(self, state: Dict[str, torch.Tensor],
+               finite: torch.Tensor) -> Dict[str, torch.Tensor]:
+        if self.static:
+            return state
+        scale = torch.where(finite, state["scale"],
+                            state["scale"] / self.factor)
+        good = torch.where(finite, state["good_steps"] + 1,
+                           torch.zeros_like(state["good_steps"]))
+        grow = good >= self.growth_interval
+        scale = torch.where(grow, scale * self.factor, scale)
+        good = torch.where(grow, torch.zeros_like(good), good)
+        return {"scale": scale, "good_steps": good}
