@@ -15,9 +15,11 @@ mode, B=64, 12 steps), ``vlp_tpu_torch.cli.eval_vqa2`` (B=256, 1,024
 questions), the ``layout="bhld"`` attention op (bf16 and fp16),
 ``vlp_tpu_torch.cli.train --true_fp16`` (fp16 K1 dropout + K2, dynamic
 loss scaling, B=64, 1 epoch of 20 steps then a resume to epoch 2, and a
-skipped step on an overflow) and the nine legacy BERT heads (two layers
-deep: card vs CPU in fp32, one fp16 forward, a bf16 fine-tune step) -- and
-checks that each path launched its kernels.  Phase 2 also holds the fp32 attention bodies
+skipped step on an overflow), the train CLI at ``--max_len_b 40`` (L=256,
+B=64, 8 steps: K1's row-block body and K2's tiled body) and the nine
+legacy BERT heads (two layers deep: card vs CPU in fp32, one fp16
+forward, a bf16 fine-tune step) -- and checks that each path launched its
+kernels.  Phase 2 also holds the fp32 attention bodies
 (split TF32) at L=256 and 512 against their plain versions and times them
 at B=64 L=128 and B=16 L=256 and 512 beside fp32 SDPA, with the
 backward's peak memory; times the decode step (K3 greedy, K4 beam 5, K5
@@ -28,9 +30,11 @@ empty launch and a ``zero_`` of its bytes; and holds the fp16 forms of K1
 and K2 (``--true_fp16``) against their plain versions at B=64 L=128 (as
 the bf16 and fp32 ones) and at L = 103-528 in both layouts, bit for bit
 across layouts and against ``dropout_mask``'s keep bits, with a non-finite
-dO reaching every gradient, and times every 16-bit form of K1 and K2
-beside SDPA in its dtype and the bound at L = 128 and 256 (plain
-versions with PLAIN_REPS calls a round).  Phase 6 runs data parallel:
+dO reaching every gradient, gates K1 (both branches) and K2 past their
+one-block bodies at B=64, L = 160, 256 and 528 in both layouts and both
+16-bit dtypes, and times every 16-bit form of K1 and K2 beside SDPA in
+its dtype and the bound at L = 128, 256 and 528 (plain versions with
+PLAIN_REPS calls a round).  Phase 6 runs data parallel:
 the train, decode and VQA CLIs over NCCL at world size 1, which must equal
 the runs without a group bit for bit, and two gloo ranks on the one card
 (this script re-run with ``--dp-worker``, DP2_LAYERS deep), which must stay
@@ -39,7 +43,9 @@ in sync and, in fp32, equal the single-process step on the global batch.
     python3 chip_smoke.py
     python3 chip_smoke.py --ab-times ROOT   # another checkout's kernels
 
-``--ab-times`` times K1/K2, the decode step (bf16 and fp32) and
+``--ab-times`` times K1/K2 (bf16 at L = 128, 256 and 528 with K1's
+deterministic branch and SDPA with its mask prebuilt; fp32), K1 at the
+prefill's and the VQA eval's shapes, the decode step (bf16 and fp32) and
 ``dropout_mask`` of the checkout at ROOT with phase 2's timing; run it on
 two trees in turns (parent, change, change, parent) in one call.
 
@@ -698,20 +704,24 @@ def log_times(name, r, what="") -> None:
         f"({r['bound_by']})")
 
 
-LONG_GATE_LENS = (160, 256, 528)   # the tiled backward's gates
-LONG_TIMED_LENS = (256, 528)       # and its times
+LONG_GATE_LENS = (160, 256, 528)   # the long bodies' gates
+LONG_TIMED_LENS = (256, 528)       # and their times
 
 
-def phase_long_backward(attn, inputs, B, P, seed, rate, results):
-    """K2 in bf16 and fp16 past the one-block body's L <= 144: the tiled
-    body (any --max_len_b >= 26 with 100 regions rounds the training length
-    up to 256; 528 is the 16-bit forward's limit) at B=64, rate 0.1.  At
-    each of LONG_GATE_LENS, in both layouts: against its plain version,
-    two calls bit for bit, and bhld = blhd on transposed inputs bit for
-    bit.  Then, under ``L256`` / ``L528`` of each kernel's entry, times
-    (``form_times``) at L=256 of every form of K1 and K2 in both layouts
-    and both 16-bit dtypes, at L=528 of bf16 K1's dropout branch and K2
-    (blhd), and the bf16 backward's device time by kernel at L=256."""
+def phase_long_attention(attn, inputs, B, P, seed, rate, results):
+    """K1 and K2 in bf16 and fp16 past the one-block bodies (K1 L <= 128,
+    K2 L <= 144): K1's row-block body and K2's tiled body (any --max_len_b
+    >= 26 with 100 regions rounds the training length up to 256; 528 is
+    the kernels' limit) at B=64, rate 0.1.  At each of LONG_GATE_LENS, in
+    both layouts: K1 at rate 0 and ``rate`` and K2 against their plain
+    versions, two calls of K1's dropout branch and of K2 bit for bit, and
+    bhld = blhd on transposed inputs bit for bit.  Then, under ``L256`` /
+    ``L528`` of each kernel's entry, times (``form_times``) at L=256 of
+    every form of K1 and K2 in both layouts and both 16-bit dtypes, at
+    L=528 of K1 (both branches) and K2 in blhd and both 16-bit dtypes,
+    with the blocks per SM of bf16 K1's body, and the bf16 backward's
+    device time by kernel at L=256."""
+    from vlp_tpu_torch.ops import _build
     for dtype in (torch.bfloat16, torch.float16):
         for L in LONG_GATE_LENS:
             q, k, v, mode, te, ck, dout = inputs(dtype, L)
@@ -719,40 +729,68 @@ def phase_long_backward(attn, inputs, B, P, seed, rate, results):
             got = {}
             for layout, (a, b_, c, d) in (("blhd", (q, k, v, dout)),
                                           ("bhld", tr)):
+                tag = f"B={B} L={L} {dtype} ({body(dtype)}, long)"
+                fwd = [attn.attention(a, b_, c, mode, te, ck, prefix=P,
+                                      layout=layout)]
+
+                def drop(a=a, b_=b_, c=c, layout=layout):
+                    return attn._forward_cuda(a, b_, c, mode, te, ck, P,
+                                              dropout=(rate, seed),
+                                              layout=layout)
+
+                fwd.append(drop())
+                for i, r, out in ((0, 0.0, fwd[0]), (1, rate, fwd[1])):
+                    name = kname(FORMS[layout][i], dtype)
+                    want = attn.attention_plain(
+                        a, b_, c, mode, te, ck, prefix=P, dropout_rate=r,
+                        seed=seed, layout=layout)
+                    note_err(results, name, compare(
+                        f"K1 {name} {tag} rate={r}", out, want, TOL[dtype]))
+                if not torch.equal(fwd[1], drop()):
+                    fail(f"{FORMS[layout][1]} {tag}: two calls differ")
                 args = (a, b_, c, mode, te, ck, d, P, rate, seed, layout)
-                got[layout] = attn._backward_cuda(*args)
+                got[layout] = fwd + list(attn._backward_cuda(*args))
                 want = attn.attention_bwd_plain(
                     a, b_, c, mode, te, ck, d, prefix=P, dropout_rate=rate,
                     seed=seed, layout=layout)
                 name = kname(FORMS[layout][2], dtype)
-                tag = f"B={B} L={L} {dtype} ({body(dtype)}, tiled) rate={rate}"
-                for n, x, y in zip(("dq", "dk", "dv"), got[layout], want):
-                    note_err(results, name, compare(f"K2 {name} {n} {tag}",
-                                                    x, y, TOL[dtype]))
+                for n, x, y in zip(("dq", "dk", "dv"), got[layout][2:],
+                                   want):
+                    note_err(results, name, compare(
+                        f"K2 {name} {n} {tag} rate={rate}", x, y,
+                        TOL[dtype]))
                 again = attn._backward_cuda(*args)
                 torch.cuda.synchronize()
                 if not all(torch.equal(x, y)
-                           for x, y in zip(got[layout], again)):
+                           for x, y in zip(got[layout][2:], again)):
                     fail(f"{name} {tag}: two calls differ")
             if not all(torch.equal(x.transpose(1, 2), y)
                        for x, y in zip(got["bhld"], got["blhd"])):
-                fail(f"attention_bwd {dtype} L={L}: bhld differs from blhd "
-                     "on transposed inputs")
-            log(f"K2 tiled {dtype} L={L}: both layouts bit-identical across "
-                "two calls and to each other")
+                fail(f"attention {dtype} L={L}: bhld differs from blhd on "
+                     "transposed inputs")
+            log(f"K1 and K2 {dtype} L={L}: both layouts bit-identical "
+                "across two calls and to each other")
+    lib = _build.library()
     for L in LONG_TIMED_LENS:
-        for dtype in ((torch.bfloat16, torch.float16) if L == 256
-                      else (torch.bfloat16,)):
+        for dtype in (torch.bfloat16, torch.float16):
             q, k, v, mode, te, ck, dout = inputs(dtype, L)
             for layout in ("blhd", "bhld") if L == 256 else ("blhd",):
                 ins = (q, k, v, dout) if layout == "blhd" else [
                     t.transpose(1, 2).contiguous() for t in (q, k, v, dout)]
                 times = form_times(attn, *ins[:3], mode, te, ck, ins[3], P,
-                                   rate, seed, layout,
-                                   (0, 1, 2) if L == 256 else (1, 2))
+                                   rate, seed, layout)
                 for name, r in times.items():
                     results.setdefault(name, {})[f"L{L}"] = r
                     log_times(name, r)
+            if dtype == torch.bfloat16:
+                for i in (0, 1):
+                    r = results[FORMS["blhd"][i]][f"L{L}"]
+                    r["blocks_per_sm"] = lib.vlp_attention_fwd_blocks_per_sm(
+                        L, i)
+                log(f"K1 bf16 L={L}: blocks per SM (deterministic, dropout) "
+                    f"{results['attention_fwd'][f'L{L}']['blocks_per_sm']}, "
+                    f"{results['attention_fwd_drop'][f'L{L}']['blocks_per_sm']}"
+                    f"; at L=128 {lib.vlp_attention_fwd_blocks_per_sm(128, 1)}")
             if dtype == torch.bfloat16 and L == 256:
                 r = results["attention_bwd"]["L256"]
                 r["kernels_us"] = {f"rate {x}": kernel_split(
@@ -768,12 +806,15 @@ TURNS = 3      # readings of each kernel and SDPA, taken in turns
 
 
 def k1_k2_times(attn, q, k, v, mode, te, ck, dout, P, rate, seed,
-                layout="blhd", turns=1) -> dict:
+                layout="blhd", turns=1, prebuilt=False) -> dict:
     """Device ms (``time_ms``) of ``attn``'s K1 (the dropout branch at
     ``rate``) and K2 and of SDPA's forward and backward on the same inputs
     in ``layout``, read in turns -- K1, SDPA forward, K2, SDPA backward --
     ``turns`` times, so that a drift of the card reaches each alike: lists
-    of readings under fwd_ms, sdpa_fwd_ms, bwd_ms, sdpa_bwd_ms."""
+    of readings under fwd_ms, sdpa_fwd_ms, bwd_ms, sdpa_bwd_ms.
+    ``prebuilt`` adds, in each turn, SDPA's forward with its mask prebuilt
+    (sdpa_fwd_prebuilt_ms) and K1's deterministic branch beside SDPA's
+    without dropout, mask prebuilt (det_ms, sdpa_det_prebuilt_ms)."""
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     lib_out = sdpa(*leaves, mode, te, ck, P, rate, layout=layout)
     fns = dict(
@@ -786,6 +827,15 @@ def k1_k2_times(attn, q, k, v, mode, te, ck, dout, P, rate, seed,
                                            rate, seed, layout),
         sdpa_bwd_ms=lambda: torch.autograd.grad(lib_out, leaves, dout,
                                                 retain_graph=True))
+    if prebuilt:
+        mask = sdpa_mask(q, mode, te, ck, P, layout=layout)
+        fns.update(
+            sdpa_fwd_prebuilt_ms=lambda: sdpa(q, k, v, mode, te, ck, P, rate,
+                                              layout=layout, mask=mask),
+            det_ms=lambda: attn.attention(q, k, v, mode, te, ck, prefix=P,
+                                          layout=layout),
+            sdpa_det_prebuilt_ms=lambda: sdpa(q, k, v, mode, te, ck, P,
+                                              layout=layout, mask=mask))
     out = {key: [] for key in fns}
     for _ in range(turns):
         for key, fn in fns.items():
@@ -959,6 +1009,7 @@ def train_inputs(g, dev, dtype, B, L, H=12, D=64, P=102):
 # (dtype, B, L) of the parent-vs-change timing (--ab-times): the bf16
 # training shape and the tiled bf16 backward, and FP32_TIMED
 AB_SHAPES = ((torch.bfloat16, 64, 128), (torch.bfloat16, 64, 256),
+             (torch.bfloat16, 64, 528),
              *((torch.float32, B, L) for B, L in FP32_TIMED))
 
 
@@ -1014,8 +1065,21 @@ def ab_times(root: str) -> None:
         ins = train_inputs(g, dev, dtype, B, L)
         out[f"{str(dtype)[6:]} B={B} L={L}"] = {
             key: val[0] for key, val in k1_k2_times(
-                attn, *ins, 102, 0.1, TRAIN_SEED).items()}
+                attn, *ins, 102, 0.1, TRAIN_SEED,
+                prebuilt=dtype == torch.bfloat16).items()}
         del ins
+    # K1's deterministic branch at the decode prefill's and the VQA eval's
+    # shapes (phase 2's k1_inputs)
+    from vlp_tpu_torch.config import MODE_BI, MODE_S2S
+    for label, B, L in (("prefill", 100, 103), ("vqa", VQA_B, 128)):
+        q, k, v, mode, te, ck, _ = train_inputs(g, dev, torch.bfloat16, B, L)
+        if label == "prefill":
+            mode.fill_(MODE_S2S), te.fill_(L), ck.fill_(1.0)
+        else:
+            mode.fill_(MODE_BI)
+        out[f"attention_fwd {label} bf16 B={B} L={L}"] = time_ms(
+            lambda: attn.attention(q, k, v, mode, te, ck, prefix=102))
+        del q, k, v
     out.update(decode_ab_times(dec, g, dev))
     B, H, L = AB_MASK
     out[f"dropout_mask [{B},{H},{L},{L}]"] = time_ms(
@@ -1028,7 +1092,7 @@ def phase_train_kernels(dev, results):
     (B=64, L=128, H=12, D=64): fp32, bf16 and fp16, mixed modes, zeros in
     colkeep, rate 0 and 0.1, each against its plain version; the mask bit
     for bit.  Times in bf16 and fp16 at rate 0.1 (``form_times``), the
-    tiled K2 at L=256 and 528 beside them (``phase_long_backward``), and
+    tiled K2 at L=256 and 528 beside them (``phase_long_attention``), and
     the fp32 bodies (``phase_fp32_long``)."""
     from vlp_tpu_torch.ops import attention as attn
     from vlp_tpu_torch.ops import philox
@@ -1129,7 +1193,7 @@ def phase_train_kernels(dev, results):
             f"ms; SDPA fwd+bwd {r['library_fwd_bwd_ms']:.4f} ms (prebuilt "
             f"mask {r['library_prebuilt_mask_fwd_bwd_ms']:.4f})")
         del q, k, v, dout, leaves, mask
-    phase_long_backward(attn, inputs, B, P, seed, rate, results)
+    phase_long_attention(attn, inputs, B, P, seed, rate, results)
     fp32_errs, fp32_times = phase_fp32_long(attn, inputs, H, D, P, seed, rate)
     results["attention_fwd_drop"]["fp32"] = dict(
         max_abs_err=fp32_errs["fwd"], **{
@@ -1927,6 +1991,52 @@ def phase_train_main_path(vocab_path, out_dir, gpu_line):
     return counts, rates
 
 
+LONG_TRAIN_MAX_LEN_B = 40   # 100 regions + 3 + 40 = 143 tokens: L = 256
+LONG_TRAIN_STEPS = 8
+
+
+def phase_train_long_main_path(vocab_path, out_dir, gpu_line, bf16_rates):
+    """The train CLI as phase 4b (bf16, B=64, the COCO fine-tune flags) at
+    a longer caption budget, --max_len_b LONG_TRAIN_MAX_LEN_B, which
+    rounds the sequence up to L = 256: one epoch of LONG_TRAIN_STEPS
+    steps through K1's row-block body (dropout) and K2's tiled body, each
+    launched once per layer and step.  Its samples/s beside phase 4b's."""
+    from vlp_tpu_torch.cli import train as train_cli
+    from vlp_tpu_torch.ops import _build
+
+    out = os.path.join(out_dir, "train_long")
+    args = ["--do_train", "--new_segment_ids", "--enable_butd",
+            "--bert_model", vocab_path, "--do_lower_case", "--dataset",
+            "coco", "--max_pred", "20", "--mask_prob", "0.15",
+            "--train_batch_size", "64", "--learning_rate", "3e-5",
+            "--num_train_epochs", "1", "--s2s_prob", "1", "--bi_prob", "0",
+            "--max_len_b", str(LONG_TRAIN_MAX_LEN_B), "--synthetic_data",
+            "--steps_per_epoch", str(LONG_TRAIN_STEPS), "--output_dir", out,
+            "--device", "cuda"]
+    _build.reset_launch_counts()
+    res = train_cli.main(args)
+    torch.cuda.synchronize()
+    counts = {k: v.launches for k, v in _build.KERNELS.items()}
+    n = 12 * LONG_TRAIN_STEPS
+    want = {k: (n if k in ("attention_fwd_drop", "attention_bwd") else 0)
+            for k in counts}
+    log(f"train (--max_len_b {LONG_TRAIN_MAX_LEN_B}) launch counts {counts}, "
+        f"expected {want}")
+    if counts != want:
+        fail("the long train path did not launch the kernels as expected")
+    losses = np.asarray(res["losses"])
+    if len(losses) != LONG_TRAIN_STEPS or not np.isfinite(losses).all():
+        fail(f"long train path: bad losses {losses}")
+    warm = 3
+    step_s = float(np.median(res["step_seconds"][warm:]))
+    rate = 64 / step_s
+    log(f"train main path B=64 L=256 (--max_len_b {LONG_TRAIN_MAX_LEN_B}): "
+        f"{rate:.2f} samples/s (median step {step_s * 1e3:.2f} ms after "
+        f"{warm} warm-up steps), beside {bf16_rates['train_samples_per_sec']:.2f}"
+        f" at L=128 (phase 4b) on {gpu_line}")
+    return counts, {"train_l256_samples_per_sec": rate}
+
+
 def _scst_setup(vocab_path, B, seed, **cfg_kw):
     """A bert-base SCST trainer (random weights from ``seed``, on the CPU)
     and a decode batch of B synthetic images as numpy arrays."""
@@ -2681,6 +2791,11 @@ def main():
         paths["train"], train_rates = phase_train_main_path(vocab_path, tmp,
                                                             smi)
         log("phase 4b: train main path went through its kernels")
+        paths["train_l256"], long_rates = phase_train_long_main_path(
+            vocab_path, tmp, smi, train_rates)
+        train_rates.update(long_rates)
+        log("phase 4b2: train main path at L=256 went through the long "
+            "bodies")
         paths["scst"], scst_rates = phase_scst_main_path(vocab_path, tmp,
                                                          smi)
         log("phase 4c: SCST main path went through its kernels")

@@ -23,6 +23,12 @@ NEG = -10000.0
 FP32_TOL = dict(atol=1e-4, rtol=1e-4)
 BF16_TOL = dict(atol=3e-2, rtol=1e-2)  # one bf16 ulp at 2-4 is 1.6e-2
 DTYPES = [(torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)]
+# fp16 (--true_fp16): the 16-bit bodies instantiated for fp16.  They round
+# P o keep and dS to fp16 (2^-11 relative, 8x finer than bf16's 2^-8) where
+# the plain versions keep fp32, and both round their outputs to fp16: two
+# fp16 ulps at [2, 4) (1.95e-3 each) absolute and four ulps relative,
+# against bf16's 3e-2 / 1e-2.
+FP16_TOL = dict(atol=4e-3, rtol=2e-3)
 
 
 @pytest.fixture
@@ -587,23 +593,115 @@ def test_fully_masked_example_matches_plain(cuda, rate):
                                **tol)
 
 
+# past L = 128: lengths that fill their last 16-row, 64-key or 128-row tile
+# and lengths that do not, up to the kernels' limit
+LONG_FWD_LENGTHS = [144, 145, 160, 256, 417, 528]
+
+
+def _long_inputs(g, dev, dtype, L, layout, B=2, H=2):
+    """Training-shaped inputs at length L in ``layout`` (text_end >= 103)."""
+    q, k, v, mode, te, ck = _train_inputs(g, dev, dtype, B=B, L=L, H=H)
+    te = torch.randint(103, L + 1, (B,), generator=g, device=dev)
+    if layout == "bhld":
+        q, k, v = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    return q, k, v, mode, te, ck
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("dtype,tol", DTYPES + [(torch.float16, FP16_TOL)])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-@pytest.mark.parametrize("L", [256, 417])
-def test_long_forward_matches_plain(cuda, dtype, tol, rate, L):
-    """Lengths past one 128-column chunk: the bf16 body's two passes (row
-    max and sum, then P V), and the fp32 body over several key tiles up to
-    the first fp32 forward's last length (417)."""
+@pytest.mark.parametrize("layout", ["blhd", "bhld"])
+@pytest.mark.parametrize("L", LONG_FWD_LENGTHS)
+def test_long_forward_matches_plain(cuda, dtype, tol, rate, layout, L):
+    """Lengths past one 128-column chunk: the 16-bit row-block body (two
+    passes over streamed 64-key tiles) and the fp32 body over several key
+    tiles, in both layouts."""
     g = torch.Generator(device=cuda).manual_seed(8)
-    q, k, v, mode, te, ck = _train_inputs(g, cuda, dtype, B=2, L=L, H=2)
-    te = torch.randint(103, L + 1, (2,), generator=g, device=cuda)
+    q, k, v, mode, te, ck = _long_inputs(g, cuda, dtype, L, layout)
     seed = 0x13198A2E03707344
+    got = attn._forward_cuda(q, k, v, mode, te, ck, 102, dropout=(rate, seed),
+                             layout=layout)
+    want = attn.attention_plain(q, k, v, mode, te, ck, prefix=102,
+                                dropout_rate=rate, seed=seed, layout=layout)
+    torch.cuda.synchronize()
+    assert got.shape == q.shape and torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("L", [160, 256, 528])
+def test_long_forward_is_deterministic_and_bhld_equals_blhd(cuda, dtype, L):
+    """The row-block body, both branches: two calls give the same bits, and
+    bhld on transposed inputs gives blhd's bits (one body, vlp::Strides;
+    the same Philox counter)."""
+    g = torch.Generator(device=cuda).manual_seed(15)
+    q, k, v, mode, te, ck = _long_inputs(g, cuda, dtype, L, "blhd", H=3)
+    tr = [t.transpose(1, 2).contiguous() for t in (q, k, v)]
+    for rate in (0.0, 0.1):
+        drop = (rate, 0xB7E151628AED2A6A)
+        first = attn._forward_cuda(q, k, v, mode, te, ck, 102, dropout=drop)
+        again = attn._forward_cuda(q, k, v, mode, te, ck, 102, dropout=drop)
+        bhld = attn._forward_cuda(*tr, mode, te, ck, 102, dropout=drop,
+                                  layout="bhld")
+        torch.cuda.synchronize()
+        assert torch.equal(first, again)
+        assert torch.equal(bhld.transpose(1, 2), first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("L", [160, 528])
+def test_long_forward_fully_masked_example_matches_plain(cuda, rate, L):
+    """The row-block body on a bi-mode example whose every column is dropped
+    by colkeep (no key tile is skipped for it): its rows spread over the L
+    real columns, as the plain version's do, and P V = 1 for V = 1."""
+    g = torch.Generator(device=cuda).manual_seed(16)
+    q, k, v, mode, te, ck = _long_inputs(g, cuda, torch.bfloat16, L, "blhd",
+                                         B=4)
+    mode[1], te[1] = MODE_BI, L
+    ck[1] = 0.0
+    seed = 0x6A09E667F3BCC908
     got = attn._forward_cuda(q, k, v, mode, te, ck, 102, dropout=(rate, seed))
     want = attn.attention_plain(q, k, v, mode, te, ck, prefix=102,
                                 dropout_rate=rate, seed=seed)
+    q1, k1, v1 = (t.contiguous() for t in (q, k, torch.ones_like(v)))
+    ones = attn.attention(q1, k1, v1, mode, te, ck, prefix=102)
     torch.cuda.synchronize()
-    torch.testing.assert_close(got.float(), want.float(), **tol)
+    torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+    torch.testing.assert_close(ones[1].float(),
+                               torch.ones_like(ones[1]).float(), **BF16_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, BF16_TOL),
+                                       (torch.float16, FP16_TOL)])
+@pytest.mark.parametrize("pad", [1, 2, 4], ids=["align2", "align4", "align8"])
+def test_long_forward_unaligned_bhld_strides_match_plain(cuda, dtype, tol,
+                                                         pad):
+    """The row-block body at L = 256 on bhld q/k/v whose row stride (and,
+    for q, base) is not 16-byte aligned: narrower copies into its Q rows
+    and key tiles, both branches, and the same bits as aligned inputs."""
+    g = torch.Generator(device=cuda).manual_seed(17)
+    B, H, L, D = 2, 3, 256, 64
+    qkv = torch.randn(B, H, L, 3 * D + pad, generator=g,
+                      device=cuda).to(dtype)
+    q, k, v = (qkv[..., pad + i * D:pad + (i + 1) * D] if i == 0 else
+               qkv[..., i * D:(i + 1) * D] for i in range(3))
+    _, _, _, mode, te, ck = _train_inputs(g, cuda, dtype, B=B, L=L, H=1)
+    for rate in (0.0, 0.1):
+        drop = (rate, 0xBB67AE8584CAA73B)
+        got = attn._forward_cuda(q, k, v, mode, te, ck, 102, dropout=drop,
+                                 layout="bhld")
+        packed = attn._forward_cuda(*(t.contiguous() for t in (q, k, v)),
+                                    mode, te, ck, 102, dropout=drop,
+                                    layout="bhld")
+        want = attn.attention_plain(q, k, v, mode, te, ck, prefix=102,
+                                    dropout_rate=rate, seed=drop[1],
+                                    layout="bhld")
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+        assert torch.equal(got, packed)
 
 
 @pytest.mark.cuda
@@ -880,12 +978,6 @@ def test_fp32_backward_scratch_is_linear_in_L(cuda):
     assert lib.vlp_attention_bwd_scratch_floats(512, 0) * 50 < 2 * 512 ** 2
 
 
-# fp16 (--true_fp16): the 16-bit bodies instantiated for fp16.  They round
-# P o keep and dS to fp16 (2^-11 relative, 8x finer than bf16's 2^-8) where
-# the plain versions keep fp32, and both round their outputs to fp16: two
-# fp16 ulps at [2, 4) (1.95e-3 each) absolute and four ulps relative,
-# against bf16's 3e-2 / 1e-2.
-FP16_TOL = dict(atol=4e-3, rtol=2e-3)
 FP16_LENGTHS = [103, 128, 256, 528]   # ragged, one block, and the tiled body
 
 

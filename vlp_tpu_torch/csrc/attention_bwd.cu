@@ -44,7 +44,7 @@
 //   test_bf16_rounded_backward_fits_the_jax_bf16_backward holds that
 //   arithmetic within the bf16 tolerance of JAX's bf16 backward.  Padded
 //   rows and columns of a ragged L are exact zeros in P o keep and dS.
-// * bf16, 144 < L <= the bf16 forward's limit (vlp::attention_fwd_max_len,
+// * bf16, 144 < L <= the kernels' limit (vlp::attention_fwd_max_len(),
 //   528): FlashAttention-2's backward with the same rounding and Philox
 //   bits, in three kernels (the whole problem no longer fits a block).
 //   Each has a grid of (example, head, 128 rows) blocks of 8 warps, each
@@ -124,7 +124,7 @@ using bf16 = __nv_bfloat16;  // the 16-bit element size below (fp16's too)
 // ---- bf16 and fp16 (T): on the tensor cores
 
 constexpr int kMaxNT = 18;  // n8 key tiles of a row: L <= 144
-constexpr float kLog2e = 1.4426950408889634f;
+using vlp::kLog2e;
 
 // Four [Lp][72] tiles, two [Lp][Lp+8] ones, the column bias of kNT * 8
 // columns, and three rows of 16 floats per warp (Lp / 8 warps) through
@@ -395,26 +395,9 @@ constexpr size_t kSmemBytesCols =
 
 // The tiled body keeps scores in log2 units (S * log2(e)), so that
 // exp(S - m) is one ex2 of a difference: the masks are scaled alike.
-constexpr float kNegInf2 = vlp::kNegInf * kLog2e;
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// vlp::mask_bias in log2 units: colbias2 is 0, kNegInf2 or -inf.
-__device__ __forceinline__ float mask_bias2(float colbias2, int j,
-                                            int limit) {
-  return j <= limit ? colbias2 : fminf(colbias2, kNegInf2);
-}
-
-// The column bias of key j in log2 units: 0 (kept), kNegInf2 (dropped by
-// colkeep), -inf past L.
-__device__ __forceinline__ float colbias2(const float* colkeep, int j,
-                                          int L) {
-  return j >= L ? -CUDART_INF_F : colkeep[j] > 0.5f ? 0.f : kNegInf2;
-}
+using vlp::colbias2;
+using vlp::ex2;
+using vlp::mask_bias2;
 
 // s = the masked, scaled scores in log2 units (scale2 = scale * log2(e)) of
 // query rows r0 + g and r0 + g + 8 of the staged rows sa against the 4 n8

@@ -16,34 +16,47 @@
 // body addresses its operands only through vlp::Strides, so it serves both
 // layouts, and the output layout is the input's.
 //
-// Two bodies, chosen by dtype (never by a failure):
-// * bf16 (every main path) and fp16 (--true_fp16 training): one template,
-//   attention_fwd_mma<T>, on the tensor cores (mma.m16n8k16 with bf16 or
-//   fp16 operands at the same rate; fp16 is the bf16 body instantiated for
-//   __half, with P and the output rounded to fp16, where a value past
-//   65504 becomes inf and a NaN stays NaN, as the loss scaler needs).  One
-//   block per (example, head) stages the head's Q, K and V once in shared
-//   memory with 16-byte cp.async (narrower copies when a base pointer or
-//   stride is not 16-byte aligned), rows padded to 72 bf16 so ldmatrix
-//   reads are conflict-free; K arrives in the first copy group, V in the
-//   second, so S is computed while V lands.  Each warp owns 16 query rows:
-//   S = Q K^T by mma.m16n8k16 (bf16 in, fp32 out) into registers (64 fp32
-//   a thread for 128 columns), the mask and the softmax in registers (quad
-//   shuffles for the row max and sum), the keep multipliers drawn per lane
-//   pair (vlp::keep_frag, the bits of keep_scale4), P rounded to bf16 and
-//   reused as the A operand of P V with no trip through shared memory
-//   (ldmatrix.trans gives V's fragments).  The order of the rounding is the
-//   TPU kernel's: P normalized in fp32, times keep, then cast; no online
-//   rescaling of an unnormalized P.  Padded columns of a ragged L are
-//   excluded (not given -10000), padded rows are never stored.  For L > 128
-//   a warp makes two passes over 128-column chunks: the row max and sum,
-//   then S again, P, keep, rounding and P V.
+// The body is chosen by dtype and length (never by a failure):
+// * bf16 (every main path) and fp16 (--true_fp16 training): templates over
+//   T on the tensor cores (mma.m16n8k16 with bf16 or fp16 operands at the
+//   same rate; fp16 is the bf16 body instantiated for __half, with P and
+//   the output rounded to fp16, where a value past 65504 becomes inf and a
+//   NaN stays NaN, as the loss scaler needs).  Tiles are staged with
+//   16-byte cp.async (narrower copies when a base pointer or stride is not
+//   16-byte aligned) into rows padded to 72 elements, so ldmatrix reads are
+//   conflict-free.  Each warp owns 16 query rows: S = Q K^T by
+//   mma.m16n8k16 (fp32 out) into registers, the mask and the softmax in
+//   registers (quad shuffles for the row max and sum), the keep
+//   multipliers drawn per lane pair (vlp::keep_frag, the bits of
+//   keep_scale4), P rounded to T and reused as the A operand of P V with
+//   no trip through shared memory (ldmatrix.trans gives V's fragments).
+//   The order of the rounding is the TPU kernel's: P normalized in fp32,
+//   times keep, then cast; no online rescaling of an unnormalized P.
+//   Padded columns of a ragged L are excluded (not given -10000), padded
+//   rows are never stored.
+//   - L <= 128, attention_fwd_mma: one block per (example, head) stages
+//     the head's Q, K and V once (K in the first copy group, V in the
+//     second, so S is computed while V lands); a warp holds its rows'
+//     whole key row (64 fp32 a thread).
+//   - 128 < L <= 528, attention_fwd_rows: a block owns 128 query rows of
+//     one head (8 warps), its Q staged once and held as A fragments in
+//     registers, and streams 64-key tiles through a two-stage cp.async
+//     ring (one barrier a tile) twice: pass 1 reads K and keeps each
+//     row's running max and sum in fp32 (rescaled when the max moves:
+//     exact, nothing is rounded to T); pass 2 reads K and V, recomputes
+//     S, forms P = exp(S - m) / l, keep and rounding, and accumulates
+//     P V.  Scores are kept in log2
+//     units (one ex2 per exponential, as the tiled backward).  Key tiles
+//     that the structural mask hides from all 128 rows (masked_region) are
+//     not staged; a warp skips those hidden from its 16 rows, and the
+//     Philox draws of 8-key slices hidden from them.  Shared memory is
+//     57,600 bytes at every L (Q, the ring, the column bias of 528 keys).
 // * fp32: attention_fwd_fp32, on the tensor cores in split TF32 (mma.cuh:
 //   each operand split into two TF32 parts, three m16n8k8 products; ~2^-21
 //   relative error per product, an fp32 summation-order difference), which
-//   the card-vs-CPU fp32 gates need.  One body for every L the bf16 body
-//   takes (528).  A block owns 64 query rows, 4 warps of 16, each warp's Q
-//   split into fragments in registers; K and V stream in 64-key tiles
+//   the card-vs-CPU fp32 gates need.  One body for every L the 16-bit
+//   bodies take (528).  A block owns 64 query rows, 4 warps of 16, each
+//   warp's Q split into fragments in registers; K and V stream in 64-key tiles
 //   through a double-buffered cp.async ring (rows padded to 68 floats, so
 //   the fragment reads are conflict-free), 32 keys a step: S, the mask and
 //   scale as attention_plain adds them, an online softmax in registers
@@ -62,20 +75,33 @@
 // 3.35 TB/s), against 12.9 GFLOP (13 us at 989 TFLOP/s); at the decode
 // prefill (B=100, L=103) ~63 MB (19 us); at the training shape (B=64,
 // L=128) ~50 MB (15 us), plus L/4 Philox draws per row in the dropout
-// branch.  So the bf16 body would be bound by bytes once its products run
-// on the tensor cores and each tile is staged once with 16-byte copies;
-// two blocks (2 x 56 KB of shared memory at L=128, at most 128 registers
-// a thread by the launch bounds) share an SM so that one block's loads
-// overlap the other's math.  It reaches about half the HBM rate
-// (PERF.md): a block's phases (stage, S, softmax, P V, store) run in
+// branch.  So the L <= 128 body would be bound by bytes once its products
+// run on the tensor cores and each tile is staged once with 16-byte
+// copies; two blocks (2 x 56 KB of shared memory at L=128, at most 128
+// registers a thread by the launch bounds) share an SM so that one
+// block's loads overlap the other's math.  It reaches about half the HBM
+// rate (PERF.md): a block's phases (stage, S, softmax, P V, store) run in
 // turn, and 16 warps per SM do not hide all of their latency; the Philox
 // draws (10 rounds of 32-bit multiplies per 4 columns) add ~40% in the
-// dropout branch.  Registers and spills: `-Xptxas -v` in the build log
-// (chip_smoke.py prints it).
+// dropout branch.  Past L = 128 the bytes stay linear in L (~0.06 ms at
+// B=64, L=528) while the work grows with L^2: three L x L x 64 products
+// (S twice, P V; up to 82 GFLOP at B=64, L=528: ~0.08 ms at 989
+// TFLOP/s, ~0.2 ms at mma.sync's practical rate), two exponentials per
+// visible entry and, in the dropout branch, one Philox4x32-10 per 4 of
+// them (53.5 M at B=64, L=528; 10 rounds of four 32-bit multiplies on
+// the half-rate integer pipe), so the long body should be bound by the
+// issue of its per-entry instructions and products, not by bytes.  Blocks
+// of 128 rows halve the re-reads of K and V from L2 against 64; two
+// blocks of 8 warps (128 registers a thread by the launch bounds) run per
+// SM (vlp_attention_fwd_blocks_per_sm; chip_smoke.py prints it).  It
+// reaches none of those rates (PERF.md): each tile's phases (wait,
+// barrier, S, softmax, P V) leave every pipe at a small share, and deeper
+// rings, 4-warp blocks and 32-row warps timed no better.  Registers and
+// spills: `-Xptxas -v` in the build log (chip_smoke.py prints it).
 //
-// Layout (bf16): grid = B*H, min(8, ceil(L/16)) warps per block.  D is
-// fixed at 64 (every config in the repository); the wrapper rejects
-// anything else.
+// Layout (bf16): L <= 128, grid = B*H, ceil(L/16) warps per block; past
+// it, grid = (B*H, ceil(L/128)), 8 warps per block.  D is fixed at 64
+// (every config in the repository); the wrapper rejects anything else.
 
 #include "common.cuh"
 #include "mma.cuh"
@@ -245,21 +271,17 @@ __global__ void __launch_bounds__(kF32Warps * 32, 3)
                       L - q0, lane, 1.f);
 }
 
-// ---- bf16 and fp16: on the tensor cores
+// ---- bf16 and fp16, L <= 128: on the tensor cores, a head a block
 
 constexpr int kMaxWarps = 8;
 constexpr int kChunk = 128;          // key columns a warp holds in registers
 constexpr int kNT = kChunk / 8;      // n8 tiles of a chunk
-constexpr float kLog2e = 1.4426950408889634f;
+using vlp::kLog2e;
 
-// Columns of the per-column mask bias: Lp rounded up to whole chunks.
-__host__ __device__ int bias_cols(int Lp) {
-  return (Lp + kChunk - 1) / kChunk * kChunk;
-}
-
+// Q, K and V of the head and the column bias of kChunk keys.
 size_t smem_bytes_mma(int Lp) {
   return 3 * size_t(Lp) * vlp::kTileStride * sizeof(bf16) +
-         size_t(bias_cols(Lp)) * sizeof(float);
+         size_t(kChunk) * sizeof(float);
 }
 
 template <typename T>
@@ -271,16 +293,16 @@ struct FwdTiles {
 };
 
 // s = the masked, scaled scores of query rows r0..r0+15 against key columns
-// c0..c0+127: a lane holds columns c0 + 8n + 2t (+1) of rows r0 + g
+// 0..127: a lane holds columns 8n + 2t (+1) of rows r0 + g
 // (limit lim[0]) and r0 + g + 8 (lim[1]).  Columns past L are -inf, so
 // they take no part in the max and sum.
 template <typename T>
 __device__ __forceinline__ void scores(float (&s)[kNT][4],
                                        const FwdTiles<T>& t,
-                                       int r0, int c0, int Lp, int lane,
+                                       int r0, int Lp, int lane,
                                        const int (&lim)[2], float scale) {
-  vlp::mma_abt<kNT>(s, t.q, t.k, r0, c0, Lp, lane);
-  const int j0 = c0 + 2 * (lane & 3);
+  vlp::mma_abt<kNT>(s, t.q, t.k, r0, 0, Lp, lane);
+  const int j0 = 2 * (lane & 3);
 #pragma unroll
   for (int n = 0; n < kNT; ++n) {
     const float2 cb =
@@ -327,19 +349,19 @@ __device__ __forceinline__ void exp_rows(float (&s)[kNT][4],
   }
 }
 
-// o += T(p o keep) V over key columns c0..c0+127, p the normalized
+// o += T(p o keep) V over key columns 0..127, p the normalized
 // probabilities in s's layout.
 template <typename T, bool kDrop>
 __device__ __forceinline__ void pv(float (&o)[D / 8][4], float (&p)[kNT][4],
-                                   const FwdTiles<T>& t, int c0, int L, int Lp,
+                                   const FwdTiles<T>& t, int L, int Lp,
                                    int lane, int b, int h, int i0,
                                    const vlp::Dropout& dp) {
   if constexpr (kDrop) {
 #pragma unroll
     for (int n = 0; n < kNT; ++n) {
-      if (c0 + n * 8 < L) {
+      if (n * 8 < L) {
         float mult[4];
-        vlp::keep_frag(dp, b, h, i0, c0 + n * 8, lane, mult);
+        vlp::keep_frag(dp, b, h, i0, n * 8, lane, mult);
 #pragma unroll
         for (int e = 0; e < 4; ++e) p[n][e] *= mult[e];
       }
@@ -347,7 +369,7 @@ __device__ __forceinline__ void pv(float (&o)[D / 8][4], float (&p)[kNT][4],
   }
 #pragma unroll
   for (int kk = 0; kk < kNT / 2; ++kk) {
-    const int k0 = c0 + kk * 16;
+    const int k0 = kk * 16;
     if (k0 >= Lp) continue;
     const uint32_t a[4] = {
         vlp::pack16<T>(p[2 * kk][0], p[2 * kk][1]),
@@ -365,10 +387,9 @@ __device__ __forceinline__ void pv(float (&o)[D / 8][4], float (&p)[kNT][4],
   }
 }
 
-// kLong: L > 128, two passes over 128-column chunks per 16-row tile, the
-// 8 warps of a block taking the tiles in turn; otherwise one chunk and one
-// tile per warp.  T: __nv_bfloat16 or __half.
-template <typename T, bool kDrop, bool kLong>
+// L <= 128: one block per (example, head), one warp per 16-row tile, the
+// whole key row in registers.  T: __nv_bfloat16 or __half.
+template <typename T, bool kDrop>
 __global__ void __launch_bounds__(kMaxWarps * 32, 2)
     attention_fwd_mma(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, T* __restrict__ out,
@@ -392,7 +413,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 2)
   vlp::cp_async_commit();
   vlp::stage_rows(sv, v + in_base, in.l, L, Lp, align);
   vlp::cp_async_commit();
-  for (int j = threadIdx.x; j < bias_cols(Lp); j += blockDim.x)
+  for (int j = threadIdx.x; j < kChunk; j += blockDim.x)
     colbias[j] = j >= L ? -CUDART_INF_F
                  : colkeep[(long long)b * L + j] > 0.5f ? 0.f
                                                         : vlp::kNegInf;
@@ -401,66 +422,248 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 2)
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2;
   const int md = mode[b], te = text_end[b];
-  const long long out_base = b * os.b + h * os.h;
   float s[kNT][4], m[2], sum[2];
+  // S while V is still arriving
+  vlp::cp_async_wait<1>();
+  __syncthreads();
+  const int r0 = warp * 16;
+  const int lim[2] = {vlp::row_limit(md, te, prefix, r0 + g),
+                      vlp::row_limit(md, te, prefix, r0 + g + 8)};
+  scores(s, t, r0, Lp, lane, lim, scale);
+  row_max(s, m);
+  exp_rows(s, m, sum);
+  const float inv[2] = {1.f / sum[0], 1.f / sum[1]};
+#pragma unroll
+  for (int n = 0; n < kNT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] *= inv[e >> 1];
+  vlp::cp_async_wait<0>();
+  __syncthreads();
+  float o[D / 8][4] = {};
+  pv<T, kDrop>(o, s, t, L, Lp, lane, b, h, r0 + g, dp);
+  vlp::store_rows(out + b * os.b + h * os.h, os.l, o, r0, L, lane, 1.f);
+}
 
-  if constexpr (!kLong) {
-    // S while V is still arriving
-    vlp::cp_async_wait<1>();
-    __syncthreads();
-    const int r0 = warp * 16;
-    const int lim[2] = {vlp::row_limit(md, te, prefix, r0 + g),
-                        vlp::row_limit(md, te, prefix, r0 + g + 8)};
-    scores(s, t, r0, 0, Lp, lane, lim, scale);
-    row_max(s, m);
-    exp_rows(s, m, sum);
-    const float inv[2] = {1.f / sum[0], 1.f / sum[1]};
+// ---- bf16 and fp16, L > 128: query-row blocks over streamed key tiles
+
+constexpr int kRowWarps = 8;                // 16 query rows each
+constexpr int kRows = 16 * kRowWarps;       // query rows a block owns
+constexpr int kKeyTile = 64;                // keys of a streamed tile
+constexpr int kKN = kKeyTile / 8;           // n8 tiles of a key tile
+constexpr int kKeyElems = kKeyTile * vlp::kTileStride;
+// the column bias covers every key of the longest L, so that the shared
+// memory is the same at every L
+constexpr int kBiasCols =
+    (vlp::attention_fwd_max_len() + kKeyTile - 1) / kKeyTile * kKeyTile;
+constexpr int kStages = 2;                  // key tiles in the ring
+// Q's rows, the ring (K and V of a key tile a stage), and the column
+// bias: 57,600 bytes at two stages
+constexpr size_t kSmemBytesRows =
+    sizeof(bf16) * (kRows + 2 * kStages * kKeyTile) * vlp::kTileStride +
+    sizeof(float) * kBiasCols;
+
+// s = the masked, scaled scores in log2 units (scale2 = scale * log2(e)) of
+// a warp's 16 query rows (Q's A fragments fq) against the 64 keys of a
+// staged tile sk whose first key is j0 (bias: the column bias from j0 on):
+// a lane holds keys j0 + 8n + 2t (+1) of rows g (limit lim[0]) and g + 8
+// (lim[1]).  Keys past L are -inf, so they take no part in the max and sum.
+template <typename T>
+__device__ __forceinline__ void tile_scores(float (&s)[kKN][4],
+                                            const uint32_t (&fq)[D / 16][4],
+                                            const T* sk, const float* bias,
+                                            int j0, int lane,
+                                            const int (&lim)[2],
+                                            float scale2) {
 #pragma unroll
-    for (int n = 0; n < kNT; ++n)
+  for (int n = 0; n < kKN; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] *= inv[e >> 1];
-    vlp::cp_async_wait<0>();
-    __syncthreads();
-    float o[D / 8][4] = {};
-    pv<T, kDrop>(o, s, t, 0, L, Lp, lane, b, h, r0 + g, dp);
-    vlp::store_rows(out + out_base, os.l, o, r0, L, lane, 1.f);
-  } else {
-    vlp::cp_async_wait<0>();
-    __syncthreads();
-    for (int r0 = warp * 16; r0 < Lp; r0 += kMaxWarps * 16) {
-      const int lim[2] = {vlp::row_limit(md, te, prefix, r0 + g),
-                          vlp::row_limit(md, te, prefix, r0 + g + 8)};
-      // pass 1: the row max and sum over 128-column chunks
-      m[0] = m[1] = -CUDART_INF_F;
-      sum[0] = sum[1] = 0.f;
-      for (int c0 = 0; c0 < Lp; c0 += kChunk) {
-        float cm[2], cs[2];
-        scores(s, t, r0, c0, Lp, lane, lim, scale);
-        row_max(s, cm);
+    for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll
-        for (int hh = 0; hh < 2; ++hh) cm[hh] = fmaxf(cm[hh], m[hh]);
-        exp_rows(s, cm, cs);
+  for (int kk = 0; kk < D / 16; ++kk)
 #pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          sum[hh] = sum[hh] * exp2f((m[hh] - cm[hh]) * kLog2e) + cs[hh];
-          m[hh] = cm[hh];
-        }
-      }
-      const float inv[2] = {1.f / sum[0], 1.f / sum[1]};
-      // pass 2: S again, P, keep, rounding and P V
-      float o[D / 8][4] = {};
-      for (int c0 = 0; c0 < Lp; c0 += kChunk) {
-        scores(s, t, r0, c0, Lp, lane, lim, scale);
+    for (int np = 0; np < kKN / 2; ++np) {
+      uint32_t fb[4];
+      vlp::ldsm_x4(fb, sk + (np * 16 + (lane & 7) + (lane >> 4) * 8) *
+                                vlp::kTileStride +
+                            kk * 16 + ((lane >> 3) & 1) * 8);
+      vlp::mma16<T>(s[2 * np], fq[kk], fb[0], fb[1]);
+      vlp::mma16<T>(s[2 * np + 1], fq[kk], fb[2], fb[3]);
+    }
+  const int t2 = 2 * (lane & 3);
 #pragma unroll
-        for (int n = 0; n < kNT; ++n)
+  for (int n = 0; n < kKN; ++n) {
+    const float2 cb = *reinterpret_cast<const float2*>(bias + n * 8 + t2);
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            s[n][e] = exp2f((s[n][e] - m[e >> 1]) * kLog2e) * inv[e >> 1];
-        pv<T, kDrop>(o, s, t, c0, L, Lp, lane, b, h, r0 + g, dp);
-      }
-      vlp::store_rows(out + out_base, os.l, o, r0, L, lane, 1.f);
+    for (int e = 0; e < 4; ++e) {
+      const float c = e & 1 ? cb.y : cb.x;
+      s[n][e] = fmaf(s[n][e], scale2,
+                     vlp::mask_bias2(c, j0 + n * 8 + t2 + (e & 1),
+                                     lim[e >> 1]));
     }
   }
+}
+
+// Grid (example x head, 128 query rows), 8 warps of 16 rows, each warp's Q
+// in A fragments in registers.  The key tiles that masked_region leaves
+// visible to any of the block's rows are a prefix 0 .. nvis - 1 (it is
+// monotone in the key); they stream through a kStages-deep cp.async ring
+// (kStages - 1 tiles in flight, one barrier a tile) twice, K alone, then K
+// and V:
+//   pass 1: S per tile, the running row max m and sum l of exp(S - m) in
+//     fp32, l rescaled when m moves (exact: nothing is rounded to T);
+//   pass 2: S again, P = exp(S - m) / l in fp32, times the Philox keep
+//     multipliers (vlp::keep_frag, the bits of keep_scale4), rounded to T
+//     and handed to O += P V in registers (C fragments = A fragments).
+// That is the TPU kernel's order of rounding: P normalized in fp32, times
+// keep, then cast.  A warp skips each tile that masked_region hides from
+// its own 16 rows (P is an exact 0 there), and in pass 2 the Philox draws
+// of each 8-key slice hidden from them.
+template <typename T, bool kDrop>
+__global__ void __launch_bounds__(kRowWarps * 32, 2)
+    attention_fwd_rows(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, T* __restrict__ out,
+                       const int* __restrict__ mode,
+                       const int* __restrict__ text_end,
+                       const float* __restrict__ colkeep, int L, int H,
+                       vlp::Strides in, vlp::Strides os, int prefix,
+                       float scale, vlp::Dropout dp, int align) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sq = reinterpret_cast<T*>(smem_raw);      // [128][kTileStride]
+  T* ring = sq + kRows * vlp::kTileStride;  // [kStages][K, V][64][kTileStride]
+  float* colbias = reinterpret_cast<float*>(ring + 2 * kStages * kKeyElems);
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x % H;
+  const int q0 = blockIdx.y * kRows;
+  const long long in_base = b * in.b + h * in.h;
+  const int md = mode[b], te = text_end[b];
+  const float* ck = colkeep + (long long)b * L;
+  const int first = vlp::first_kept(ck, L);
+  const int nk = (L + kKeyTile - 1) / kKeyTile;
+  int nvis = 1;   // key 0 is visible to every row
+  while (nvis < nk && !vlp::masked_region(md, te, prefix, first, q0,
+                                          q0 + kRows, nvis * kKeyTile))
+    ++nvis;
+  vlp::stage_rows(sq, q + in_base + q0 * in.l, in.l, min(kRows, L - q0),
+                  kRows, align);
+  vlp::cp_async_commit();
+  // ring step i (stage i % kStages): key tile i (K) for i < nvis, then
+  // tile i - nvis (K and V); past the last step an empty copy group, so
+  // that every step waits for the same count of groups
+  auto stage = [&](int i) { return ring + i % kStages * 2 * kKeyElems; };
+  auto issue = [&](int i) {
+    if (i < 2 * nvis) {
+      const int kt = i < nvis ? i : i - nvis;
+      const long long off = in_base + (long long)kt * kKeyTile * in.l;
+      const int rows = min(kKeyTile, L - kt * kKeyTile);
+      vlp::stage_rows(stage(i), k + off, in.l, rows, kKeyTile, align);
+      if (i >= nvis)
+        vlp::stage_rows(stage(i) + kKeyElems, v + off, in.l, rows, kKeyTile,
+                        align);
+    }
+    vlp::cp_async_commit();
+  };
+  for (int i = 0; i < kStages - 1; ++i) issue(i);
+  for (int j = threadIdx.x; j < nvis * kKeyTile; j += blockDim.x)
+    colbias[j] = vlp::colbias2(ck, j, L);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r0 = q0 + warp * 16, row = r0 + (lane >> 2);
+  const bool live = r0 < L;   // the same for the whole warp
+  const int lim[2] = {vlp::row_limit(md, te, prefix, row),
+                      vlp::row_limit(md, te, prefix, row + 8)};
+  const float scale2 = scale * kLog2e;
+  // the warp's rows see key j (or a later one) iff j < jend: masked_region
+  // is monotone in the key, so its 8-key slices that are not hidden from
+  // every row are a prefix (kept as one bound, not as the mask's terms)
+  int jend = 0;
+  while (live && jend < L &&
+         !vlp::masked_region(md, te, prefix, first, r0, r0 + 16, jend))
+    jend += 8;
+  // step i's tile is in: wait for it, then refill the stage that step
+  // i - 1 read (every warp is past it at the barrier)
+  auto next = [&](int i) {
+    vlp::cp_async_wait<kStages - 2>();
+    __syncthreads();
+    issue(i + kStages - 1);
+  };
+  vlp::cp_async_wait<kStages - 1>();   // Q
+  __syncthreads();
+  uint32_t fq[D / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    vlp::ldsm_x4(fq[kk], sq + (warp * 16 + (lane & 15)) * vlp::kTileStride +
+                             kk * 16 + (lane >> 4) * 8);
+
+  // pass 1: the row max and sum
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
+  for (int i = 0; i < nvis; ++i) {
+    next(i);
+    const int j0 = i * kKeyTile;
+    if (j0 < jend) {
+      float s[kKN][4];
+      tile_scores(s, fq, stage(i), colbias + j0, j0, lane, lim, scale2);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float x = -CUDART_INF_F;
+#pragma unroll
+        for (int n = 0; n < kKN; ++n)
+          x = fmaxf(x, fmaxf(s[n][2 * hh], s[n][2 * hh + 1]));
+        const float mn = fmaxf(m[hh], vlp::quad_max(x));
+        l[hh] *= vlp::ex2(m[hh] - mn);   // 0 on the first tile
+        m[hh] = mn;
+      }
+#pragma unroll
+      for (int n = 0; n < kKN; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) l[e >> 1] += vlp::ex2(s[n][e] - m[e >> 1]);
+    }
+  }
+  const float inv[2] = {1.f / vlp::quad_sum(l[0]), 1.f / vlp::quad_sum(l[1])};
+
+  // pass 2: S again, P, keep, rounding and P V
+  float o[D / 8][4] = {};
+  for (int i = nvis; i < 2 * nvis; ++i) {
+    next(i);
+    const int j0 = (i - nvis) * kKeyTile;
+    const T* sk = stage(i);
+    const T* sv = sk + kKeyElems;
+    if (j0 < jend) {
+      float p[kKN][4];
+      tile_scores(p, fq, sk, colbias + j0, j0, lane, lim, scale2);
+#pragma unroll
+      for (int n = 0; n < kKN; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          p[n][e] = vlp::ex2(p[n][e] - m[e >> 1]) * inv[e >> 1];
+        if (kDrop && j0 + n * 8 < jend) {
+          float mult[4];
+          vlp::keep_frag(dp, b, h, row, j0 + n * 8, lane, mult);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) p[n][e] *= mult[e];
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < kKN / 2; ++kk) {
+        const uint32_t a[4] = {vlp::pack16<T>(p[2 * kk][0], p[2 * kk][1]),
+                               vlp::pack16<T>(p[2 * kk][2], p[2 * kk][3]),
+                               vlp::pack16<T>(p[2 * kk + 1][0],
+                                              p[2 * kk + 1][1]),
+                               vlp::pack16<T>(p[2 * kk + 1][2],
+                                              p[2 * kk + 1][3])};
+#pragma unroll
+        for (int np = 0; np < D / 16; ++np) {
+          uint32_t bv[4];
+          vlp::ldsm_x4_t(bv, sv + (kk * 16 + (lane & 15)) * vlp::kTileStride +
+                                 np * 16 + (lane >> 4) * 8);
+          vlp::mma16<T>(o[2 * np], a, bv[0], bv[1]);
+          vlp::mma16<T>(o[2 * np + 1], a, bv[2], bv[3]);
+        }
+      }
+    }
+  }
+  if (live)
+    vlp::store_rows(out + b * os.b + h * os.h + q0 * os.l, os.l, o,
+                    warp * 16, L - q0, lane, 1.f);
 }
 
 template <bool kDrop>
@@ -491,22 +694,42 @@ int launch_mma(const void* q, const void* k, const void* v, void* out,
                const int* mode, const int* text_end, const float* colkeep,
                int B, int L, int H, vlp::Strides in, vlp::Strides os,
                int prefix, float scale, vlp::Dropout dp, cudaStream_t stream) {
+  if (L > vlp::attention_fwd_max_len()) return (int)cudaErrorInvalidValue;
   const int Lp = (L + 15) & ~15;
-  const size_t smem = smem_bytes_mma(Lp);
-  if (smem > (size_t)vlp::kMaxSmemBytes) return (int)cudaErrorInvalidValue;
+  const bool rows = Lp > kChunk;
+  const size_t smem = rows ? kSmemBytesRows : smem_bytes_mma(Lp);
   const int align = vlp::common_alignment(
       {(unsigned long long)q, (unsigned long long)k, (unsigned long long)v,
        2ull * in.b, 2ull * in.h, 2ull * in.l});
-  auto kernel = Lp <= kChunk ? attention_fwd_mma<T, kDrop, false>
-                             : attention_fwd_mma<T, kDrop, true>;
+  auto kernel = rows ? attention_fwd_rows<T, kDrop>
+                     : attention_fwd_mma<T, kDrop>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<B * H, 32 * (Lp <= kChunk ? Lp / 16 : kMaxWarps), smem, stream>>>(
+  const dim3 grid(B * H, rows ? (L + kRows - 1) / kRows : 1);
+  kernel<<<grid, rows ? kRowWarps * 32 : Lp / 16 * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), mode, text_end,
       colkeep, L, H, in, os, prefix, scale, dp, align);
   return (int)cudaGetLastError();
+}
+
+// Blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor) of the
+// bf16 body that length L runs, branch kDrop; -cudaError on a failure.
+template <bool kDrop>
+int blocks_per_sm(int L) {
+  const int Lp = (L + 15) & ~15;
+  const bool rows = Lp > kChunk;
+  const size_t smem = rows ? kSmemBytesRows : smem_bytes_mma(Lp);
+  auto kernel = rows ? attention_fwd_rows<bf16, kDrop>
+                     : attention_fwd_mma<bf16, kDrop>;
+  int n = 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, kernel, rows ? kRowWarps * 32 : Lp / 16 * 32, smem);
+  return err == cudaSuccess ? n : -(int)err;
 }
 
 template <bool kDrop>
@@ -561,13 +784,6 @@ vlp::Strides bhld_out(int L, int H) {
 
 }  // namespace
 
-// The bf16 body's tiles bound L; the fp32 body takes the same lengths.
-int vlp::attention_fwd_max_len() {
-  int L = 1;
-  while (smem_bytes_mma((L + 16) & ~15) <= (size_t)vlp::kMaxSmemBytes) ++L;
-  return L;
-}
-
 extern "C" {
 
 // Both branches: q/k/v [B, L, H*64] with element strides sb (batch) and sl
@@ -602,6 +818,15 @@ int vlp_attention_fwd_bhld(const void* q, const void* k, const void* v,
   return forward(q, k, v, out, mode, text_end, colkeep, B, L, H,
                  vlp::Strides{sb, sh, sl}, bhld_out(L, H), prefix, scale,
                  vlp::Dropout{seed, threshold, keep_scale}, dtype, stream);
+}
+
+// Blocks per SM of the bf16 body that length L runs (drop: the dropout
+// branch), from cudaOccupancyMaxActiveBlocksPerMultiprocessor; -cudaError
+// on a failure.
+int vlp_attention_fwd_blocks_per_sm(int L, int drop) {
+  if (L <= 0 || L > vlp::attention_fwd_max_len())
+    return -(int)cudaErrorInvalidValue;
+  return drop ? blocks_per_sm<true>(L) : blocks_per_sm<false>(L);
 }
 
 }  // extern "C"

@@ -20,10 +20,12 @@ constexpr int kMaxSmemBytes = 232448; // per-block opt-in limit on sm_90
 // fp16 the 16-bit tensor-core bodies (one template over the element type).
 enum DType { kFloat32 = 0, kBFloat16 = 1, kFloat16 = 2 };
 
-// The largest L the attention forward takes (attention_fwd.cu): the bf16
-// tensor-core body's tiles bound it, and the fp32 body and the backward
-// take the same lengths.
-int attention_fwd_max_len();
+// The longest L the attention kernels take, in every dtype and in both
+// directions: the 512 positions of max_position_embeddings and one 16-row
+// tile more (the length the first 16-bit forward's shared memory allowed,
+// kept as it was).  No body's shared memory depends on it beyond a column
+// bias of 4 bytes a key.
+constexpr int attention_fwd_max_len() { return 528; }
 
 // The structural mask (attention.py:_mask_bias) of query row i as a column
 // limit: s2s rows see the prefix, and caption rows (i < text_end) causally
@@ -65,6 +67,32 @@ __device__ __forceinline__ bool masked_region(int md, int te, int prefix,
     return j0 > hi && prefix - 1 >= first;
   }
   return j0 > te - 1 && te - 1 >= first;
+}
+
+// 2^x by the special-function unit (ex2.approx, subnormal results flushed
+// to 0): the attention bodies keep their scores in log2 units.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The tiled bodies keep scores in log2 units (S * log2(e)), so that
+// exp(S - m) is one ex2 of a difference; the masks are scaled alike.
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kNegInf2 = kNegInf * kLog2e;
+
+// mask_bias in log2 units: colbias2 is 0, kNegInf2 or -inf.
+__device__ __forceinline__ float mask_bias2(float colbias2, int j,
+                                            int limit) {
+  return j <= limit ? colbias2 : fminf(colbias2, kNegInf2);
+}
+
+// The column bias of key j in log2 units: 0 (kept), kNegInf2 (dropped by
+// colkeep), -inf past L.
+__device__ __forceinline__ float colbias2(const float* colkeep, int j,
+                                          int L) {
+  return j >= L ? -CUDART_INF_F : colkeep[j] > 0.5f ? 0.f : kNegInf2;
 }
 
 __device__ __forceinline__ float to_f(float x) { return x; }

@@ -109,7 +109,7 @@ constexpr int kMmaMaxWarps = 16;
 constexpr int kNarrowWarps = 4;  // up to 4 warps: 6 blocks share an SM
 constexpr int kCtxStride = D + 8;  // fp32 row of a warp's partial context:
 // the float2 stores of a half-warp fall on 32 distinct banks
-constexpr float kLog2e = 1.4426950408889634f;
+using vlp::kLog2e;
 
 // Element offset of 16-byte chunk c (0..7) of row r in an unpadded
 // [rows][64] bf16 tile whose chunks are XOR-swizzled by the row: the 8

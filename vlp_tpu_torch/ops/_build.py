@@ -48,6 +48,7 @@ _SIGNATURES = {
                           _P],
     "vlp_attention_bwd_max_len": [],
     "vlp_attention_bwd_scratch_floats": [_I, _I],   # (L, dtype code)
+    "vlp_attention_fwd_blocks_per_sm": [_I, _I],   # (L, drop)
     "vlp_attention_fwd_bhld": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _LL,
                                _LL, _LL, _I, _F, _ULL, _U, _F, _I, _P],
     "vlp_attention_bwd_bhld": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
