@@ -61,6 +61,7 @@ fails.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
@@ -94,6 +95,10 @@ BF16_FLOP_PER_S = 989e12
 TF32_FLOP_PER_S = 495e12
 FP32_FLOP_PER_S = 67e12
 TRAIN_STEPS = (2, 20)        # main-path train CLI: epochs, steps per epoch
+LOOP_K = 4                   # phase 4h: --device_loop_steps
+LOOP_LOSS_RTOL = 1e-3        # phase 4h against 4b (see the phase)
+LOOP_PARAM_ATOL = 1e-3
+GROUP_SKIP_LAYERS = 2        # phase 4f's device-loop group: its depth
 SCST_STEPS = 8               # main-path SCST CLI: steps of one epoch
 SCST_B, SCST_T = 64, 20      # the reference SCST recipe's 16x4 batch, T
 VQA_B, VQA_QUESTIONS = 256, 1024   # main-path VQA eval: batch, questions
@@ -991,6 +996,15 @@ def phase_fp32_long(attn, inputs, H, D, P, seed, rate):
 TRAIN_SEED = 0x5DEECE66D0123457
 
 
+def seed_arg(attn, seed: int, dev):
+    """A dropout seed as the kernels under test take it with no launch of
+    its own: a device slot (``ops.attention.seed_slot``, made once) where
+    the checkout has one, else the int (an older checkout under
+    ``--ab-times``, whose kernels take it by value), so that a time is the
+    kernel's alone."""
+    return attn.seed_slot(seed, dev) if hasattr(attn, "seed_slot") else seed
+
+
 def train_inputs(g, dev, dtype, B, L, H=12, D=64, P=102):
     """Training-shaped attention inputs in blhd: q/k/v, int32 mode (s2s and
     bi in turn) and text_end, colkeep with zeros among the regions, dout."""
@@ -1065,7 +1079,7 @@ def ab_times(root: str) -> None:
         ins = train_inputs(g, dev, dtype, B, L)
         out[f"{str(dtype)[6:]} B={B} L={L}"] = {
             key: val[0] for key, val in k1_k2_times(
-                attn, *ins, 102, 0.1, TRAIN_SEED,
+                attn, *ins, 102, 0.1, seed_arg(attn, TRAIN_SEED, dev),
                 prebuilt=dtype == torch.bfloat16).items()}
         del ins
     # K1's deterministic branch at the decode prefill's and the VQA eval's
@@ -1082,8 +1096,9 @@ def ab_times(root: str) -> None:
         del q, k, v
     out.update(decode_ab_times(dec, g, dev))
     B, H, L = AB_MASK
+    seed = seed_arg(attn, TRAIN_SEED, dev)
     out[f"dropout_mask [{B},{H},{L},{L}]"] = time_ms(
-        lambda: attn.dropout_mask(B, H, L, 0.1, TRAIN_SEED, dev))
+        lambda: attn.dropout_mask(B, H, L, 0.1, seed, dev))
     print(json.dumps(out))
 
 
@@ -1099,7 +1114,7 @@ def phase_train_kernels(dev, results):
 
     g = torch.Generator(device=dev).manual_seed(1)
     B, L, H, D, P = 64, 128, 12, 64, 102
-    seed, rate = TRAIN_SEED, 0.1
+    seed, rate = seed_arg(attn, TRAIN_SEED, dev), 0.1
 
     def inputs(dtype, L=L, B=B):
         return train_inputs(g, dev, dtype, B, L)
@@ -1206,6 +1221,70 @@ def phase_train_kernels(dev, results):
         f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
 
 
+SEED_B = 0xC0FFEE0123456789   # a second seed, past 2^63 (negative int64)
+
+
+def phase_seed_slots(dev):
+    """K1's dropout branch, K2 and dropout_mask read their seed from device
+    memory (``ops.attention.seed_slot``): at the training shape in bf16,
+    each seed passed as a slot of a device table (at an offset) gives bit
+    for bit what the same seed passed as an int gives (the wrapper writes
+    it into a slot of its own), both kept in memory in this run; and a
+    K1 + K2 pair captured in a CUDA graph, replayed after a new seed is
+    written into its slot, equals the eager pair with that seed.  These
+    launches are comparisons, not a main path: they are not counted."""
+    from vlp_tpu_torch.ops import _build
+    from vlp_tpu_torch.ops import attention as attn
+    from vlp_tpu_torch.ops import philox
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    B, L, H, P, rate = 64, 128, 12, 102, 0.1
+    q, k, v, mode, te, ck, dout = train_inputs(g, dev, torch.bfloat16, B, L)
+    seeds = (TRAIN_SEED, SEED_B)
+    table = torch.tensor([0] + [philox.as_int64(x) for x in seeds],
+                         dtype=torch.int64, device=dev)
+
+    def pair(seed):
+        out = attn._forward_cuda(q, k, v, mode, te, ck, P,
+                                 dropout=(rate, seed))
+        return (out, *attn._backward_cuda(q, k, v, mode, te, ck, dout, P,
+                                          rate, seed))
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    with _build.recording():
+        for i, seed in enumerate(seeds):
+            by_value, by_slot = pair(seed), pair(table[i + 1])
+            masks = [attn.dropout_mask(B, H, L, rate, x, dev)
+                     for x in (seed, table[i + 1])]
+            torch.cuda.synchronize()
+            if not same(by_value, by_slot):
+                fail(f"K1/K2 with seed {seed:#x} in a device slot differ "
+                     "from the seed passed as an int")
+            if not torch.equal(*masks):
+                fail(f"dropout_mask with seed {seed:#x} in a device slot "
+                     "differs from the seed passed as an int")
+        if same(pair(seeds[0]), pair(seeds[1])):
+            fail("two seeds drew the same K1/K2 outputs")
+        slot = torch.full((), philox.as_int64(seeds[0]), dtype=torch.int64,
+                          device=dev)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = pair(slot)
+        slot.fill_(philox.as_int64(seeds[1]))
+        graph.replay()
+        want = pair(seeds[1])
+        torch.cuda.synchronize()
+        if not same(captured, want):
+            fail("a captured K1 + K2 pair replayed with a new seed in its "
+                 "slot differs from the eager pair with that seed")
+    log(f"seeds from device memory, B={B} L={L} bf16 rate {rate}: K1 "
+        "dropout, K2 and dropout_mask bit-identical for a seed in a device "
+        "slot and the same seed as an int (2 seeds); a captured K1 + K2 "
+        "replayed with a new seed in its slot = the eager pair")
+
+
 def bhld_inputs(g, dev, dtype, strided=False, B=64, L=128, H=12, P=102):
     """[B, H, L, 64] q/k/v and dout at the training shape, mixed modes,
     zeros in colkeep; ``strided``: q/k/v are slices of one [B, H, L, 192]
@@ -1240,7 +1319,7 @@ def phase_bhld_kernels(dev, results):
 
     g = torch.Generator(device=dev).manual_seed(6)
     B, L, H, D, P = 64, 128, 12, 64, 102
-    seed, rate = 0x243F6A8885A308D3, 0.1
+    seed, rate = seed_arg(attn, 0x243F6A8885A308D3, dev), 0.1
 
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
         fwd, drop, bwd = (kname(n, dtype) for n in FORMS["bhld"])
@@ -1328,7 +1407,7 @@ def phase_fp16_kernels(dev, results):
 
     g = torch.Generator(device=dev).manual_seed(16)
     B, H, P = 16, 12, 102
-    seed, rate = 0x6A09E667F3BCC908, 0.1
+    seed, rate = seed_arg(attn, 0x6A09E667F3BCC908, dev), 0.1
     f16 = torch.float16
 
     for L in FP16_GATE_LENS:
@@ -1488,6 +1567,7 @@ def phase_fp16_main_path(vocab_path, out_dir, gpu_line, bf16_rates):
         f"steps), bf16 {bf16_rates['train_samples_per_sec']:.2f} (phase "
         f"4b), on {gpu_line}")
     rates["train_fp16_skip"] = fp16_skipped_step(torch.device("cuda"))
+    rates["train_fp16_group_skip"] = fp16_group_skip(torch.device("cuda"))
     return counts, rates
 
 
@@ -1546,6 +1626,269 @@ def fp16_skipped_step(dev, B=8, seed=3, cfg=None) -> dict:
             and out["good_skipped"] == 0.0
             and np.isfinite(out["good_loss"])):
         fail("an overflow did not skip the fp16 step as it should")
+    return out
+
+
+def fp16_batch(cfg, B, g, dev):
+    """fp16_skipped_step's batch: random tokens, targets and features."""
+    from vlp_tpu_torch import train_step as ts
+    batch = ts.dummy_batch(cfg, B, device=dev)
+    for key, lo, hi in (("input_ids", 5, cfg.vocab_size),
+                        ("masked_pos", cfg.prefix_len, cfg.seq_len),
+                        ("masked_ids", 5, cfg.vocab_size)):
+        batch[key] = torch.randint(lo, hi, batch[key].shape, generator=g,
+                                   device=dev).int()
+    batch["masked_weights"].fill_(1.0)
+    batch["vis_feats"] = torch.randn(batch["vis_feats"].shape, generator=g,
+                                     device=dev)
+    return batch
+
+
+@contextlib.contextmanager
+def deterministic():
+    """PyTorch's deterministic algorithms (its own CUDA embedding backward
+    sums in a run-to-run order otherwise: phase 4h), without the NaN fill
+    of new tensors, whose writes a timed run would include."""
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+
+
+def fp16_group_skip(dev, **kw) -> dict:
+    """``_fp16_group_skip`` under deterministic algorithms."""
+    with deterministic():
+        return _fp16_group_skip(dev, **kw)
+
+
+def _fp16_group_skip(dev, B=8, K=LOOP_K, bad=2, seed=5) -> dict:
+    """A K-step group of the fp16 device loop (one CUDA-graph replay,
+    dynamic loss scaling, dropout 0.1) whose step ``bad`` has an inf region
+    feature, against the same K steps taken one at a time by a twin model:
+    only step ``bad`` is skipped, the scale halves once, BertAdam's step
+    advances K - 1 times, and parameters, moments and losses equal the
+    eager twin's bit for bit (bert-base width, GROUP_SKIP_LAYERS deep,
+    B=8)."""
+    from vlp_tpu_torch import optim as optim_lib
+    from vlp_tpu_torch import train_step as ts
+    from vlp_tpu_torch.config import VLPConfig
+    from vlp_tpu_torch.models.model import VLPModel
+
+    cfg = VLPConfig(dtype="float16", vocab_size=28996, type_vocab_size=6,
+                    num_hidden_layers=GROUP_SKIP_LAYERS)
+    twins = []
+    for _ in range(2):
+        model = VLPModel(cfg)
+        model.init_weights(torch.Generator().manual_seed(seed))
+        model.to(dev)
+        opt = optim_lib.BertAdam(dict(model.named_parameters()), 3e-5,
+                                 warmup=0.1, t_total=100)
+        twins.append((model, opt))
+    ls = optim_lib.DynamicLossScale()
+    g = torch.Generator(device=dev).manual_seed(seed)
+    batches = [fp16_batch(cfg, B, g, dev) for _ in range(K)]
+    batches[bad]["vis_feats"][0, 0, 0] = float("inf")
+    stacked = {k: torch.stack([b[k] for b in batches]) for k in batches[0]}
+    seeds = [ts.step_seed(seed, i) for i in range(K)]
+    (gm, gopt), (em, eopt) = twins
+    group = ts.make_multi_step(gm, gopt, K=K, loss_scale=ls)(stacked, seeds)
+    step = ts.make_train_step(em, eopt, loss_scale=ls)
+    eager = ts.stack_metrics([step(b, s) for b, s in zip(batches, seeds)])
+    torch.cuda.synchronize()
+    skipped = [float(x) for x in group["skipped_step"]]
+    differ = [n for (n, p), q in zip(gm.named_parameters(), em.parameters())
+              if not torch.equal(p, q)]
+    differ += [f"{key}.{n}" for key in ("m", "v") for n in gopt.m
+               if not torch.equal(getattr(gopt, key)[n],
+                                  getattr(eopt, key)[n])]
+    if not torch.equal(group["loss"].nan_to_num(),
+                       eager["loss"].nan_to_num()):
+        differ.append(f"losses {group['loss'].tolist()} vs "
+                      f"{eager['loss'].tolist()}")
+    same = not differ
+    out = dict(skipped=skipped,
+               eager_skipped=[float(x) for x in eager["skipped_step"]],
+               scale=float(gopt.loss_scale["scale"]),
+               eager_scale=float(eopt.loss_scale["scale"]),
+               step=int(gopt.step_count), replay_equals_eager=same,
+               differ=differ[:5])
+    log(f"true-fp16 group of {K} (one replay) with an overflow in step "
+        f"{bad}, bert-base width {GROUP_SKIP_LAYERS} layers, B={B}: "
+        f"{out}")
+    want = [1.0 if i == bad else 0.0 for i in range(K)]
+    if not (skipped == want == out["eager_skipped"] and same
+            and out["scale"] == out["eager_scale"] == 2.0 ** 14
+            and out["step"] == K - 1):
+        fail("an overflow inside a device-loop group did not skip exactly "
+             "its step")
+    return out
+
+
+# phase 4i: the device loop's modes, each a twin captured in groups of
+# LOOP_MODE_K against an eager twin (bert-base width, GROUP_SKIP_LAYERS
+# deep, B=LOOP_MODE_B, dropout 0.1), over LOOP_MODE_GROUPS replays; the
+# CLI flags each stands for in the comment
+LOOP_MODE_K, LOOP_MODE_GROUPS, LOOP_MODE_B = 2, 3, 8
+LOOP_MODES = {
+    "plain": {},
+    "accum": dict(grad_accum=2),        # --gradient_accumulation_steps 2
+    "vqa2": dict(task="vqa2"),          # --tasks vqa2
+    # --true_fp16 --loss_scale 128
+    "static_loss_scale": dict(dtype="float16", static_scale=128.0),
+    # --max_drop_worst_ratio 0.25 --drop_after 1: the ratio switches on
+    # after the first group, so the graph is captured again
+    "drop_after": dict(ratios=(0.0, 0.25, 0.25)),
+}
+
+
+def loop_mode_twin(spec, dev, seed=7):
+    """A model and its BertAdam for one LOOP_MODES entry."""
+    from vlp_tpu_torch import optim as optim_lib
+    from vlp_tpu_torch.config import VLPConfig
+    from vlp_tpu_torch.models.model import VLPModel
+
+    cfg = VLPConfig(dtype=spec.get("dtype", "bfloat16"), vocab_size=28996,
+                    type_vocab_size=6, num_hidden_layers=GROUP_SKIP_LAYERS)
+    model = VLPModel(cfg, with_vqa=spec.get("task") == "vqa2")
+    model.init_weights(torch.Generator().manual_seed(seed))
+    model.to(dev)
+    return model, optim_lib.BertAdam(dict(model.named_parameters()), 1e-4,
+                                     warmup=0.1, t_total=100)
+
+
+def loop_mode_batches(cfg, spec, dev, n, seed=7):
+    """``n`` random batches of LOOP_MODE_B (fp16_group_skip's, plus soft
+    answer scores and bi mode for VQA)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    out = []
+    for _ in range(n):
+        b = fp16_batch(cfg, LOOP_MODE_B, g, dev)
+        if spec.get("task") == "vqa2":
+            b["mode"].zero_()
+            hit = torch.rand((LOOP_MODE_B, cfg.num_answers), generator=g,
+                             device=dev) < 0.002
+            b["ans_scores"] = hit * torch.rand(hit.shape, generator=g,
+                                               device=dev)
+        out.append(b)
+    return out
+
+
+def loop_mode_run(spec, dev, batches, seeds, captured, stale=None):
+    """The steps of ``batches`` on a fresh twin: as LOOP_MODE_GROUPS
+    replays of a captured group (``captured``) from one set of staging
+    buffers, or one eager step at a time.  ``stale`` (a control) leaves
+    the attention seed slots ("attention") or the hidden-dropout
+    generators' seeds ("hidden") of every group after the first as the
+    first group's.  Returns (losses, model, optimizer, loop)."""
+    from vlp_tpu_torch import optim as optim_lib
+    from vlp_tpu_torch import train_step as ts
+
+    K = LOOP_MODE_K
+    ratios = spec.get("ratios", (0.0,) * LOOP_MODE_GROUPS)
+    ls = (optim_lib.DynamicLossScale(init_scale=spec["static_scale"],
+                                     static=True)
+          if "static_scale" in spec else None)
+    model, opt = loop_mode_twin(spec, dev)
+    kw = dict(task=spec.get("task", "img2txt"),
+              grad_accum=spec.get("grad_accum", 1), loss_scale=ls)
+    losses = []
+    if not captured:
+        step = ts.make_train_step(model, opt, **kw)
+        for i, (b, s) in enumerate(zip(batches, seeds)):
+            losses.append(float(step(b, s, ratios[i // K])["loss"]))
+        return losses, model, opt, None
+    multi = ts.make_multi_step(model, opt, K=K, **kw)
+    staged = {k: torch.empty((K,) + tuple(v.shape), dtype=v.dtype,
+                             device=dev) for k, v in batches[0].items()}
+    for grp in range(LOOP_MODE_GROUPS):
+        rows = range(grp * K, (grp + 1) * K)
+        for k, buf in staged.items():
+            buf.copy_(torch.stack([batches[i][k] for i in rows]))
+        out = multi(staged, [seeds[i] for i in rows], ratios[grp])
+        losses += [float(x) for x in out["loss"]]
+        if grp == 0 and stale is not None:
+            plan = multi._plan
+
+            def stale_plan(group_seeds, plan=plan):
+                keep = (multi.slots.clone(), [r[:] for r in multi._hidden])
+                plan(group_seeds)
+                if stale == "attention":
+                    multi.slots.copy_(keep[0])
+                else:
+                    multi._hidden = keep[1]
+
+            multi._plan = stale_plan
+    return losses, model, opt, multi
+
+
+def loop_mode_differ(a, b) -> list:
+    """What differs, bit for bit, between two runs of loop_mode_run."""
+    (la, ma, oa, _), (lb, mb, ob, _) = a, b
+    differ = [] if la == lb else [f"losses {la} vs {lb}"]
+    differ += [n for (n, p), q in zip(ma.named_parameters(),
+                                      mb.parameters())
+               if not torch.equal(p, q)]
+    differ += [f"{key}.{n}" for key in ("m", "v") for n in oa.m
+               if not torch.equal(getattr(oa, key)[n], getattr(ob, key)[n])]
+    if not torch.equal(oa.step_count, ob.step_count):
+        differ.append("step_count")
+    return differ
+
+
+def phase_loop_modes(dev) -> dict:
+    """The device loop's modes that phase 4h's recipe leaves out
+    (LOOP_MODES: gradient accumulation, VQA, a static loss scale, the
+    drop-worst ratio switching on at --drop_after), each captured once (the
+    ratio's switch: twice) and replayed LOOP_MODE_GROUPS times, bit-equal
+    to the same steps taken one at a time under deterministic algorithms:
+    losses, parameters, BertAdam's moments and step.  Then two controls on
+    the plain mode, whose replays after the first reuse the first group's
+    attention seed slots or its hidden-dropout seeds: each must differ
+    from the eager steps, which shows the check sees stale seeds."""
+    from vlp_tpu_torch.config import VLPConfig
+
+    K, G = LOOP_MODE_K, LOOP_MODE_GROUPS
+    seeds = [(1 << 40) + 977 * i for i in range(K * G)]
+    out = {}
+    with deterministic():
+        for name, spec in LOOP_MODES.items():
+            cfg = VLPConfig(dtype=spec.get("dtype", "bfloat16"),
+                            vocab_size=28996, type_vocab_size=6)
+            batches = loop_mode_batches(cfg, spec, dev, K * G)
+            eager = loop_mode_run(spec, dev, batches, seeds, False)
+            runs = {None: loop_mode_run(spec, dev, batches, seeds, True)}
+            if name == "plain":
+                for stale in ("attention", "hidden"):
+                    runs[stale] = loop_mode_run(spec, dev, batches, seeds,
+                                                True, stale=stale)
+            torch.cuda.synchronize()
+            for stale, run in runs.items():
+                loop = run[3]
+                key = name if stale is None else f"{name}_stale_{stale}"
+                out[key] = dict(differ=loop_mode_differ(run, eager)[:4],
+                                captures=loop.captures,
+                                replays=loop.replays)
+            if not all(np.isfinite(eager[0])) or len(set(eager[0])) < K * G:
+                fail(f"device loop mode {name}: eager losses {eager[0]}")
+            del eager, runs
+    for key, r in out.items():
+        log(f"device loop mode {key} (K={K}, {G} replays, bert-base width "
+            f"{GROUP_SKIP_LAYERS} layers, B={LOOP_MODE_B}, deterministic "
+            f"algorithms) against the eager steps: {r}")
+    for name, spec in LOOP_MODES.items():
+        r = out[name]
+        want = len(set(spec.get("ratios", (0.0,))))
+        if r["differ"] or r["captures"] != want or r["replays"] != G:
+            fail(f"device loop mode {name}: {r}, not bit-equal to the "
+                 f"eager steps over {want} capture(s) and {G} replays")
+    for stale in ("attention", "hidden"):
+        if not out[f"plain_stale_{stale}"]["differ"]:
+            fail(f"the device loop's check did not see stale {stale} "
+                 "dropout seeds")
     return out
 
 
@@ -1931,27 +2274,50 @@ def phase_main_path(vocab_path, out_dir, gpu_line):
     return counts, rates
 
 
+def train_flags(vocab_path, out):
+    """Phase 4b's train CLI flags: the COCO fine-tune recipe (README) on
+    synthetic data, B=64, TRAIN_STEPS, dropout 0.1, bf16 on the card, a
+    profile of 4 steps (``profile.txt``: the device's busy share)."""
+    epochs, spe = TRAIN_STEPS
+    return ["--do_train", "--new_segment_ids", "--enable_butd",
+            "--bert_model", vocab_path, "--do_lower_case", "--dataset",
+            "coco", "--max_pred", "20", "--mask_prob", "0.15",
+            "--train_batch_size", "64", "--learning_rate", "3e-5",
+            "--num_train_epochs", str(epochs), "--s2s_prob", "1",
+            "--bi_prob", "0", "--synthetic_data", "--steps_per_epoch",
+            str(spe), "--output_dir", out, "--device", "cuda",
+            "--profile_steps", "4"]
+
+
+def busy_share(out: str) -> str:
+    """The first line of a CLI's ``profile.txt``: wall, device time and
+    the device's busy share over the profiled steps."""
+    with open(os.path.join(out, "profile.txt")) as f:
+        return f.readline().strip()
+
+
+def device_ms(profile_line: str) -> float:
+    """The summed device ms of a ``busy_share`` line."""
+    return float(re.search(r"summed ([0-9.]+) ms", profile_line).group(1))
+
+
 def phase_train_main_path(vocab_path, out_dir, gpu_line):
     """The train CLI at bert-base width, bf16, through the kernels: the
     COCO fine-tune flags (README) on synthetic data, B=64, 2 epochs of 20
     steps, attention dropout 0.1.  Every step launches K1-dropout and K2
-    once per layer; model.2.bin then decodes through the decode CLI."""
+    once per layer; model.2.bin then decodes through the decode CLI.  Its
+    losses, peak memory and profile go to phase 4h."""
     from vlp_tpu_torch.cli import decode as decode_cli
     from vlp_tpu_torch.cli import train as train_cli
     from vlp_tpu_torch.ops import _build
 
     epochs, spe = TRAIN_STEPS
     out = os.path.join(out_dir, "train")
-    args = ["--do_train", "--new_segment_ids", "--enable_butd",
-            "--bert_model", vocab_path, "--do_lower_case", "--dataset",
-            "coco", "--max_pred", "20", "--mask_prob", "0.15",
-            "--train_batch_size", "64", "--learning_rate", "3e-5",
-            "--num_train_epochs", str(epochs), "--s2s_prob", "1",
-            "--bi_prob", "0", "--synthetic_data", "--steps_per_epoch",
-            str(spe), "--output_dir", out, "--device", "cuda"]
     _build.reset_launch_counts()
-    res = train_cli.main(args)
+    torch.cuda.reset_peak_memory_stats()
+    res = train_cli.main(train_flags(vocab_path, out))
     torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     counts = {k: v.launches for k, v in _build.KERNELS.items()}
     n = 12 * epochs * spe
     want = {k: (n if k in ("attention_fwd_drop", "attention_bwd") else 0)
@@ -1970,11 +2336,14 @@ def phase_train_main_path(vocab_path, out_dir, gpu_line):
     step_s = float(np.median(res["step_seconds"][warm:]))
     iter_s = float(np.median(res["iter_seconds"][warm:]))
     rates = {"train_samples_per_sec": 64 / step_s,
-             "train_samples_per_sec_with_loader": 64 / iter_s}
+             "train_samples_per_sec_with_loader": 64 / iter_s,
+             "train_peak_gb": peak_gb, "train_profile": busy_share(out),
+             "train_losses": res["losses"]}
     log(f"train main path B=64: {rates['train_samples_per_sec']:.2f} "
         f"samples/s (median step {step_s * 1e3:.2f} ms after {warm} "
         f"warm-up steps; {rates['train_samples_per_sec_with_loader']:.2f} "
-        f"with the loader's waits) on {gpu_line}")
+        f"with the loader's waits) on {gpu_line}; peak memory "
+        f"{peak_gb:.3f} GB; profile of steps 1-4: {rates['train_profile']}")
     dec_out = os.path.join(out_dir, "train_decode")
     stats = decode_cli.main([
         "--bert_model", vocab_path, "--new_segment_ids", "--enable_butd",
@@ -1988,6 +2357,91 @@ def phase_train_main_path(vocab_path, out_dir, gpu_line):
     if stats["n_images"] != 100 or len(preds) != 100:
         fail("model.2.bin did not decode")
     log(f"model.2.bin decodes: {preds[0]['caption']!r}")
+    return counts, rates
+
+
+def phase_train_loop_main_path(vocab_path, out_dir, gpu_line, bf16_rates):
+    """The train CLI of phase 4b with ``--device_loop_steps LOOP_K``: each
+    group of 4 steps is one CUDA-graph replay.  Exact launch counts with
+    the replays (480 K1-dropout and 480 K2 over 40 steps), 10 replays of
+    one capture, every step's loss within LOOP_LOSS_RTOL relative of phase
+    4b's and the final parameters (model.2.bin) within LOOP_PARAM_ATOL of
+    phase 4b's (a replayed step draws the dropout of the eager step with
+    the same seed; bit for bit only under deterministic algorithms, which
+    phases 4f, 4i and 6a hold).  Its samples/s, busy share and peak
+    memory beside phase 4b's."""
+    from vlp_tpu_torch.cli import train as train_cli
+    from vlp_tpu_torch.ops import _build
+
+    epochs, spe = TRAIN_STEPS
+    out = os.path.join(out_dir, "train_loop")
+    _build.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    res = train_cli.main(train_flags(vocab_path, out)
+                         + ["--device_loop_steps", str(LOOP_K)])
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    counts = {k: v.launches for k, v in _build.KERNELS.items()}
+    n = 12 * epochs * spe
+    want = {k: (n if k in ("attention_fwd_drop", "attention_bwd") else 0)
+            for k in counts}
+    loop = res["device_loop"]
+    log(f"train K={LOOP_K} launch counts {counts}, expected {want}; "
+        f"{loop}")
+    if counts != want:
+        fail("the device loop did not launch the kernels as expected")
+    if loop["replays"] != epochs * spe // LOOP_K or loop["captures"] != 1:
+        fail(f"the device loop made {loop['replays']} replays of "
+             f"{loop['captures']} captures, not {epochs * spe // LOOP_K} "
+             "of 1")
+    losses = np.asarray(res["losses"])
+    ref = np.asarray(bf16_rates["train_losses"])
+    if losses.shape != ref.shape or not np.isfinite(losses).all():
+        fail(f"train K={LOOP_K}: bad losses {losses}")
+    rel = float(np.max(np.abs(losses - ref) / np.abs(ref)))
+    mine, theirs = (torch.load(os.path.join(d, "model.2.bin"),
+                               map_location="cpu", weights_only=True)
+                    for d in (out, os.path.join(out_dir, "train")))
+    differ = {k: float((v.float() - theirs[k].float()).abs().max())
+              for k, v in mine.items() if not torch.equal(v, theirs[k])}
+    log(f"train K={LOOP_K} vs phase 4b: losses max rel {rel:.3e}, "
+        f"{len(differ)} of {len(mine)} tensors of model.2.bin differ "
+        f"{sorted(differ.items(), key=lambda x: -x[1])[:3]}")
+    # not bit for bit: PyTorch's embedding backward sums in an order that
+    # changes from run to run (on an H100, two eager runs of phase 4b's
+    # recipe ended with token_type_embeddings 6e-8 apart, and a K=4 run
+    # and an eager one differed by 3.8e-5 relative in a loss by step 9 and
+    # by 1.1e-4 in the word embeddings by step 16); phases 4i and 6a hold
+    # the loop against the eager step bit for bit under deterministic
+    # algorithms
+    worst = max(differ.values(), default=0.0)
+    if rel > LOOP_LOSS_RTOL or worst > LOOP_PARAM_ATOL:
+        fail(f"train K={LOOP_K}: losses {rel:.3e} relative (limit "
+             f"{LOOP_LOSS_RTOL}) or parameters {worst:.3e} (limit "
+             f"{LOOP_PARAM_ATOL}) from phase 4b's")
+    warm = 2 * LOOP_K    # the capture's group and the profiled one
+    step_s = float(np.median(res["step_seconds"][warm:]))
+    iter_s = float(np.median(res["iter_seconds"][warm:]))
+    rates = {"train_loop_samples_per_sec": 64 / step_s,
+             "train_loop_samples_per_sec_with_loader": 64 / iter_s,
+             "train_loop_peak_gb": peak_gb,
+             "train_loop_capture_seconds": loop["capture_seconds"],
+             "train_loop_profile": busy_share(out)}
+    log(f"train K={LOOP_K} B=64: {rates['train_loop_samples_per_sec']:.2f} "
+        f"samples/s (median step {step_s * 1e3:.2f} ms: a group's span on "
+        f"the device, CUDA events from its batch copy to its metrics copy, "
+        f"/ {LOOP_K}, after {warm} steps), "
+        f"{rates['train_loop_samples_per_sec_with_loader']:.2f} with the "
+        f"loader (host seconds between groups / {LOOP_K}); phase 4b "
+        f"{bf16_rates['train_samples_per_sec']:.2f} (host seconds from a "
+        f"batch in hand to its loss) / "
+        f"{bf16_rates['train_samples_per_sec_with_loader']:.2f}; capture "
+        f"(warm-up included) {loop['capture_seconds']:.3f} s; peak memory "
+        f"{peak_gb:.3f} GB (phase 4b {bf16_rates['train_peak_gb']:.3f}); "
+        f"profile of group 1 (steps 4-7): {rates['train_loop_profile']} "
+        f"(phase 4b, steps 1-4: {bf16_rates['train_profile']}): device ms a "
+        f"step {device_ms(rates['train_loop_profile']) / 4:.2f}, phase 4b "
+        f"{device_ms(bf16_rates['train_profile']) / 4:.2f}; on {gpu_line}")
     return counts, rates
 
 
@@ -2294,7 +2748,8 @@ def phase_vqa_main_path(vocab_path, answers_path, out_dir, gpu_line):
     return train_counts, eval_counts, rates
 
 
-DP_STEPS = 6                 # phase 6a: train steps at world size 1
+DP_STEPS = 2 * LOOP_K        # phase 6a: train steps at world size 1 (two
+# replays of the device loop's group)
 DP2_LAYERS = 4               # phase 6b: the two ranks' depth
 DP_LR = 1e-3                 # phase 6b: constant lr, so the steps move
 
@@ -2331,8 +2786,11 @@ def phase_dp_world1(vocab_path, answers_path, out_dir, gpu_line):
     ``torch.use_deterministic_algorithms``: PyTorch's own CUDA backward
     is not reproducible bit for bit from run to run (two train runs
     without a group once ended with token_type_embeddings 6e-8 apart), so
-    only a deterministic order isolates what the group adds.  Returns the
-    group runs' counts and rates."""
+    only a deterministic order isolates what the group adds.  Then the
+    train run again with ``--device_loop_steps LOOP_K``, without a group
+    and over NCCL (the all-reduce inside the captured graph): both equal
+    the step-at-a-time run without a group bit for bit.  Returns the group
+    runs' counts and rates."""
     flags = ["--do_train", "--new_segment_ids", "--enable_butd",
              "--bert_model", vocab_path, "--do_lower_case", "--dataset",
              "coco", "--max_pred", "20", "--mask_prob", "0.15",
@@ -2340,16 +2798,8 @@ def phase_dp_world1(vocab_path, answers_path, out_dir, gpu_line):
              "--num_train_epochs", "1", "--s2s_prob", "1", "--bi_prob", "0",
              "--synthetic_data", "--steps_per_epoch", str(DP_STEPS),
              "--device", "cuda", "--profile_steps", "1"]
-    # the deterministic choices only: no NaN fill of new tensors, whose
-    # writes the all-reduce times would include
-    fill = torch.utils.deterministic.fill_uninitialized_memory
-    torch.utils.deterministic.fill_uninitialized_memory = False
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
+    with deterministic():
         return _dp_world1(flags, vocab_path, answers_path, out_dir, gpu_line)
-    finally:
-        torch.use_deterministic_algorithms(False)
-        torch.utils.deterministic.fill_uninitialized_memory = fill
 
 
 def _dp_world1(flags, vocab_path, answers_path, out_dir, gpu_line):
@@ -2407,6 +2857,43 @@ def _dp_world1(flags, vocab_path, answers_path, out_dir, gpu_line):
     log(f"DP world 1 all-reduce trace of step 1 ({ar[1]:.4f} ms between "
         f"its CUDA events; {table[0]}):\n" + "\n".join(rows))
 
+    # the device loop over NCCL: DP_STEPS steps as groups of LOOP_K, the
+    # bucketed all-reduce inside the captured graph; with deterministic
+    # algorithms each run equals the step-at-a-time run without a group
+    for mode in ("no_group_loop", "nccl_loop"):
+        group = ([] if mode == "no_group_loop" else [
+            "--jax_distributed", "--coordinator_address",
+            f"127.0.0.1:{free_port()}", "--num_processes", "1",
+            "--process_id", "0"])
+        _build.reset_launch_counts()
+        runs[mode] = train_cli.main(flags + group + [
+            "--device_loop_steps", str(LOOP_K), "--output_dir",
+            os.path.join(out_dir, f"dp1_train_{mode}")])
+        torch.cuda.synchronize()
+        counts[mode] = {k: v.launches for k, v in _build.KERNELS.items()}
+    want = {k: (12 * DP_STEPS if k in ("attention_fwd_drop", "attention_bwd")
+                else 0) for k in counts["nccl_loop"]}
+    loops = [runs[m]["device_loop"] for m in ("no_group_loop", "nccl_loop")]
+    if not counts["nccl_loop"] == counts["no_group_loop"] == want:
+        fail(f"DP world 1 device loop launch counts {counts}, expected "
+             f"{want}")
+    if any(lp["replays"] != DP_STEPS // LOOP_K or lp["captures"] != 1
+           for lp in loops):
+        fail(f"DP world 1 device loop: {loops}, not one capture replayed "
+             f"{DP_STEPS // LOOP_K} times")
+    for mode in ("no_group_loop", "nccl_loop"):
+        sd_loop = runs[mode]["model"].state_dict()
+        if (runs[mode]["losses"] != runs["no_group"]["losses"]
+                or not all(torch.equal(v, sd["no_group"][k])
+                           for k, v in sd_loop.items())):
+            fail(f"DP world 1 device loop (K={LOOP_K}, {mode}): losses or "
+                 "parameters differ from the step-at-a-time run without a "
+                 "group")
+    log(f"DP world 1 device loop (K={LOOP_K}, {DP_STEPS // LOOP_K} replays, "
+        f"deterministic algorithms) over NCCL and without a group: losses "
+        f"and parameters bit-identical to the step-at-a-time run without a "
+        f"group, launch counts {counts['nccl_loop']}")
+
     dec_args = ["--bert_model", vocab_path, "--new_segment_ids",
                 "--enable_butd", "--synthetic_data", "--num_synthetic", "100",
                 "--batch_size", "100", "--beam_size", "5",
@@ -2447,7 +2934,8 @@ def _dp_world1(flags, vocab_path, answers_path, out_dir, gpu_line):
                  f"{counts[name, 'nccl']} vs {counts[name, 'no_group']}")
     log("DP world 1 decode (beam 5, 100 images) and VQA eval (512 "
         "questions) over NCCL: predictions identical to no group")
-    return ({"train": counts["nccl"], "decode": counts["decode", "nccl"],
+    return ({"train": counts["nccl"], "train_loop": counts["nccl_loop"],
+             "decode": counts["decode", "nccl"],
              "vqa": counts["vqa", "nccl"]},
             {"dp1_train_samples_per_sec": rates["nccl"],
              "dp1_train_samples_per_sec_no_group": rates["no_group"],
@@ -2770,6 +3258,7 @@ def main():
     phase_scst_kernels(dev, results)
     phase_bhld_kernels(dev, results)
     phase_fp16_kernels(dev, results)
+    phase_seed_slots(dev)
     log("phase 2: kernels agree with their plain versions")
 
     paths = {}
@@ -2810,6 +3299,14 @@ def main():
             "kernels")
         paths["legacy_heads"], heads_errs = phase_legacy_heads(dev)
         log("phase 4g: the legacy heads agree card vs CPU and train")
+        paths["train_loop"], loop_rates = phase_train_loop_main_path(
+            vocab_path, tmp, smi, train_rates)
+        train_rates.update(loop_rates)
+        log(f"phase 4h: the device loop (K={LOOP_K}) replayed the train "
+            "path through its kernels, equal to phase 4b")
+        loop_modes = phase_loop_modes(dev)
+        log("phase 4i: the device loop's modes bit-equal to eager steps, "
+            "stale seeds seen")
         steady = phase_steady_state(dev, vocab_path)
         vqa_rates["vqa_questions_per_sec_steady"] = phase_vqa_steady_state(
             dev, vocab_path)
@@ -2817,7 +3314,8 @@ def main():
         dp_paths, dp_rates = phase_dp_world1(vocab_path, answers_path, tmp,
                                              smi)
         paths.update({f"dp1_{k}": v for k, v in dp_paths.items()})
-        log("phase 6a: world size 1 over NCCL identical to no group")
+        log("phase 6a: world size 1 over NCCL identical to no group, the "
+            "device loop too")
         paths["dp2"] = phase_dp_two_ranks(vocab_path, tmp)
         log("phase 6b: two ranks on the one card in sync")
 
@@ -2837,6 +3335,7 @@ def main():
                       **fp16_rates, "legacy_heads_max_abs_err": heads_errs,
                       **scst_rates, **vqa_rates, **dp_rates,
                       "scst_checks": scst_checks,
+                      "device_loop_modes": loop_modes,
                       "vqa_checks": vqa_checks}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -42,14 +42,24 @@ global batch, rank 0 writes the checkpoints, ``metrics.jsonl`` and the log,
 and the returned losses are global means.  ``--world_size``, when > 1, must
 equal the group's size.
 
+``--device_loop_steps K`` (K > 1; MLE and ``--tasks vqa2``, not
+``--scst``, which steps one at a time as the JAX CLI does) runs the JAX
+CLI's device loop: the loader writes K batches into a pinned ``[K, B,
+...]`` slab (``train_step.GroupStaging``), one copy takes it to the
+device, and the K optimizer steps run as one CUDA-graph replay
+(``train_step.make_multi_step``; eagerly on ``cpu``).  A group's metrics
+are read after the next group is launched; a trailing group of fewer than
+K batches is dropped and logged; ``metrics.jsonl`` gets a record where
+the JAX CLI writes one.  With a group on ``cuda`` it needs NCCL.
+
 Flags the port leaves out raise: ``--tensor_parallel > 1``,
-``--scst_replay scan`` and ``--scst_remat`` (ROADMAP A, not to port).  The TPU dispatch
-workarounds ``--device_loop_steps``, ``--no_pallas`` and ``--tp_impl`` are
-no-ops here and say so in the log, as are
-``--fp16/--amp/--fp32_embedding`` (the dtype follows ``--device``).
-``--profile_steps N`` writes a ``torch.profiler`` table of N steps to
-``output_dir/profile.txt`` and, with a group, times every step's gradient
-all-reduce (``allreduce_ms`` of the result).
+``--scst_replay scan`` and ``--scst_remat`` (ROADMAP A, not to port).  The
+TPU dispatch workarounds ``--no_pallas`` and ``--tp_impl`` are no-ops here
+and say so in the log, as are ``--fp16/--amp/--fp32_embedding`` (the
+dtype follows ``--device``).  ``--profile_steps N`` writes a
+``torch.profiler`` table of N steps (with K > 1: of the groups that cover
+them) to ``output_dir/profile.txt`` and, with a group and K = 1, times
+every step's gradient all-reduce (``allreduce_ms`` of the result).
 """
 
 from __future__ import annotations
@@ -80,12 +90,16 @@ from vlp_tpu_torch.data.loader import TrainLoader
 from vlp_tpu_torch.data.tokenization import WhitespaceTokenizer
 from vlp_tpu_torch.evals.vqa import VQAAnswerProcessor
 from vlp_tpu_torch.models.model import VLPModel
-from vlp_tpu_torch.parallel.dp_step import make_dp_train_step
+from vlp_tpu_torch.parallel.dp_step import (make_dp_multi_step,
+                                            make_dp_train_step)
 from vlp_tpu_torch.scst import SCSTTrainer
 
 # parameters of the heads a BERT checkpoint lacks (reference
 # optimization.py:196-201): --finetune_decay decays them toward zero
 FRESH_HEADS = ("vis_embed", "vis_pe_embed", "ans_classifier")
+# batches the train loader builds ahead; its feature slabs (and the device
+# loop's staging slabs, train_step.GroupStaging) cover them
+PREFETCH = 4
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -194,9 +208,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda", type=str,
                    help="torch device: 'cuda' (kernels, bf16) or 'cpu' "
                         "(plain versions, fp32)")
-    # TPU dispatch workarounds of the JAX CLI: no-ops here
     p.add_argument("--device_loop_steps", type=int, default=1,
-                   help="no-op (a TPU dispatch workaround)")
+                   help="K > 1: K training steps per dispatch, one CUDA-"
+                        "graph replay on cuda (metrics logged per group; a "
+                        "tail of fewer than K batches is dropped); not with "
+                        "--scst")
+    # TPU dispatch workarounds of the JAX CLI: no-ops here
     p.add_argument("--no_pallas", action="store_true",
                    help="no-op: cuda always runs the kernels, cpu their "
                         "plain versions")
@@ -302,7 +319,15 @@ def main(argv=None, dist: parallel.Dist = None):
     ranks), the seconds from a batch in hand to its loss on the host, the
     seconds between consecutive steps (loader included), the trained
     model, and the milliseconds of each step's gradient all-reduce (with
-    ``--profile_steps`` and a group; empty otherwise).  A caller may pass
+    ``--profile_steps``, a group and K = 1; empty otherwise).  With
+    ``--device_loop_steps K > 1`` a step's two times are its group's
+    divided by K, once per step: on ``cuda`` the group's span on the
+    device (CUDA events from its batches' copy to the device to its
+    metrics' copy back, so the host's work on the next group is not in
+    it; on the CPU, from its batches in hand to its losses), and the host
+    seconds between consecutive groups' losses; on ``cuda``
+    ``"device_loop"`` then holds the graph's captures, replays and capture
+    seconds (warm-up included).  A caller may pass
     its own group as ``dist``; otherwise the flags and torchrun's
     environment decide (``parallel.from_cli``)."""
     args = build_parser().parse_args(argv)
@@ -340,7 +365,9 @@ def train(args, dist: parallel.Dist):
         raise ValueError(f"--world_size {args.world_size} but the group has "
                          f"{dist.world} processes")
     configure_precision()
-    if args.profile_steps:
+    K = max(args.device_loop_steps, 1)
+    loop = K > 1 and not args.scst
+    if args.profile_steps and not loop:
         dist.time_reductions = True
     if abs(args.s2s_prob + args.bi_prob - 1.0) > 1e-6:
         raise ValueError("--s2s_prob + --bi_prob must be 1")
@@ -355,8 +382,7 @@ def train(args, dist: parallel.Dist):
     else:  # only rank 0 writes the log; the others print warnings
         logger = logging.getLogger(f"vlp_tpu.rank{dist.rank}")
         logger.setLevel(logging.WARNING)
-    noops = [(args.device_loop_steps > 1, "--device_loop_steps"),
-             (args.no_pallas, "--no_pallas"),
+    noops = [(args.no_pallas, "--no_pallas"),
              (args.tp_impl != "shard_map", "--tp_impl"),
              (args.fp16 or args.amp or args.fp32_embedding,
               "--fp16/--amp/--fp32_embedding")]
@@ -414,12 +440,22 @@ def train(args, dist: parallel.Dist):
                          f"{dist.world} ranks x --gradient_accumulation_steps "
                          "micro-batches")
     # each rank loads its share of the global batch (JAX CLI :341-348)
+    local_bs = args.train_batch_size // dist.world
+    if loop:
+        # the loader writes each batch's features into the K-group slabs
+        # that one copy takes to the device (JAX CLI :349-358)
+        staging = ts.GroupStaging(
+            ts.staging_layout(builders[0], examples[0], store), K,
+            local_bs, device, prefetch=PREFETCH)
+        slab_kw = dict(feature_slabs=staging.feature_slabs())
+    else:
+        slab_kw = dict(feature_slab_slots=PREFETCH + 2 + 1)
     loader = TrainLoader(examples, store, builders,
                          [args.s2s_prob, args.bi_prob],
-                         batch_size=args.train_batch_size // dist.world,
-                         num_workers=args.num_workers, seed=args.seed,
+                         batch_size=local_bs, num_workers=args.num_workers,
+                         prefetch=PREFETCH, seed=args.seed,
                          process_index=dist.rank, process_count=dist.world,
-                         feature_slab_slots=4 + 2 + 1)
+                         **slab_kw)
     steps_per_epoch = len(loader)
     if args.steps_per_epoch:
         steps_per_epoch = min(steps_per_epoch, args.steps_per_epoch)
@@ -479,6 +515,7 @@ def train(args, dist: parallel.Dist):
         logger.info("true-fp16: fp16 activations + %s loss scaling",
                     "dynamic" if args.loss_scale == 0
                     else f"static {args.loss_scale:g}")
+    multi_step = None
     if args.scst:
         vocab = tokenizer.vocab
         scst_trainer = SCSTTrainer(
@@ -494,6 +531,11 @@ def train(args, dist: parallel.Dist):
             loss, m = scst_trainer.step(scst_decode_batch(tbatch, cfg), gt,
                                         seed)
             return {"loss": loss, **m}
+    elif loop:
+        multi_step = make_dp_multi_step(
+            model, optimizer, dist, K=K,
+            mask_image_regions=args.mask_image_regions, task=args.tasks,
+            grad_accum=accum, loss_scale=loss_scale)
     else:
         train_step = make_dp_train_step(
             model, optimizer, dist, mask_image_regions=args.mask_image_regions,
@@ -517,16 +559,92 @@ def train(args, dist: parallel.Dist):
                 t_total)
     last_save = (start_epoch - 1) * steps_per_epoch + skip_batches
     profiler = None
+
+    def maybe_save_steps(i_epoch, step_i):
+        """A step checkpoint every --save_steps optimizer steps, counted
+        from loader batches (also after a K-step group)."""
+        nonlocal last_save
+        gdone = (i_epoch - 1) * steps_per_epoch + step_i + 1
+        if args.save_steps and gdone - last_save >= args.save_steps:
+            if dist.is_main:
+                ckpt.save_step_checkpoint(args.output_dir, gdone, model,
+                                          optimizer)
+            last_save = gdone
+
+    def record(mf, i_epoch, step_i, losses, metrics):
+        logger.info("Epoch %d, Iter %d, Loss %.2f", i_epoch, step_i,
+                    float(np.mean(losses)))
+        rec = {"epoch": i_epoch, "step": step_i, "time": time.time()}
+        rec.update({k: float(v) for k, v in metrics.items()})
+        mf.write(json.dumps(rec) + "\n")
+        mf.flush()
+
     with (open(os.path.join(args.output_dir, "metrics.jsonl"), "a")
           if dist.is_main else contextlib.nullcontext()) as mf:
         for i_epoch in range(start_epoch, args.num_train_epochs + 1):
             losses = []
             t_ep = t_prev = time.perf_counter()
             skip = skip_batches if i_epoch == start_epoch else 0
+            pending, in_flight = [], None
+
+            def drain(group):
+                """The losses of a launched group, once its copy to the
+                host is done (the JAX CLI's ``drain_ms``)."""
+                nonlocal t_prev
+                last, (host, done), t0, start = group
+                if done is not None:
+                    done.synchronize()
+                group_losses = [float(x) for x in host["loss"]]
+                t1 = time.perf_counter()
+                group_s = (t1 - t0 if done is None
+                           else start.elapsed_time(done) / 1e3)
+                result["step_seconds"] += [group_s / K] * K
+                result["iter_seconds"] += [(t1 - t_prev) / K] * K
+                t_prev = t1
+                losses.extend(group_losses)
+                result["losses"].extend(group_losses)
+                if (last // K) % max(100 // K, 1) == 0 and dist.is_main:
+                    record(mf, i_epoch, last, losses,
+                           {k: v[-1] for k, v in host.items()})
+
             for step_i, batch in enumerate(
                     loader.epoch(i_epoch - 1, start_batch=skip), start=skip):
                 if args.steps_per_epoch and step_i >= args.steps_per_epoch:
                     break
+                if loop:
+                    # the device loop (JAX CLI :675-702): K batches, one
+                    # copy, one launch
+                    pending.append(batch)
+                    if len(pending) < K:
+                        continue
+                    grp = (step_i - skip) // K
+                    if (args.profile_steps and dist.is_main
+                            and i_epoch == start_epoch and grp == 1):
+                        profiler = start_profiler()
+                    t0 = time.perf_counter()
+                    slot = grp % staging.n_slots
+                    staging.stack(slot, pending)
+                    seeds = [ts.step_seed(args.seed + 1, i_epoch * 100000 + i)
+                             for i in range(step_i - K + 1, step_i + 1)]
+                    start = None
+                    if device.type == "cuda":
+                        start = torch.cuda.Event(enable_timing=True)
+                        start.record()
+                    metrics = multi_step(
+                        staging.upload(slot), seeds,
+                        args.max_drop_worst_ratio
+                        if i_epoch > args.drop_after else 0.0)
+                    pending = []
+                    launched = (step_i, ts.fetch_metrics(metrics), t0, start)
+                    if in_flight is not None:
+                        drain(in_flight)
+                    in_flight = launched
+                    if (profiler is not None
+                            and grp == -(-args.profile_steps // K)):
+                        stop_profiler(profiler, args.output_dir)
+                        profiler = None
+                    maybe_save_steps(i_epoch, step_i)
+                    continue
                 if (args.profile_steps and dist.is_main
                         and i_epoch == start_epoch and step_i == skip + 1):
                     profiler = start_profiler()
@@ -547,20 +665,16 @@ def train(args, dist: parallel.Dist):
                         and step_i == skip + args.profile_steps):
                     stop_profiler(profiler, args.output_dir)
                     profiler = None
-                gdone = (i_epoch - 1) * steps_per_epoch + step_i + 1
-                if args.save_steps and gdone - last_save >= args.save_steps:
-                    if dist.is_main:
-                        ckpt.save_step_checkpoint(args.output_dir, gdone,
-                                                  model, optimizer)
-                    last_save = gdone
+                maybe_save_steps(i_epoch, step_i)
                 if step_i % 100 == 0 and dist.is_main:
-                    logger.info("Epoch %d, Iter %d, Loss %.2f", i_epoch,
-                                step_i, float(np.mean(losses)))
-                    rec = {"epoch": i_epoch, "step": step_i,
-                           "time": time.time()}
-                    rec.update({k: float(v) for k, v in metrics.items()})
-                    mf.write(json.dumps(rec) + "\n")
-                    mf.flush()
+                    record(mf, i_epoch, step_i, losses, metrics)
+            if in_flight is not None:
+                drain(in_flight)
+            if pending:
+                # the JAX CLI's rule (:744-752): the next epoch's loader
+                # restarts its slab rotation and would overwrite them
+                logger.info("dropping %d tail batches (< device_loop_steps)",
+                            len(pending))
             if profiler is not None:
                 stop_profiler(profiler, args.output_dir)
                 profiler = None
@@ -572,6 +686,10 @@ def train(args, dist: parallel.Dist):
                                      optimizer)
             # epoch barrier (run_img2txt_dist.py:604-605; JAX CLI :759-768)
             dist.barrier()
+    if isinstance(multi_step, ts.CapturedSteps):
+        result["device_loop"] = dict(
+            captures=multi_step.captures, replays=multi_step.replays,
+            capture_seconds=multi_step.capture_seconds)
     result["allreduce_ms"] = dist.reduction_ms()
     return result
 

@@ -150,7 +150,9 @@ __global__ void __launch_bounds__(kNT * 32, 1)
                       const int* __restrict__ text_end,
                       const float* __restrict__ colkeep, int L, int H,
                       vlp::Strides in, vlp::Strides ds_in, vlp::Strides os,
-                      int prefix, float scale, vlp::Dropout dp, int align) {
+                      int prefix, float scale, vlp::DropoutArg dp_arg,
+                      int align) {
+  const vlp::Dropout dp = dp_arg.load();
   constexpr int kH = kNT / 2;       // n8 tiles of a warp's half of a row
   constexpr int TS = vlp::kTileStride;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -519,7 +521,8 @@ __global__ void __launch_bounds__(kThreadsT, kMinBlocksT)
                         const int* __restrict__ text_end,
                         const float* __restrict__ colkeep, int L, int H,
                         vlp::Strides in, vlp::Strides ds_in, int prefix,
-                        float scale, vlp::Dropout dp, int align) {
+                        float scale, vlp::DropoutArg dp_arg, int align) {
+  const vlp::Dropout dp = dp_arg.load();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   RowsBlock<T> blk(smem_raw, q, dout, colkeep, scratch, mode, text_end, L,
                    H, in, ds_in, align);
@@ -623,7 +626,9 @@ __global__ void __launch_bounds__(kThreadsT, kMinBlocksT)
                        const int* __restrict__ text_end,
                        const float* __restrict__ colkeep, int L, int H,
                        vlp::Strides in, vlp::Strides ds_in, vlp::Strides os,
-                       int prefix, float scale, vlp::Dropout dp, int align) {
+                       int prefix, float scale, vlp::DropoutArg dp_arg,
+                       int align) {
+  const vlp::Dropout dp = dp_arg.load();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int nb = own_blocks(L), nq = long_tiles(L), Lt = nb * kOwn;
   const int bh = blockIdx.x / nb, b = bh / H, h = bh % H;
@@ -760,7 +765,9 @@ __global__ void __launch_bounds__(kThreadsT, kMinBlocksT)
                      const int* __restrict__ text_end,
                      const float* __restrict__ colkeep, int L, int H,
                      vlp::Strides in, vlp::Strides ds_in, vlp::Strides os,
-                     int prefix, float scale, vlp::Dropout dp, int align) {
+                     int prefix, float scale, vlp::DropoutArg dp_arg,
+                     int align) {
+  const vlp::Dropout dp = dp_arg.load();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   RowsBlock<T> blk(smem_raw, q, dout, colkeep, scratch, mode, text_end, L,
                    H, in, ds_in, align);
@@ -913,7 +920,8 @@ __global__ void __launch_bounds__(kWarpsF * 32, 3)
                            const float* __restrict__ colkeep, int L, int H,
                            vlp::Strides in, vlp::Strides ds_in,
                            vlp::Strides os, int prefix, float scale,
-                           vlp::Dropout dp, int align) {
+                           vlp::DropoutArg dp_arg, int align) {
+  const vlp::Dropout dp = dp_arg.load();
   extern __shared__ __align__(16) float smem_f[];
   const int nb = own_blocks_f32(L), nk = tiles_f32(L), Lt = nb * kOwnF;
   const int bh = blockIdx.x / nb, b = bh / H, h = bh % H;
@@ -1094,7 +1102,8 @@ __global__ void __launch_bounds__(kWarpsF * 32, 3)
                            const float* __restrict__ colkeep, int L, int H,
                            vlp::Strides in, vlp::Strides ds_in,
                            vlp::Strides os, int prefix, float scale,
-                           vlp::Dropout dp, int align) {
+                           vlp::DropoutArg dp_arg, int align) {
+  const vlp::Dropout dp = dp_arg.load();
   extern __shared__ __align__(16) float smem_f[];
   const int nb = own_blocks_f32(L), nq = tiles_f32(L), Lt = nb * kOwnF;
   const int bh = blockIdx.x / nb, b = bh / H, h = bh % H;
@@ -1207,7 +1216,7 @@ int launch_fp32(const void* q, const void* k, const void* v, const void* dout,
                 void* dq, void* dk, void* dv, float* scratch, const int* mode,
                 const int* text_end, const float* colkeep, int B, int L,
                 int H, vlp::Strides in, vlp::Strides ds_in, vlp::Strides os,
-                int prefix, float scale, vlp::Dropout dp,
+                int prefix, float scale, vlp::DropoutArg dp,
                 cudaStream_t stream) {
   const size_t smem_rows = smem_bytes_rows_f32(L);
   if (smem_rows > (size_t)vlp::kMaxSmemBytes || scratch == nullptr)
@@ -1245,7 +1254,8 @@ int launch_mma(const void* q, const void* k, const void* v, const void* dout,
                void* dq, void* dk, void* dv, const int* mode,
                const int* text_end, const float* colkeep, int B, int L, int H,
                vlp::Strides in, vlp::Strides ds_in, vlp::Strides os,
-               int prefix, float scale, vlp::Dropout dp, cudaStream_t stream) {
+               int prefix, float scale, vlp::DropoutArg dp,
+               cudaStream_t stream) {
   const int Lp = (L + 15) & ~15;
   const size_t smem = smem_bytes_mma(Lp, kNT);
   const int align = vlp::common_alignment(
@@ -1272,7 +1282,7 @@ int launch_long(const void* q, const void* k, const void* v, const void* dout,
                 void* dq, void* dk, void* dv, float* scratch, const int* mode,
                 const int* text_end, const float* colkeep, int B, int L,
                 int H, vlp::Strides in, vlp::Strides ds_in, vlp::Strides os,
-                int prefix, float scale, vlp::Dropout dp,
+                int prefix, float scale, vlp::DropoutArg dp,
                 cudaStream_t stream) {
   const size_t smem_rows = smem_bytes_rows(L);
   if (smem_rows > (size_t)vlp::kMaxSmemBytes || scratch == nullptr)
@@ -1325,7 +1335,7 @@ int launch_16(const void* q, const void* k, const void* v, const void* dout,
               void* dq, void* dk, void* dv, float* scratch, const int* mode,
               const int* text_end, const float* colkeep, int B, int L, int H,
               vlp::Strides in, vlp::Strides ds_in, vlp::Strides os,
-              int prefix, float scale, vlp::Dropout dp,
+              int prefix, float scale, vlp::DropoutArg dp,
               cudaStream_t stream) {
   if (L <= 128)
     return launch_mma<T, 16, kDrop>(q, k, v, dout, dq, dk, dv, mode, text_end,
@@ -1346,7 +1356,7 @@ int launch_any(const void* q, const void* k, const void* v, const void* dout,
                void* dq, void* dk, void* dv, float* scratch, const int* mode,
                const int* text_end, const float* colkeep, int B, int L, int H,
                vlp::Strides in, vlp::Strides ds_in, vlp::Strides os,
-               int prefix, float scale, vlp::Dropout dp, int dtype,
+               int prefix, float scale, vlp::DropoutArg dp, int dtype,
                cudaStream_t stream) {
   switch (dtype) {
     case vlp::kBFloat16:
@@ -1370,7 +1380,7 @@ int backward(const void* q, const void* k, const void* v, const void* dout,
              void* dq, void* dk, void* dv, void* scratch, const void* mode,
              const void* text_end, const void* colkeep, int B, int L, int H,
              vlp::Strides in, vlp::Strides ds_in, vlp::Strides os, int prefix,
-             float scale, vlp::Dropout dp, int dtype, void* stream) {
+             float scale, vlp::DropoutArg dp, int dtype, void* stream) {
   if (B <= 0 || L <= 0 || H <= 0 || L > vlp::attention_fwd_max_len())
     return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
@@ -1402,8 +1412,9 @@ int vlp_attention_bwd_scratch_floats(int L, int dtype) {
 // [B, L, H*64] with strides dsb, dsl; the last dimension contiguous in
 // all four.  dq/dk/dv: contiguous [B, L, H*64]; scratch: fp32 scratch of
 // B * H * vlp_attention_bwd_scratch_floats(L, dtype) floats.
-// seed/threshold/keep_scale are the forward's dropout (threshold 0 = no
-// dropout).  dtype (vlp::DType) selects the 16-bit tensor-core bodies in
+// seed/threshold/keep_scale are the forward's dropout, seed a pointer to
+// its 64-bit seed in device memory (threshold 0 = no dropout; seed may then
+// be null).  dtype (vlp::DType) selects the 16-bit tensor-core bodies in
 // bf16 (1) or fp16 (2), or the fp32 body (0).  Returns cudaGetLastError()
 // after the launch.
 int vlp_attention_bwd(const void* q, const void* k, const void* v,
@@ -1411,14 +1422,14 @@ int vlp_attention_bwd(const void* q, const void* k, const void* v,
                       void* scratch, const void* mode, const void* text_end,
                       const void* colkeep, int B, int L, int H, long long sb,
                       long long sl, long long dsb, long long dsl, int prefix,
-                      float scale, unsigned long long seed,
+                      float scale, const void* seed,
                       unsigned int threshold, float keep_scale, int dtype,
                       void* stream) {
   const long long HD = (long long)H * D;
   return backward(q, k, v, dout, dq, dk, dv, scratch, mode, text_end, colkeep,
                   B, L, H, vlp::Strides{sb, D, sl}, vlp::Strides{dsb, D, dsl},
                   vlp::Strides{L * HD, D, HD}, prefix, scale,
-                  vlp::Dropout{seed, threshold, keep_scale}, dtype, stream);
+                  vlp::dropout_arg(seed, threshold, keep_scale), dtype, stream);
 }
 
 // The bhld layout: q/k/v [B, H, L, 64] with element strides sb (batch), sh
@@ -1432,13 +1443,13 @@ int vlp_attention_bwd_bhld(const void* q, const void* k, const void* v,
                            int L, int H, long long sb, long long sh,
                            long long sl, long long dsb, long long dsh,
                            long long dsl, int prefix, float scale,
-                           unsigned long long seed, unsigned int threshold,
+                           const void* seed, unsigned int threshold,
                            float keep_scale, int dtype, void* stream) {
   const long long LD = (long long)L * D;
   return backward(q, k, v, dout, dq, dk, dv, scratch, mode, text_end, colkeep,
                   B, L, H, vlp::Strides{sb, sh, sl},
                   vlp::Strides{dsb, dsh, dsl}, vlp::Strides{H * LD, LD, D},
-                  prefix, scale, vlp::Dropout{seed, threshold, keep_scale},
+                  prefix, scale, vlp::dropout_arg(seed, threshold, keep_scale),
                   dtype, stream);
 }
 

@@ -146,7 +146,8 @@ __global__ void __launch_bounds__(kF32Warps * 32, 3)
                        const int* __restrict__ text_end,
                        const float* __restrict__ colkeep, int L, int H,
                        vlp::Strides in, vlp::Strides os, int prefix,
-                       float scale, vlp::Dropout dp, int align) {
+                       float scale, vlp::DropoutArg dp_arg, int align) {
+  const vlp::Dropout dp = dp_arg.load();
   extern __shared__ __align__(16) float smem_f[];
   float* ring = smem_f;                        // [2][K, V][64][kF32Stride]
   float* colbias = ring + 4 * kF32TileElems;   // [f32_tiles(L) * 64]
@@ -397,7 +398,8 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 2)
                       const int* __restrict__ text_end,
                       const float* __restrict__ colkeep, int L, int H,
                       vlp::Strides in, vlp::Strides os, int prefix,
-                      float scale, vlp::Dropout dp, int align) {
+                      float scale, vlp::DropoutArg dp_arg, int align) {
+  const vlp::Dropout dp = dp_arg.load();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int Lp = (L + 15) & ~15;
   T* sq = reinterpret_cast<T*>(smem_raw);
@@ -526,7 +528,8 @@ __global__ void __launch_bounds__(kRowWarps * 32, 2)
                        const int* __restrict__ text_end,
                        const float* __restrict__ colkeep, int L, int H,
                        vlp::Strides in, vlp::Strides os, int prefix,
-                       float scale, vlp::Dropout dp, int align) {
+                       float scale, vlp::DropoutArg dp_arg, int align) {
+  const vlp::Dropout dp = dp_arg.load();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sq = reinterpret_cast<T*>(smem_raw);      // [128][kTileStride]
   T* ring = sq + kRows * vlp::kTileStride;  // [kStages][K, V][64][kTileStride]
@@ -670,7 +673,7 @@ template <bool kDrop>
 int launch_fp32(const void* q, const void* k, const void* v, void* out,
                 const int* mode, const int* text_end, const float* colkeep,
                 int B, int L, int H, vlp::Strides in, vlp::Strides os,
-                int prefix, float scale, vlp::Dropout dp,
+                int prefix, float scale, vlp::DropoutArg dp,
                 cudaStream_t stream) {
   if (L > vlp::attention_fwd_max_len()) return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes_fp32(L);
@@ -693,7 +696,8 @@ template <typename T, bool kDrop>
 int launch_mma(const void* q, const void* k, const void* v, void* out,
                const int* mode, const int* text_end, const float* colkeep,
                int B, int L, int H, vlp::Strides in, vlp::Strides os,
-               int prefix, float scale, vlp::Dropout dp, cudaStream_t stream) {
+               int prefix, float scale, vlp::DropoutArg dp,
+               cudaStream_t stream) {
   if (L > vlp::attention_fwd_max_len()) return (int)cudaErrorInvalidValue;
   const int Lp = (L + 15) & ~15;
   const bool rows = Lp > kChunk;
@@ -736,7 +740,7 @@ template <bool kDrop>
 int dispatch(const void* q, const void* k, const void* v, void* out,
              const void* mode, const void* text_end, const void* colkeep,
              int B, int L, int H, vlp::Strides in, vlp::Strides os,
-             int prefix, float scale, vlp::Dropout dp, int dtype,
+             int prefix, float scale, vlp::DropoutArg dp, int dtype,
              void* stream) {
   if (B <= 0 || L <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
@@ -763,10 +767,10 @@ int dispatch(const void* q, const void* k, const void* v, void* out,
 int forward(const void* q, const void* k, const void* v, void* out,
             const void* mode, const void* text_end, const void* colkeep,
             int B, int L, int H, vlp::Strides in, vlp::Strides os, int prefix,
-            float scale, vlp::Dropout dp, int dtype, void* stream) {
+            float scale, vlp::DropoutArg dp, int dtype, void* stream) {
   if (dp.threshold == 0)
     return dispatch<false>(q, k, v, out, mode, text_end, colkeep, B, L, H, in,
-                           os, prefix, scale, vlp::Dropout{0, 0, 1.f},
+                           os, prefix, scale, vlp::DropoutArg{nullptr, 0, 1.f},
                            dtype, stream);
   return dispatch<true>(q, k, v, out, mode, text_end, colkeep, B, L, H, in,
                         os, prefix, scale, dp, dtype, stream);
@@ -788,20 +792,21 @@ extern "C" {
 
 // Both branches: q/k/v [B, L, H*64] with element strides sb (batch) and sl
 // (row), the last dimension contiguous; out: contiguous [B, L, H*64].
-// Attention-prob dropout is keyed on the 64-bit seed (threshold =
-// uint32(rate * 2^32), keep_scale = 1 / (1 - rate)); threshold 0 is the
-// deterministic kernel.  dtype (vlp::DType) selects the 16-bit
+// Attention-prob dropout is keyed on the 64-bit seed that seed points to
+// in device memory (vlp::DropoutArg; threshold = uint32(rate * 2^32),
+// keep_scale = 1 / (1 - rate)); threshold 0 is the deterministic kernel,
+// and seed may then be null.  dtype (vlp::DType) selects the 16-bit
 // tensor-core body in bf16 (1) or fp16 (2), or the fp32 body (0).  Returns
 // cudaGetLastError() after the launch.
 int vlp_attention_fwd(const void* q, const void* k, const void* v, void* out,
                       const void* mode, const void* text_end,
                       const void* colkeep, int B, int L, int H, long long sb,
                       long long sl, int prefix, float scale,
-                      unsigned long long seed, unsigned int threshold,
+                      const void* seed, unsigned int threshold,
                       float keep_scale, int dtype, void* stream) {
   return forward(q, k, v, out, mode, text_end, colkeep, B, L, H,
                  blhd_in(sb, sl), blhd_out(L, H), prefix, scale,
-                 vlp::Dropout{seed, threshold, keep_scale}, dtype, stream);
+                 vlp::dropout_arg(seed, threshold, keep_scale), dtype, stream);
 }
 
 // The bhld layout, both branches: q/k/v [B, H, L, 64] with element strides
@@ -812,12 +817,12 @@ int vlp_attention_fwd_bhld(const void* q, const void* k, const void* v,
                            void* out, const void* mode, const void* text_end,
                            const void* colkeep, int B, int L, int H,
                            long long sb, long long sh, long long sl,
-                           int prefix, float scale, unsigned long long seed,
+                           int prefix, float scale, const void* seed,
                            unsigned int threshold, float keep_scale,
                            int dtype, void* stream) {
   return forward(q, k, v, out, mode, text_end, colkeep, B, L, H,
                  vlp::Strides{sb, sh, sl}, bhld_out(L, H), prefix, scale,
-                 vlp::Dropout{seed, threshold, keep_scale}, dtype, stream);
+                 vlp::dropout_arg(seed, threshold, keep_scale), dtype, stream);
 }
 
 // Blocks per SM of the bf16 body that length L runs (drop: the dropout

@@ -165,6 +165,29 @@ struct Dropout {
   float scale;
 };
 
+// How K1, K2 and dropout_mask take their dropout: the seed lies in device
+// memory, as the TPU kernels take theirs as a scalar-prefetch operand
+// (vlp_tpu/ops/attention.py:295), so that a captured CUDA graph draws
+// whatever seed its slot holds when it is replayed.  Each block reads the
+// seed once, in its prologue (load()), into the Dropout its body keys
+// Philox with; the bits are those of the same seed passed by value.  With
+// threshold 0 (no dropout) the pointer may be null and is not read.  The
+// decode step (K5) and its regenerator (K6) take theirs by value.
+struct DropoutArg {
+  const unsigned long long* seed;
+  unsigned int threshold;
+  float scale;
+  __device__ __forceinline__ Dropout load() const {
+    return Dropout{threshold ? __ldg(seed) : 0ull, threshold, scale};
+  }
+};
+
+inline DropoutArg dropout_arg(const void* seed, unsigned int threshold,
+                              float scale) {
+  return DropoutArg{static_cast<const unsigned long long*>(seed), threshold,
+                    scale};
+}
+
 // Element strides of a [B, H, L, 64] view: element (b, h, i, d) sits at
 // b * b_ + h * h_ + i * l_ + d.  The blhd layout ([B, L, H*64], heads as
 // column slices of a row) is {sb, 64, sl}; the bhld layout ([B, H, L, 64],

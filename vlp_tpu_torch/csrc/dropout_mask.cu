@@ -32,7 +32,8 @@ constexpr int kColsPerBlock = 4 * 32;              // columns of a block
 template <bool kAligned>
 __global__ void __launch_bounds__(kWarps * 32)
     dropout_mask_kernel(float* __restrict__ out, int H, int L,
-                        int row_blocks, vlp::Dropout dp) {
+                        int row_blocks, vlp::DropoutArg dp_arg) {
+  const vlp::Dropout dp = dp_arg.load();
   const int bh = blockIdx.x / row_blocks;  // b * H + h
   const int i0 = (blockIdx.x - bh * row_blocks) * kRowsPerBlock +
                  threadIdx.x / 32;
@@ -70,8 +71,10 @@ __global__ void __launch_bounds__(kWarps * 32)
 
 extern "C" {
 
-// out: contiguous fp32 [B, H, L, L].  Returns cudaGetLastError().
-int vlp_dropout_mask(void* out, int B, int H, int L, unsigned long long seed,
+// out: contiguous fp32 [B, H, L, L]; seed points to the 64-bit seed in
+// device memory, as the attention kernels take it (vlp::DropoutArg).
+// Returns cudaGetLastError().
+int vlp_dropout_mask(void* out, int B, int H, int L, const void* seed,
                      unsigned int threshold, float keep_scale, void* stream) {
   if (B <= 0 || H <= 0 || L <= 0) return (int)cudaErrorInvalidValue;
   const int row_blocks = (L + kRowsPerBlock - 1) / kRowsPerBlock;
@@ -80,7 +83,7 @@ int vlp_dropout_mask(void* out, int B, int H, int L, unsigned long long seed,
   if (grid_x >= (1LL << 31) || grid_y > 65535)
     return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)grid_x, (unsigned)grid_y);
-  const vlp::Dropout dp{seed, threshold, keep_scale};
+  const vlp::DropoutArg dp = vlp::dropout_arg(seed, threshold, keep_scale);
   auto* o = static_cast<float*>(out);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (L % 4 == 0 && reinterpret_cast<unsigned long long>(out) % 16 == 0)

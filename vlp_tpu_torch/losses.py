@@ -37,7 +37,8 @@ def mlm_position_loss(logits: torch.Tensor, targets: torch.Tensor,
     f32 = lambda x: torch.tensor(x, dtype=torch.float32)  # noqa: E731
     ent = (confidence * torch.log(f32(max(confidence, 1e-20)))
            + (vocab_size - 2) * smooth * torch.log(f32(max(smooth, 1e-20))))
-    loss = cross + ent.to(cross.device)
+    # a 0-d CPU tensor: the add takes it as a scalar, with no host copy
+    loss = cross + ent
     return torch.where(targets == ignore_index, torch.zeros_like(loss), loss)
 
 

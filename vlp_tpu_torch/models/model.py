@@ -55,25 +55,69 @@ from vlp_tpu_torch.ops.philox import step_seed
 LN_EPS = 1e-5
 
 
+def _draw64(gen: torch.Generator) -> int:
+    """The next 64-bit seed of a host generator."""
+    lo, hi = torch.randint(0, 2 ** 32, (2,), generator=gen).tolist()
+    return lo | (hi << 32)
+
+
 class DropoutRNG:
     """The randomness of one training forward (the JAX package's
     ``dropout`` rng stream).
 
-    Attention-prob dropout takes one 64-bit Philox seed per layer, drawn on
-    the host from a CPU generator, so it reaches the kernel as an argument
-    without a device sync.  Hidden dropout draws its keep masks from a
+    Attention-prob dropout takes one 64-bit Philox seed per attention call
+    (per layer), hidden dropout draws its keep masks from a
     ``torch.Generator`` on the model's device (plain PyTorch; the JAX
-    package leaves it to XLA).  Both follow from ``seed`` alone."""
+    package leaves it to XLA).  Both follow from ``seed`` alone, in one of
+    two forms that draw the same bits:
+
+    * ``DropoutRNG(seed, device)``, the eager form: the seeds are drawn on
+      the host from a CPU generator, so they reach the kernels without a
+      device sync, and the hidden generator is seeded with the first draw;
+    * :meth:`from_slots`, the form a captured CUDA graph runs (the
+      counterpart of JAX's ``fold_in(rng, i)`` inside the device loop's
+      scan): the attention seeds are read from device slots and hidden
+      dropout draws from a generator registered with the graph, which the
+      caller writes and seeds from :meth:`plan` before each replay."""
 
     def __init__(self, seed: int, device):
         self._host = torch.Generator().manual_seed(seed)
+        self._slots = None
         self._device = torch.Generator(device=torch.device(device))
-        self._device.manual_seed(self.seed())
+        self._device.manual_seed(_draw64(self._host))
 
-    def seed(self) -> int:
-        """A fresh 64-bit seed."""
-        lo, hi = torch.randint(0, 2 ** 32, (2,), generator=self._host).tolist()
-        return lo | (hi << 32)
+    @classmethod
+    def from_slots(cls, slots: torch.Tensor,
+                   generator: torch.Generator) -> "DropoutRNG":
+        """Attention seeds from ``slots`` (1-d int64 on the device, one slot
+        per attention call in call order, each holding its seed's bits),
+        hidden dropout from ``generator``.  With the slots and the
+        generator set from ``plan(seed, len(slots))`` it draws bit for bit
+        what ``DropoutRNG(seed, device)`` draws."""
+        self = cls.__new__(cls)
+        self._host = None
+        self._slots, self._next = slots, 0
+        self._device = generator
+        return self
+
+    @staticmethod
+    def plan(seed: int, n_slots: int) -> Tuple[int, List[int]]:
+        """(the hidden generator's seed, the first ``n_slots`` attention
+        seeds) that ``DropoutRNG(seed, device)`` draws."""
+        host = torch.Generator().manual_seed(seed)
+        draws = [_draw64(host) for _ in range(1 + n_slots)]
+        return draws[0], draws[1:]
+
+    def seed(self):
+        """The next attention call's seed: a fresh 64-bit int, or (from
+        slots) the next slot, a 0-d int64 device tensor."""
+        if self._slots is None:
+            return _draw64(self._host)
+        if self._next >= self._slots.shape[0]:
+            raise RuntimeError(f"the forward made more attention calls than "
+                               f"its {self._slots.shape[0]} seed slots")
+        self._next += 1
+        return self._slots[self._next - 1]
 
     def hidden(self, x: torch.Tensor, rate: float) -> torch.Tensor:
         """flax ``nn.Dropout``: keep with probability 1 - rate, kept

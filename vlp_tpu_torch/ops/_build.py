@@ -17,6 +17,8 @@ without ``nvcc``.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -26,6 +28,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+from typing import Optional
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -42,19 +45,19 @@ _F = ctypes.c_float
 # C entry point -> argument types (see the extern "C" functions in csrc/)
 _SIGNATURES = {
     "vlp_attention_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL,
-                          _I, _F, _ULL, _U, _F, _I, _P],
+                          _I, _F, _P, _U, _F, _I, _P],
     "vlp_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                          _I, _LL, _LL, _LL, _LL, _I, _F, _ULL, _U, _F, _I,
+                          _I, _LL, _LL, _LL, _LL, _I, _F, _P, _U, _F, _I,
                           _P],
     "vlp_attention_bwd_max_len": [],
     "vlp_attention_bwd_scratch_floats": [_I, _I],   # (L, dtype code)
     "vlp_attention_fwd_blocks_per_sm": [_I, _I],   # (L, drop)
     "vlp_attention_fwd_bhld": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _LL,
-                               _LL, _LL, _I, _F, _ULL, _U, _F, _I, _P],
+                               _LL, _LL, _I, _F, _P, _U, _F, _I, _P],
     "vlp_attention_bwd_bhld": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _LL, _LL, _LL, _LL, _LL, _LL, _I,
-                               _F, _ULL, _U, _F, _I, _P],
-    "vlp_dropout_mask": [_P, _I, _I, _I, _ULL, _U, _F, _P],
+                               _F, _P, _U, _F, _I, _P],
+    "vlp_dropout_mask": [_P, _I, _I, _I, _P, _U, _F, _P],
     "vlp_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                              _I, _I, _I, _LL, _I, _F, _I, _P],
     "vlp_decode_attention_drop": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -69,8 +72,9 @@ class Kernel:
     """One hand-written kernel of the port and its launch count.
 
     ``launches`` is incremented by the wrapper at the one place it launches
-    the kernel; ``chip_smoke.py`` zeroes it before driving the main path
-    and reads it after."""
+    the kernel (:func:`count_launch`), and by every replay of a captured
+    CUDA graph that launches it (:func:`add_launches`); ``chip_smoke.py``
+    zeroes it before driving the main path and reads it after."""
     name: str
     source: str      # path in the repository
     replaces: str    # the TPU kernel, file:line
@@ -124,9 +128,48 @@ for _name in ("attention_fwd", "attention_fwd_drop", "attention_bwd",
 del _name, _k
 
 
+# the tally of an open recording(), or None
+_recording: Optional[collections.Counter] = None
+
+
 def reset_launch_counts() -> None:
     for k in KERNELS.values():
         k.launches = 0
+
+
+def count_launch(name: str) -> None:
+    """One launch of kernel ``name`` by its wrapper: added to its count, or
+    to the tally of the open :func:`recording`."""
+    if _recording is not None:
+        _recording[name] += 1
+    else:
+        KERNELS[name].launches += 1
+
+
+@contextlib.contextmanager
+def recording():
+    """Tally the wrappers' launches apart from the kernels' counts: yields
+    a ``Counter`` (kernel name -> launches) that takes them instead.
+
+    A CUDA graph's capture runs the wrappers once but launches nothing; its
+    replays launch what the capture recorded, and no Python runs then.  So
+    the capture is recorded here and each replay adds the tally
+    (:func:`add_launches`); the eager warm-up before a capture, whose
+    results are thrown away, is recorded and dropped.  Not nestable."""
+    global _recording
+    if _recording is not None:
+        raise RuntimeError("launch recordings do not nest")
+    _recording = collections.Counter()
+    try:
+        yield _recording
+    finally:
+        _recording = None
+
+
+def add_launches(counts) -> None:
+    """One replay of a graph whose capture recorded ``counts``."""
+    for name, n in counts.items():
+        KERNELS[name].launches += n
 
 
 def _sources():

@@ -40,8 +40,16 @@ layout, which every model call uses) and ``layout="bhld"``
 * ``dropout_mask`` — the multipliers themselves (``csrc/dropout_mask.cu``),
   to hold the kernels' bits against ``philox.keep_scale`` on the card.
 
-A dropout ``seed`` is a 64-bit int, one per call (per layer and step); the
-example, head, row and column of a draw are Philox's counter.
+A dropout ``seed`` is 64 bits, one per call (per layer and step); the
+example, head, row and column of a draw are Philox's counter.  Every
+function here takes it in one of two forms: a 0-d ``int64`` or ``uint64``
+tensor (its 64 bits as they are) or a Python int in [0, 2^64).  The
+kernels read it from device memory, as the TPU kernels take theirs as a
+scalar-prefetch operand (``vlp_tpu/ops/attention.py:295``), so a captured
+CUDA graph draws whatever its slot holds when it is replayed
+(``models.model.DropoutRNG``'s seed table); a Python int is first written
+into a slot of its own (:func:`seed_slot`).  The plain versions take
+either form and draw the same bits from both.
 """
 
 from __future__ import annotations
@@ -104,7 +112,7 @@ def attention_plain(q, k, v, mode, text_end, colkeep, *, prefix: int,
                     dropout_rate: float = 0.0, seed=None,
                     layout: str = "blhd") -> torch.Tensor:
     """q/k/v: [B, L, H, D] (``[B, H, L, D]`` in bhld); mode/text_end:
-    int[B]; colkeep: float[B, L]; seed: 64-bit int when
+    int[B]; colkeep: float[B, L]; seed (module docstring) when
     ``dropout_rate > 0``.  Returns q's layout and dtype."""
     if layout != "blhd":
         q, k, v = _swap(layout, q, k, v)
@@ -205,15 +213,36 @@ def _check_qkv(q, k, v, mode, text_end, colkeep, what, layout="blhd"):
             colkeep.to(torch.float32).contiguous())
 
 
-def _dropout_args(dropout_rate: float, seed):
-    """(seed, threshold, keep_scale) of the kernels' C interface."""
+def seed_slot(seed, device) -> torch.Tensor:
+    """The 0-d int64 tensor on ``device`` that the kernels read a dropout
+    seed from: ``seed`` itself when it is a 0-d int64 tensor there (a
+    uint64 one viewed as int64, the same bits), or a Python int in
+    [0, 2^64) written into a new slot by a fill on the device (no host
+    copy, no sync)."""
+    device = torch.device(device)
+    if torch.is_tensor(seed):
+        if seed.shape != () or seed.dtype not in (torch.int64, torch.uint64):
+            raise ValueError("a dropout seed tensor is 0-d int64 or uint64, "
+                             f"got {tuple(seed.shape)} {seed.dtype}")
+        if seed.device != device:
+            raise ValueError(f"dropout seed on {seed.device}, not {device}")
+        return seed.view(torch.int64)
+    if seed is None or not 0 <= seed < 2 ** 64:
+        raise ValueError("attention dropout needs a 64-bit seed")
+    return torch.full((), philox.as_int64(seed), dtype=torch.int64,
+                      device=device)
+
+
+def _dropout_args(dropout_rate: float, seed, device):
+    """(slot, seed pointer, threshold, keep_scale) of the kernels' C
+    interface: ``slot`` (:func:`seed_slot`, None at rate 0) holds the seed
+    the pointer points to and must outlive the launch."""
     if not 0.0 <= dropout_rate < 1.0:
         raise ValueError(f"dropout rate {dropout_rate} outside [0, 1)")
     if dropout_rate == 0.0:
-        return 0, 0, 1.0
-    if seed is None or not 0 <= seed < 2 ** 64:
-        raise ValueError("attention dropout needs a 64-bit seed")
-    return (seed, philox.keep_threshold(dropout_rate),
+        return None, None, 0, 1.0
+    slot = seed_slot(seed, device)
+    return (slot, slot.data_ptr(), philox.keep_threshold(dropout_rate),
             1.0 / (1.0 - dropout_rate))
 
 
@@ -239,11 +268,12 @@ def _forward_cuda(q, k, v, mode, text_end, colkeep, prefix,
     common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
               mode.data_ptr(), text_end.data_ptr(), colkeep.data_ptr(),
               B, L, H, *strides, prefix, 1.0 / math.sqrt(D))
+    slot, *drop_args = _dropout_args(*(dropout or (0.0, None)), q.device)
     err = getattr(_build.library(), "vlp_" + entry)(
-        *common, *_dropout_args(*(dropout or (0.0, None))),
-        DTYPE_CODES[q.dtype], _build.stream_ptr(q.device))
+        *common, *drop_args, DTYPE_CODES[q.dtype],
+        _build.stream_ptr(q.device))
     _build.check(err, what)
-    _build.KERNELS[what].launches += 1
+    _build.count_launch(what)
     return out
 
 
@@ -275,22 +305,24 @@ def _backward_cuda(q, k, v, mode, text_end, colkeep, dout, prefix, rate,
     n_scratch = lib.vlp_attention_bwd_scratch_floats(L, dtype)
     scratch = (torch.empty(B * H * n_scratch, dtype=torch.float32,
                            device=q.device) if n_scratch else None)
+    slot, *drop_args = _dropout_args(rate, seed, q.device)
     err = getattr(lib, "vlp_" + entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         *(g.data_ptr() for g in grads),
         None if scratch is None else scratch.data_ptr(), mode.data_ptr(),
         text_end.data_ptr(), colkeep.data_ptr(), B, L, H,
         *q.stride()[:n], *dout.stride()[:n], prefix, 1.0 / math.sqrt(D),
-        *_dropout_args(rate, seed), dtype, _build.stream_ptr(q.device))
+        *drop_args, dtype, _build.stream_ptr(q.device))
     _build.check(err, what)
-    _build.KERNELS[what].launches += 1
+    _build.count_launch(what)
     return tuple(grads)
 
 
 class FusedAttention(torch.autograd.Function):
     """Training attention: K1 with dropout forward, K2 backward, no L x L
     residual saved (the backward recomputes P and regenerates the dropout
-    multipliers from ``seed``).
+    multipliers from ``seed``).  On the card the seed is held as its device
+    slot (:func:`seed_slot`), and K2 reads the slot K1 read.
 
     ``FusedAttention.apply(q, k, v, mode, text_end, colkeep, prefix,
     dropout_rate, seed[, layout])``, ``layout`` "blhd" (the default, every
@@ -301,6 +333,8 @@ class FusedAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, mode, text_end, colkeep, prefix, dropout_rate,
                 seed, layout="blhd"):
         ctx.save_for_backward(q, k, v, mode, text_end, colkeep)
+        if q.device.type != "cpu" and dropout_rate > 0.0:
+            seed = seed_slot(seed, q.device)
         ctx.args = (prefix, dropout_rate, seed, layout)
         if q.device.type == "cpu":
             return attention_plain(q, k, v, mode, text_end, colkeep,
@@ -333,11 +367,11 @@ def dropout_mask(B: int, H: int, L: int, dropout_rate: float, seed,
     if device.type != "cuda":
         raise ValueError(f"dropout_mask: unsupported device {device}")
     out = torch.empty((B, H, L, L), dtype=torch.float32, device=device)
+    slot, *drop_args = _dropout_args(dropout_rate, seed, device)
     err = _build.library().vlp_dropout_mask(
-        out.data_ptr(), B, H, L, *_dropout_args(dropout_rate, seed),
-        _build.stream_ptr(device))
+        out.data_ptr(), B, H, L, *drop_args, _build.stream_ptr(device))
     _build.check(err, "dropout_mask")
-    _build.KERNELS["dropout_mask"].launches += 1
+    _build.count_launch("dropout_mask")
     return out
 
 

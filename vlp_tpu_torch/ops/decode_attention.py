@@ -37,7 +37,7 @@ import math
 import torch
 
 from vlp_tpu_torch.ops import _build, philox
-from vlp_tpu_torch.ops.attention import HEAD_DIM, _dropout_args
+from vlp_tpu_torch.ops.attention import HEAD_DIM
 from vlp_tpu_torch.ops.masks import NEG_INF
 
 MAX_DROPOUT_STEPS = 128   # kMaxSteps of csrc/decode_dropout.cu
@@ -202,8 +202,22 @@ def _decode_attention_cuda(q, k, v, pk, pv, gk, gv, gen_len, n_heads,
             *ptrs, ab, out.data_ptr(), B, K, S, P, G, H, pk.stride(0),
             *tail, *flags)
     _build.check(err, name)
-    _build.KERNELS[name].launches += 1
+    _build.count_launch(name)
     return out
+
+
+def _dropout_args(dropout_rate: float, seed: int):
+    """(seed, threshold, keep_scale) of K5's and K6's C interface, which
+    take the 64-bit seed by value (an SCST step is not captured in a CUDA
+    graph; K1/K2 read theirs from device memory, ``ops.attention``)."""
+    if not 0.0 <= dropout_rate < 1.0:
+        raise ValueError(f"dropout rate {dropout_rate} outside [0, 1)")
+    if dropout_rate == 0.0:
+        return 0, 0, 1.0
+    if seed is None or not 0 <= seed < 2 ** 64:
+        raise ValueError("attention dropout needs a 64-bit seed")
+    return (seed, philox.keep_threshold(dropout_rate),
+            1.0 / (1.0 - dropout_rate))
 
 
 def decode_dropout_scales(seeds, B: int, *, n_heads: int, S: int, P: int,
@@ -236,5 +250,5 @@ def decode_dropout_scales(seeds, B: int, *, n_heads: int, S: int, P: int,
         out.data_ptr(), (ctypes.c_ulonglong * W)(*seeds), W, B, H, S, P + G,
         threshold, keep, _build.stream_ptr(device))
     _build.check(err, "decode_dropout_scales")
-    _build.KERNELS["decode_dropout_scales"].launches += 1
+    _build.count_launch("decode_dropout_scales")
     return out

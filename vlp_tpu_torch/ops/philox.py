@@ -61,10 +61,24 @@ def _mulhilo(m: int, x: torch.Tensor):
     return (hi16 >> 16) + (low >> 32), low & MASK32
 
 
-def philox4x32(c0, c1, c2, c3, seed: int):
+def as_int64(seed: int) -> int:
+    """A 64-bit seed in [0, 2^64) as the int64 that holds its bits."""
+    return seed - (1 << 64) if seed >= 1 << 63 else seed
+
+
+def _key(seed, device):
+    """``seed`` as :func:`philox4x32` takes it: a Python int, or a 0-d
+    int64 tensor on ``device`` (a uint64 tensor holds the same bits)."""
+    if not torch.is_tensor(seed):
+        return seed
+    return seed.view(torch.int64).to(device)
+
+
+def philox4x32(c0, c1, c2, c3, seed):
     """Philox4x32-10 of the counter words ``(c0, c1, c2, c3)`` (int64
     tensors of uint32 values, broadcastable) under the 64-bit ``seed``
-    (key words: low, high).  Returns the four output words."""
+    (key words: low, high): a Python int, or a 0-d int64 tensor on the
+    counters' device holding its bits.  Returns the four output words."""
     k0, k1 = seed & MASK32, (seed >> 32) & MASK32
     for r in range(ROUNDS):
         if r:
@@ -80,10 +94,12 @@ def keep_threshold(rate: float) -> int:
     return min(int(rate * float(2 ** 32)), 2 ** 32 - 1)
 
 
-def keep_scale(seed: int, B: int, H: int, L: int, rate: float,
+def keep_scale(seed, B: int, H: int, L: int, rate: float,
                device=None) -> torch.Tensor:
     """fp32 ``[B, H, L, L]`` attention-dropout multipliers: ``1/(1-rate)``
-    where kept, 0 where dropped."""
+    where kept, 0 where dropped.  ``seed``: a Python int or a 0-d int64 /
+    uint64 tensor (``ops.attention``'s two forms), the same bits from
+    both."""
     return _keep_scale(seed, B, H, L, L, rate, device)
 
 
@@ -101,7 +117,8 @@ def _keep_scale(seed, B, H, rows, cols, rate, device):
         return torch.arange(n, dtype=torch.int64, device=device).view(shape)
 
     words = philox4x32(ar(nblk, 1, 1, 1, nblk), ar(rows, 1, 1, rows, 1),
-                       ar(H, 1, H, 1, 1), ar(B, B, 1, 1, 1), seed)
+                       ar(H, 1, H, 1, 1), ar(B, B, 1, 1, 1),
+                       _key(seed, device))
     bits = torch.stack(torch.broadcast_tensors(*words), dim=-1)
     bits = bits.reshape(B, H, rows, nblk * 4)[..., :cols]
     keep = bits >= keep_threshold(rate)

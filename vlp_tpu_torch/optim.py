@@ -12,7 +12,9 @@ to the reference optimizer (``optimization.py:33-182``):
 
 State is fp32.  Parameters and moments are dicts keyed by the parameters'
 reference names (``model.named_parameters()``); the step updates the
-parameters in place.
+parameters, the moments and its step count (a device tensor) in place, so
+a captured CUDA graph of training steps (``train_step.make_multi_step``)
+reads and writes the same tensors at every replay.
 
 ``DynamicLossScale`` is the fp16 loss scaling of ``--true_fp16`` (the
 reference's apex ``FP16_Optimizer``, optimization_fp16.py:7-80; JAX
@@ -64,7 +66,8 @@ def default_weight_decay_mask(names: Iterable[str]) -> Dict[str, bool]:
 class BertAdam:
     """The reference BertAdam over ``params`` (name -> parameter):
     ``step()`` applies one update from the parameters' ``.grad`` (averaged
-    by the caller; ``None`` counts as zero) and increments ``step_count``.
+    by the caller; ``None`` counts as zero) and increments ``step_count``,
+    a 0-d int64 tensor on the parameters' device.
 
     ``anchors`` (name -> fp32 tensor) switches on the fine-tune decay
     ``wd * (2 p - anchor)``; see :func:`bert_adam_finetune`.
@@ -88,16 +91,20 @@ class BertAdam:
                   for n, p in self.params.items()}
         self.v = {n: torch.zeros_like(p, dtype=torch.float32)
                   for n, p in self.params.items()}
-        self.step_count = 0
+        dev = next(iter(self.params.values())).device
+        self.step_count = torch.zeros((), dtype=torch.int64, device=dev)
         self.loss_scale: Optional[Dict[str, torch.Tensor]] = None
 
     def lr_at(self, step) -> torch.Tensor:
         """fp32 learning rate of the update after ``step`` completed ones
-        (an int, or an integer tensor on the parameters' device)."""
+        (an int, or an integer tensor, which gives a tensor on its
+        device)."""
+        step = torch.as_tensor(step)
         if self.t_total > 0 and self.warmup >= 0:
-            x = torch.as_tensor(step).to(torch.float32) / self.t_total
+            x = step.to(torch.float32) / self.t_total
             return self.lr * self.schedule(x, self.warmup)
-        return torch.tensor(self.lr, dtype=torch.float32)
+        return torch.full((), self.lr, dtype=torch.float32,
+                          device=step.device)
 
     @staticmethod
     def _clip(g: torch.Tensor) -> torch.Tensor:
@@ -113,21 +120,23 @@ class BertAdam:
         the update conditional on the device, with no sync: where it is
         False the parameters, both moments and the schedule's step count
         stay as they were (JAX ``_apply_grads`` keeps ``opt_state``
-        whole).  ``step_count`` is then a device tensor."""
-        lr_t = None
-        if finite is not None:
-            dev = finite.device
-            self.step_count = torch.as_tensor(self.step_count, device=dev)
+        whole).  Nothing here reads a device value on the host."""
+        lr_t = self.lr_at(self.step_count)
         for n, p in self.params.items():
-            if lr_t is None:
-                lr_t = self.lr_at(self.step_count).to(p.device)
             # a parameter the loss does not reach (the pooler without the
             # pretext loss) has a zero gradient, as in JAX: its moments
             # decay and weight decay still applies
             g = (torch.zeros_like(p, dtype=torch.float32) if p.grad is None
                  else self._clip(p.grad.float()))
-            m = B1 * self.m[n] + (1 - B1) * g
-            v = B2 * self.v[n] + (1 - B2) * g * g
+            # the moments in place, in the order of the reference's
+            # out-of-place update (the same bits)
+            m_old, v_old = self.m[n], self.v[n]
+            if finite is None:
+                m = m_old.mul_(B1).add_((1 - B1) * g)
+                v = v_old.mul_(B2).add_((1 - B2) * g * g)
+            else:
+                m = B1 * m_old + (1 - B1) * g
+                v = B2 * v_old + (1 - B2) * g * g
             u = m / (torch.sqrt(v) + EPS)
             if self.weight_decay > 0:
                 wd = self.weight_decay if self.decay[n] else 0.0
@@ -136,19 +145,19 @@ class BertAdam:
                               else 2.0 * p32 - self.anchors[n])
             upd = -lr_t * u
             if finite is not None:
-                m = torch.where(finite, m, self.m[n])
-                v = torch.where(finite, v, self.v[n])
+                m_old.copy_(torch.where(finite, m, m_old))
+                v_old.copy_(torch.where(finite, v, v_old))
                 upd = torch.where(finite, upd, torch.zeros_like(upd))
-            self.m[n], self.v[n] = m, v
             p.add_(upd.to(p.dtype))
-        self.step_count = self.step_count + (
-            1 if finite is None else finite.to(torch.int64))
+        self.step_count.add_(1 if finite is None
+                             else finite.to(torch.int64))
 
     def state_dict(self) -> dict:
         """``{"step", "m", "v"}``, plus ``"loss_scale"`` (``{"scale",
         "good_steps"}`` as Python numbers) when the run scales its loss."""
-        out = {"step": int(self.step_count), "m": dict(self.m),
-               "v": dict(self.v)}
+        out = {"step": int(self.step_count),
+               "m": {n: t.clone() for n, t in self.m.items()},
+               "v": {n: t.clone() for n, t in self.v.items()}}
         if self.loss_scale is not None:
             out["loss_scale"] = {
                 "scale": float(self.loss_scale["scale"]),
@@ -172,18 +181,14 @@ class BertAdam:
                     raise ValueError(f"optimizer state {key}[{n}]: shape "
                                      f"{tuple(t.shape)} != "
                                      f"{tuple(self.params[n].shape)}")
-            getattr(self, key).update(
-                {n: t.to(device=self.params[n].device, dtype=torch.float32)
-                 for n, t in saved.items()})
-        self.step_count = int(state["step"])
+            mine = getattr(self, key)
+            for n, t in saved.items():
+                mine[n].copy_(t)
+        self.step_count.fill_(int(state["step"]))
         if self.loss_scale is not None and "loss_scale" in state:
-            dev = self.loss_scale["scale"].device
             saved = state["loss_scale"]
-            self.loss_scale = {
-                "scale": torch.tensor(float(saved["scale"]),
-                                      dtype=torch.float32, device=dev),
-                "good_steps": torch.tensor(int(saved["good_steps"]),
-                                           dtype=torch.int32, device=dev)}
+            self.loss_scale["scale"].fill_(float(saved["scale"]))
+            self.loss_scale["good_steps"].fill_(int(saved["good_steps"]))
 
 
 def bert_adam_finetune(params: Dict[str, torch.Tensor], lr: float, *,
@@ -238,9 +243,12 @@ class DynamicLossScale:
                           state: Dict[str, torch.Tensor]
                           ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
         """(fp32 gradients times 1 / scale, whether every element of every
-        one is finite: a 0-d bool tensor)."""
+        one is finite: a 0-d bool tensor).  An fp32 gradient is unscaled in
+        place, so a parameter's ``.grad`` keeps its buffer (a captured step
+        writes the same memory at every replay); another dtype is cast to
+        a new fp32 tensor first."""
         inv = 1.0 / state["scale"]
-        grads = {n: g.float() * inv for n, g in grads.items()}
+        grads = {n: g.float().mul_(inv) for n, g in grads.items()}
         finite = torch.stack([torch.isfinite(g).all()
                               for g in grads.values()]).all()
         return grads, finite

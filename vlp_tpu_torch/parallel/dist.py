@@ -85,24 +85,22 @@ class Dist:
             for t in list(module.parameters()) + list(module.buffers()):
                 tdist.broadcast(t.data, src=0)
 
-    def all_reduce_grads(self, params: Iterable[torch.nn.Parameter]) -> None:
+    def all_reduce_grads(self, params: Iterable[torch.nn.Parameter], *,
+                         check: bool = True) -> None:
         """Replace each ``.grad`` by its mean over the ranks: one all-reduce
         per bucket of up to BUCKET_BYTES, flattened.  The ranks must agree
-        on which parameters have no gradient; otherwise it raises.  Under
-        ``torch.profiler`` the agreement check and the buckets are the
-        ranges ``dist.grad_agreement`` and ``dist.grad_buckets``."""
+        on which parameters have no gradient; ``check`` verifies it first
+        (:meth:`check_grad_agreement`, which syncs the host: a captured
+        step checks once, before its capture, and reduces with
+        ``check=False``).  Under ``torch.profiler`` the agreement check and
+        the buckets are the ranges ``dist.grad_agreement`` and
+        ``dist.grad_buckets``."""
         if not self.grouped:
             return
         start = self._mark()
         params = [p for p in params if p.requires_grad]
-        with record_function("dist.grad_agreement"):
-            has = torch.tensor([p.grad is not None for p in params],
-                               dtype=torch.int32, device=self.device)
-            tdist.all_reduce(has)
-            agree = bool(((has == 0) | (has == self.world)).all())
-        if not agree:
-            raise RuntimeError("data parallel: the ranks disagree on which "
-                               "parameters have a gradient")
+        if check:
+            self.check_grad_agreement(params)
         grads = [p.grad for p in params if p.grad is not None]
         with record_function("dist.grad_buckets"):
             bucket: List[torch.Tensor] = []
@@ -118,6 +116,22 @@ class Dist:
                     size += g.numel() * g.element_size()
         if start is not None:
             self.reductions.append((start, self._mark()))
+
+    def check_grad_agreement(self, params: Iterable[torch.nn.Parameter]
+                             ) -> None:
+        """Raise unless every rank has a gradient for the same parameters
+        (one all-reduce and a host sync)."""
+        if not self.grouped:
+            return
+        params = [p for p in params if p.requires_grad]
+        with record_function("dist.grad_agreement"):
+            has = torch.tensor([p.grad is not None for p in params],
+                               dtype=torch.int32, device=self.device)
+            tdist.all_reduce(has)
+            agree = bool(((has == 0) | (has == self.world)).all())
+        if not agree:
+            raise RuntimeError("data parallel: the ranks disagree on which "
+                               "parameters have a gradient")
 
     def _reduce_bucket(self, bucket: List[torch.Tensor]) -> None:
         """One flat all-reduce of the bucket's tensors, their mean copied
