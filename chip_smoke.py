@@ -39,6 +39,16 @@ the train, decode and VQA CLIs over NCCL at world size 1, which must equal
 the runs without a group bit for bit, and two gloo ranks on the one card
 (this script re-run with ``--dp-worker``, DP2_LAYERS deep), which must stay
 in sync and, in fp32, equal the single-process step on the global batch.
+Phase 7 runs tensor parallelism: K1 (both branches) and K2 at a rank's
+heads (H = 6 and 3) against their plain versions in three dtypes, with
+``dropout_mask``'s bits under a tp-folded seed and the bf16 times beside
+SDPA; then two gloo ranks on the one card (``--tp-worker``): fp32 TP steps
+against the single-process step, and ``vlp_tpu_torch.cli.train
+--tensor_parallel 2`` (bert-base, 12 layers, B=64, 4 steps, each rank's
+group formed by the caller) with exact launch counts at H = 6 and
+bit-identical replicated parameters, whose gathered ``model.1.bin``
+decodes in a world-1 model; and with two or more GPUs the same CLI over
+NCCL, eager and with ``--device_loop_steps 2``.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --ab-times ROOT   # another checkout's kernels
@@ -3130,6 +3140,370 @@ def phase_dp_two_ranks(vocab_path, out_dir):
             for k in zero}
 
 
+# ---- phase 7: tensor parallelism (--tensor_parallel 2) ----------------------
+TP_HEADS = (6, 3)            # phase 7a: a rank's heads at tp = 2 and 4
+TP_STEPS = 4                 # phase 7c: train CLI steps
+TP_B = 64                    # phase 7c: global batch (dp = 1)
+
+
+def phase_tp_kernels(dev, results):
+    """Phase 7a: K1 (both branches) and K2 at a tensor-parallel rank's
+    heads, H = 6 (tp = 2) and H = 3 (tp = 4), B=64, L=128, in fp32, bf16
+    and fp16, each against its plain version with phase 2's tolerances
+    (dropout at rate 0 and 0.1, the seed folded as rank 1's,
+    ``step_seed(TRAIN_SEED, 1)``); ``dropout_mask`` at H = 6 with that
+    seed bit for bit against ``philox.keep_scale``; the bf16 dropout
+    branch and K2 timed (``form_times``: kernel, plain version, SDPA, the
+    bound).  Results under ``attention_fwd_drop_h6`` / ``attention_bwd_h6``
+    (the H = 6 times at their top level, H = 3 under ``h3``)."""
+    from vlp_tpu_torch.ops import attention as attn
+    from vlp_tpu_torch.ops import philox
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    B, L, P, rate = 64, 128, 102, 0.1
+    seed = seed_arg(attn, philox.step_seed(TRAIN_SEED, 1), dev)
+    mask = attn.dropout_mask(B, 6, L, rate, seed, dev)
+    want = philox.keep_scale(seed, B, 6, L, rate, device=dev)
+    torch.cuda.synchronize()
+    if not torch.equal(mask, want):
+        fail(f"dropout_mask H=6: {(mask != want).sum().item()} multipliers "
+             "differ from the plain Philox under the tp-folded seed")
+    log(f"dropout_mask B={B} H=6 L={L}, tp-folded seed: bit-exact, keep "
+        f"fraction {(mask > 0).float().mean().item():.5f}")
+    del mask, want
+    for H in TP_HEADS:
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            q, k, v, mode, te, ck, dout = train_inputs(g, dev, dtype, B, L,
+                                                       H=H)
+            tag = f"H={H} B={B} L={L} {dtype} ({body(dtype)})"
+            e = errs.setdefault(str(dtype)[6:], {})
+            e["attention_fwd"] = compare(
+                f"K1 {tag}", attn.attention(q, k, v, mode, te, ck, prefix=P),
+                attn.attention_plain(q, k, v, mode, te, ck, prefix=P),
+                TOL[dtype])
+            for r in (0.0, rate):
+                e["attention_fwd_drop"] = max(e.get("attention_fwd_drop", 0),
+                                              compare(
+                    f"K1 dropout {tag} rate={r}",
+                    attn._forward_cuda(q, k, v, mode, te, ck, P,
+                                       dropout=(r, seed)),
+                    attn.attention_plain(q, k, v, mode, te, ck, prefix=P,
+                                         dropout_rate=r, seed=seed),
+                    TOL[dtype]))
+                got = attn._backward_cuda(q, k, v, mode, te, ck, dout, P, r,
+                                          seed)
+                ref = attn.attention_bwd_plain(q, k, v, mode, te, ck, dout,
+                                               prefix=P, dropout_rate=r,
+                                               seed=seed)
+                for n, a, b_ in zip(("dq", "dk", "dv"), got, ref):
+                    e["attention_bwd"] = max(e.get("attention_bwd", 0),
+                                             compare(f"K2 {n} {tag} rate={r}",
+                                                     a, b_, TOL[dtype]))
+            del q, k, v, dout
+        q, k, v, mode, te, ck, dout = train_inputs(g, dev, torch.bfloat16, B,
+                                                   L, H=H)
+        times = form_times(attn, q, k, v, mode, te, ck, dout, P, rate, seed,
+                           forms=(1, 2))
+        del q, k, v, dout
+        for name, r in times.items():
+            log_times(f"{name} H={H}", r)
+            r.update(H=H, max_abs_err=errs["bfloat16"][name],
+                     max_abs_err_by_dtype={d: x[name]
+                                           for d, x in errs.items()})
+            entry = results.setdefault(f"{name}_h6", {})
+            if H == 6:
+                entry.update(r)
+            else:
+                entry[f"h{H}"] = r
+
+
+def tp_flags(vocab_path, out, *extra):
+    """Phase 7c's train CLI flags: phase 4b's (``train_flags``) with
+    ``--tensor_parallel 2``, one epoch of TP_STEPS steps, a profile of
+    step 2 (rank 0's ``profile.txt``)."""
+    return train_flags(vocab_path, out) + [
+        "--tensor_parallel", "2", "--num_train_epochs", "1",
+        "--steps_per_epoch", str(TP_STEPS), "--profile_steps", "1", *extra]
+
+
+def replicated_hash(model) -> str:
+    """sha256 of the parameters tensor parallelism leaves whole."""
+    import hashlib
+    from vlp_tpu_torch.parallel import mesh
+    h = hashlib.sha256()
+    for k, v in sorted(model.state_dict().items()):
+        if mesh.shard_dim(k) is None:
+            h.update(k.encode())
+            h.update(v.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def tp_worker(rank: int, port: int, vocab_path: str, out_dir: str,
+              out: str, backend: str) -> None:
+    """Rank ``rank`` of dp x tp = 1 x 2, its group formed here: gloo, both
+    ranks on cuda:0 (NCCL refuses two ranks on one device), or NCCL on
+    cuda:{rank}.  Under gloo: (b) two fp32 TP steps at bert-base width,
+    DP2_LAYERS deep, dropout 0, global B=16, and on rank 0 the
+    single-process step on the same batch beside them; then (c) the train
+    CLI (``tp_flags``), which adopts the group.  Under NCCL: the CLI, then
+    the CLI with ``--device_loop_steps 2``.  Writes each CLI run's launch
+    counts, losses, step times and replicated-parameter hash, and the time
+    of one step's f/g all-reduces (``2 x 2 x layers`` sums of a [B, L, 768]
+    bf16 activation over the group), to ``out``."""
+    import torch.distributed as tdist
+
+    import vlp_tpu_torch
+    from vlp_tpu_torch import optim, parallel
+    from vlp_tpu_torch import train_step as ts
+    from vlp_tpu_torch.cli import train as train_cli
+    from vlp_tpu_torch.cli.common import resolve_tokenizer
+    from vlp_tpu_torch.config import VLPConfig
+    from vlp_tpu_torch.data.example_builder import TrainExampleBuilder, collate
+    from vlp_tpu_torch.models.model import VLPModel
+    from vlp_tpu_torch.ops import _build
+    from vlp_tpu_torch.parallel import mesh
+    from vlp_tpu_torch.parallel.tp_step import (make_tp_train_step,
+                                                sharded_names)
+
+    vlp_tpu_torch.configure_precision()
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    tdist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
+                             world_size=2, rank=rank)
+    res = {"counts": {}}
+    try:
+        if backend == "gloo":
+            vocab = resolve_tokenizer(vocab_path, False).vocab
+            words = [w for w in vocab if not w.startswith("[")]
+            rng = np.random.default_rng(0)
+            GB = 16
+            cfg = VLPConfig(vocab_size=len(vocab), relax_projection=0,
+                            max_pred=3, num_hidden_layers=DP2_LAYERS,
+                            dtype="float32", hidden_dropout_prob=0.0,
+                            attention_probs_dropout_prob=0.0)
+            nv = cfg.len_vis_input
+            batches = []
+            for _ in range(2):
+                exs = []
+                for i in range(GB):
+                    b = TrainExampleBuilder(cfg, vocab,
+                                            mode="s2s" if i % 2 else "bi",
+                                            vis_mask_prob=0.2)
+                    toks = [words[j] for j in rng.integers(0, len(words), 9)]
+                    exs.append(b(toks, rng.normal(size=(nv, cfg.vis_feat_dim)),
+                                 rng.uniform(size=(nv, cfg.vis_pe_dim)), rng))
+                batches.append({k: torch.from_numpy(v).to(dev)
+                                for k, v in collate(exs).items()})
+
+            def model_of():
+                m = VLPModel(cfg)
+                m.init_weights(torch.Generator().manual_seed(0))
+                return m.to(dev)
+
+            dist = parallel.from_cli("cuda").with_tensor_parallel(2)
+            m = model_of().shard_(dist.tensor_parallel)
+            opt = optim.BertAdam(dict(m.named_parameters()), DP_LR,
+                                 warmup=0.1, t_total=-1,
+                                 clip_group=dist.tp_group,
+                                 clip_sharded=sharded_names(m))
+            step = make_tp_train_step(m, opt, dist, mask_image_regions=True)
+            res["fp32_losses"] = [float(step(b, ts.step_seed(11, i))["loss"])
+                                  for i, b in enumerate(batches)]
+            got = mesh.gather_full(m.state_dict(), dist.tp_index, 2,
+                                   dist.tp_group)
+            if rank == 0:
+                ref = model_of()
+                ropt = optim.BertAdam(dict(ref.named_parameters()), DP_LR,
+                                      warmup=0.1, t_total=-1)
+                rstep = ts.make_train_step(ref, ropt, mask_image_regions=True)
+                res["fp32_ref_losses"] = [
+                    float(rstep(b, ts.step_seed(11, i))["loss"])
+                    for i, b in enumerate(batches)]
+                init = model_of().state_dict()
+                want = ref.state_dict()
+                res["fp32_max_abs_err"] = max(
+                    (got[k].float() - want[k].float()).abs().max().item()
+                    for k in want)
+                res["fp32_within_tol"] = all(
+                    torch.allclose(got[k].float(), want[k].float(),
+                                   **FP32_TOL) for k in want) and bool(
+                    np.allclose(res["fp32_losses"], res["fp32_ref_losses"],
+                                **FP32_TOL))
+                res["fp32_moved"] = max(
+                    (got[k].float() - init[k].float()).abs().max().item()
+                    for k in want)
+                del ref, ropt, init, want
+            del m, opt, step, got, batches
+            torch.cuda.empty_cache()
+        runs = [("main", [])]
+        if backend == "nccl":
+            runs.append(("loop", ["--device_loop_steps", "2"]))
+        for name, extra in runs:
+            _build.reset_launch_counts()
+            r = train_cli.main(tp_flags(vocab_path,
+                                        os.path.join(out_dir, f"tp_{name}"),
+                                        *extra))
+            torch.cuda.synchronize()
+            res["counts"][name] = {k: v.launches
+                                   for k, v in _build.KERNELS.items()}
+            res[name] = dict(losses=r["losses"],
+                             step_seconds=r["step_seconds"],
+                             hash=replicated_hash(r["model"]),
+                             profile=busy_share(os.path.join(
+                                 out_dir, f"tp_{name}"))
+                             if rank == 0 else None)
+            del r
+            torch.cuda.empty_cache()
+        # one step's f/g all-reduces (g after each layer's two row-parallel
+        # products, f on the two branch inputs' gradients) and its batch
+        # broadcast (the region features, the bulk of it), host clock
+        x = torch.randn(TP_B, 128, 768, device=dev).to(torch.bfloat16)
+        feats = torch.randn(TP_B, 100, 2048, device=dev)
+        for key, fn in (("allreduce_ms_per_step",
+                         lambda: [tdist.all_reduce(x.clone())
+                                  for _ in range(4 * 12)]),
+                        ("broadcast_ms_per_step",
+                         lambda: tdist.broadcast(feats, src=0))):
+            for _ in range(2):        # the second reading is kept
+                torch.cuda.synchronize()
+                tdist.barrier()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                res[key] = (time.perf_counter() - t0) * 1e3
+    finally:
+        tdist.destroy_process_group()
+    with open(out, "w") as f:
+        json.dump(res, f)
+
+
+def run_tp_workers(vocab_path, out_dir, backend):
+    """The two ``tp_worker`` processes (this script with ``--tp-worker``);
+    returns their records in rank order."""
+    port = free_port()
+    outs = [os.path.join(out_dir, f"tp_{backend}_rank{r}.json")
+            for r in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--tp-worker", str(r),
+         str(port), vocab_path, out_dir, outs[r], backend])
+        for r in range(2)]
+    try:
+        rcs = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if rcs != [0, 0]:
+        fail(f"TP {backend}: the workers exited with {rcs}")
+    return [json.load(open(o)) for o in outs]
+
+
+def check_tp_runs(recs, backend, gpu_line) -> dict:
+    """Each CLI run of the workers: exactly 12 x TP_STEPS K1-dropout and K2
+    launches a rank (at H = 6) and nothing else, finite losses that the
+    ranks report alike, replicated parameters bit-identical across the
+    ranks.  Returns the runs' launch counts summed over the ranks and
+    rates."""
+    r0, r1 = recs
+    out = {}
+    for name in r0["counts"]:
+        zero = {k: 0 for k in r0["counts"][name]}
+        want = dict(zero, attention_fwd_drop=12 * TP_STEPS,
+                    attention_bwd=12 * TP_STEPS)
+        for r in recs:
+            if r["counts"][name] != want:
+                fail(f"TP {backend} {name}: launch counts "
+                     f"{r['counts'][name]}, expected {want} a rank")
+        losses = r0[name]["losses"]
+        if len(losses) != TP_STEPS or not np.isfinite(losses).all():
+            fail(f"TP {backend} {name}: bad losses {losses}")
+        if r1[name]["losses"] != losses:
+            fail(f"TP {backend} {name}: the ranks report different losses")
+        if r0[name]["hash"] != r1[name]["hash"]:
+            fail(f"TP {backend} {name}: the replicated parameters of the "
+                 "two ranks differ")
+        # steps 3 and 4: step 1 sets up, step 2 runs under the profiler
+        step_s = float(np.median(r0[name]["step_seconds"][2:]))
+        out[f"tp2_{backend}_{name}_samples_per_sec"] = TP_B / step_s
+        out[f"tp2_{backend}_{name}_profile"] = r0[name]["profile"]
+        log(f"TP {backend} {name}: launch counts a rank as expected "
+            f"({12 * TP_STEPS} K1-dropout + {12 * TP_STEPS} K2 at H=6), "
+            f"losses {losses}, replicated parameters bit-identical; "
+            f"{TP_B / step_s:.2f} samples/s (median of steps 3-{TP_STEPS}, "
+            f"{backend}) on {gpu_line}; rank 0's profile of step 2: "
+            f"{r0[name]['profile']}")
+        out[f"tp2_{backend}_{name}_counts"] = {
+            k: r0["counts"][name][k] + r1["counts"][name][k] for k in zero}
+    for key in ("allreduce_ms_per_step", "broadcast_ms_per_step"):
+        out[f"tp2_{backend}_{key}"] = r0[key]
+    return out
+
+
+def phase_tp_main_path(vocab_path, out_dir, gpu_line):
+    """Phase 7b-7d.  (b) fp32 TP steps equal the single-process step within
+    FP32_TOL (phase 6b's tolerance for ``dp_step``); (c) the train CLI with
+    ``--tensor_parallel 2`` on two gloo ranks sharing the card: launches,
+    bit-identical replicated parameters, samples/s and the f/g all-reduce
+    time a step (gloo through the host on one card, not NVLink), then the
+    gathered ``model.1.bin`` loaded into a world-1 model decodes a batch
+    on K1 + K4; (d) with two or more GPUs, the CLI over NCCL, eager and
+    with ``--device_loop_steps 2``.  Returns (the gloo run's launch
+    counts summed over the ranks, rates)."""
+    from vlp_tpu_torch.cli import decode as decode_cli
+    from vlp_tpu_torch.ops import _build
+
+    recs = run_tp_workers(vocab_path, out_dir, "gloo")
+    r0 = recs[0]
+    log(f"TP fp32 (b): losses {recs[0]['fp32_losses']} / "
+        f"{recs[1]['fp32_losses']}, single-process "
+        f"{r0['fp32_ref_losses']}; max |gathered param - single-process| "
+        f"{r0['fp32_max_abs_err']:.3e} (tol {FP32_TOL}, losses too), params "
+        f"moved up to {r0['fp32_moved']:.3e}")
+    if not (r0["fp32_within_tol"] and r0["fp32_moved"] > 1e-4):
+        fail("TP fp32: the gathered parameters or the losses differ from "
+             "the single-process step, or the step did not move them")
+    rates = check_tp_runs(recs, "gloo", gpu_line)
+    step_ms = TP_B / rates["tp2_gloo_main_samples_per_sec"] * 1e3
+    log(f"TP gloo, one step of {step_ms:.2f} ms: f/g all-reduces ({4 * 12} "
+        f"sums of a [{TP_B}, 128, 768] bf16 activation) "
+        f"{r0['allreduce_ms_per_step']:.2f} ms, the batch's broadcast (its "
+        f"[{TP_B}, 100, 2048] fp32 features) "
+        f"{r0['broadcast_ms_per_step']:.2f} ms: gloo through the host on "
+        "one card, not NVLink")
+    ckpt_dir = os.path.join(out_dir, "tp_main")
+    dec_out = os.path.join(out_dir, "tp_decode")
+    _build.reset_launch_counts()
+    stats = decode_cli.main([
+        "--bert_model", vocab_path, "--new_segment_ids", "--enable_butd",
+        "--synthetic_data", "--num_synthetic", "100", "--batch_size", "100",
+        "--beam_size", "5", "--max_tgt_length", "20", "--device", "cuda",
+        "--model_recover_path", os.path.join(ckpt_dir, "model.1.bin"),
+        "--output_dir", dec_out])["model.1.bin"]
+    torch.cuda.synchronize()
+    counts = {k: v.launches for k, v in _build.KERNELS.items()}
+    want = dict({k: 0 for k in counts}, attention_fwd=12,
+                decode_attention_anc=12 * 19)
+    with open(os.path.join(dec_out, "preds-model.1.bin-val.json")) as f:
+        preds = json.load(f)
+    if stats["n_images"] != 100 or len(preds) != 100 or counts != want:
+        fail(f"TP model.1.bin did not decode on K1 + K4: {stats}, launch "
+             f"counts {counts}, expected {want}")
+    log(f"TP gathered model.1.bin decodes in a world-1 model (K1 + K4 as "
+        f"expected): {preds[0]['caption']!r}")
+    if torch.cuda.device_count() >= 2:
+        rates.update(check_tp_runs(run_tp_workers(vocab_path, out_dir,
+                                                  "nccl"), "nccl", gpu_line))
+        log("phase 7d: TP over NCCL, eager and with --device_loop_steps 2, "
+            "as expected")
+    else:
+        log(f"phase 7d: not run: {torch.cuda.device_count()} GPU on this "
+            "machine, and NCCL (which the TP device loop's CUDA graph needs) "
+            "takes one device a rank")
+    return rates.pop("tp2_gloo_main_counts"), rates
+
+
 def phase_steady_state(dev, vocab_path):
     """Device-side decode rate at the main path's shapes, without the CLI's
     loader and first-call costs: one prepared batch of B=100, one warm-up
@@ -3222,6 +3596,10 @@ def main():
     if sys.argv[1:2] == ["--dp-worker"]:
         rank, port, vocab_path, out = sys.argv[2:6]
         dp_worker(int(rank), int(port), vocab_path, out)
+        return
+    if sys.argv[1:2] == ["--tp-worker"]:
+        rank, port, vocab_path, out_dir, out, backend = sys.argv[2:8]
+        tp_worker(int(rank), int(port), vocab_path, out_dir, out, backend)
         return
     if sys.argv[1:2] == ["--ab-times"]:
         ab_times(sys.argv[2])
@@ -3318,6 +3696,13 @@ def main():
             "device loop too")
         paths["dp2"] = phase_dp_two_ranks(vocab_path, tmp)
         log("phase 6b: two ranks on the one card in sync")
+        phase_tp_kernels(dev, results)
+        log("phase 7a: K1 and K2 at a tensor-parallel rank's heads (H = 6, "
+            "3) agree with their plain versions")
+        paths["tp2"], tp_rates = phase_tp_main_path(vocab_path, tmp, smi)
+        log("phase 7b-c: --tensor_parallel 2 went through its kernels at "
+            "H = 6, fp32 equal to one process, replicated parameters "
+            "bit-identical")
 
     leaked = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "flax", "vlp_tpu")]
@@ -3330,10 +3715,18 @@ def main():
             name=name, route=k.route, source=k.source, replaces=k.replaces,
             launches=sum(by_path.values()), launches_by_path=by_path,
             **results[name]))
+    for name in ("attention_fwd_drop", "attention_bwd"):
+        # the tensor-parallel path's launches, at a rank's H = 6, apart
+        k = _build.KERNELS[name]
+        kernels.append(dict(
+            name=f"{name}_h6", route=k.route, source=k.source,
+            replaces=k.replaces, launches=paths["tp2"][name],
+            launches_by_path={"tp2": paths["tp2"][name]},
+            **results[f"{name}_h6"]))
     print(json.dumps({"kernels": kernels, "captions_per_sec_cli": rates,
                       "captions_per_sec_steady": steady, **train_rates,
                       **fp16_rates, "legacy_heads_max_abs_err": heads_errs,
-                      **scst_rates, **vqa_rates, **dp_rates,
+                      **scst_rates, **vqa_rates, **dp_rates, **tp_rates,
                       "scst_checks": scst_checks,
                       "device_loop_modes": loop_modes,
                       "vqa_checks": vqa_checks}))

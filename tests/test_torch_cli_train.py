@@ -3,7 +3,9 @@ synthetic run whose per-step losses track the JAX CLI's from the same
 reference .bin with dropout off; an interrupted run resumed from its epoch
 or step checkpoint ends where an uninterrupted one does; the saved
 ``model.N.bin`` decodes through the port's decode CLI; unported flags
-raise (SCST's own CLI run is in tests/test_torch_scst.py)."""
+raise, ``--tp_impl gspmd`` among them (SCST's own CLI run is in
+tests/test_torch_scst.py; ``--tensor_parallel`` runs in
+tests/test_torch_tp_cli.py)."""
 
 import json
 import os
@@ -158,7 +160,7 @@ def test_finetune_decay_accumulation_and_profile(fx):
 @pytest.mark.parametrize("flag,item", [
     (["--scst", "--scst_replay", "scan"], "A9"),
     (["--scst", "--scst_remat"], "Not to"),
-    (["--tensor_parallel", "2"], "Not to")])
+    (["--tensor_parallel", "2", "--tp_impl", "gspmd"], "ROADMAP")])
 def test_unported_flags_raise(fx, flag, item):
     with pytest.raises(NotImplementedError, match=item):
         train_cli.main(train_args(fx, os.path.join(fx["dir"], "no"), *flag,

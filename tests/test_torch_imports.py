@@ -1,7 +1,9 @@
 """The port imports neither JAX nor the JAX package: a fresh interpreter
 imports every module of vlp_tpu_torch and runs a tiny CPU train step, a
 tiny CPU decode, a tiny SCST step and a tiny VQA step and answer through
-it, after which none of vlp_tpu, jax, flax, optax or orbax is loaded."""
+it, and the tensor-parallel helpers (f/g without a group, a shard and
+gather round trip), after which none of vlp_tpu, jax, flax, optax or
+orbax is loaded."""
 
 import os
 import subprocess
@@ -19,7 +21,8 @@ for name in ("vlp_tpu_torch.cli.decode", "vlp_tpu_torch.cli.train",
              "vlp_tpu_torch.data.loader", "vlp_tpu_torch.evals.coco",
              "vlp_tpu_torch.scst", "vlp_tpu_torch.ops.decode_attention",
              "vlp_tpu_torch.ops.philox", "vlp_tpu_torch.cli.eval_vqa2",
-             "vlp_tpu_torch.evals.vqa"):
+             "vlp_tpu_torch.evals.vqa", "vlp_tpu_torch.ops.tp",
+             "vlp_tpu_torch.parallel.mesh", "vlp_tpu_torch.parallel.tp_step"):
     assert name in names, name
 
 import torch
@@ -62,6 +65,14 @@ vqa.eval()
 with torch.no_grad():
     ids = vqa.vqa_inference(train_step.dummy_batch(cfg, 2, task="vqa2"))
 assert ids.shape == (2,) and bool((ids >= 1).all())
+from vlp_tpu_torch.ops import tp as tp_ops
+from vlp_tpu_torch.parallel import mesh
+x = torch.ones(3, requires_grad=True)
+assert tp_ops.sum_partial(tp_ops.replicate_for_branch(x, None), None) is x
+full = {k: v.detach() for k, v in vqa.state_dict().items()}
+back = mesh.gather_state_dict([mesh.shard_state_dict(full, t, 2)
+                               for t in range(2)])
+assert all(torch.equal(back[k], full[k]) for k in full)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("vlp_tpu", "jax", "jaxlib", "flax",
                                     "optax", "orbax"))

@@ -14,8 +14,9 @@ cpu``, the tiny config of tests/test_torch_cli_train.py):
   with one ``PYTHONHASHSEED``: the synthetic feature store seeds each
   image's features from ``hash(key)``.
 * What still raises: ``--world_size 3`` with a group of 2,
-  ``--tensor_parallel 2``, and ``--device cuda`` with a group on a machine
-  without a GPU.
+  ``--tensor_parallel 2 --tp_impl gspmd`` (``--tensor_parallel`` itself
+  runs in tests/test_torch_tp_cli.py), and ``--device cuda`` with a group
+  on a machine without a GPU.
 """
 
 import json
@@ -216,9 +217,10 @@ def test_what_still_raises(fx, monkeypatch):
         fx, os.path.join(fx["dir"], "ws3"), "--world_size", "3"), tag="ws3")
     for rc, log, _ in recs:
         assert rc != 0 and "--world_size 3 but the group has 2" in log
-    with pytest.raises(NotImplementedError, match="Not to port"):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         train_cli.main(train_args(fx, os.path.join(fx["dir"], "tp"),
-                                  "--tensor_parallel", "2"))
+                                  "--tensor_parallel", "2", "--tp_impl",
+                                  "gspmd"))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for k, v in dict(RANK="0", LOCAL_RANK="0", WORLD_SIZE="2",
                      MASTER_ADDR="127.0.0.1", MASTER_PORT="1").items():

@@ -290,11 +290,11 @@ def _save(obj, path: str) -> None:
     os.replace(tmp, path)
 
 
-def _model_state_cpu(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
-    """The model's state dict on the CPU; tensors that share storage (the
+def _state_cpu(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A model's state dict on the CPU; tensors that share storage (the
     tied decoder) stay shared."""
     out, seen = {}, {}
-    for k, v in model.state_dict().items():
+    for k, v in sd.items():
         key = (v.data_ptr(), tuple(v.shape), v.dtype)
         if key not in seen:
             seen[key] = v.detach().to("cpu", copy=True)
@@ -303,19 +303,22 @@ def _model_state_cpu(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
 
 
 def save_checkpoint(output_dir: str, tag, model: torch.nn.Module,
-                    optimizer) -> None:
+                    optimizer, full_state=None) -> None:
     """Write ``model.{tag}.bin`` and ``optim.{tag}.bin``; raises when the
-    optimizer does not hold exactly the model's parameters."""
+    optimizer does not hold exactly the model's parameters.
+    ``full_state`` (a tensor-parallel shard's run): the gathered (model
+    state dict, optimizer state dict) to write in their place, at the
+    reference's full shapes."""
     names = {n for n, _ in model.named_parameters()}
     if set(optimizer.params) != names:
         raise ValueError("save_checkpoint: the optimizer's parameters are "
                          "not the model's")
     os.makedirs(output_dir, exist_ok=True)
-    opt = optimizer.state_dict()
-    opt.update(m={n: t.detach().cpu() for n, t in opt["m"].items()},
+    model_sd, opt = (full_state if full_state is not None
+                     else (model.state_dict(), optimizer.state_dict()))
+    opt = dict(opt, m={n: t.detach().cpu() for n, t in opt["m"].items()},
                v={n: t.detach().cpu() for n, t in opt["v"].items()})
-    _save(_model_state_cpu(model),
-          os.path.join(output_dir, f"model.{tag}.bin"))
+    _save(_state_cpu(model_sd), os.path.join(output_dir, f"model.{tag}.bin"))
     _save(opt, os.path.join(output_dir, f"optim.{tag}.bin"))
 
 
@@ -323,10 +326,11 @@ KEEP_STEP_CHECKPOINTS = 2
 
 
 def save_step_checkpoint(output_dir: str, step: int, model,
-                         optimizer) -> None:
-    """Write ``model.s{step}.bin`` / ``optim.s{step}.bin`` and delete all
-    but the latest ``KEEP_STEP_CHECKPOINTS`` step checkpoints."""
-    save_checkpoint(output_dir, f"s{step}", model, optimizer)
+                         optimizer, full_state=None) -> None:
+    """Write ``model.s{step}.bin`` / ``optim.s{step}.bin`` (``full_state``
+    as in :func:`save_checkpoint`) and delete all but the latest
+    ``KEEP_STEP_CHECKPOINTS`` step checkpoints."""
+    save_checkpoint(output_dir, f"s{step}", model, optimizer, full_state)
     steps = []
     for name in os.listdir(output_dir):
         m = _NAME_RE.match(name)
@@ -349,10 +353,13 @@ def restore_model(output_dir: str, tag, model: torch.nn.Module) -> None:
         raise ValueError(f"model.{tag}.bin lacks {missing[:5]}")
 
 
-def restore_optimizer(output_dir: str, tag, optimizer) -> None:
+def restore_optimizer(output_dir: str, tag, optimizer, shard=None) -> None:
     """Load ``optim.{tag}.bin`` into ``optimizer`` (the loss scale too,
     when it scales its loss); raises on moments that do not match its
-    parameters."""
-    optimizer.load_state_dict(torch.load(
-        os.path.join(output_dir, f"optim.{tag}.bin"), map_location="cpu",
-        weights_only=True))
+    parameters.  ``shard`` (a tensor-parallel rank's) maps the file's full
+    moment dicts to this rank's shards."""
+    state = torch.load(os.path.join(output_dir, f"optim.{tag}.bin"),
+                       map_location="cpu", weights_only=True)
+    if shard is not None:
+        state = dict(state, m=shard(state["m"]), v=shard(state["v"]))
+    optimizer.load_state_dict(state)

@@ -52,11 +52,32 @@ are read after the next group is launched; a trailing group of fewer than
 K batches is dropped and logged; ``metrics.jsonl`` gets a record where
 the JAX CLI writes one.  With a group on ``cuda`` it needs NCCL.
 
-Flags the port leaves out raise: ``--tensor_parallel > 1``,
+``--tensor_parallel N`` (N > 1; MLE and ``--tasks vqa2``, not ``--scst``
+or ``--true_fp16``, as in the JAX CLI) runs the JAX CLI's manual
+(shard_map) tensor parallelism: the world splits into groups of N
+consecutive ranks (``parallel/mesh.py``), each rank holds 1/N of every
+layer's heads and FFN columns and runs K1 and K2 on its own heads, the
+Megatron f/g all-reduces go over its group (``ops/tp.py``), and the
+gradients are averaged over the world / N data-parallel ranks::
+
+    torchrun --nproc_per_node=2 -m vlp_tpu_torch.cli.train ... \
+        --tensor_parallel 2
+
+The world must divide by N, a group must lie within a node
+(``LOCAL_WORLD_SIZE``), the heads and the FFN width must divide by N and
+the batch by (world / N) x ``--gradient_accumulation_steps``.  The ranks
+of a group take their group's first rank's batch.  Checkpoints are
+gathered to the reference's full shapes before rank 0 writes them, so
+``cli.decode`` and ``cli.eval_vqa2`` read them as they are, and a resume
+shards the full files.  It composes with ``--device_loop_steps`` (on
+``cuda`` over NCCL only, like data parallel).
+
+Flags the port leaves out raise: ``--tp_impl gspmd`` with
+``--tensor_parallel > 1`` (ROADMAP A: the next module to port),
 ``--scst_replay scan`` and ``--scst_remat`` (ROADMAP A, not to port).  The
-TPU dispatch workarounds ``--no_pallas`` and ``--tp_impl`` are no-ops here
-and say so in the log, as are ``--fp16/--amp/--fp32_embedding`` (the
-dtype follows ``--device``).  ``--profile_steps N`` writes a
+TPU dispatch workaround ``--no_pallas`` is a no-op here and says so in the
+log, as are ``--fp16/--amp/--fp32_embedding`` (the dtype follows
+``--device``).  ``--profile_steps N`` writes a
 ``torch.profiler`` table of N steps (with K > 1: of the groups that cover
 them) to ``output_dir/profile.txt`` and, with a group and K = 1, times
 every step's gradient all-reduce (``allreduce_ms`` of the result).
@@ -90,8 +111,12 @@ from vlp_tpu_torch.data.loader import TrainLoader
 from vlp_tpu_torch.data.tokenization import WhitespaceTokenizer
 from vlp_tpu_torch.evals.vqa import VQAAnswerProcessor
 from vlp_tpu_torch.models.model import VLPModel
+from vlp_tpu_torch.parallel import mesh
 from vlp_tpu_torch.parallel.dp_step import (make_dp_multi_step,
                                             make_dp_train_step)
+from vlp_tpu_torch.parallel.tp_step import (make_tp_multi_step,
+                                            make_tp_train_step,
+                                            sharded_names)
 from vlp_tpu_torch.scst import SCSTTrainer
 
 # parameters of the heads a BERT checkpoint lacks (reference
@@ -218,7 +243,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="no-op: cuda always runs the kernels, cpu their "
                         "plain versions")
     p.add_argument("--tp_impl", choices=("shard_map", "gspmd"),
-                   default="shard_map", help="no-op (see --tensor_parallel)")
+                   default="shard_map",
+                   help="with --tensor_parallel > 1: shard_map (manual "
+                        "Megatron collectives, the kernels per rank); gspmd "
+                        "is not ported (ROADMAP A) and raises")
     p.add_argument("--jax_distributed", action="store_true",
                    help="data parallel: one process per GPU, in a group at "
                         "--coordinator_address (or use torchrun)")
@@ -229,8 +257,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--process_id", type=int, default=None,
                    help="only read with --jax_distributed")
     p.add_argument("--tensor_parallel", type=int, default=0,
-                   help="> 1 is not ported (ROADMAP A, not to port): "
-                        "raises")
+                   help="shard every layer's heads and FFN columns over "
+                        "groups of this many ranks (manual Megatron tensor "
+                        "parallelism); composes with data parallelism "
+                        "(world / N data-parallel ranks)")
     return p
 
 
@@ -243,9 +273,10 @@ def refuse_unported(args) -> None:
          f"--scst_replay scan: the scan replay {not_to_port}"),
         (args.scst and args.scst_remat,
          f"--scst_remat: the scan replay's remat {not_to_port}"),
-        (args.tensor_parallel > 1,
-         "--tensor_parallel: manual tensor parallelism is under ROADMAP A "
-         "'Not to port'"),
+        (args.tensor_parallel > 1 and args.tp_impl == "gspmd",
+         "--tp_impl gspmd: GSPMD tensor parallelism (a vocab-sharded "
+         "embedding and MLM loss, mesh.param_pspec) is the next module "
+         "ROADMAP A queues; the default --tp_impl shard_map runs"),
     ]
     for hit, what in unported:
         if hit:
@@ -346,6 +377,10 @@ def main(argv=None, dist: parallel.Dist = None):
             # the JAX CLI's message (vlp_tpu/cli/train.py:385)
             raise ValueError("--true_fp16 is not supported with --scst "
                              "(use the default bf16 path)")
+    if args.tensor_parallel > 1 and (args.scst or args.true_fp16):
+        # the JAX CLI's assert (vlp_tpu/cli/train.py:263-266)
+        raise ValueError("--tensor_parallel composes with the default bf16 "
+                         "MLM/VQA paths only")
     if dist is not None:
         return train(args, dist)
     dist = parallel.from_cli(
@@ -358,12 +393,29 @@ def main(argv=None, dist: parallel.Dist = None):
         dist.destroy()
 
 
+def tensor_parallel_dist(dist: parallel.Dist, tp: int) -> parallel.Dist:
+    """``dist`` split into tensor-parallel groups of ``tp``, after the JAX
+    CLI's checks (vlp_tpu/cli/train.py:497-530): the world divides by tp
+    and a group lies within a node (torchrun's ``LOCAL_WORLD_SIZE``)."""
+    if dist.world % tp:
+        raise ValueError(f"--tensor_parallel {tp} must divide the world "
+                         f"({dist.world} processes)")
+    local = os.environ.get("LOCAL_WORLD_SIZE")
+    if local is not None and int(local) % tp:
+        raise ValueError(f"--tensor_parallel {tp} must divide the per-node "
+                         f"process count {local} (a tensor-parallel group "
+                         "within a node)")
+    return dist.with_tensor_parallel(tp)
+
+
 def train(args, dist: parallel.Dist):
     """``main`` on this rank of ``dist``."""
     device = dist.device
     if args.world_size > 1 and args.world_size != dist.world:
         raise ValueError(f"--world_size {args.world_size} but the group has "
                          f"{dist.world} processes")
+    tp = max(args.tensor_parallel, 1)
+    dist = tensor_parallel_dist(dist, tp)
     configure_precision()
     K = max(args.device_loop_steps, 1)
     loop = K > 1 and not args.scst
@@ -383,7 +435,6 @@ def train(args, dist: parallel.Dist):
         logger = logging.getLogger(f"vlp_tpu.rank{dist.rank}")
         logger.setLevel(logging.WARNING)
     noops = [(args.no_pallas, "--no_pallas"),
-             (args.tp_impl != "shard_map", "--tp_impl"),
              (args.fp16 or args.amp or args.fp32_embedding,
               "--fp16/--amp/--fp32_embedding")]
     for hit, flag in noops:
@@ -398,6 +449,11 @@ def train(args, dist: parallel.Dist):
                       else tokenizer)
     cfg = make_config(args, len(tokenizer.vocab), dtype)
     rng_np = np.random.default_rng(args.seed)
+    if tp > 1 and (cfg.num_attention_heads % tp
+                   or cfg.intermediate_size % tp):
+        raise ValueError(f"--tensor_parallel {tp} needs the heads "
+                         f"({cfg.num_attention_heads}) and the FFN width "
+                         f"({cfg.intermediate_size}) to divide by it")
 
     # ---- data ------------------------------------------------------------
     vqa = args.tasks == "vqa2"
@@ -435,12 +491,13 @@ def train(args, dist: parallel.Dist):
     builders = [TrainExampleBuilder(cfg, tokenizer.vocab, mode=m, **builder_kw)
                 for m in ("s2s", "bi")]
     accum = max(args.gradient_accumulation_steps, 1)
-    if args.train_batch_size % (dist.world * accum):
+    if args.train_batch_size % (dist.dp_world * accum):
         raise ValueError(f"--train_batch_size (global) must divide into "
-                         f"{dist.world} ranks x --gradient_accumulation_steps "
-                         "micro-batches")
-    # each rank loads its share of the global batch (JAX CLI :341-348)
-    local_bs = args.train_batch_size // dist.world
+                         f"{dist.dp_world} data-parallel ranks x "
+                         "--gradient_accumulation_steps micro-batches")
+    # each data-parallel rank loads its share of the global batch (JAX CLI
+    # :341-348); the ranks of a tensor-parallel group load the same one
+    local_bs = args.train_batch_size // dist.dp_world
     if loop:
         # the loader writes each batch's features into the K-group slabs
         # that one copy takes to the device (JAX CLI :349-358)
@@ -454,7 +511,8 @@ def train(args, dist: parallel.Dist):
                          [args.s2s_prob, args.bi_prob],
                          batch_size=local_bs, num_workers=args.num_workers,
                          prefetch=PREFETCH, seed=args.seed,
-                         process_index=dist.rank, process_count=dist.world,
+                         process_index=dist.dp_index,
+                         process_count=dist.dp_world,
                          **slab_kw)
     steps_per_epoch = len(loader)
     if args.steps_per_epoch:
@@ -492,18 +550,30 @@ def train(args, dist: parallel.Dist):
         if missing:
             logger.info("not in the checkpoint, kept at init: %s", missing)
     dist.broadcast_params(model)
-
-    params = dict(model.named_parameters())
+    if args.finetune_decay and not args.model_recover_path:
+        raise ValueError("--finetune_decay needs --model_recover_path (the "
+                         "weights to decay toward)")
+    anchors = (_anchors(model, args.model_recover_path, cfg, args.tasks)
+               if args.finetune_decay else None)
     opt_kw = dict(warmup=args.warmup_proportion, t_total=t_total,
                   schedule=args.sche_mode, weight_decay=args.weight_decay)
+    if tp > 1:
+        # the whole model, the same on every rank, then this rank's shard
+        # (JAX shard_state_shard_map_tp)
+        model.shard_(dist.tensor_parallel)
+        if anchors is not None:
+            anchors = mesh.shard_state_dict(anchors, dist.tp_index, tp)
+        opt_kw.update(clip_group=dist.tp_group,
+                      clip_sharded=sharded_names(model))
+        logger.info("shard_map training: dp=%d x tp=%d (manual Megatron "
+                    "collectives, %s attention%s)", dist.dp_world, tp,
+                    "CUDA" if device.type == "cuda" else "plain",
+                    f", grad_accum={accum}" if accum > 1 else "")
+
+    params = dict(model.named_parameters())
     if args.finetune_decay:
-        if not args.model_recover_path:
-            raise ValueError("--finetune_decay needs --model_recover_path "
-                             "(the weights to decay toward)")
         optimizer = optim_lib.bert_adam_finetune(
-            params, args.learning_rate,
-            init_params=_anchors(model, args.model_recover_path, cfg,
-                                 args.tasks),
+            params, args.learning_rate, init_params=anchors,
             missing_key_substrings=FRESH_HEADS, **opt_kw)
     else:
         optimizer = optim_lib.BertAdam(params, args.learning_rate, **opt_kw)
@@ -532,22 +602,29 @@ def train(args, dist: parallel.Dist):
                                         seed)
             return {"loss": loss, **m}
     elif loop:
-        multi_step = make_dp_multi_step(
+        multi_step = (make_tp_multi_step if tp > 1 else make_dp_multi_step)(
             model, optimizer, dist, K=K,
             mask_image_regions=args.mask_image_regions, task=args.tasks,
             grad_accum=accum, loss_scale=loss_scale)
     else:
-        train_step = make_dp_train_step(
+        train_step = (make_tp_train_step if tp > 1 else make_dp_train_step)(
             model, optimizer, dist, mask_image_regions=args.mask_image_regions,
             task=args.tasks, grad_accum=accum, loss_scale=loss_scale)
 
         def run_step(batch, tbatch, seed, i_epoch):
             return train_step(tbatch, seed, args.max_drop_worst_ratio
                               if i_epoch > args.drop_after else 0.0)
+    def shard(sd):
+        return mesh.shard_state_dict(sd, dist.tp_index, tp)
+
+    def gather(sd):
+        return mesh.gather_full(sd, dist.tp_index, tp, dist.tp_group)
+
     if tag is not None:
         # after the step builder, which put the loss scale's state on the
-        # optimizer: the saved one replaces it
-        ckpt.restore_optimizer(args.output_dir, tag, optimizer)
+        # optimizer: the saved one replaces it; the full moments sharded
+        ckpt.restore_optimizer(args.output_dir, tag, optimizer,
+                               shard=shard if tp > 1 else None)
 
     result = {"losses": [], "step_seconds": [], "iter_seconds": [],
               "model": model, "allreduce_ms": []}
@@ -560,15 +637,24 @@ def train(args, dist: parallel.Dist):
     last_save = (start_epoch - 1) * steps_per_epoch + skip_batches
     profiler = None
 
+    def save(save_fn, tag):
+        """Rank 0 writes a checkpoint, under tensor parallelism the full
+        state that every rank of its group helps to gather."""
+        full = None
+        if tp > 1:
+            opt = optimizer.state_dict()
+            full = (gather(model.state_dict()),
+                    dict(opt, m=gather(opt["m"]), v=gather(opt["v"])))
+        if dist.is_main:
+            save_fn(args.output_dir, tag, model, optimizer, full)
+
     def maybe_save_steps(i_epoch, step_i):
         """A step checkpoint every --save_steps optimizer steps, counted
         from loader batches (also after a K-step group)."""
         nonlocal last_save
         gdone = (i_epoch - 1) * steps_per_epoch + step_i + 1
         if args.save_steps and gdone - last_save >= args.save_steps:
-            if dist.is_main:
-                ckpt.save_step_checkpoint(args.output_dir, gdone, model,
-                                          optimizer)
+            save(ckpt.save_step_checkpoint, gdone)
             last_save = gdone
 
     def record(mf, i_epoch, step_i, losses, metrics):
@@ -630,8 +716,10 @@ def train(args, dist: parallel.Dist):
                     if device.type == "cuda":
                         start = torch.cuda.Event(enable_timing=True)
                         start.record()
+                    staged = staging.upload(slot)
+                    dist.broadcast_in_tp_group([staging.device_block])
                     metrics = multi_step(
-                        staging.upload(slot), seeds,
+                        staged, seeds,
                         args.max_drop_worst_ratio
                         if i_epoch > args.drop_after else 0.0)
                     pending = []
@@ -650,6 +738,8 @@ def train(args, dist: parallel.Dist):
                     profiler = start_profiler()
                 t0 = time.perf_counter()
                 tbatch = to_device(batch, device)
+                dist.broadcast_in_tp_group(
+                    v for _, v in sorted(tbatch.items()))
                 # the step's randomness follows from (seed, epoch, step), so
                 # a resumed run draws what an uninterrupted one would
                 seed = ts.step_seed(args.seed + 1, i_epoch * 100000 + step_i)
@@ -681,9 +771,7 @@ def train(args, dist: parallel.Dist):
             logger.info("Epoch %d done in %.1fs, mean loss %.4f", i_epoch,
                         time.perf_counter() - t_ep,
                         float(np.mean(losses)) if losses else float("nan"))
-            if dist.is_main:
-                ckpt.save_checkpoint(args.output_dir, i_epoch, model,
-                                     optimizer)
+            save(ckpt.save_checkpoint, i_epoch)
             # epoch barrier (run_img2txt_dist.py:604-605; JAX CLI :759-768)
             dist.barrier()
     if isinstance(multi_step, ts.CapturedSteps):

@@ -49,6 +49,7 @@ from vlp_tpu_torch import torch_dtype
 from vlp_tpu_torch.config import MODE_S2S, VLPConfig
 from vlp_tpu_torch.ops import attention as attn_ops
 from vlp_tpu_torch.ops import decode_attention as decode_attn_ops
+from vlp_tpu_torch.ops import tp as tp_ops
 from vlp_tpu_torch.ops.masks import NEG_INF
 from vlp_tpu_torch.ops.philox import step_seed
 
@@ -78,11 +79,19 @@ class DropoutRNG:
       counterpart of JAX's ``fold_in(rng, i)`` inside the device loop's
       scan): the attention seeds are read from device slots and hidden
       dropout draws from a generator registered with the graph, which the
-      caller writes and seeds from :meth:`plan` before each replay."""
+      caller writes and seeds from :meth:`plan` before each replay.
 
-    def __init__(self, seed: int, device):
+    Under tensor parallelism (``attn_fold``: this rank's tensor-parallel
+    index) each attention seed is ``step_seed(seed, attn_fold)``, in both
+    forms, so that the ranks of a group, each holding other heads, draw
+    other attention bits; hidden dropout is not folded, since it masks
+    activations that every rank of the group holds whole (JAX
+    ``_attn_seed``, ``vlp_tpu/models/model.py:183-196``)."""
+
+    def __init__(self, seed: int, device, attn_fold: Optional[int] = None):
         self._host = torch.Generator().manual_seed(seed)
         self._slots = None
+        self._fold = attn_fold
         self._device = torch.Generator(device=torch.device(device))
         self._device.manual_seed(_draw64(self._host))
 
@@ -101,18 +110,19 @@ class DropoutRNG:
         return self
 
     @staticmethod
-    def plan(seed: int, n_slots: int) -> Tuple[int, List[int]]:
+    def plan(seed: int, n_slots: int, attn_fold: Optional[int] = None
+             ) -> Tuple[int, List[int]]:
         """(the hidden generator's seed, the first ``n_slots`` attention
-        seeds) that ``DropoutRNG(seed, device)`` draws."""
+        seeds) that ``DropoutRNG(seed, device, attn_fold)`` draws."""
         host = torch.Generator().manual_seed(seed)
         draws = [_draw64(host) for _ in range(1 + n_slots)]
-        return draws[0], draws[1:]
+        return draws[0], [_fold(d, attn_fold) for d in draws[1:]]
 
     def seed(self):
         """The next attention call's seed: a fresh 64-bit int, or (from
         slots) the next slot, a 0-d int64 device tensor."""
         if self._slots is None:
-            return _draw64(self._host)
+            return _fold(_draw64(self._host), self._fold)
         if self._next >= self._slots.shape[0]:
             raise RuntimeError(f"the forward made more attention calls than "
                                f"its {self._slots.shape[0]} seed slots")
@@ -127,6 +137,10 @@ class DropoutRNG:
         keep = torch.rand(x.shape, generator=self._device,
                           device=x.device) < 1.0 - rate
         return masked_dropout(x, keep, rate)
+
+
+def _fold(seed: int, attn_fold: Optional[int]) -> int:
+    return seed if attn_fold is None else step_seed(seed, attn_fold)
 
 
 def masked_dropout(x: torch.Tensor, keep: Optional[torch.Tensor],
@@ -286,10 +300,22 @@ class TransformerLayer(nn.Module):
         self.intermediate = _Dense(H, cfg.intermediate_size)
         self.output = _DenseLN(cfg.intermediate_size, H)
         self.act = ACT[cfg.hidden_act]
+        # tensor parallelism (VLPModel.shard_): this rank's heads and FFN
+        # columns, the f/g collectives over its group
+        self.tp: Optional[tp_ops.TP] = None
 
     def _qkv(self, x):
         sa = self.attention.self
         return _linear(sa.query, x), _linear(sa.key, x), _linear(sa.value, x)
+
+    def _row_parallel(self, lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+        """A row-parallel dense: the partial product summed over the group
+        (Megatron "g"), the bias added once after the sum; the plain dense
+        without tensor parallelism."""
+        if self.tp is None:
+            return _linear(lin, x)
+        return (tp_ops.sum_partial(F.linear(x, lin.weight.to(x.dtype)),
+                                   self.tp) + lin.bias.to(x.dtype))
 
     def _post_attention(self, ctx: torch.Tensor, residual: torch.Tensor,
                         drop: Optional[DropoutRNG] = None,
@@ -306,10 +332,11 @@ class TransformerLayer(nn.Module):
             return _hidden_dropout(drop, y, rate)
 
         ao = self.attention.output
-        h = hdrop(_linear(ao.dense, ctx), 0)
+        h = hdrop(self._row_parallel(ao.dense, ctx), 0)
         h = _layer_norm(ao.LayerNorm, h + residual).to(ctx.dtype)
-        f = hdrop(_linear(self.output.dense,
-                          self.act(_linear(self.intermediate.dense, h))), 1)
+        f = self.act(_linear(self.intermediate.dense,
+                             tp_ops.replicate_for_branch(h, self.tp)))
+        f = hdrop(self._row_parallel(self.output.dense, f), 1)
         return _layer_norm(self.output.LayerNorm, f + h).to(ctx.dtype)
 
     def forward(self, x, mode, text_end, colkeep,
@@ -318,10 +345,15 @@ class TransformerLayer(nn.Module):
         encode (no backward on the card).  With ``drop``: the training
         forward through ``FusedAttention`` (attention-prob dropout at
         ``attention_probs_dropout_prob``, which may be 0), differentiable
-        on every device."""
-        B, L, HD = x.shape
-        hd = (self.cfg.num_attention_heads, self.cfg.head_dim)
-        q, k, v = (t.view(B, L, *hd) for t in self._qkv(x))
+        on every device.  Under tensor parallelism the layer input enters
+        the q/k/v projections through Megatron "f" and the kernels run on
+        this rank's heads."""
+        B, L, _ = x.shape
+        q, k, v = self._qkv(tp_ops.replicate_for_branch(x, self.tp))
+        # the head count follows the local width (a rank's heads under
+        # tensor parallelism), not the config
+        hd = (q.shape[-1] // self.cfg.head_dim, self.cfg.head_dim)
+        q, k, v = (t.view(B, L, *hd) for t in (q, k, v))
         prefix = self.cfg.prefix_len
         if drop is None:
             ctx = attn_ops.attention(q, k, v, mode, text_end, colkeep,
@@ -330,7 +362,8 @@ class TransformerLayer(nn.Module):
             ctx = attn_ops.FusedAttention.apply(
                 q, k, v, mode, text_end, colkeep, prefix,
                 self.cfg.attention_probs_dropout_prob, drop.seed())
-        return self._post_attention(ctx.reshape(B, L, HD), x, drop)
+        return self._post_attention(ctx.reshape(B, L, hd[0] * hd[1]), x,
+                                    drop)
 
     def prefill_attend(self, x: torch.Tensor, prefix: int,
                        drop: Optional[DropoutRNG] = None
@@ -368,6 +401,12 @@ class TransformerLayer(nn.Module):
         """One KV-cached step: the fused decode attention writes the new
         K/V into ``gk``/``gv`` in place.  An SCST sampled rollout passes
         the step's attention seed (K5) and its hidden keep masks."""
+        if self.tp is not None and (drop_seed is not None
+                                    or masks is not None):
+            # the JAX model's assert (vlp_tpu/models/model.py:407): the
+            # SCST contract's seeds do not fold a tensor-parallel index
+            raise ValueError("explicit dropout does not compose with "
+                             "shard_map TP")
         q, k, v = self._qkv(x)
         ctx = decode_attn_ops.decode_attention(
             q, k, v, pk, pv, gk, gv, gen_len,
@@ -501,6 +540,47 @@ class VLPModel(nn.Module):
             self.ans_classifier = nn.Sequential(
                 nn.Linear(H, 2 * H), nn.ReLU(),
                 nn.Linear(2 * H, cfg.num_answers))
+        self.tp: Optional[tp_ops.TP] = None
+
+    def shard_(self, tp: tp_ops.TP) -> "VLPModel":
+        """Tensor parallelism (JAX ``cfg.tp_axis``): keep this rank's shard
+        of every sharded parameter (``parallel.mesh``: heads and FFN
+        columns) and insert the f/g collectives over ``tp``'s group.  The
+        model must be whole and the same on every rank of the group (load
+        or broadcast it first).  Only the training forward runs sharded:
+        gather a checkpoint to decode from it."""
+        from vlp_tpu_torch.parallel import mesh
+        cfg = self.cfg
+        if (cfg.num_attention_heads % tp.size
+                or cfg.intermediate_size % tp.size):
+            raise ValueError("tensor parallelism needs the heads "
+                             f"({cfg.num_attention_heads}) and the FFN width "
+                             f"({cfg.intermediate_size}) to divide by "
+                             f"{tp.size}")
+        mesh.shard_model_(self, tp.index, tp.size)
+        self.tp = tp
+        for layer in self.layers:
+            layer.tp = tp
+        return self
+
+    def align_replicated_grads(self) -> None:
+        """Under tensor parallelism: the group's first rank's gradients of
+        the embedding tables on every rank (``ops/tp.py``: PyTorch's CUDA
+        embedding backward is not reproducible run to run, and the tables
+        are replicated).  Nothing without tensor parallelism."""
+        emb = self.bert.embeddings
+        tp_ops.broadcast_from_first(
+            [t.weight.grad for t in (emb.word_embeddings,
+                                     emb.position_embeddings,
+                                     emb.token_type_embeddings)
+             if t.weight.grad is not None], self.tp)
+
+    @property
+    def tp_fold(self) -> Optional[int]:
+        """What the attention-dropout seeds fold in (``DropoutRNG``): this
+        rank's tensor-parallel index, or None without tensor
+        parallelism."""
+        return None if self.tp is None else self.tp.index
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
@@ -673,6 +753,9 @@ class VLPModel(nn.Module):
         (probe hidden [B, 1, H], per-layer prompt K and V caches
         [B, P, H*D]); the probe's own K/V are dropped.  ``drop`` turns
         dropout on (an SCST rollout and its replay)."""
+        if self.tp is not None:
+            raise ValueError("decoding runs a whole model: a tensor-parallel "
+                             "shard does not decode (gather it first)")
         B = input_ids.shape[0]
         prefix = self.cfg.prefix_len
         probe = torch.full((B, 1), mask_id, dtype=input_ids.dtype,

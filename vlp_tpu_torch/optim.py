@@ -10,6 +10,13 @@ to the reference optimizer (``optimization.py:33-182``):
 * the learning-rate schedule is evaluated from the number of completed
   updates, so the first update uses step 0 (lr 0 under warmup).
 
+Under tensor parallelism (``clip_group``, ``clip_sharded``) a sharded
+parameter's clip takes the norm of the whole parameter: the squared norms
+of this rank's shards are stacked and sum-all-reduced over the
+tensor-parallel group, once per step (JAX ``default_tp_clip_mask`` and
+``_make_clip``, ``vlp_tpu/optim.py:71-105``).  Everything else in the
+update is elementwise, so it needs no collective.
+
 State is fp32.  Parameters and moments are dicts keyed by the parameters'
 reference names (``model.named_parameters()``); the step updates the
 parameters, the moments and its step count (a device tensor) in place, so
@@ -29,6 +36,7 @@ import math
 from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import torch
+import torch.distributed as tdist
 
 # the reference's constants (optimization.py:74-77)
 B1, B2, EPS, MAX_GRAD_NORM = 0.9, 0.999, 1e-6, 1.0
@@ -73,12 +81,17 @@ class BertAdam:
     ``wd * (2 p - anchor)``; see :func:`bert_adam_finetune`.
 
     ``loss_scale`` holds a :class:`DynamicLossScale` state when the run
-    scales its loss (None otherwise); ``state_dict`` carries it."""
+    scales its loss (None otherwise); ``state_dict`` carries it.
+
+    ``clip_sharded`` names the parameters that are shards of a
+    tensor-parallel group ``clip_group``: their clip norms are summed over
+    the group (module docstring)."""
 
     def __init__(self, params: Dict[str, torch.Tensor], lr: float, *,
                  warmup: float = -1.0, t_total: int = -1,
                  schedule: str = "warmup_linear", weight_decay: float = 0.01,
-                 anchors: Optional[Dict[str, torch.Tensor]] = None):
+                 anchors: Optional[Dict[str, torch.Tensor]] = None,
+                 clip_group=None, clip_sharded: Iterable[str] = ()):
         if schedule not in SCHEDULES:
             raise ValueError(f"unknown schedule {schedule!r}")
         self.params = dict(params)
@@ -94,6 +107,8 @@ class BertAdam:
         dev = next(iter(self.params.values())).device
         self.step_count = torch.zeros((), dtype=torch.int64, device=dev)
         self.loss_scale: Optional[Dict[str, torch.Tensor]] = None
+        self.clip_group = clip_group
+        self.clip_sharded = [n for n in self.params if n in set(clip_sharded)]
 
     def lr_at(self, step) -> torch.Tensor:
         """fp32 learning rate of the update after ``step`` completed ones
@@ -107,8 +122,11 @@ class BertAdam:
                           device=step.device)
 
     @staticmethod
-    def _clip(g: torch.Tensor) -> torch.Tensor:
-        norm = torch.sqrt(torch.sum(g * g))
+    def _clip(g: torch.Tensor,
+              sumsq: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``g`` clipped to norm MAX_GRAD_NORM, the norm taken from
+        ``sumsq`` (the whole parameter's squared norm) where given."""
+        norm = torch.sqrt(torch.sum(g * g) if sumsq is None else sumsq)
         one = torch.ones((), device=g.device)
         return g * torch.where(norm > MAX_GRAD_NORM,
                                MAX_GRAD_NORM / (norm + 1e-6), one)
@@ -122,12 +140,13 @@ class BertAdam:
         stay as they were (JAX ``_apply_grads`` keeps ``opt_state``
         whole).  Nothing here reads a device value on the host."""
         lr_t = self.lr_at(self.step_count)
+        sumsq = self._sharded_sumsq()
         for n, p in self.params.items():
             # a parameter the loss does not reach (the pooler without the
             # pretext loss) has a zero gradient, as in JAX: its moments
             # decay and weight decay still applies
             g = (torch.zeros_like(p, dtype=torch.float32) if p.grad is None
-                 else self._clip(p.grad.float()))
+                 else self._clip(p.grad.float(), sumsq.get(n)))
             # the moments in place, in the order of the reference's
             # out-of-place update (the same bits)
             m_old, v_old = self.m[n], self.v[n]
@@ -151,6 +170,21 @@ class BertAdam:
             p.add_(upd.to(p.dtype))
         self.step_count.add_(1 if finite is None
                              else finite.to(torch.int64))
+
+    def _sharded_sumsq(self) -> Dict[str, torch.Tensor]:
+        """{name: the whole parameter's squared gradient norm} of the
+        sharded parameters: one sum all-reduce over ``clip_group`` of their
+        stacked local squared norms ({} without tensor parallelism)."""
+        if self.clip_group is None or not self.clip_sharded:
+            return {}
+        local = []
+        for n in self.clip_sharded:
+            g = self.params[n].grad
+            local.append(torch.zeros((), device=self.step_count.device)
+                         if g is None else torch.sum(g.float() * g.float()))
+        sq = torch.stack(local)
+        tdist.all_reduce(sq, group=self.clip_group)
+        return dict(zip(self.clip_sharded, sq.unbind()))
 
     def state_dict(self) -> dict:
         """``{"step", "m", "v"}``, plus ``"loss_scale"`` (``{"scale",

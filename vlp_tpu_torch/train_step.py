@@ -66,9 +66,12 @@ def dummy_batch(cfg: VLPConfig, batch_size: int, device="cpu",
 def loss_fn(model: VLPModel, batch, seed, *, drop_worst_ratio: float,
             mask_image_regions: bool, task: str = "img2txt"):
     """(loss, metrics) of one training forward whose dropout follows from
-    ``seed`` (an int, or the forward's own :class:`DropoutRNG`)."""
+    ``seed`` (an int, or the forward's own :class:`DropoutRNG`; under
+    tensor parallelism its attention seeds fold the model's
+    ``tp_fold``)."""
     drop = (seed if isinstance(seed, DropoutRNG)
-            else DropoutRNG(seed, batch["input_ids"].device))
+            else DropoutRNG(seed, batch["input_ids"].device,
+                            attn_fold=model.tp_fold))
     out = model.pretrain_losses(batch, drop=drop,
                                 drop_worst_ratio=drop_worst_ratio,
                                 mask_image_regions=mask_image_regions,
@@ -217,6 +220,7 @@ def _train_step(model, optimizer, dist: Dist, *, check: bool,
                                    mask_image_regions=mask_image_regions,
                                    task=task, grad_accum=grad_accum,
                                    scale=loss_scale_of(optimizer, loss_scale))
+        model.align_replicated_grads()
         dist.all_reduce_grads(model.parameters(), check=check)
         metrics = dist.all_reduce_mean(metrics)
         return apply_grads(optimizer, loss_scale, metrics)
@@ -263,7 +267,7 @@ def make_multi_step(model: VLPModel, optimizer: BertAdam, *, K: int,
             state += list(optimizer.loss_scale.values())
         return CapturedSteps(
             step, K, grad_accum, model.cfg.num_hidden_layers, device, state,
-            seed_of=dist.rank_seed,
+            seed_of=dist.rank_seed, attn_fold=model.tp_fold,
             before_capture=lambda: dist.check_grad_agreement(
                 model.parameters()))
 
@@ -323,8 +327,9 @@ class CapturedSteps:
     (``CUDAGraph.register_generator_state``) and seeded before each replay,
     so a replay's generator draws from its new seed at offset 0, as the
     eager step's fresh generator does.  Each seed comes from
-    ``DropoutRNG.plan``, so replayed step i draws bit for bit what the
-    eager step with the same seed draws.  Parameters, BertAdam's moments
+    ``DropoutRNG.plan`` (with the model's tensor-parallel fold,
+    ``attn_fold``), so replayed step i draws bit for bit what the eager
+    step with the same seed draws.  Parameters, BertAdam's moments
     and step count and the loss scale are updated in place, gradients
     accumulate into buffers the graph zeroes.
 
@@ -344,10 +349,11 @@ class CapturedSteps:
     def __init__(self, step: Callable, K: int, grad_accum: int,
                  n_slots: int, device: torch.device,
                  state: List[torch.Tensor], *, seed_of: Callable,
-                 before_capture: Callable):
+                 before_capture: Callable, attn_fold: Optional[int] = None):
         self.step, self.K, self.device = step, K, device
         self.micro = max(grad_accum, 1)
         self.state, self.seed_of = state, seed_of
+        self.attn_fold = attn_fold
         self.before_capture = before_capture
         self.slots = torch.zeros((K, self.micro, n_slots), dtype=torch.int64,
                                  device=device)
@@ -376,7 +382,7 @@ class CapturedSteps:
         for i, seed in enumerate(seeds):
             for j, s in enumerate(micro_seeds(self.seed_of(seed),
                                               self.micro)):
-                hidden, attn = DropoutRNG.plan(s, n_slots)
+                hidden, attn = DropoutRNG.plan(s, n_slots, self.attn_fold)
                 self._hidden[i][j] = hidden
                 self._host_slots[i, j] = torch.tensor(
                     [as_int64(a) for a in attn], dtype=torch.int64)
@@ -542,6 +548,11 @@ class GroupStaging:
                     raise ValueError(f"batch {j} of the group did not write "
                                      f"its {k} into staging slab {slot}")
         stack_batches(batches, slab, skip=("vis_feats", "vis_pe"))
+
+    @property
+    def device_block(self) -> torch.Tensor:
+        """The device block the staged views share (one uint8 tensor)."""
+        return self._dev
 
     def upload(self, slot: int) -> Dict[str, torch.Tensor]:
         """Copy slab ``slot`` to the device block (asynchronous from pinned
