@@ -48,7 +48,14 @@ against the single-process step, and ``vlp_tpu_torch.cli.train
 group formed by the caller) with exact launch counts at H = 6 and
 bit-identical replicated parameters, whose gathered ``model.1.bin``
 decodes in a world-1 model; and with two or more GPUs the same CLI over
-NCCL, eager and with ``--device_loop_steps 2``.
+NCCL, eager and with ``--device_loop_steps 2``.  Phase 7e runs the GSPMD
+layout the same way (``--tp_impl gspmd``: vocab-parallel embeddings,
+MLM logits and loss, sharded region and answer heads): each fp32 GSPMD
+step (4 layers, ``--relax_projection``, label smoothing 0.1, then a VQA
+step) against one process's step from the same state, then the CLI with
+the same launch and bit checks, a rank's parameter + moment bytes and
+peak allocation beside 7c's, and the step's collectives (recorded from
+``ops.tp``) replayed and timed.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --ab-times ROOT   # another checkout's kernels
@@ -3144,6 +3151,7 @@ def phase_dp_two_ranks(vocab_path, out_dir):
 TP_HEADS = (6, 3)            # phase 7a: a rank's heads at tp = 2 and 4
 TP_STEPS = 4                 # phase 7c: train CLI steps
 TP_B = 64                    # phase 7c: global batch (dp = 1)
+TP_ANSWERS = 3129            # phase 7e(a): the VQA step's answer vocab
 
 
 def phase_tp_kernels(dev, results):
@@ -3227,46 +3235,213 @@ def tp_flags(vocab_path, out, *extra):
         "--steps_per_epoch", str(TP_STEPS), "--profile_steps", "1", *extra]
 
 
-def replicated_hash(model) -> str:
-    """sha256 of the parameters tensor parallelism leaves whole."""
-    import hashlib
+def _largest_gap(got, want) -> tuple:
+    """(max |got - want| over a state dict's entries, the entry's name)."""
+    return max(((got[k].float() - want[k].float()).abs().max().item(), k)
+               for k in want)
+
+
+RELU_INPUTS = ("vis_embed.0", "vis_embed.2", "vis_pe_embed.0")
+
+
+def _relu_signs(sd, b) -> list:
+    """Which inputs of the region MLPs' and the geometry projection's
+    ReLUs (the outputs of RELU_INPUTS) are positive, for state dict
+    ``sd`` on batch ``b`` (the plain fp32 products)."""
+    import torch.nn.functional as F
+    with torch.no_grad():
+        a0 = F.linear(b["vis_feats"].float(), sd["vis_embed.0.weight"],
+                      sd["vis_embed.0.bias"])
+        a2 = F.linear(F.relu(a0), sd["vis_embed.2.weight"],
+                      sd["vis_embed.2.bias"])
+        p = F.linear(b["vis_pe"].float(), sd["vis_pe_embed.0.weight"],
+                     sd["vis_pe_embed.0.bias"])
+    return [t > 0 for t in (a0, a2, p)]
+
+
+def _relu_flips(sa, sb, b) -> dict:
+    """How many of those ReLU inputs differ in sign between two states,
+    by layer."""
+    return {n: int((x != y).sum()) for n, x, y in zip(
+        RELU_INPUTS, _relu_signs(sa, b), _relu_signs(sb, b))}
+
+
+@contextlib.contextmanager
+def _halved_region_product(model):
+    """One process's ``model.vis_embed[2]`` as two half-sums over its input
+    dim added together, what the row-parallel g gives at tp = 2 (the
+    module's other denses unchanged): fp32 reassociation without tensor
+    parallelism."""
+    import torch.nn.functional as F
+    from vlp_tpu_torch.models import model as mm
+    plain = mm._row_parallel
+
+    def halves(lin, x, tp):
+        if lin is not model.vis_embed[2]:
+            return plain(lin, x, tp)
+        h = x.shape[-1] // 2
+        w = lin.weight.to(x.dtype)
+        return ((F.linear(x[..., :h], w[:, :h])
+                 + F.linear(x[..., h:], w[:, h:])) + lin.bias.to(x.dtype))
+
+    mm._row_parallel = halves
+    try:
+        yield
+    finally:
+        mm._row_parallel = plain
+
+
+def fp32_tp_steps(rank, dist, dev, cfg, task, batches, layout, tag,
+                  restart=False) -> dict:
+    """Phase 7b / 7e(a): fp32 steps of one task on this rank's shard
+    under ``layout`` (seeds ``step_seed(11, i)``), the gathered
+    parameters after each, and on rank 0 the single-process steps on the
+    same batches from the same init beside them.  ``restart``: each
+    single-process step starts from the tensor-parallel run's gathered
+    state (parameters and BertAdam's moments) before that step, so each
+    step is held against one process's step from the same state; beside
+    it two single-process runs go on freely, one plain and one with its
+    region product halved (``_halved_region_product``), and the gaps to
+    the plain run are reported, not gated: the tensor-parallel run's, the
+    halved run's and the restarted run's (one process's steps from the
+    tensor-parallel run's states), with the ReLU inputs whose sign differs
+    after the first step.  Returns ``{tag}_losses`` and on rank 0
+    ``{tag}_ref_losses``, ``{tag}_max_abs_err`` (the largest over the
+    steps), ``{tag}_within_tol`` (parameters and losses within FP32_TOL
+    after every step), ``{tag}_moved`` and with ``restart`` the
+    ``{tag}_free_running`` gaps and flips (tensor-parallel and halved runs
+    against the plain one)."""
+    from vlp_tpu_torch import optim
+    from vlp_tpu_torch import train_step as ts
+    from vlp_tpu_torch.models.model import VLPModel
     from vlp_tpu_torch.parallel import mesh
+    from vlp_tpu_torch.parallel.tp_step import (make_tp_train_step,
+                                                sharded_names)
+
+    vqa = task == "vqa2"
+
+    def model_of():
+        m = VLPModel(cfg, with_vqa=vqa)
+        m.init_weights(torch.Generator().manual_seed(0))
+        return m.to(dev)
+
+    def single():
+        ref = model_of()
+        ropt = optim.BertAdam(dict(ref.named_parameters()), DP_LR,
+                              warmup=0.1, t_total=-1)
+        return ref, ropt, ts.make_train_step(ref, ropt, **kw)
+
+    kw = dict(mask_image_regions=not vqa, task=task)
+    m = model_of().shard_(dist.tensor_parallel, layout=layout)
+    opt = optim.BertAdam(dict(m.named_parameters()), DP_LR, warmup=0.1,
+                         t_total=-1, clip_group=dist.tp_group,
+                         clip_sharded=sharded_names(m))
+    step = make_tp_train_step(m, opt, dist, **kw)
+
+    def gathered(sd):
+        return mesh.gather_full(sd, dist.tp_index, 2, dist.tp_group,
+                                m.tp_specs)
+
+    res = {f"{tag}_losses": [], f"{tag}_ref_losses": []}
+    ref = free = halved = init = None
+    if rank == 0:
+        ref, ropt, rstep = single()
+        if restart:
+            free, halved = single(), single()
+        init = model_of().state_dict()
+    errs, ok, after_first = [], True, None
+    for i, b in enumerate(batches):
+        seed = ts.step_seed(11, i)
+        if free is not None and i == 1:
+            plain = free[0].state_dict()
+            res[f"{tag}_free_running_relu_flips"] = {
+                "tp": _relu_flips(after_first, plain, b),
+                "halved": _relu_flips(halved[0].state_dict(), plain, b)}
+        if restart and i:
+            state = (gathered(m.state_dict()), gathered(opt.m),
+                     gathered(opt.v))
+            if rank == 0:
+                ref.load_state_dict(state[0])
+                for mine, theirs in ((ropt.m, state[1]), (ropt.v, state[2])):
+                    for n, t in mine.items():
+                        t.copy_(theirs[n])
+        res[f"{tag}_losses"].append(float(step(b, seed)["loss"]))
+        got = gathered(m.state_dict())
+        if rank == 0:
+            res[f"{tag}_ref_losses"].append(float(rstep(b, seed)["loss"]))
+            want = ref.state_dict()
+            errs.append(max((got[k].float() - want[k].float()).abs().max()
+                            .item() for k in want))
+            ok = ok and all(torch.allclose(got[k].float(), want[k].float(),
+                                           **FP32_TOL) for k in want)
+            if free is not None:
+                free[2](b, seed)
+                with _halved_region_product(halved[0]):
+                    halved[2](b, seed)
+                if i == 0:
+                    after_first = {k: v.clone() for k, v in got.items()}
+    if rank == 0:
+        res[f"{tag}_max_abs_err"] = max(errs)
+        res[f"{tag}_within_tol"] = ok and bool(np.allclose(
+            res[f"{tag}_losses"], res[f"{tag}_ref_losses"], **FP32_TOL))
+        res[f"{tag}_moved"] = max(
+            (got[k].float() - init[k].float()).abs().max().item()
+            for k in init)
+        if free is not None:
+            plain = free[0].state_dict()
+            res[f"{tag}_free_running_max_abs_err"], res[
+                f"{tag}_free_running_worst"] = _largest_gap(got, plain)
+            res[f"{tag}_halved_max_abs_err"], res[
+                f"{tag}_halved_worst"] = _largest_gap(
+                    halved[0].state_dict(), plain)
+            res[f"{tag}_restarted_max_abs_err"], res[
+                f"{tag}_restarted_worst"] = _largest_gap(
+                    ref.state_dict(), plain)
+    return res
+
+
+def replicated_hash(model) -> str:
+    """sha256 of the parameters the model's tensor-parallel layout leaves
+    whole (``model.tp_specs``)."""
+    import hashlib
     h = hashlib.sha256()
     for k, v in sorted(model.state_dict().items()):
-        if mesh.shard_dim(k) is None:
+        if model.tp_specs.get(k) is None:
             h.update(k.encode())
             h.update(v.detach().float().cpu().numpy().tobytes())
     return h.hexdigest()
 
 
 def tp_worker(rank: int, port: int, vocab_path: str, out_dir: str,
-              out: str, backend: str) -> None:
-    """Rank ``rank`` of dp x tp = 1 x 2, its group formed here: gloo, both
-    ranks on cuda:0 (NCCL refuses two ranks on one device), or NCCL on
-    cuda:{rank}.  Under gloo: (b) two fp32 TP steps at bert-base width,
-    DP2_LAYERS deep, dropout 0, global B=16, and on rank 0 the
-    single-process step on the same batch beside them; then (c) the train
-    CLI (``tp_flags``), which adopts the group.  Under NCCL: the CLI, then
-    the CLI with ``--device_loop_steps 2``.  Writes each CLI run's launch
-    counts, losses, step times and replicated-parameter hash, and the time
-    of one step's f/g all-reduces (``2 x 2 x layers`` sums of a [B, L, 768]
-    bf16 activation over the group), to ``out``."""
+              out: str, backend: str, layout: str = "shard_map") -> None:
+    """Rank ``rank`` of dp x tp = 1 x 2 under ``--tp_impl layout``, its
+    group formed here: gloo, both ranks on cuda:0 (NCCL refuses two ranks
+    on one device), or NCCL on cuda:{rank}.  Under gloo: (b) two fp32 TP
+    steps at bert-base width, DP2_LAYERS deep, dropout 0, global B=16, and
+    on rank 0 the single-process step on the same batch beside them (under
+    ``"gspmd"``, phase 7e(a), with ``--relax_projection`` and label
+    smoothing 0.1, each step from the same state, then one VQA step); then
+    (c) the train CLI (``tp_flags``), which adopts the group.  Under NCCL:
+    the CLI, then the CLI with ``--device_loop_steps 2``.  Writes each CLI
+    run's launch counts, losses, step times, replicated-parameter hash,
+    parameter and moment bytes, peak allocated bytes and the model's
+    collectives of a step (every all-reduce of ``ops.tp``, recorded during
+    the run: shape, dtype, op), then the time of the main run's step of
+    recorded collectives replayed and of the batch's broadcast, to
+    ``out``."""
     import torch.distributed as tdist
 
     import vlp_tpu_torch
-    from vlp_tpu_torch import optim, parallel
-    from vlp_tpu_torch import train_step as ts
+    from vlp_tpu_torch import parallel
     from vlp_tpu_torch.cli import train as train_cli
     from vlp_tpu_torch.cli.common import resolve_tokenizer
     from vlp_tpu_torch.config import VLPConfig
     from vlp_tpu_torch.data.example_builder import TrainExampleBuilder, collate
-    from vlp_tpu_torch.models.model import VLPModel
     from vlp_tpu_torch.ops import _build
-    from vlp_tpu_torch.parallel import mesh
-    from vlp_tpu_torch.parallel.tp_step import (make_tp_train_step,
-                                                sharded_names)
+    from vlp_tpu_torch.ops import tp as tp_ops
 
     vlp_tpu_torch.configure_precision()
+    gspmd = layout == "gspmd"
     dev = torch.device("cuda", rank if backend == "nccl" else 0)
     torch.cuda.set_device(dev)
     tdist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
@@ -3282,90 +3457,95 @@ def tp_worker(rank: int, port: int, vocab_path: str, out_dir: str,
                             max_pred=3, num_hidden_layers=DP2_LAYERS,
                             dtype="float32", hidden_dropout_prob=0.0,
                             attention_probs_dropout_prob=0.0)
+            if gspmd:
+                cfg = cfg.replace(relax_projection=4, label_smoothing=0.1,
+                                  num_answers=TP_ANSWERS)
             nv = cfg.len_vis_input
-            batches = []
-            for _ in range(2):
+
+            def batch_of(task):
                 exs = []
                 for i in range(GB):
-                    b = TrainExampleBuilder(cfg, vocab,
-                                            mode="s2s" if i % 2 else "bi",
-                                            vis_mask_prob=0.2)
+                    vqa = task == "vqa2"
+                    b = TrainExampleBuilder(
+                        cfg, vocab, mode="bi" if vqa or i % 2 == 0
+                        else "s2s", vis_mask_prob=0.0 if vqa else 0.2,
+                        mask_prob=0.0 if vqa else 0.15, load_vqa_ann=vqa)
                     toks = [words[j] for j in rng.integers(0, len(words), 9)]
+                    kw = {}
+                    if vqa:
+                        scores = np.zeros(TP_ANSWERS, np.float32)
+                        scores[rng.choice(TP_ANSWERS, 3, replace=False)] = (
+                            rng.choice([0.3, 0.6, 1.0], 3))
+                        kw = dict(ans_scores=scores)
                     exs.append(b(toks, rng.normal(size=(nv, cfg.vis_feat_dim)),
-                                 rng.uniform(size=(nv, cfg.vis_pe_dim)), rng))
-                batches.append({k: torch.from_numpy(v).to(dev)
-                                for k, v in collate(exs).items()})
-
-            def model_of():
-                m = VLPModel(cfg)
-                m.init_weights(torch.Generator().manual_seed(0))
-                return m.to(dev)
+                                 rng.uniform(size=(nv, cfg.vis_pe_dim)), rng,
+                                 **kw))
+                return {k: torch.from_numpy(v).to(dev)
+                        for k, v in collate(exs).items()}
 
             dist = parallel.from_cli("cuda").with_tensor_parallel(2)
-            m = model_of().shard_(dist.tensor_parallel)
-            opt = optim.BertAdam(dict(m.named_parameters()), DP_LR,
-                                 warmup=0.1, t_total=-1,
-                                 clip_group=dist.tp_group,
-                                 clip_sharded=sharded_names(m))
-            step = make_tp_train_step(m, opt, dist, mask_image_regions=True)
-            res["fp32_losses"] = [float(step(b, ts.step_seed(11, i))["loss"])
-                                  for i, b in enumerate(batches)]
-            got = mesh.gather_full(m.state_dict(), dist.tp_index, 2,
-                                   dist.tp_group)
-            if rank == 0:
-                ref = model_of()
-                ropt = optim.BertAdam(dict(ref.named_parameters()), DP_LR,
-                                      warmup=0.1, t_total=-1)
-                rstep = ts.make_train_step(ref, ropt, mask_image_regions=True)
-                res["fp32_ref_losses"] = [
-                    float(rstep(b, ts.step_seed(11, i))["loss"])
-                    for i, b in enumerate(batches)]
-                init = model_of().state_dict()
-                want = ref.state_dict()
-                res["fp32_max_abs_err"] = max(
-                    (got[k].float() - want[k].float()).abs().max().item()
-                    for k in want)
-                res["fp32_within_tol"] = all(
-                    torch.allclose(got[k].float(), want[k].float(),
-                                   **FP32_TOL) for k in want) and bool(
-                    np.allclose(res["fp32_losses"], res["fp32_ref_losses"],
-                                **FP32_TOL))
-                res["fp32_moved"] = max(
-                    (got[k].float() - init[k].float()).abs().max().item()
-                    for k in want)
-                del ref, ropt, init, want
-            del m, opt, step, got, batches
+            tasks = [("img2txt", [batch_of("img2txt") for _ in range(2)])]
+            if gspmd:
+                tasks.append(("vqa2", [batch_of("vqa2")]))
+            for task, batches in tasks:
+                tag = "fp32" if task == "img2txt" else "fp32_vqa"
+                res.update(fp32_tp_steps(rank, dist, dev, cfg, task,
+                                         batches, layout, tag,
+                                         restart=gspmd))
             torch.cuda.empty_cache()
         runs = [("main", [])]
         if backend == "nccl":
             runs.append(("loop", ["--device_loop_steps", "2"]))
+        calls = []
+        all_reduce_ = tp_ops._all_reduce_
+
+        def recorded(t, group, op=tdist.ReduceOp.SUM):
+            calls.append((list(t.shape), str(t.dtype)[6:], str(op)))
+            return all_reduce_(t, group, op)
+
+        prefix = "tp_gspmd" if gspmd else "tp"
         for name, extra in runs:
+            calls.clear()
+            tp_ops._all_reduce_ = recorded
+            torch.cuda.reset_peak_memory_stats(dev)
             _build.reset_launch_counts()
-            r = train_cli.main(tp_flags(vocab_path,
-                                        os.path.join(out_dir, f"tp_{name}"),
-                                        *extra))
+            r = train_cli.main(tp_flags(
+                vocab_path, os.path.join(out_dir, f"{prefix}_{name}"),
+                "--tp_impl", layout, *extra))
             torch.cuda.synchronize()
+            tp_ops._all_reduce_ = all_reduce_
             res["counts"][name] = {k: v.launches
                                    for k, v in _build.KERNELS.items()}
-            res[name] = dict(losses=r["losses"],
-                             step_seconds=r["step_seconds"],
-                             hash=replicated_hash(r["model"]),
-                             profile=busy_share(os.path.join(
-                                 out_dir, f"tp_{name}"))
-                             if rank == 0 else None)
-            del r
+            opt = r["optimizer"]
+            res[name] = dict(
+                losses=r["losses"], step_seconds=r["step_seconds"],
+                hash=replicated_hash(r["model"]),
+                param_bytes=sum(p.numel() * p.element_size()
+                                for p in r["model"].parameters()),
+                moment_bytes=sum(t.numel() * t.element_size()
+                                 for d in (opt.m, opt.v)
+                                 for t in d.values()),
+                peak_allocated_bytes=torch.cuda.max_memory_allocated(dev),
+                collectives=calls[:len(calls) // TP_STEPS],
+                n_collectives=len(calls),
+                profile=busy_share(os.path.join(out_dir, f"{prefix}_{name}"))
+                if rank == 0 else None)
+            del r, opt
             torch.cuda.empty_cache()
-        # one step's f/g all-reduces (g after each layer's two row-parallel
-        # products, f on the two branch inputs' gradients) and its batch
-        # broadcast (the region features, the bulk of it), host clock
-        x = torch.randn(TP_B, 128, 768, device=dev).to(torch.bfloat16)
+        # one step's recorded collectives, replayed on tensors of their
+        # shapes, and its batch broadcast (the region features, the bulk of
+        # it): host clock around a synchronised group, the second reading
+        step_calls = [(torch.ones(shape, device=dev,
+                                  dtype=getattr(torch, dtype)),
+                       getattr(tdist.ReduceOp, op.split(".")[-1]))
+                      for shape, dtype, op in res["main"]["collectives"]]
         feats = torch.randn(TP_B, 100, 2048, device=dev)
-        for key, fn in (("allreduce_ms_per_step",
-                         lambda: [tdist.all_reduce(x.clone())
-                                  for _ in range(4 * 12)]),
+        for key, fn in (("collectives_ms_per_step",
+                         lambda: [tdist.all_reduce(t, op=op)
+                                  for t, op in step_calls]),
                         ("broadcast_ms_per_step",
                          lambda: tdist.broadcast(feats, src=0))):
-            for _ in range(2):        # the second reading is kept
+            for _ in range(2):
                 torch.cuda.synchronize()
                 tdist.barrier()
                 t0 = time.perf_counter()
@@ -3378,15 +3558,15 @@ def tp_worker(rank: int, port: int, vocab_path: str, out_dir: str,
         json.dump(res, f)
 
 
-def run_tp_workers(vocab_path, out_dir, backend):
-    """The two ``tp_worker`` processes (this script with ``--tp-worker``);
-    returns their records in rank order."""
+def run_tp_workers(vocab_path, out_dir, backend, layout="shard_map"):
+    """The two ``tp_worker`` processes (this script with ``--tp-worker``)
+    under ``--tp_impl layout``; returns their records in rank order."""
     port = free_port()
-    outs = [os.path.join(out_dir, f"tp_{backend}_rank{r}.json")
+    outs = [os.path.join(out_dir, f"tp_{layout}_{backend}_rank{r}.json")
             for r in range(2)]
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--tp-worker", str(r),
-         str(port), vocab_path, out_dir, outs[r], backend])
+         str(port), vocab_path, out_dir, outs[r], backend, layout])
         for r in range(2)]
     try:
         rcs = [p.wait(timeout=600) for p in procs]
@@ -3396,17 +3576,20 @@ def run_tp_workers(vocab_path, out_dir, backend):
                 p.kill()
                 p.wait()
     if rcs != [0, 0]:
-        fail(f"TP {backend}: the workers exited with {rcs}")
+        fail(f"TP {layout} {backend}: the workers exited with {rcs}")
     return [json.load(open(o)) for o in outs]
 
 
-def check_tp_runs(recs, backend, gpu_line) -> dict:
+def check_tp_runs(recs, backend, gpu_line, path="tp2") -> dict:
     """Each CLI run of the workers: exactly 12 x TP_STEPS K1-dropout and K2
     launches a rank (at H = 6) and nothing else, finite losses that the
     ranks report alike, replicated parameters bit-identical across the
-    ranks.  Returns the runs' launch counts summed over the ranks and
-    rates."""
+    ranks, a whole number of steps' collectives.  Returns, under keys
+    ``{path}_{backend}_...``, the runs' launch counts summed over the
+    ranks, rates, rank 0's parameter + moment and peak allocated bytes,
+    the collectives of a step and their replayed time."""
     r0, r1 = recs
+    pre = f"{path}_{backend}"
     out = {}
     for name in r0["counts"]:
         zero = {k: 0 for k in r0["counts"][name]}
@@ -3414,30 +3597,46 @@ def check_tp_runs(recs, backend, gpu_line) -> dict:
                     attention_bwd=12 * TP_STEPS)
         for r in recs:
             if r["counts"][name] != want:
-                fail(f"TP {backend} {name}: launch counts "
+                fail(f"TP {pre} {name}: launch counts "
                      f"{r['counts'][name]}, expected {want} a rank")
         losses = r0[name]["losses"]
         if len(losses) != TP_STEPS or not np.isfinite(losses).all():
-            fail(f"TP {backend} {name}: bad losses {losses}")
+            fail(f"TP {pre} {name}: bad losses {losses}")
         if r1[name]["losses"] != losses:
-            fail(f"TP {backend} {name}: the ranks report different losses")
+            fail(f"TP {pre} {name}: the ranks report different losses")
         if r0[name]["hash"] != r1[name]["hash"]:
-            fail(f"TP {backend} {name}: the replicated parameters of the "
+            fail(f"TP {pre} {name}: the replicated parameters of the "
                  "two ranks differ")
         # steps 3 and 4: step 1 sets up, step 2 runs under the profiler
+        if r0[name]["n_collectives"] % TP_STEPS:
+            fail(f"TP {pre} {name}: {r0[name]['n_collectives']} "
+                 f"collectives in {TP_STEPS} steps")
         step_s = float(np.median(r0[name]["step_seconds"][2:]))
-        out[f"tp2_{backend}_{name}_samples_per_sec"] = TP_B / step_s
-        out[f"tp2_{backend}_{name}_profile"] = r0[name]["profile"]
-        log(f"TP {backend} {name}: launch counts a rank as expected "
+        out[f"{pre}_{name}_samples_per_sec"] = TP_B / step_s
+        out[f"{pre}_{name}_profile"] = r0[name]["profile"]
+        for key in ("param_bytes", "moment_bytes", "peak_allocated_bytes"):
+            out[f"{pre}_{name}_{key}"] = r0[name][key]
+        colls = r0[name]["collectives"]
+        out[f"{pre}_{name}_collectives_per_step"] = len(colls)
+        out[f"{pre}_{name}_collective_bytes_per_step"] = sum(
+            int(np.prod(shape)) * torch.tensor([], dtype=getattr(
+                torch, dtype)).element_size() for shape, dtype, _ in colls)
+        log(f"TP {pre} {name}: rank 0 holds {r0[name]['param_bytes']} "
+            f"parameter + {r0[name]['moment_bytes']} moment bytes, peak "
+            f"allocated {r0[name]['peak_allocated_bytes']} bytes; "
+            f"{len(colls)} collectives a step "
+            f"({out[f'{pre}_{name}_collective_bytes_per_step']} "
+            "bytes)")
+        log(f"TP {pre} {name}: launch counts a rank as expected "
             f"({12 * TP_STEPS} K1-dropout + {12 * TP_STEPS} K2 at H=6), "
             f"losses {losses}, replicated parameters bit-identical; "
             f"{TP_B / step_s:.2f} samples/s (median of steps 3-{TP_STEPS}, "
             f"{backend}) on {gpu_line}; rank 0's profile of step 2: "
             f"{r0[name]['profile']}")
-        out[f"tp2_{backend}_{name}_counts"] = {
+        out[f"{pre}_{name}_counts"] = {
             k: r0["counts"][name][k] + r1["counts"][name][k] for k in zero}
-    for key in ("allreduce_ms_per_step", "broadcast_ms_per_step"):
-        out[f"tp2_{backend}_{key}"] = r0[key]
+    for key in ("collectives_ms_per_step", "broadcast_ms_per_step"):
+        out[f"{pre}_{key}"] = r0[key]
     return out
 
 
@@ -3451,9 +3650,6 @@ def phase_tp_main_path(vocab_path, out_dir, gpu_line):
     on K1 + K4; (d) with two or more GPUs, the CLI over NCCL, eager and
     with ``--device_loop_steps 2``.  Returns (the gloo run's launch
     counts summed over the ranks, rates)."""
-    from vlp_tpu_torch.cli import decode as decode_cli
-    from vlp_tpu_torch.ops import _build
-
     recs = run_tp_workers(vocab_path, out_dir, "gloo")
     r0 = recs[0]
     log(f"TP fp32 (b): losses {recs[0]['fp32_losses']} / "
@@ -3466,14 +3662,33 @@ def phase_tp_main_path(vocab_path, out_dir, gpu_line):
              "the single-process step, or the step did not move them")
     rates = check_tp_runs(recs, "gloo", gpu_line)
     step_ms = TP_B / rates["tp2_gloo_main_samples_per_sec"] * 1e3
-    log(f"TP gloo, one step of {step_ms:.2f} ms: f/g all-reduces ({4 * 12} "
-        f"sums of a [{TP_B}, 128, 768] bf16 activation) "
-        f"{r0['allreduce_ms_per_step']:.2f} ms, the batch's broadcast (its "
+    log(f"TP gloo, one step of {step_ms:.2f} ms: its f/g all-reduces "
+        f"({rates['tp2_gloo_main_collectives_per_step']} recorded, replayed) "
+        f"{r0['collectives_ms_per_step']:.2f} ms, the batch's broadcast (its "
         f"[{TP_B}, 100, 2048] fp32 features) "
         f"{r0['broadcast_ms_per_step']:.2f} ms: gloo through the host on "
         "one card, not NVLink")
-    ckpt_dir = os.path.join(out_dir, "tp_main")
-    dec_out = os.path.join(out_dir, "tp_decode")
+    decode_gathered(vocab_path, os.path.join(out_dir, "tp_main"),
+                    os.path.join(out_dir, "tp_decode"), "TP")
+    if torch.cuda.device_count() >= 2:
+        rates.update(check_tp_runs(run_tp_workers(vocab_path, out_dir,
+                                                  "nccl"), "nccl", gpu_line))
+        log("phase 7d: TP over NCCL, eager and with --device_loop_steps 2, "
+            "as expected")
+    else:
+        log(f"phase 7d: not run: {torch.cuda.device_count()} GPU on this "
+            "machine, and NCCL (which the TP device loop's CUDA graph needs) "
+            "takes one device a rank")
+    return rates.pop("tp2_gloo_main_counts"), rates
+
+
+def decode_gathered(vocab_path, ckpt_dir, dec_out, what):
+    """The gathered ``model.1.bin`` of a tensor-parallel CLI run, loaded
+    into a world-1 model, decodes 100 images (beam 5) on K1 + K4 and on
+    nothing else."""
+    from vlp_tpu_torch.cli import decode as decode_cli
+    from vlp_tpu_torch.ops import _build
+
     _build.reset_launch_counts()
     stats = decode_cli.main([
         "--bert_model", vocab_path, "--new_segment_ids", "--enable_butd",
@@ -3488,20 +3703,79 @@ def phase_tp_main_path(vocab_path, out_dir, gpu_line):
     with open(os.path.join(dec_out, "preds-model.1.bin-val.json")) as f:
         preds = json.load(f)
     if stats["n_images"] != 100 or len(preds) != 100 or counts != want:
-        fail(f"TP model.1.bin did not decode on K1 + K4: {stats}, launch "
+        fail(f"{what} model.1.bin did not decode on K1 + K4: {stats}, launch "
              f"counts {counts}, expected {want}")
-    log(f"TP gathered model.1.bin decodes in a world-1 model (K1 + K4 as "
-        f"expected): {preds[0]['caption']!r}")
-    if torch.cuda.device_count() >= 2:
-        rates.update(check_tp_runs(run_tp_workers(vocab_path, out_dir,
-                                                  "nccl"), "nccl", gpu_line))
-        log("phase 7d: TP over NCCL, eager and with --device_loop_steps 2, "
-            "as expected")
-    else:
-        log(f"phase 7d: not run: {torch.cuda.device_count()} GPU on this "
-            "machine, and NCCL (which the TP device loop's CUDA graph needs) "
-            "takes one device a rank")
-    return rates.pop("tp2_gloo_main_counts"), rates
+    log(f"{what} gathered model.1.bin decodes in a world-1 model (K1 + K4 "
+        f"as expected): {preds[0]['caption']!r}")
+
+
+def phase_tp_gspmd_main_path(vocab_path, out_dir, gpu_line, tp_rates):
+    """Phase 7e: ``--tp_impl gspmd`` on two gloo ranks sharing the card.
+    (a) fp32 GSPMD steps (bert-base width, DP2_LAYERS deep, dropout 0,
+    ``--relax_projection``, label smoothing 0.1, region masking; then one
+    VQA step) equal the single-process steps within FP32_TOL; (b) the
+    train CLI with ``--tensor_parallel 2 --tp_impl gspmd`` (phase 7c's
+    flags): launches at H = 6, bit-identical replicated parameters,
+    samples/s, the collectives of a step and their time, a rank's
+    parameter + moment bytes and peak allocation beside phase 7c's
+    shard_map run (``tp_rates``), and the gathered ``model.1.bin``
+    decoding on K1 + K4 in world 1.  Returns (the CLI run's launch counts
+    summed over the ranks, rates)."""
+    recs = run_tp_workers(vocab_path, out_dir, "gloo", layout="gspmd")
+    r0 = recs[0]
+    rates = {}
+    for tag, what in (("fp32", "img2txt, 2 steps"), ("fp32_vqa", "vqa2")):
+        log(f"TP gspmd {tag} ({what}): losses {recs[0][f'{tag}_losses']} / "
+            f"{recs[1][f'{tag}_losses']}, single-process from the same "
+            f"state {r0[f'{tag}_ref_losses']}; max |gathered param - "
+            f"single-process| after a step {r0[f'{tag}_max_abs_err']:.3e} "
+            f"(tol {FP32_TOL}, losses too), params moved up to "
+            f"{r0[f'{tag}_moved']:.3e}; not gated, free-running against "
+            f"the plain single-process run: GSPMD "
+            f"{r0[f'{tag}_free_running_max_abs_err']:.3e} in "
+            f"{r0[f'{tag}_free_running_worst']}, one process with "
+            f"vis_embed.2's product halved "
+            f"{r0[f'{tag}_halved_max_abs_err']:.3e} in "
+            f"{r0[f'{tag}_halved_worst']}, one process restarted from "
+            f"the GSPMD states {r0[f'{tag}_restarted_max_abs_err']:.3e} in "
+            f"{r0[f'{tag}_restarted_worst']}; ReLU inputs of differing sign "
+            f"after step 1 "
+            f"{r0.get(f'{tag}_free_running_relu_flips', 'n/a (one step)')}")
+        for k in ("max_abs_err", "free_running_max_abs_err",
+                  "free_running_worst", "halved_max_abs_err", "halved_worst",
+                  "restarted_max_abs_err", "restarted_worst",
+                  "free_running_relu_flips"):
+            if f"{tag}_{k}" in r0:
+                rates[f"tp2_gspmd_{tag}_{k}"] = r0[f"{tag}_{k}"]
+        if not (r0[f"{tag}_within_tol"] and r0[f"{tag}_moved"] > 1e-4):
+            fail(f"TP gspmd {tag}: the gathered parameters or the losses "
+                 "differ from the single-process step, or the step did not "
+                 "move them")
+    rates.update(check_tp_runs(recs, "gloo", gpu_line, path="tp2_gspmd"))
+    g, m = "tp2_gspmd_gloo_main", "tp2_gloo_main"
+    both = {**tp_rates, **rates}
+    state = {k: both[f"{k}_param_bytes"] + both[f"{k}_moment_bytes"]
+             for k in (g, m)}
+    rates["tp2_gspmd_state_bytes_saved_per_rank"] = state[m] - state[g]
+    rates["tp2_gspmd_peak_bytes_saved_per_rank"] = (
+        both[f"{m}_peak_allocated_bytes"] - both[f"{g}_peak_allocated_bytes"])
+    log(f"TP gspmd vs shard_map, rank 0: parameter + moment bytes "
+        f"{state[g]} vs {state[m]} ({state[m] - state[g]} fewer), peak "
+        f"allocated {both[f'{g}_peak_allocated_bytes']} vs "
+        f"{both[f'{m}_peak_allocated_bytes']}; samples/s "
+        f"{both[f'{g}_samples_per_sec']:.2f} vs "
+        f"{both[f'{m}_samples_per_sec']:.2f}; collectives a step "
+        f"{both[f'{g}_collectives_per_step']} vs "
+        f"{both[f'{m}_collectives_per_step']}, replayed "
+        f"{both['tp2_gspmd_gloo_collectives_ms_per_step']:.2f} vs "
+        f"{both['tp2_gloo_collectives_ms_per_step']:.2f} ms (gloo through "
+        f"the host on one card) on {gpu_line}")
+    if state[g] >= state[m]:
+        fail("TP gspmd: a rank holds no fewer parameter and moment bytes "
+             "than under shard_map")
+    decode_gathered(vocab_path, os.path.join(out_dir, "tp_gspmd_main"),
+                    os.path.join(out_dir, "tp_gspmd_decode"), "TP gspmd")
+    return rates.pop(f"{g}_counts"), rates
 
 
 def phase_steady_state(dev, vocab_path):
@@ -3598,8 +3872,9 @@ def main():
         dp_worker(int(rank), int(port), vocab_path, out)
         return
     if sys.argv[1:2] == ["--tp-worker"]:
-        rank, port, vocab_path, out_dir, out, backend = sys.argv[2:8]
-        tp_worker(int(rank), int(port), vocab_path, out_dir, out, backend)
+        rank, port, vocab_path, out_dir, out, backend, layout = sys.argv[2:9]
+        tp_worker(int(rank), int(port), vocab_path, out_dir, out, backend,
+                  layout)
         return
     if sys.argv[1:2] == ["--ab-times"]:
         ab_times(sys.argv[2])
@@ -3703,6 +3978,12 @@ def main():
         log("phase 7b-c: --tensor_parallel 2 went through its kernels at "
             "H = 6, fp32 equal to one process, replicated parameters "
             "bit-identical")
+        paths["tp2_gspmd"], gspmd_rates = phase_tp_gspmd_main_path(
+            vocab_path, tmp, smi, tp_rates)
+        tp_rates.update(gspmd_rates)
+        log("phase 7e: --tensor_parallel 2 --tp_impl gspmd went through its "
+            "kernels at H = 6, fp32 equal to one process, replicated "
+            "parameters bit-identical, fewer bytes a rank than shard_map")
 
     leaked = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "flax", "vlp_tpu")]
@@ -3716,13 +3997,13 @@ def main():
             launches=sum(by_path.values()), launches_by_path=by_path,
             **results[name]))
     for name in ("attention_fwd_drop", "attention_bwd"):
-        # the tensor-parallel path's launches, at a rank's H = 6, apart
+        # the tensor-parallel paths' launches, at a rank's H = 6, apart
         k = _build.KERNELS[name]
+        by_path = {p: paths[p][name] for p in ("tp2", "tp2_gspmd")}
         kernels.append(dict(
             name=f"{name}_h6", route=k.route, source=k.source,
-            replaces=k.replaces, launches=paths["tp2"][name],
-            launches_by_path={"tp2": paths["tp2"][name]},
-            **results[f"{name}_h6"]))
+            replaces=k.replaces, launches=sum(by_path.values()),
+            launches_by_path=by_path, **results[f"{name}_h6"]))
     print(json.dumps({"kernels": kernels, "captions_per_sec_cli": rates,
                       "captions_per_sec_steady": steady, **train_rates,
                       **fp16_rates, "legacy_heads_max_abs_err": heads_errs,

@@ -1,9 +1,10 @@
 """The port imports neither JAX nor the JAX package: a fresh interpreter
 imports every module of vlp_tpu_torch and runs a tiny CPU train step, a
 tiny CPU decode, a tiny SCST step and a tiny VQA step and answer through
-it, and the tensor-parallel helpers (f/g without a group, a shard and
-gather round trip), after which none of vlp_tpu, jax, flax, optax or
-orbax is loaded."""
+it, and the tensor-parallel helpers (f/g and the GSPMD collectives
+without a group, a shard and gather round trip under both layouts, a
+rank's GSPMD model, the vocab-parallel loss), after which none of
+vlp_tpu, jax, flax, optax or orbax is loaded."""
 
 import os
 import subprocess
@@ -22,7 +23,9 @@ for name in ("vlp_tpu_torch.cli.decode", "vlp_tpu_torch.cli.train",
              "vlp_tpu_torch.scst", "vlp_tpu_torch.ops.decode_attention",
              "vlp_tpu_torch.ops.philox", "vlp_tpu_torch.cli.eval_vqa2",
              "vlp_tpu_torch.evals.vqa", "vlp_tpu_torch.ops.tp",
-             "vlp_tpu_torch.parallel.mesh", "vlp_tpu_torch.parallel.tp_step"):
+             "vlp_tpu_torch.parallel.mesh", "vlp_tpu_torch.parallel.tp_step",
+             "vlp_tpu_torch.losses", "vlp_tpu_torch.parallel.dist",
+             "vlp_tpu_torch.models.model"):
     assert name in names, name
 
 import torch
@@ -71,8 +74,33 @@ x = torch.ones(3, requires_grad=True)
 assert tp_ops.sum_partial(tp_ops.replicate_for_branch(x, None), None) is x
 full = {k: v.detach() for k, v in vqa.state_dict().items()}
 back = mesh.gather_state_dict([mesh.shard_state_dict(full, t, 2)
-                               for t in range(2)])
+                               for t in range(2)],
+                              mesh.tp_param_specs(
+                                  {k: v.shape for k, v in full.items()}, 2))
 assert all(torch.equal(back[k], full[k]) for k in full)
+# the GSPMD layout: its shard and gather, a rank's model, the collectives
+# and the vocab-parallel loss without a group
+from vlp_tpu_torch import losses
+specs = mesh.tp_param_specs({k: v.shape for k, v in full.items()}, 2,
+                            "gspmd")
+back = mesh.gather_state_dict([mesh.shard_state_dict(full, t, 2, "gspmd")
+                               for t in range(2)], specs)
+assert all(torch.equal(back[k], full[k]) for k in full)
+vqa.shard_(tp_ops.TP(index=1, size=2), layout="gspmd")
+assert vqa.tp_specs == specs
+assert vqa.cls.predictions.decoder.weight.shape[0] == cfg.vocab_size // 2
+rows = tp_ops.vocab_parallel_rows(torch.tensor([0, 3]), torch.ones(2, 4),
+                                  tp_ops.TP(index=1, size=2))
+assert rows.sum().item() == 4.0
+for f in (tp_ops.gather_last, tp_ops.sum_in_rank_order,
+          tp_ops.max_over_group):
+    assert torch.equal(f(x, None), x)
+z = torch.randn(2, 3, 8)
+t = torch.randint(0, 8, (2, 3))
+assert torch.allclose(
+    losses.mlm_position_loss_vocab_parallel(z, t, 0.1, 8,
+                                            tp_ops.TP(index=0, size=1)),
+    losses.mlm_position_loss(z, t, 0.1, 8))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("vlp_tpu", "jax", "jaxlib", "flax",
                                     "optax", "orbax"))

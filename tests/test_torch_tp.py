@@ -101,7 +101,8 @@ def sharded(cfg, dist, clip=True):
 
 def gathered(model, dist):
     return {k: v.detach().clone() for k, v in mesh.gather_full(
-        model.state_dict(), dist.tp_index, dist.tp, dist.tp_group).items()}
+        model.state_dict(), dist.tp_index, dist.tp, dist.tp_group,
+        model.tp_specs).items()}
 
 
 def sha(t):
@@ -321,7 +322,7 @@ def test_shard_rules_match_jax_and_round_trip(tp):
                      ].shape == (16, 32)
     assert shards[1]["bert.encoder.layer.1.output.dense.weight"
                      ].shape == (32, 32)
-    back = mesh.gather_state_dict(shards)
+    back = mesh.gather_state_dict(shards, got)
     assert back.keys() == state.keys()
     for k in state:
         assert torch.equal(back[k], state[k]), k

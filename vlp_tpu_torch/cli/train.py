@@ -54,7 +54,7 @@ the JAX CLI writes one.  With a group on ``cuda`` it needs NCCL.
 
 ``--tensor_parallel N`` (N > 1; MLE and ``--tasks vqa2``, not ``--scst``
 or ``--true_fp16``, as in the JAX CLI) runs the JAX CLI's manual
-(shard_map) tensor parallelism: the world splits into groups of N
+(shard_map, the default ``--tp_impl``) tensor parallelism: the world splits into groups of N
 consecutive ranks (``parallel/mesh.py``), each rank holds 1/N of every
 layer's heads and FFN columns and runs K1 and K2 on its own heads, the
 Megatron f/g all-reduces go over its group (``ops/tp.py``), and the
@@ -72,9 +72,21 @@ gathered to the reference's full shapes before rank 0 writes them, so
 shards the full files.  It composes with ``--device_loop_steps`` (on
 ``cuda`` over NCCL only, like data parallel).
 
-Flags the port leaves out raise: ``--tp_impl gspmd`` with
-``--tensor_parallel > 1`` (ROADMAP A: the next module to port),
-``--scst_replay scan`` and ``--scst_remat`` (ROADMAP A, not to port).  The
+``--tp_impl gspmd`` runs the JAX CLI's GSPMD layout instead
+(``parallel/mesh.py``): the embedding tables' vocab, the tied MLM logits
+and loss, the MLM transform and the region and answer heads are sharded
+too (a table or head that does not divide by N stays whole), so a rank
+holds less of the parameters and moments; the model inserts the
+collectives GSPMD would, K1 and K2 still run on each rank's heads, and
+the masked-LM loss is normalised over the data-parallel ranks' global
+batch, as JAX's GSPMD step does.  As in the JAX CLI it has no device
+loop: ``--device_loop_steps K > 1`` is coerced to 1 with a warning::
+
+    torchrun --nproc_per_node=2 -m vlp_tpu_torch.cli.train ... \
+        --tensor_parallel 2 --tp_impl gspmd
+
+Flags the port leaves out raise: ``--scst_replay scan`` and
+``--scst_remat`` (ROADMAP A, not to port).  The
 TPU dispatch workaround ``--no_pallas`` is a no-op here and says so in the
 log, as are ``--fp16/--amp/--fp32_embedding`` (the dtype follows
 ``--device``).  ``--profile_steps N`` writes a
@@ -242,11 +254,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no_pallas", action="store_true",
                    help="no-op: cuda always runs the kernels, cpu their "
                         "plain versions")
-    p.add_argument("--tp_impl", choices=("shard_map", "gspmd"),
+    p.add_argument("--tp_impl", choices=mesh.LAYOUTS,
                    default="shard_map",
-                   help="with --tensor_parallel > 1: shard_map (manual "
-                        "Megatron collectives, the kernels per rank); gspmd "
-                        "is not ported (ROADMAP A) and raises")
+                   help="with --tensor_parallel > 1: shard_map (heads and "
+                        "FFN columns, Megatron f/g) or gspmd (also the "
+                        "embedding tables' vocab, the tied MLM logits and "
+                        "the region and answer heads; no device loop); the "
+                        "kernels run on each rank's heads in both")
     p.add_argument("--jax_distributed", action="store_true",
                    help="data parallel: one process per GPU, in a group at "
                         "--coordinator_address (or use torchrun)")
@@ -273,10 +287,6 @@ def refuse_unported(args) -> None:
          f"--scst_replay scan: the scan replay {not_to_port}"),
         (args.scst and args.scst_remat,
          f"--scst_remat: the scan replay's remat {not_to_port}"),
-        (args.tensor_parallel > 1 and args.tp_impl == "gspmd",
-         "--tp_impl gspmd: GSPMD tensor parallelism (a vocab-sharded "
-         "embedding and MLM loss, mesh.param_pspec) is the next module "
-         "ROADMAP A queues; the default --tp_impl shard_map runs"),
     ]
     for hit, what in unported:
         if hit:
@@ -346,10 +356,10 @@ def scst_decode_batch(tbatch, cfg: VLPConfig) -> dict:
 
 def main(argv=None, dist: parallel.Dist = None):
     """Returns ``{"losses", "step_seconds", "iter_seconds", "model",
-    "allreduce_ms"}``: the loss of every step taken (the mean over the
-    ranks), the seconds from a batch in hand to its loss on the host, the
-    seconds between consecutive steps (loader included), the trained
-    model, and the milliseconds of each step's gradient all-reduce (with
+    "optimizer", "allreduce_ms"}``: the loss of every step taken (the mean
+    over the ranks), the seconds from a batch in hand to its loss on the
+    host, the seconds between consecutive steps (loader included), the
+    trained model and its optimizer, and the milliseconds of each step's gradient all-reduce (with
     ``--profile_steps``, a group and K = 1; empty otherwise).  With
     ``--device_loop_steps K > 1`` a step's two times are its group's
     divided by K, once per step: on ``cuda`` the group's span on the
@@ -417,6 +427,12 @@ def train(args, dist: parallel.Dist):
     tp = max(args.tensor_parallel, 1)
     dist = tensor_parallel_dist(dist, tp)
     configure_precision()
+    gspmd = tp > 1 and args.tp_impl == "gspmd"
+    loop_coerced = 0
+    if gspmd and args.device_loop_steps > 1:
+        # the JAX CLI's rule (vlp_tpu/cli/train.py:267-273): the GSPMD
+        # step has no device-loop form
+        loop_coerced, args.device_loop_steps = args.device_loop_steps, 1
     K = max(args.device_loop_steps, 1)
     loop = K > 1 and not args.scst
     if args.profile_steps and not loop:
@@ -434,6 +450,11 @@ def train(args, dist: parallel.Dist):
     else:  # only rank 0 writes the log; the others print warnings
         logger = logging.getLogger(f"vlp_tpu.rank{dist.rank}")
         logger.setLevel(logging.WARNING)
+    if loop_coerced:
+        logger.warning(
+            "--tp_impl gspmd has no device-loop variant: "
+            "--device_loop_steps %d coerced to 1 (use --tp_impl shard_map "
+            "to keep the K-step device loop)", loop_coerced)
     noops = [(args.no_pallas, "--no_pallas"),
              (args.fp16 or args.amp or args.fp32_embedding,
               "--fp16/--amp/--fp32_embedding")]
@@ -559,16 +580,26 @@ def train(args, dist: parallel.Dist):
                   schedule=args.sche_mode, weight_decay=args.weight_decay)
     if tp > 1:
         # the whole model, the same on every rank, then this rank's shard
-        # (JAX shard_state_shard_map_tp)
-        model.shard_(dist.tensor_parallel)
+        # (JAX shard_state_shard_map_tp / shard_state)
+        model.shard_(dist.tensor_parallel, layout=args.tp_impl)
         if anchors is not None:
-            anchors = mesh.shard_state_dict(anchors, dist.tp_index, tp)
+            anchors = mesh.shard_state_dict(anchors, dist.tp_index, tp,
+                                            args.tp_impl)
         opt_kw.update(clip_group=dist.tp_group,
                       clip_sharded=sharded_names(model))
-        logger.info("shard_map training: dp=%d x tp=%d (manual Megatron "
-                    "collectives, %s attention%s)", dist.dp_world, tp,
-                    "CUDA" if device.type == "cuda" else "plain",
-                    f", grad_accum={accum}" if accum > 1 else "")
+        attention = "CUDA" if device.type == "cuda" else "plain"
+        accum_note = f", grad_accum={accum}" if accum > 1 else ""
+        if gspmd:
+            # the JAX CLI's line (vlp_tpu/cli/train.py:539-541); K1/K2 on
+            # each rank's heads where JAX rides XLA attention
+            logger.info("GSPMD training: dp=%d x tp=%d (vocab-parallel "
+                        "embeddings and MLM loss, %s attention on each "
+                        "rank's heads%s)", dist.dp_world, tp, attention,
+                        accum_note)
+        else:
+            logger.info("shard_map training: dp=%d x tp=%d (manual "
+                        "Megatron collectives, %s attention%s)",
+                        dist.dp_world, tp, attention, accum_note)
 
     params = dict(model.named_parameters())
     if args.finetune_decay:
@@ -615,10 +646,11 @@ def train(args, dist: parallel.Dist):
             return train_step(tbatch, seed, args.max_drop_worst_ratio
                               if i_epoch > args.drop_after else 0.0)
     def shard(sd):
-        return mesh.shard_state_dict(sd, dist.tp_index, tp)
+        return mesh.shard_state_dict(sd, dist.tp_index, tp, args.tp_impl)
 
     def gather(sd):
-        return mesh.gather_full(sd, dist.tp_index, tp, dist.tp_group)
+        return mesh.gather_full(sd, dist.tp_index, tp, dist.tp_group,
+                                model.tp_specs)
 
     if tag is not None:
         # after the step builder, which put the loss scale's state on the
@@ -627,7 +659,7 @@ def train(args, dist: parallel.Dist):
                                shard=shard if tp > 1 else None)
 
     result = {"losses": [], "step_seconds": [], "iter_seconds": [],
-              "model": model, "allreduce_ms": []}
+              "model": model, "optimizer": optimizer, "allreduce_ms": []}
     if not args.do_train:
         return result
     logger.info("***** Running %straining on %s (%s), %d rank(s) *****",

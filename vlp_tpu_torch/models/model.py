@@ -222,6 +222,25 @@ def _linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     return F.linear(x, lin.weight.to(x.dtype), lin.bias.to(x.dtype))
 
 
+def _row_parallel(lin: nn.Linear, x: torch.Tensor,
+                  tp: Optional[tp_ops.TP]) -> torch.Tensor:
+    """A row-parallel dense: the partial product summed over the group
+    (Megatron "g"), the bias added once after the sum; the plain dense
+    without tensor parallelism."""
+    if tp is None:
+        return _linear(lin, x)
+    return (tp_ops.sum_partial(F.linear(x, lin.weight.to(x.dtype)), tp)
+            + lin.bias.to(x.dtype))
+
+
+def _sharded(local_rows: int, full_rows: int,
+             tp: Optional[tp_ops.TP]) -> Optional[tp_ops.TP]:
+    """``tp`` where a weight holds a shard of its rows (``local_rows`` of
+    ``full_rows``), else None: what the GSPMD layout sharded follows from
+    the shapes (``parallel/mesh.py`` replicates what does not divide)."""
+    return tp if tp is not None and local_rows != full_rows else None
+
+
 def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
     """fp32 LayerNorm regardless of the activation dtype; returns fp32."""
     return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias,
@@ -229,7 +248,10 @@ def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
 
 
 class Embeddings(nn.Module):
-    """Word + position + type embeddings with the region splice."""
+    """Word + position + type embeddings with the region splice: the region
+    rows (projected features + geometry) take slots 1..nv of the word and
+    position rows, and every slot adds its type row.  Under the GSPMD
+    layout (``tp`` set) see :meth:`_vocab_parallel_sum`."""
 
     def __init__(self, cfg: VLPConfig):
         super().__init__()
@@ -239,26 +261,67 @@ class Embeddings(nn.Module):
         self.position_embeddings = nn.Embedding(cfg.max_position_embeddings, H)
         self.token_type_embeddings = nn.Embedding(cfg.type_vocab_size, H)
         self.LayerNorm = nn.LayerNorm(H, eps=LN_EPS)
+        self.tp: Optional[tp_ops.TP] = None
 
     def forward(self, input_ids, segment_ids, position_ids, vis_feats,
                 vis_pe, dtype: torch.dtype,
                 drop: Optional[DropoutRNG] = None) -> torch.Tensor:
-        words = F.embedding(input_ids.long(),
-                            self.word_embeddings.weight.to(dtype))
-        pos = F.embedding(position_ids.long(),
-                          self.position_embeddings.weight.to(dtype))
-        if vis_feats is not None:
-            nv = self.cfg.len_vis_input
-            # projected region features / geometry take slots 1..nv
-            words = torch.cat([words[:, :1], vis_feats.to(dtype),
-                               words[:, nv + 1:]], dim=1)
-            pos = torch.cat([pos[:, :1], vis_pe.to(dtype), pos[:, nv + 1:]],
-                            dim=1)
-        types = F.embedding(segment_ids.long(),
-                            self.token_type_embeddings.weight.to(dtype))
-        x = words + pos + types
+        if self.tp is not None:
+            x = self._vocab_parallel_sum(input_ids, segment_ids,
+                                         position_ids, vis_feats, vis_pe,
+                                         dtype)
+        else:
+            words = F.embedding(input_ids.long(),
+                                self.word_embeddings.weight.to(dtype))
+            pos = F.embedding(position_ids.long(),
+                              self.position_embeddings.weight.to(dtype))
+            if vis_feats is not None:
+                nv = self.cfg.len_vis_input
+                # projected region features / geometry take slots 1..nv
+                words = torch.cat([words[:, :1], vis_feats.to(dtype),
+                                   words[:, nv + 1:]], dim=1)
+                pos = torch.cat([pos[:, :1], vis_pe.to(dtype),
+                                 pos[:, nv + 1:]], dim=1)
+            types = F.embedding(segment_ids.long(),
+                                self.token_type_embeddings.weight.to(dtype))
+            x = words + pos + types
         x = _layer_norm(self.LayerNorm, x).to(dtype)
         return _hidden_dropout(drop, x, self.cfg.hidden_dropout_prob)
+
+    def _vocab_parallel_sum(self, input_ids, segment_ids, position_ids,
+                            vis_feats, vis_pe, dtype) -> torch.Tensor:
+        """The GSPMD layout's sum: each table sharded by vocab gives this
+        rank's partial lookup (``ops.tp.vocab_parallel_rows``), the
+        partials are summed under one g, and the replicated tables' rows
+        and the region rows are added after the sum, so that nothing is
+        summed tp times.  That order differs from the single-device one
+        ((words + pos) + types): the two agree to rounding, not bit for
+        bit."""
+        cfg = self.cfg
+        nv = cfg.len_vis_input
+        partial, whole = [], []
+        for table, ids, n, spliced in (
+                (self.word_embeddings, input_ids, cfg.vocab_size, True),
+                (self.position_embeddings, position_ids,
+                 cfg.max_position_embeddings, True),
+                (self.token_type_embeddings, segment_ids, cfg.type_vocab_size,
+                 False)):
+            w = table.weight.to(dtype)
+            tp = _sharded(w.shape[0], n, self.tp)
+            rows = (F.embedding(ids.long(), w) if tp is None
+                    else tp_ops.vocab_parallel_rows(ids, w, tp))
+            if spliced and vis_feats is not None:
+                # slots 1..nv take the region rows, after the sum
+                rows = torch.cat([rows[:, :1], torch.zeros_like(
+                    rows[:, 1:nv + 1]), rows[:, nv + 1:]], dim=1)
+            (whole if tp is None else partial).append(rows)
+        x = tp_ops.sum_partial(sum(partial), self.tp) if partial else 0
+        for rows in whole:
+            x = x + rows
+        if vis_feats is not None:
+            x = torch.cat([x[:, :1], (vis_feats.to(dtype) + vis_pe.to(dtype))
+                           + x[:, 1:nv + 1], x[:, nv + 1:]], dim=1)
+        return x
 
 
 class _SelfAttention(nn.Module):
@@ -308,15 +371,6 @@ class TransformerLayer(nn.Module):
         sa = self.attention.self
         return _linear(sa.query, x), _linear(sa.key, x), _linear(sa.value, x)
 
-    def _row_parallel(self, lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-        """A row-parallel dense: the partial product summed over the group
-        (Megatron "g"), the bias added once after the sum; the plain dense
-        without tensor parallelism."""
-        if self.tp is None:
-            return _linear(lin, x)
-        return (tp_ops.sum_partial(F.linear(x, lin.weight.to(x.dtype)),
-                                   self.tp) + lin.bias.to(x.dtype))
-
     def _post_attention(self, ctx: torch.Tensor, residual: torch.Tensor,
                         drop: Optional[DropoutRNG] = None,
                         masks=None) -> torch.Tensor:
@@ -332,11 +386,11 @@ class TransformerLayer(nn.Module):
             return _hidden_dropout(drop, y, rate)
 
         ao = self.attention.output
-        h = hdrop(self._row_parallel(ao.dense, ctx), 0)
+        h = hdrop(_row_parallel(ao.dense, ctx, self.tp), 0)
         h = _layer_norm(ao.LayerNorm, h + residual).to(ctx.dtype)
         f = self.act(_linear(self.intermediate.dense,
                              tp_ops.replicate_for_branch(h, self.tp)))
-        f = hdrop(self._row_parallel(self.output.dense, f), 1)
+        f = hdrop(_row_parallel(self.output.dense, f, self.tp), 1)
         return _layer_norm(self.output.LayerNorm, f + h).to(ctx.dtype)
 
     def forward(self, x, mode, text_end, colkeep,
@@ -484,20 +538,30 @@ class _Predictions(nn.Module):
 
 
 class MLMHead(nn.Module):
-    """Transform + relax-projection select + tied decode (``cls``)."""
+    """Transform + relax-projection select + tied decode (``cls``).  Under
+    the GSPMD layout (``tp`` set): f on the hidden rows, the
+    column-parallel transform, an all-gather in rank order before the
+    LayerNorm over r*H, the select, then f again before the product with
+    this rank's rows of the word table, whose logits (and bias) are this
+    rank's vocab shard."""
 
     def __init__(self, cfg: VLPConfig):
         super().__init__()
         self.cfg = cfg
         self.predictions = _Predictions(cfg)
         self.act = ACT[cfg.hidden_act]
+        self.tp: Optional[tp_ops.TP] = None
 
     def forward(self, hidden, task_idx, word_embedding) -> torch.Tensor:
-        """hidden: [B, P, H]; task_idx: int[B]; returns fp32 [B, P, V]."""
+        """hidden: [B, P, H]; task_idx: int[B]; returns fp32 [B, P, V], or
+        [B, P, V / tp] where the word table is a vocab shard."""
         cfg = self.cfg
         r = max(cfg.relax_projection, 1)
         t = self.predictions.transform
-        h = self.act(_linear(t.dense, hidden))
+        col = _sharded(t.dense.weight.shape[0], r * cfg.hidden_size, self.tp)
+        h = self.act(_linear(t.dense,
+                             tp_ops.replicate_for_branch(hidden, col)))
+        h = tp_ops.gather_last(h, col)
         h = _layer_norm(t.LayerNorm, h).to(hidden.dtype)  # LN over r*H
         if cfg.relax_projection > 1:
             B, P, _ = h.shape
@@ -505,6 +569,8 @@ class MLMHead(nn.Module):
             idx = task_idx.long().view(B, 1, 1, 1).expand(
                 B, P, 1, cfg.hidden_size)
             h = torch.gather(h, 2, idx)[:, :, 0]
+        h = tp_ops.replicate_for_branch(
+            h, _sharded(word_embedding.shape[0], cfg.vocab_size, self.tp))
         # the JAX package multiplies in the activation dtype with fp32
         # accumulation and returns fp32: fp32 product of the rounded
         # operands (a bf16 matmul would return bf16 logits and flip beams)
@@ -541,13 +607,24 @@ class VLPModel(nn.Module):
                 nn.Linear(H, 2 * H), nn.ReLU(),
                 nn.Linear(2 * H, cfg.num_answers))
         self.tp: Optional[tp_ops.TP] = None
+        # tensor parallelism: the layout's name and {state-dict name:
+        # sharded dim or None} of the full model (shard_); under the GSPMD
+        # layout the step's data-parallel group, whose global batch the
+        # masked-LM loss is normalised over (tp_step.make_tp_train_step)
+        self.tp_layout: Optional[str] = None
+        self.tp_specs: Dict[str, Optional[int]] = {}
+        self.loss_group: Optional[tp_ops.TP] = None
 
-    def shard_(self, tp: tp_ops.TP) -> "VLPModel":
-        """Tensor parallelism (JAX ``cfg.tp_axis``): keep this rank's shard
-        of every sharded parameter (``parallel.mesh``: heads and FFN
-        columns) and insert the f/g collectives over ``tp``'s group.  The
-        model must be whole and the same on every rank of the group (load
-        or broadcast it first).  Only the training forward runs sharded:
+    def shard_(self, tp: tp_ops.TP, layout: str = "shard_map") -> "VLPModel":
+        """Tensor parallelism: keep this rank's shard of every parameter
+        that ``layout`` shards (``parallel.mesh``) and insert the
+        collectives over ``tp``'s group.  ``"shard_map"`` (JAX
+        ``cfg.tp_axis``): heads and FFN columns, the Megatron f/g pairs of
+        each layer.  ``"gspmd"`` (JAX ``param_sharding_tree``): also the
+        embedding tables' vocab, the tied MLM logits and the region and
+        answer heads, with the vocab-parallel lookup and loss.  The model
+        must be whole and the same on every rank of the group (load or
+        broadcast it first).  Only the training forward runs sharded:
         gather a checkpoint to decode from it."""
         from vlp_tpu_torch.parallel import mesh
         cfg = self.cfg
@@ -557,23 +634,26 @@ class VLPModel(nn.Module):
                              f"({cfg.num_attention_heads}) and the FFN width "
                              f"({cfg.intermediate_size}) to divide by "
                              f"{tp.size}")
-        mesh.shard_model_(self, tp.index, tp.size)
-        self.tp = tp
+        self.tp_specs = mesh.shard_model_(self, tp.index, tp.size, layout)
+        self.tp, self.tp_layout = tp, layout
         for layer in self.layers:
             layer.tp = tp
+        if layout == "gspmd":
+            self.bert.embeddings.tp = self.cls.tp = tp
         return self
 
     def align_replicated_grads(self) -> None:
         """Under tensor parallelism: the group's first rank's gradients of
-        the embedding tables on every rank (``ops/tp.py``: PyTorch's CUDA
-        embedding backward is not reproducible run to run, and the tables
-        are replicated).  Nothing without tensor parallelism."""
+        the replicated embedding tables on every rank (``ops/tp.py``:
+        PyTorch's CUDA embedding backward is not reproducible run to run).
+        A table sharded by vocab (the GSPMD layout) holds this rank's rows
+        only and is left as it is.  Nothing without tensor parallelism."""
         emb = self.bert.embeddings
         tp_ops.broadcast_from_first(
-            [t.weight.grad for t in (emb.word_embeddings,
-                                     emb.position_embeddings,
-                                     emb.token_type_embeddings)
-             if t.weight.grad is not None], self.tp)
+            [t.weight.grad for name, t in emb.named_children()
+             if isinstance(t, nn.Embedding) and t.weight.grad is not None
+             and self.tp_specs.get(f"bert.embeddings.{name}.weight") is None
+             ], self.tp)
 
     @property
     def tp_fold(self) -> Optional[int]:
@@ -615,11 +695,17 @@ class VLPModel(nn.Module):
     # ------------------------------------------------------------------
     def project_regions(self, vis_feats, vis_pe,
                         drop: Optional[DropoutRNG] = None):
+        """The region MLPs (``vis_embed``: under the GSPMD layout a
+        column- then row-parallel pair) and the geometry projection."""
         dt = self.dtype
         rate = self.cfg.hidden_dropout_prob
+        tp = _sharded(self.vis_embed[0].weight.shape[0],
+                      self.cfg.vis_feat_dim, self.tp)
         f = vis_feats.to(dt)
-        f = F.relu(_linear(self.vis_embed[2],
-                           F.relu(_linear(self.vis_embed[0], f))))
+        f = F.relu(_row_parallel(
+            self.vis_embed[2],
+            F.relu(_linear(self.vis_embed[0],
+                           tp_ops.replicate_for_branch(f, tp))), tp))
         f = _hidden_dropout(drop, f, rate)
         p = F.relu(_linear(self.vis_pe_embed[0], vis_pe.to(dt)))
         return f, _hidden_dropout(drop, p, rate)
@@ -633,9 +719,12 @@ class VLPModel(nn.Module):
         if not self.with_vqa:
             raise ValueError("VQA needs VLPModel(cfg, with_vqa=True)")
         nv = self.cfg.len_vis_input
+        tp = _sharded(self.ans_classifier[0].weight.shape[0],
+                      2 * self.cfg.hidden_size, self.tp)
         vqa_embed = seq_out[:, 0] * seq_out[:, nv + 1]
-        h = F.relu(_linear(self.ans_classifier[0], vqa_embed))
-        return _linear(self.ans_classifier[2], h).float()
+        h = F.relu(_linear(self.ans_classifier[0],
+                           tp_ops.replicate_for_branch(vqa_embed, tp)))
+        return _row_parallel(self.ans_classifier[2], h, tp).float()
 
     def encode(self, input_ids, segment_ids, mode, text_end, vis_feats,
                vis_pe, vis_keep=None, position_ids=None,
@@ -701,11 +790,17 @@ class VLPModel(nn.Module):
                 seq_out, 1, pos[:, :, None].expand(-1, -1, seq_out.shape[-1]))
             logits = self.cls(hidden, batch["task_idx"],
                               self.bert.embeddings.word_embeddings.weight)
-            per_pos = losses_lib.mlm_position_loss(
-                logits, batch["masked_ids"], cfg.label_smoothing,
-                cfg.vocab_size)
+            if logits.shape[-1] == cfg.vocab_size:
+                per_pos = losses_lib.mlm_position_loss(
+                    logits, batch["masked_ids"], cfg.label_smoothing,
+                    cfg.vocab_size)
+            else:       # this rank's vocab shard (the GSPMD layout)
+                per_pos = losses_lib.mlm_position_loss_vocab_parallel(
+                    logits, batch["masked_ids"], cfg.label_smoothing,
+                    cfg.vocab_size, self.tp)
             out["masked_lm_loss"] = losses_lib.mask_and_normalize_loss(
-                per_pos, batch["masked_weights"], drop_worst_ratio)
+                per_pos, batch["masked_weights"], drop_worst_ratio,
+                self.loss_group)
             out["vqa2_loss"] = zero
         if mask_image_regions:
             H = vf.shape[-1]

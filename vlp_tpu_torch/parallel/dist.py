@@ -113,6 +113,16 @@ class Dist:
             return None
         return TP(index=self.tp_index, size=self.tp, group=self.tp_group)
 
+    @property
+    def data_parallel(self) -> Optional[TP]:
+        """This rank's place in its data-parallel group (None with one
+        data-parallel rank): the group over whose global batch the GSPMD
+        layout normalises its masked-LM loss (``VLPModel.loss_group``)."""
+        if self.dp_world == 1:
+            return None
+        return TP(index=self.dp_index, size=self.dp_world,
+                  group=self.dp_group)
+
     def with_tensor_parallel(self, tp: int) -> "Dist":
         """This rank of the world split into tensor-parallel groups of
         ``tp`` (``mesh.group_ranks``): forms every group on every rank, in
