@@ -55,7 +55,14 @@ step (4 layers, ``--relax_projection``, label smoothing 0.1, then a VQA
 step) against one process's step from the same state, then the CLI with
 the same launch and bit checks, a rank's parameter + moment bytes and
 peak allocation beside 7c's, and the step's collectives (recorded from
-``ops.tp``) replayed and timed.
+``ops.tp``) replayed and timed.  Phase 4 also holds the decode CLI's
+depth-1 pipeline to the same CLI run batch by batch (equal captions) and
+runs an upload, ``beam_dispatch`` and a greedy dispatch under
+``torch.cuda.set_sync_debug_mode("error")``.  Phase 8 runs the
+learnability proof (``vlp_tpu_torch.cli.e2e_synthetic``) at bert-base
+width: a partial MLE phase through the device loop, greedy CIDEr, SCST,
+and the trained model's beam-5 CIDEr, each above the tool's bar, with
+the exact launches of K1 (both branches), K2, K3, K4, K5 and K6.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --ab-times ROOT   # another checkout's kernels
@@ -121,6 +128,10 @@ SCST_B, SCST_T = 64, 20      # the reference SCST recipe's 16x4 batch, T
 VQA_B, VQA_QUESTIONS = 256, 1024   # main-path VQA eval: batch, questions
 VQA_STEPS = 12               # main-path VQA fine-tune: steps at B=64
 DECODE_GEN_LENS = (0, 9, 18)   # decode steps timed: first, middle, last
+# phase 8 (PERF.md: the runs that chose them): B=64 (the SCST recipe's);
+# the tool's bert-base learning rates; MLE partial (40 steps) so that SCST
+# has room to raise CIDEr
+E2E_B, E2E_STEPS, E2E_SCST_STEPS = 64, 40, 40
 
 
 def body(dtype) -> str:
@@ -2255,6 +2266,7 @@ def phase_vqa_end_to_end(dev, vocab_path, steps=2, B=8):
 def phase_main_path(vocab_path, out_dir, gpu_line):
     """The user's entry point at bert-base width, bf16, through the
     kernels: beam 5 then greedy over 200 synthetic images, B=100."""
+    from vlp_tpu_torch import parallel
     from vlp_tpu_torch.cli import decode as cli
     from vlp_tpu_torch.ops import _build
 
@@ -2288,7 +2300,65 @@ def phase_main_path(vocab_path, out_dir, gpu_line):
     log(f"launch counts {counts}, expected {want}")
     if counts != want:
         fail("the main path did not launch the kernels as expected")
+    # the depth-1 pipeline changes no caption: each mode again with every
+    # batch's search run to its end (beam_search) before the next upload
+    for mode, extra in (("beam5", ["--beam_size", "5"]),
+                        ("greedy", ["--beam_size", "1"])):
+        ref = os.path.join(out_dir, mode + "_unpipelined")
+        args = cli.build_parser().parse_args(base + extra
+                                             + ["--output_dir", ref])
+        dist = parallel.from_cli(torch.device("cuda", 0))
+        try:
+            cli.decode(args, dist, pipelined=False)
+        finally:
+            dist.destroy()
+        got, want = (read_json(os.path.join(d, "preds-random-val.json"))
+                     for d in (os.path.join(out_dir, mode), ref))
+        if got != want:
+            fail(f"main path {mode}: the pipelined CLI's captions differ "
+                 "from beam_search's / greedy's batch by batch")
+    log("main path: pipelined captions equal the unpipelined ones, beam 5 "
+        "and greedy")
     return counts, rates
+
+
+def read_json(path: str):
+    with open(path) as f:
+        return json.load(f)
+
+
+def dispatch_checks(dev, beam, greedy, batch) -> str:
+    """A batch's upload and dispatch (``Decoder.beam_dispatch``; greedy
+    with ``host_copy.fetch``) make no host sync: they run under
+    ``torch.cuda.set_sync_debug_mode("error")``, at the decode path's
+    shapes (B=100, beam 5, T=20), and what they collect equals
+    ``beam_search`` / ``greedy``."""
+    from vlp_tpu_torch.cli.decode import upload
+    from vlp_tpu_torch.host_copy import fetch, fetched
+
+    tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    want_beam = beam.beam_search(tb)["pred_seq"]
+    want_greedy = greedy.greedy(tb)[0].cpu().numpy()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t = time.perf_counter()
+        staged = upload(batch, dev)
+        handles = (beam.beam_dispatch(staged),
+                   fetch({"ids": greedy.greedy(staged)[0]}))
+        host_ms = (time.perf_counter() - t) * 1e3
+    except RuntimeError as e:
+        fail(f"a decode dispatch synchronised with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if not (np.array_equal(beam.beam_collect(handles[0])["pred_seq"],
+                           want_beam)
+            and np.array_equal(fetched(handles[1])["ids"], want_greedy)):
+        fail("beam_dispatch / beam_collect or the greedy fetch differ from "
+             "beam_search / greedy")
+    return (f"an upload and both dispatches without a host sync "
+            f"({host_ms:.1f} ms of host to queue them), their results equal "
+            "beam_search's and greedy's")
 
 
 def train_flags(vocab_path, out):
@@ -3778,10 +3848,58 @@ def phase_tp_gspmd_main_path(vocab_path, out_dir, gpu_line, tp_rates):
     return rates.pop(f"{g}_counts"), rates
 
 
+def phase_e2e_learn(gpu_line):
+    """Phase 8: the learnability proof at bert-base width, bf16
+    (``vlp_tpu_torch.cli.e2e_synthetic``, dropout 0.1, B=E2E_B):
+    E2E_STEPS MLE steps in device-loop groups of 10 (one CUDA-graph
+    replay a group: K1 dropout + K2), greedy CIDEr before and after (K1 +
+    K3), E2E_SCST_STEPS SCST steps (K1 + K3 greedy, K1 dropout + K5
+    sampled, the replay's K1 dropout + K2 + K6), and then the trained
+    model's beam-5 CIDEr over the same 32 eval images (K1 + K4).  Fails
+    if the tool prints FAIL, if beam 5 is not above the tool's bar,
+    max(1, untrained + 1), or if the kernels were not launched as the
+    run's counts say."""
+    from vlp_tpu_torch.cli import e2e_synthetic as e2e
+    from vlp_tpu_torch.ops import _build
+
+    _build.reset_launch_counts()
+    t0 = time.time()
+    res = e2e.main(["--batch", str(E2E_B), "--steps", str(E2E_STEPS),
+                    "--scst_steps", str(E2E_SCST_STEPS), "--device", "cuda"])
+    beam, caps = res["task"].score(res["model"], beam_size=5)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    counts = {k: v.launches for k, v in _build.KERNELS.items()}
+    n_mle, n_scst = res["steps"], res["scst_steps"]
+    evals, steps = 3, 12 * (res["task"].cfg.max_len_b - 1)
+    want = dict({k: 0 for k in counts},
+                attention_fwd=12 * (evals + n_scst + 1),
+                attention_fwd_drop=12 * n_mle + 24 * n_scst,
+                attention_bwd=12 * (n_mle + n_scst),
+                decode_attention=steps * (evals + n_scst),
+                decode_attention_anc=steps,
+                decode_attention_drop=steps * n_scst,
+                decode_dropout_scales=12 * n_scst)
+    log(f"e2e_learn launch counts {counts}, expected {want}")
+    bar = max(1.0, res["untrained_cider"] + 1.0)
+    numbers = {k: v for k, v in res.items() if k not in ("model", "task")}
+    numbers.update(beam5_cider=beam, seconds=seconds)
+    log(f"phase 8 e2e_learn on {gpu_line}: {json.dumps(numbers)}; beam 5 "
+        f"e.g. {caps[0][0]!r}")
+    if not res["ok"]:
+        fail("phase 8: the learnability tool printed FAIL")
+    if not beam > bar:
+        fail(f"phase 8: beam-5 CIDEr {beam:.3f} is not above {bar:.3f}")
+    if counts != want:
+        fail("phase 8 did not launch the kernels as expected")
+    return counts, numbers
+
+
 def phase_steady_state(dev, vocab_path):
     """Device-side decode rate at the main path's shapes, without the CLI's
     loader and first-call costs: one prepared batch of B=100, one warm-up
-    call, then the median of REPS_STEADY timed calls per mode."""
+    call, then the median of REPS_STEADY timed calls per mode; then the
+    same decoders and batch through :func:`dispatch_checks`."""
     from vlp_tpu_torch.cli.common import resolve_tokenizer
     from vlp_tpu_torch.config import VLPConfig
     from vlp_tpu_torch.data.example_builder import (DecodeExampleBuilder,
@@ -3802,11 +3920,13 @@ def phase_steady_state(dev, vocab_path):
         rng.uniform(size=(nv, cfg.vis_pe_dim)).astype(np.float32))
         for _ in range(100)])
     tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    decoders = {mode: Decoder(model, cfg, DecodeParams(
+        mask_id=vocab["[MASK]"], eos_id=vocab["[SEP]"], beam_size=K,
+        max_tgt_length=20, forbid_duplicate_ngrams=True))
+        for mode, K in (("beam5", 5), ("greedy", 1))}
     rates = {}
-    for mode, K in (("beam5", 5), ("greedy", 1)):
-        dec = Decoder(model, cfg, DecodeParams(
-            mask_id=vocab["[MASK]"], eos_id=vocab["[SEP]"], beam_size=K,
-            max_tgt_length=20, forbid_duplicate_ngrams=True))
+    for mode, dec in decoders.items():
+        K = dec.dp.beam_size
         secs = []
         for i in range(REPS_STEADY + 1):
             t = time.perf_counter()
@@ -3819,6 +3939,8 @@ def phase_steady_state(dev, vocab_path):
         rates[mode] = 100 / statistics.median(secs)
         log(f"steady state {mode} B=100: {rates[mode]:.2f} captions/s "
             f"(median of {REPS_STEADY} batches: {sorted(secs)} s)")
+    log("steady state: " + dispatch_checks(dev, decoders["beam5"],
+                                           decoders["greedy"], batch))
     return rates
 
 
@@ -3985,6 +4107,10 @@ def main():
             "kernels at H = 6, fp32 equal to one process, replicated "
             "parameters bit-identical, fewer bytes a rank than shard_map")
 
+        paths["e2e_learn"], e2e_numbers = phase_e2e_learn(smi)
+        log("phase 8: the learnability proof passed at bert-base width "
+            "through its kernels, beam 5 above the bar")
+
     leaked = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "flax", "vlp_tpu")]
     if leaked:
@@ -4008,7 +4134,7 @@ def main():
                       "captions_per_sec_steady": steady, **train_rates,
                       **fp16_rates, "legacy_heads_max_abs_err": heads_errs,
                       **scst_rates, **vqa_rates, **dp_rates, **tp_rates,
-                      "scst_checks": scst_checks,
+                      "scst_checks": scst_checks, "e2e_learn": e2e_numbers,
                       "device_loop_modes": loop_modes,
                       "vqa_checks": vqa_checks}))
     print(smi)

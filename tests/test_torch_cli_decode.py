@@ -51,6 +51,8 @@ CASES = {
     "beam3": ["--beam_size", "3", "--length_penalty", "0.5", "--min_len",
               "2", "--forbid_duplicate_ngrams", "--ngram_size", "2"],
     "greedy": ["--beam_size", "1"],
+    # three batches, the last one partial: the depth-1 pipeline's order
+    "beam3_three_batches": ["--beam_size", "3", "--num_synthetic", "7"],
 }
 
 
@@ -65,13 +67,14 @@ def test_port_cli_matches_jax_cli(fixtures, case):
     out_t = os.path.join(fixtures["dir"], f"torch_{case}")
     jax_cli.main(args + ["--output_dir", out_j])
     stats = torch_cli.main(args + ["--output_dir", out_t, "--device", "cpu"])
-    assert stats["model.7.bin"]["n_images"] == 5
+    n = 7 if "--num_synthetic" in CASES[case] else 5
+    assert stats["model.7.bin"]["n_images"] == n
     name = "preds-model.7.bin-val.json"
     with open(os.path.join(out_j, name)) as f:
         want = json.load(f)
     with open(os.path.join(out_t, name)) as f:
         got = json.load(f)
-    assert len(got) == 5
+    assert len(got) == n
     assert got == want
 
 

@@ -82,3 +82,30 @@ def test_forbidden_candidates_match_jax():
                 torch.from_numpy(seqs).long(), t, V)
             np.testing.assert_array_equal(ct.numpy(), np.asarray(cj))
             np.testing.assert_array_equal(ft.numpy(), np.asarray(fj))
+
+
+@pytest.mark.parametrize("mode", ["beam", "greedy"])
+def test_dispatch_then_collect_equals_the_search(mode, rng):
+    """The decode CLI's pipeline halves: ``beam_collect(beam_dispatch(b))``
+    equals ``beam_search(b)``, and a greedy result fetched through
+    ``host_copy.fetch`` / ``fetched`` equals ``greedy(b)``, bit for
+    bit."""
+    from vlp_tpu_torch.host_copy import fetch, fetched
+
+    T = 5
+    cfg = tiny_cfg(max_len_b=T)
+    _, _, model = make_pair(cfg, seed=4)
+    _, tb = _batches(cfg, 3, rng)
+    dec = Decoder(model, cfg, DecodeParams(
+        mask_id=MASK, eos_id=EOS, beam_size=3 if mode == "beam" else 1,
+        max_tgt_length=T, forbid_duplicate_ngrams=True, ngram_size=2))
+    if mode == "beam":
+        want = dec.beam_search(tb)
+        got = dec.beam_collect(dec.beam_dispatch(tb))
+        assert sorted(got) == sorted(want)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k])
+    else:
+        want = dec.greedy(tb)[0].numpy()
+        got = fetched(fetch({"ids": dec.greedy(tb)[0]}))["ids"]
+        np.testing.assert_array_equal(got, want)

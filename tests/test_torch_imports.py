@@ -1,10 +1,11 @@
 """The port imports neither JAX nor the JAX package: a fresh interpreter
 imports every module of vlp_tpu_torch and runs a tiny CPU train step, a
 tiny CPU decode, a tiny SCST step and a tiny VQA step and answer through
-it, and the tensor-parallel helpers (f/g and the GSPMD collectives
-without a group, a shard and gather round trip under both layouts, a
-rank's GSPMD model, the vocab-parallel loss), after which none of
-vlp_tpu, jax, flax, optax or orbax is loaded."""
+it, the tensor-parallel helpers (f/g and the GSPMD collectives without a
+group, a shard and gather round trip under both layouts, a rank's GSPMD
+model, the vocab-parallel loss) and the learnability tool
+(``cli.e2e_synthetic``: one group of steps, one SCST step), after which
+none of vlp_tpu, jax, flax, optax or orbax is loaded."""
 
 import os
 import subprocess
@@ -25,7 +26,8 @@ for name in ("vlp_tpu_torch.cli.decode", "vlp_tpu_torch.cli.train",
              "vlp_tpu_torch.evals.vqa", "vlp_tpu_torch.ops.tp",
              "vlp_tpu_torch.parallel.mesh", "vlp_tpu_torch.parallel.tp_step",
              "vlp_tpu_torch.losses", "vlp_tpu_torch.parallel.dist",
-             "vlp_tpu_torch.models.model"):
+             "vlp_tpu_torch.models.model", "vlp_tpu_torch.cli.e2e_synthetic",
+             "vlp_tpu_torch.host_copy"):
     assert name in names, name
 
 import torch
@@ -101,6 +103,13 @@ assert torch.allclose(
     losses.mlm_position_loss_vocab_parallel(z, t, 0.1, 8,
                                             tp_ops.TP(index=0, size=1)),
     losses.mlm_position_loss(z, t, 0.1, 8))
+# the learnability tool: one device-loop group, a greedy score, one SCST
+# step
+from vlp_tpu_torch.cli import e2e_synthetic
+out = e2e_synthetic.main(["--device", "cpu", "--steps", "2",
+                          "--device_loop", "2", "--batch", "4",
+                          "--eval_images", "4", "--scst_steps", "1"])
+assert out["steps"] == 2 and out["scst_steps"] == 1
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("vlp_tpu", "jax", "jaxlib", "flax",
                                     "optax", "orbax"))

@@ -42,6 +42,7 @@ from vlp_tpu_torch.data.features import make_store
 from vlp_tpu_torch.data.loader import EvalLoader
 from vlp_tpu_torch.data.tokenization import detokenize
 from vlp_tpu_torch.decode import DecodeParams, Decoder
+from vlp_tpu_torch.host_copy import fetch, fetched
 from vlp_tpu_torch.models.model import VLPModel
 
 
@@ -138,6 +139,20 @@ def to_device(batch, device) -> dict:
             for k, v in batch.items()}
 
 
+def upload(batch, device) -> dict:
+    """Copy a loader batch to ``device`` without waiting for the stream:
+    through pinned memory with ``non_blocking`` on ``cuda`` (a copy from
+    pageable memory would wait behind the decode already queued, and the
+    pipeline's overlap would be lost).  The loader's feature slab is read
+    here, before the next batch is drawn; PyTorch's pinned-memory cache
+    reuses a buffer only after the copy out of it has finished.  On the
+    CPU: :func:`to_device`."""
+    if device.type != "cuda":
+        return to_device(batch, device)
+    return {k: torch.from_numpy(np.asarray(v)).pin_memory().to(
+        device, non_blocking=True) for k, v in batch.items()}
+
+
 def main(argv=None, dist: parallel.Dist = None):
     """Returns ``{tag: {"n_images", "decode_seconds", **metrics}}`` per
     checkpoint (on ranks other than 0: their own share, no metrics).  A
@@ -153,8 +168,10 @@ def main(argv=None, dist: parallel.Dist = None):
         dist.destroy()
 
 
-def decode(args, dist: parallel.Dist):
-    """``main`` on this rank of ``dist``."""
+def decode(args, dist: parallel.Dist, pipelined: bool = True):
+    """``main`` on this rank of ``dist``.  ``pipelined=False`` runs each
+    batch's search to its end before the next batch is uploaded (the
+    reference the pipelined loop is held to)."""
     device = dist.device
     configure_precision()
     dtype = "bfloat16" if device.type == "cuda" else "float32"
@@ -213,13 +230,15 @@ def decode(args, dist: parallel.Dist):
         loader = EvalLoader(mine, store, builder, args.batch_size,
                             feature_slab_slots=3, prefetch=True)
         output = {}
-        t0 = time.time()
-        for batch, chunk, _pad in (loader if mine else ()):
-            tbatch = to_device(batch, device)
-            if args.beam_size > 1:
-                out_ids = decoder.beam_search(tbatch)["pred_seq"]
+
+        def collect(chunk, handle):
+            """Wait for one batch's decode on the host; its captions."""
+            if not pipelined:
+                out_ids = handle
+            elif args.beam_size > 1:
+                out_ids = decoder.beam_collect(handle)["pred_seq"]
             else:
-                out_ids = decoder.greedy(tbatch)[0].cpu().numpy()
+                out_ids = fetched(handle)["ids"]
             for i, ex in enumerate(chunk):
                 toks = tokenizer.convert_ids_to_tokens(
                     [int(x) for x in out_ids[i]])
@@ -229,6 +248,28 @@ def decode(args, dist: parallel.Dist):
                         break
                     words.append(t)
                 output[ex.image_id] = " ".join(detokenize(words))
+
+        def dispatch(tbatch):
+            if not pipelined:   # each batch to its end, host copy included
+                return (decoder.beam_search(tbatch)["pred_seq"]
+                        if args.beam_size > 1
+                        else decoder.greedy(tbatch)[0].cpu().numpy())
+            if args.beam_size > 1:
+                return decoder.beam_dispatch(tbatch)
+            return fetch({"ids": decoder.greedy(tbatch)[0]})
+
+        # depth-1 pipeline (JAX CLI :206-224): batch N+1 is dispatched
+        # before batch N is collected, so the host's back-trace and
+        # detokenisation overlap the device's decode
+        t0 = time.time()
+        pending = None
+        for batch, chunk, _pad in (loader if mine else ()):
+            handle = dispatch(upload(batch, device))
+            if pending is not None:
+                collect(*pending)
+            pending = (chunk, handle)
+        if pending is not None:
+            collect(*pending)
         parts = dist.gather_objects(list(output.items()))
         dt = time.time() - t0
         if not dist.is_main:

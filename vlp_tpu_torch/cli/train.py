@@ -122,6 +122,7 @@ from vlp_tpu_torch.data.features import make_store
 from vlp_tpu_torch.data.loader import TrainLoader
 from vlp_tpu_torch.data.tokenization import WhitespaceTokenizer
 from vlp_tpu_torch.evals.vqa import VQAAnswerProcessor
+from vlp_tpu_torch.host_copy import fetch, fetched
 from vlp_tpu_torch.models.model import VLPModel
 from vlp_tpu_torch.parallel import mesh
 from vlp_tpu_torch.parallel.dp_step import (make_dp_multi_step,
@@ -709,13 +710,12 @@ def train(args, dist: parallel.Dist):
                 """The losses of a launched group, once its copy to the
                 host is done (the JAX CLI's ``drain_ms``)."""
                 nonlocal t_prev
-                last, (host, done), t0, start = group
-                if done is not None:
-                    done.synchronize()
+                last, handle, t0, start = group
+                host = fetched(handle)
                 group_losses = [float(x) for x in host["loss"]]
                 t1 = time.perf_counter()
-                group_s = (t1 - t0 if done is None
-                           else start.elapsed_time(done) / 1e3)
+                group_s = (t1 - t0 if handle.done is None
+                           else start.elapsed_time(handle.done) / 1e3)
                 result["step_seconds"] += [group_s / K] * K
                 result["iter_seconds"] += [(t1 - t_prev) / K] * K
                 t_prev = t1
@@ -755,7 +755,7 @@ def train(args, dist: parallel.Dist):
                         args.max_drop_worst_ratio
                         if i_epoch > args.drop_after else 0.0)
                     pending = []
-                    launched = (step_i, ts.fetch_metrics(metrics), t0, start)
+                    launched = (step_i, fetch(metrics), t0, start)
                     if in_flight is not None:
                         drain(in_flight)
                     in_flight = launched

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from vlp_tpu_torch.config import VLPConfig
+from vlp_tpu_torch.host_copy import fetch, fetched
 from vlp_tpu_torch.models.model import ExplicitDropout, VLPModel
 
 NEG = -10000.0
@@ -248,10 +249,24 @@ class Decoder:
         return (torch.stack(ids_r), torch.stack(ptrs_r),
                 torch.stack(scores_r))
 
+    def beam_dispatch(self, batch):
+        """Queue the beam loop and its trace's copy to the host, and return
+        at once, with no host sync (JAX ``beam_dispatch``): a caller
+        dispatches batch N+1 before it collects batch N, so the host's
+        back-trace overlaps the device.  The copy waits only for the work
+        queued before it, where a ``.cpu()`` at collect would also wait
+        for whatever was queued since.  Pair with :meth:`beam_collect`."""
+        ids, ptrs, scores = self.beam_trace(batch)
+        return fetch(dict(ids=ids, ptrs=ptrs, scores=scores))
+
+    def beam_collect(self, handle) -> Dict[str, np.ndarray]:
+        """Wait for a :meth:`beam_dispatch` trace on the host and run the
+        back-trace."""
+        t = fetched(handle)
+        return self._backtrace(t["ids"], t["ptrs"], t["scores"])
+
     def beam_search(self, batch) -> Dict[str, np.ndarray]:
-        step_ids, step_ptrs, step_scores = (
-            x.cpu().numpy() for x in self.beam_trace(batch))
-        return self._backtrace(step_ids, step_ptrs, step_scores)
+        return self.beam_collect(self.beam_dispatch(batch))
 
     def _backtrace(self, step_ids, step_ptrs, step_scores
                    ) -> Dict[str, np.ndarray]:

@@ -344,7 +344,7 @@ class CapturedSteps:
     capture's recorded and added at every replay (``_build.recording``).
 
     The returned metrics are the graph's own output tensors, overwritten by
-    the next call: copy them out first (:func:`fetch_metrics`)."""
+    the next call: copy them out first (``host_copy.fetch``)."""
 
     def __init__(self, step: Callable, K: int, grad_accum: int,
                  n_slots: int, device: torch.device,
@@ -438,22 +438,6 @@ class CapturedSteps:
         _build.add_launches(self.launches)
         self.replays += 1
         return self.out
-
-
-def fetch_metrics(metrics: Dict[str, torch.Tensor]):
-    """Start copying a group's stacked metrics to the host: returns
-    (host tensors, a timing event to wait on before reading them), or (the
-    tensors, None) on the CPU."""
-    some = next(iter(metrics.values()))
-    if some.device.type != "cuda":
-        return metrics, None
-    host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
-            for k, v in metrics.items()}
-    for k, v in metrics.items():
-        host[k].copy_(v, non_blocking=True)
-    done = torch.cuda.Event(enable_timing=True)
-    done.record()
-    return host, done
 
 
 def stack_batches(batches, out, skip=()) -> None:
