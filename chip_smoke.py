@@ -1526,7 +1526,7 @@ def phase_fp16_kernels(dev, results):
             f"body {r16['L256']['bf16_ms']:.4f})")
 
 
-def phase_fp16_main_path(vocab_path, out_dir, gpu_line, bf16_rates):
+def phase_fp16_main_path(vocab_path, out_dir):
     """``cli.train --true_fp16`` at bert-base width through the fp16 K1
     dropout and K2, with dynamic loss scaling: the COCO fine-tune flags of
     phase 4b, B=64, 1 epoch of 20 steps, then a rerun for 2 epochs that
@@ -1584,16 +1584,7 @@ def phase_fp16_main_path(vocab_path, out_dir, gpu_line, bf16_rates):
     log(f"true-fp16 scale state: optim.1.bin {states[1]}, optim.2.bin "
         f"{states[2]}; losses first 10 mean {losses[:10].mean():.4f}, "
         f"last 10 {losses[-10:].mean():.4f}")
-    warm = 5
-    step_s = float(np.median(first["step_seconds"][warm:]))
-    iter_s = float(np.median(first["iter_seconds"][warm:]))
-    rates = {"train_fp16_samples_per_sec": 64 / step_s,
-             "train_fp16_samples_per_sec_with_loader": 64 / iter_s,
-             "train_fp16_scale_state": states}
-    log(f"true-fp16 train B=64: {rates['train_fp16_samples_per_sec']:.2f} "
-        f"samples/s (median step {step_s * 1e3:.2f} ms after {warm} warm-up "
-        f"steps), bf16 {bf16_rates['train_samples_per_sec']:.2f} (phase "
-        f"4b), on {gpu_line}")
+    rates = {"train_fp16_scale_state": states}
     rates["train_fp16_skip"] = fp16_skipped_step(torch.device("cuda"))
     rates["train_fp16_group_skip"] = fp16_group_skip(torch.device("cuda"))
     return counts, rates
@@ -2419,18 +2410,10 @@ def phase_train_main_path(vocab_path, out_dir, gpu_line):
     log(f"train losses: first 10 mean {first:.4f}, last 10 mean {last:.4f}")
     if not last < first:
         fail("train main path: the loss did not fall")
-    warm = 5
-    step_s = float(np.median(res["step_seconds"][warm:]))
-    iter_s = float(np.median(res["iter_seconds"][warm:]))
-    rates = {"train_samples_per_sec": 64 / step_s,
-             "train_samples_per_sec_with_loader": 64 / iter_s,
-             "train_peak_gb": peak_gb, "train_profile": busy_share(out),
+    rates = {"train_peak_gb": peak_gb, "train_profile": busy_share(out),
              "train_losses": res["losses"]}
-    log(f"train main path B=64: {rates['train_samples_per_sec']:.2f} "
-        f"samples/s (median step {step_s * 1e3:.2f} ms after {warm} "
-        f"warm-up steps; {rates['train_samples_per_sec_with_loader']:.2f} "
-        f"with the loader's waits) on {gpu_line}; peak memory "
-        f"{peak_gb:.3f} GB; profile of steps 1-4: {rates['train_profile']}")
+    log(f"train main path B=64 on {gpu_line}: peak memory {peak_gb:.3f} GB; "
+        f"profile of steps 1-4: {rates['train_profile']}")
     dec_out = os.path.join(out_dir, "train_decode")
     stats = decode_cli.main([
         "--bert_model", vocab_path, "--new_segment_ids", "--enable_butd",
@@ -2455,8 +2438,8 @@ def phase_train_loop_main_path(vocab_path, out_dir, gpu_line, bf16_rates):
     4b's and the final parameters (model.2.bin) within LOOP_PARAM_ATOL of
     phase 4b's (a replayed step draws the dropout of the eager step with
     the same seed; bit for bit only under deterministic algorithms, which
-    phases 4f, 4i and 6a hold).  Its samples/s, busy share and peak
-    memory beside phase 4b's."""
+    phases 4f, 4i and 6a hold).  Its busy share and peak memory beside
+    phase 4b's."""
     from vlp_tpu_torch.cli import train as train_cli
     from vlp_tpu_torch.ops import _build
 
@@ -2506,25 +2489,11 @@ def phase_train_loop_main_path(vocab_path, out_dir, gpu_line, bf16_rates):
         fail(f"train K={LOOP_K}: losses {rel:.3e} relative (limit "
              f"{LOOP_LOSS_RTOL}) or parameters {worst:.3e} (limit "
              f"{LOOP_PARAM_ATOL}) from phase 4b's")
-    warm = 2 * LOOP_K    # the capture's group and the profiled one
-    step_s = float(np.median(res["step_seconds"][warm:]))
-    iter_s = float(np.median(res["iter_seconds"][warm:]))
-    rates = {"train_loop_samples_per_sec": 64 / step_s,
-             "train_loop_samples_per_sec_with_loader": 64 / iter_s,
-             "train_loop_peak_gb": peak_gb,
+    rates = {"train_loop_peak_gb": peak_gb,
              "train_loop_capture_seconds": loop["capture_seconds"],
              "train_loop_profile": busy_share(out)}
-    log(f"train K={LOOP_K} B=64: {rates['train_loop_samples_per_sec']:.2f} "
-        f"samples/s (median step {step_s * 1e3:.2f} ms: a group's span on "
-        f"the device, CUDA events from its batch copy to its metrics copy, "
-        f"/ {LOOP_K}, after {warm} steps), "
-        f"{rates['train_loop_samples_per_sec_with_loader']:.2f} with the "
-        f"loader (host seconds between groups / {LOOP_K}); phase 4b "
-        f"{bf16_rates['train_samples_per_sec']:.2f} (host seconds from a "
-        f"batch in hand to its loss) / "
-        f"{bf16_rates['train_samples_per_sec_with_loader']:.2f}; capture "
-        f"(warm-up included) {loop['capture_seconds']:.3f} s; peak memory "
-        f"{peak_gb:.3f} GB (phase 4b {bf16_rates['train_peak_gb']:.3f}); "
+    log(f"train K={LOOP_K} B=64: capture (warm-up included) "
+        f"{loop['capture_seconds']:.3f} s; peak memory {peak_gb:.3f} GB (phase 4b {bf16_rates['train_peak_gb']:.3f}); "
         f"profile of group 1 (steps 4-7): {rates['train_loop_profile']} "
         f"(phase 4b, steps 1-4: {bf16_rates['train_profile']}): device ms a "
         f"step {device_ms(rates['train_loop_profile']) / 4:.2f}, phase 4b "
@@ -2536,12 +2505,12 @@ LONG_TRAIN_MAX_LEN_B = 40   # 100 regions + 3 + 40 = 143 tokens: L = 256
 LONG_TRAIN_STEPS = 8
 
 
-def phase_train_long_main_path(vocab_path, out_dir, gpu_line, bf16_rates):
+def phase_train_long_main_path(vocab_path, out_dir):
     """The train CLI as phase 4b (bf16, B=64, the COCO fine-tune flags) at
     a longer caption budget, --max_len_b LONG_TRAIN_MAX_LEN_B, which
     rounds the sequence up to L = 256: one epoch of LONG_TRAIN_STEPS
     steps through K1's row-block body (dropout) and K2's tiled body, each
-    launched once per layer and step.  Its samples/s beside phase 4b's."""
+    launched once per layer and step."""
     from vlp_tpu_torch.cli import train as train_cli
     from vlp_tpu_torch.ops import _build
 
@@ -2568,14 +2537,7 @@ def phase_train_long_main_path(vocab_path, out_dir, gpu_line, bf16_rates):
     losses = np.asarray(res["losses"])
     if len(losses) != LONG_TRAIN_STEPS or not np.isfinite(losses).all():
         fail(f"long train path: bad losses {losses}")
-    warm = 3
-    step_s = float(np.median(res["step_seconds"][warm:]))
-    rate = 64 / step_s
-    log(f"train main path B=64 L=256 (--max_len_b {LONG_TRAIN_MAX_LEN_B}): "
-        f"{rate:.2f} samples/s (median step {step_s * 1e3:.2f} ms after "
-        f"{warm} warm-up steps), beside {bf16_rates['train_samples_per_sec']:.2f}"
-        f" at L=128 (phase 4b) on {gpu_line}")
-    return counts, {"train_l256_samples_per_sec": rate}
+    return counts
 
 
 def _scst_setup(vocab_path, B, seed, **cfg_kw):
@@ -2710,16 +2672,9 @@ def phase_scst_main_path(vocab_path, out_dir, gpu_line):
         fail(f"SCST main path: bad losses {losses}")
     if not os.path.isfile(os.path.join(out, "model.1.bin")):
         fail("SCST main path wrote no model.1.bin")
-    warm = 3
-    step_s = float(np.median(res["step_seconds"][warm:]))
-    iter_s = float(np.median(res["iter_seconds"][warm:]))
-    rates = {"scst_samples_per_sec": SCST_B / step_s,
-             "scst_samples_per_sec_with_loader": SCST_B / iter_s}
-    log(f"SCST main path B={SCST_B}: {rates['scst_samples_per_sec']:.2f} "
-        f"samples/s (median step {step_s * 1e3:.2f} ms after {warm} warm-up "
-        f"steps; {rates['scst_samples_per_sec_with_loader']:.2f} with the "
-        f"loader's waits) on {gpu_line}; losses {losses.tolist()}")
-    return counts, rates
+    log(f"SCST main path B={SCST_B} on {gpu_line}: losses "
+        f"{losses.tolist()}")
+    return counts
 
 
 def write_answer_vocab(path: str, n: int = 3129) -> str:
@@ -2793,16 +2748,8 @@ def phase_vqa_main_path(vocab_path, answers_path, out_dir, gpu_line):
         fail(f"VQA train main path: bad losses {losses}")
     if not losses[-3:].mean() < losses[:3].mean():
         fail(f"VQA train main path: the loss did not fall: {losses}")
-    warm = 3
-    step_s = float(np.median(res["step_seconds"][warm:]))
-    iter_s = float(np.median(res["iter_seconds"][warm:]))
-    rates = {"vqa_train_samples_per_sec": 64 / step_s,
-             "vqa_train_samples_per_sec_with_loader": 64 / iter_s}
-    log(f"VQA train main path B=64: "
-        f"{rates['vqa_train_samples_per_sec']:.2f} samples/s (median step "
-        f"{step_s * 1e3:.2f} ms after {warm} warm-up steps; "
-        f"{rates['vqa_train_samples_per_sec_with_loader']:.2f} with the "
-        f"loader's waits) on {gpu_line}; losses {losses.tolist()}")
+    rates = {}
+    log(f"VQA train main path B=64 on {gpu_line}: losses {losses.tolist()}")
 
     bin_path = os.path.join(out, "model.1.bin")
     eval_out = os.path.join(out_dir, "vqa_eval")
@@ -2897,7 +2844,7 @@ def _dp_world1(flags, vocab_path, answers_path, out_dir, gpu_line):
     from vlp_tpu_torch.cli import train as train_cli
     from vlp_tpu_torch.ops import _build
 
-    runs, counts, rates = {}, {}, {}
+    runs, counts = {}, {}
     for mode in ("no_group", "nccl"):
         group = ([] if mode == "no_group" else [
             "--jax_distributed", "--coordinator_address",
@@ -2908,12 +2855,8 @@ def _dp_world1(flags, vocab_path, answers_path, out_dir, gpu_line):
             "--output_dir", os.path.join(out_dir, f"dp1_train_{mode}")])
         torch.cuda.synchronize()
         counts[mode] = {k: v.launches for k, v in _build.KERNELS.items()}
-        step_s = float(np.median(runs[mode]["step_seconds"][2:]))
-        rates[mode] = 64 / step_s
-        log(f"DP world 1 train ({mode}) B=64: {rates[mode]:.2f} samples/s "
-            f"(median step {step_s * 1e3:.2f} ms after 2 warm-up steps, "
-            f"deterministic algorithms) on "
-            f"{gpu_line}; losses {runs[mode]['losses']}")
+        log(f"DP world 1 train ({mode}) B=64, deterministic algorithms, on "
+            f"{gpu_line}: losses {runs[mode]['losses']}")
     if tdist.is_initialized():
         fail("cli.train left its process group behind")
     want = {k: (12 * DP_STEPS if k in ("attention_fwd_drop", "attention_bwd")
@@ -3024,9 +2967,7 @@ def _dp_world1(flags, vocab_path, answers_path, out_dir, gpu_line):
     return ({"train": counts["nccl"], "train_loop": counts["nccl_loop"],
              "decode": counts["decode", "nccl"],
              "vqa": counts["vqa", "nccl"]},
-            {"dp1_train_samples_per_sec": rates["nccl"],
-             "dp1_train_samples_per_sec_no_group": rates["no_group"],
-             "dp1_allreduce_ms": ar})
+            {"dp1_allreduce_ms": ar})
 
 
 def dp_worker(rank: int, port: int, vocab_path: str, out: str) -> None:
@@ -3588,7 +3529,7 @@ def tp_worker(rank: int, port: int, vocab_path: str, out_dir: str,
                                    for k, v in _build.KERNELS.items()}
             opt = r["optimizer"]
             res[name] = dict(
-                losses=r["losses"], step_seconds=r["step_seconds"],
+                losses=r["losses"],
                 hash=replicated_hash(r["model"]),
                 param_bytes=sum(p.numel() * p.element_size()
                                 for p in r["model"].parameters()),
@@ -3681,8 +3622,6 @@ def check_tp_runs(recs, backend, gpu_line, path="tp2") -> dict:
         if r0[name]["n_collectives"] % TP_STEPS:
             fail(f"TP {pre} {name}: {r0[name]['n_collectives']} "
                  f"collectives in {TP_STEPS} steps")
-        step_s = float(np.median(r0[name]["step_seconds"][2:]))
-        out[f"{pre}_{name}_samples_per_sec"] = TP_B / step_s
         out[f"{pre}_{name}_profile"] = r0[name]["profile"]
         for key in ("param_bytes", "moment_bytes", "peak_allocated_bytes"):
             out[f"{pre}_{name}_{key}"] = r0[name][key]
@@ -3699,9 +3638,8 @@ def check_tp_runs(recs, backend, gpu_line, path="tp2") -> dict:
             "bytes)")
         log(f"TP {pre} {name}: launch counts a rank as expected "
             f"({12 * TP_STEPS} K1-dropout + {12 * TP_STEPS} K2 at H=6), "
-            f"losses {losses}, replicated parameters bit-identical; "
-            f"{TP_B / step_s:.2f} samples/s (median of steps 3-{TP_STEPS}, "
-            f"{backend}) on {gpu_line}; rank 0's profile of step 2: "
+            f"losses {losses}, replicated parameters bit-identical "
+            f"({backend}) on {gpu_line}; rank 0's profile of step 2: "
             f"{r0[name]['profile']}")
         out[f"{pre}_{name}_counts"] = {
             k: r0["counts"][name][k] + r1["counts"][name][k] for k in zero}
@@ -3714,8 +3652,8 @@ def phase_tp_main_path(vocab_path, out_dir, gpu_line):
     """Phase 7b-7d.  (b) fp32 TP steps equal the single-process step within
     FP32_TOL (phase 6b's tolerance for ``dp_step``); (c) the train CLI with
     ``--tensor_parallel 2`` on two gloo ranks sharing the card: launches,
-    bit-identical replicated parameters, samples/s and the f/g all-reduce
-    time a step (gloo through the host on one card, not NVLink), then the
+    bit-identical replicated parameters and the f/g all-reduce time a
+    step (gloo through the host on one card, not NVLink), then the
     gathered ``model.1.bin`` loaded into a world-1 model decodes a batch
     on K1 + K4; (d) with two or more GPUs, the CLI over NCCL, eager and
     with ``--device_loop_steps 2``.  Returns (the gloo run's launch
@@ -3731,8 +3669,7 @@ def phase_tp_main_path(vocab_path, out_dir, gpu_line):
         fail("TP fp32: the gathered parameters or the losses differ from "
              "the single-process step, or the step did not move them")
     rates = check_tp_runs(recs, "gloo", gpu_line)
-    step_ms = TP_B / rates["tp2_gloo_main_samples_per_sec"] * 1e3
-    log(f"TP gloo, one step of {step_ms:.2f} ms: its f/g all-reduces "
+    log(f"TP gloo, a step's f/g all-reduces "
         f"({rates['tp2_gloo_main_collectives_per_step']} recorded, replayed) "
         f"{r0['collectives_ms_per_step']:.2f} ms, the batch's broadcast (its "
         f"[{TP_B}, 100, 2048] fp32 features) "
@@ -3785,8 +3722,8 @@ def phase_tp_gspmd_main_path(vocab_path, out_dir, gpu_line, tp_rates):
     ``--relax_projection``, label smoothing 0.1, region masking; then one
     VQA step) equal the single-process steps within FP32_TOL; (b) the
     train CLI with ``--tensor_parallel 2 --tp_impl gspmd`` (phase 7c's
-    flags): launches at H = 6, bit-identical replicated parameters,
-    samples/s, the collectives of a step and their time, a rank's
+    flags): launches at H = 6, bit-identical replicated parameters, the
+    collectives of a step and their time, a rank's
     parameter + moment bytes and peak allocation beside phase 7c's
     shard_map run (``tp_rates``), and the gathered ``model.1.bin``
     decoding on K1 + K4 in world 1.  Returns (the CLI run's launch counts
@@ -3832,9 +3769,7 @@ def phase_tp_gspmd_main_path(vocab_path, out_dir, gpu_line, tp_rates):
     log(f"TP gspmd vs shard_map, rank 0: parameter + moment bytes "
         f"{state[g]} vs {state[m]} ({state[m] - state[g]} fewer), peak "
         f"allocated {both[f'{g}_peak_allocated_bytes']} vs "
-        f"{both[f'{m}_peak_allocated_bytes']}; samples/s "
-        f"{both[f'{g}_samples_per_sec']:.2f} vs "
-        f"{both[f'{m}_samples_per_sec']:.2f}; collectives a step "
+        f"{both[f'{m}_peak_allocated_bytes']}; collectives a step "
         f"{both[f'{g}_collectives_per_step']} vs "
         f"{both[f'{m}_collectives_per_step']}, replayed "
         f"{both['tp2_gspmd_gloo_collectives_ms_per_step']:.2f} vs "
@@ -4055,21 +3990,18 @@ def main():
         paths["train"], train_rates = phase_train_main_path(vocab_path, tmp,
                                                             smi)
         log("phase 4b: train main path went through its kernels")
-        paths["train_l256"], long_rates = phase_train_long_main_path(
-            vocab_path, tmp, smi, train_rates)
-        train_rates.update(long_rates)
+        paths["train_l256"] = phase_train_long_main_path(vocab_path, tmp)
         log("phase 4b2: train main path at L=256 went through the long "
             "bodies")
-        paths["scst"], scst_rates = phase_scst_main_path(vocab_path, tmp,
-                                                         smi)
+        paths["scst"] = phase_scst_main_path(vocab_path, tmp, smi)
         log("phase 4c: SCST main path went through its kernels")
         paths["vqa_train"], paths["vqa"], vqa_rates = phase_vqa_main_path(
             vocab_path, answers_path, tmp, smi)
         log("phase 4d: VQA train and eval paths went through their kernels")
         paths["bhld"] = phase_bhld_main_path(dev)
         log("phase 4e: the bhld op went through its kernels")
-        paths["train_fp16"], fp16_rates = phase_fp16_main_path(
-            vocab_path, tmp, smi, train_rates)
+        paths["train_fp16"], fp16_rates = phase_fp16_main_path(vocab_path,
+                                                               tmp)
         log("phase 4f: --true_fp16 train main path went through the fp16 "
             "kernels")
         paths["legacy_heads"], heads_errs = phase_legacy_heads(dev)
@@ -4133,7 +4065,7 @@ def main():
     print(json.dumps({"kernels": kernels, "captions_per_sec_cli": rates,
                       "captions_per_sec_steady": steady, **train_rates,
                       **fp16_rates, "legacy_heads_max_abs_err": heads_errs,
-                      **scst_rates, **vqa_rates, **dp_rates, **tp_rates,
+                      **vqa_rates, **dp_rates, **tp_rates,
                       "scst_checks": scst_checks, "e2e_learn": e2e_numbers,
                       "device_loop_modes": loop_modes,
                       "vqa_checks": vqa_checks}))

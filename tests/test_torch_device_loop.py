@@ -101,7 +101,6 @@ def test_step_count_and_losses_match_the_jax_cli(fx):
     got = train_cli.main(train_args(fx, pout, *extra, "--device", "cpu",
                                     cfg="cfg_nodrop"))
     assert len(got["losses"]) == 4
-    assert len(got["step_seconds"]) == len(got["iter_seconds"]) == 4
     for out in (jout, pout):
         assert _log(out).count(TAIL) == 2, out
     want, mine = _records(jout), _records(pout)

@@ -33,7 +33,7 @@ import torch
 
 from vlp_tpu_torch import checkpoint as ckpt
 from vlp_tpu_torch import configure_precision
-from vlp_tpu_torch import parallel
+from vlp_tpu_torch import parallel, tracing
 from vlp_tpu_torch.cli import common
 from vlp_tpu_torch.config import VLPConfig
 from vlp_tpu_torch.data.dataset import CaptionExample, load_eval_index
@@ -131,12 +131,18 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
+def batch_bytes(batch) -> int:
+    """The bytes of a loader batch's arrays."""
+    return sum(np.asarray(v).nbytes for v in batch.values())
+
+
 def to_device(batch, device) -> dict:
-    """Copy a loader batch to ``device``.  Always a copy: the loader reuses
-    its feature slabs, and on the CPU ``torch.from_numpy`` would alias
-    them."""
-    return {k: torch.from_numpy(np.asarray(v)).to(device, copy=True)
-            for k, v in batch.items()}
+    """Copy a loader batch to ``device`` (the span ``io.upload``).  Always
+    a copy: the loader reuses its feature slabs, and on the CPU
+    ``torch.from_numpy`` would alias them."""
+    with tracing.span("io.upload", batch_bytes(batch)):
+        return {k: torch.from_numpy(np.asarray(v)).to(device, copy=True)
+                for k, v in batch.items()}
 
 
 def upload(batch, device) -> dict:
@@ -149,8 +155,9 @@ def upload(batch, device) -> dict:
     CPU: :func:`to_device`."""
     if device.type != "cuda":
         return to_device(batch, device)
-    return {k: torch.from_numpy(np.asarray(v)).pin_memory().to(
-        device, non_blocking=True) for k, v in batch.items()}
+    with tracing.span("io.upload", batch_bytes(batch)):
+        return {k: torch.from_numpy(np.asarray(v)).pin_memory().to(
+            device, non_blocking=True) for k, v in batch.items()}
 
 
 def main(argv=None, dist: parallel.Dist = None):

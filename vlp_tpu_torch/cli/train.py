@@ -91,8 +91,9 @@ TPU dispatch workaround ``--no_pallas`` is a no-op here and says so in the
 log, as are ``--fp16/--amp/--fp32_embedding`` (the dtype follows
 ``--device``).  ``--profile_steps N`` writes a
 ``torch.profiler`` table of N steps (with K > 1: of the groups that cover
-them) to ``output_dir/profile.txt`` and, with a group and K = 1, times
-every step's gradient all-reduce (``allreduce_ms`` of the result).
+them) to ``output_dir/profile.txt``, the program's spans
+(``vlp_tpu_torch.tracing``) among its rows, and, with a group and K = 1,
+times every step's gradient all-reduce (``allreduce_ms`` of the result).
 """
 
 from __future__ import annotations
@@ -110,7 +111,7 @@ import torch
 from vlp_tpu_torch import checkpoint as ckpt
 from vlp_tpu_torch import configure_precision
 from vlp_tpu_torch import optim as optim_lib
-from vlp_tpu_torch import parallel
+from vlp_tpu_torch import parallel, tracing
 from vlp_tpu_torch import train_step as ts
 from vlp_tpu_torch.cli import common
 from vlp_tpu_torch.cli.decode import resolve_device, to_device
@@ -356,19 +357,12 @@ def scst_decode_batch(tbatch, cfg: VLPConfig) -> dict:
 
 
 def main(argv=None, dist: parallel.Dist = None):
-    """Returns ``{"losses", "step_seconds", "iter_seconds", "model",
-    "optimizer", "allreduce_ms"}``: the loss of every step taken (the mean
-    over the ranks), the seconds from a batch in hand to its loss on the
-    host, the seconds between consecutive steps (loader included), the
-    trained model and its optimizer, and the milliseconds of each step's gradient all-reduce (with
-    ``--profile_steps``, a group and K = 1; empty otherwise).  With
-    ``--device_loop_steps K > 1`` a step's two times are its group's
-    divided by K, once per step: on ``cuda`` the group's span on the
-    device (CUDA events from its batches' copy to the device to its
-    metrics' copy back, so the host's work on the next group is not in
-    it; on the CPU, from its batches in hand to its losses), and the host
-    seconds between consecutive groups' losses; on ``cuda``
-    ``"device_loop"`` then holds the graph's captures, replays and capture
+    """Returns ``{"losses", "model", "optimizer", "allreduce_ms"}``: the
+    loss of every step taken (the mean over the ranks), the trained model
+    and its optimizer, and the milliseconds of each step's gradient
+    all-reduce (with ``--profile_steps``, a group and K = 1; empty
+    otherwise).  With ``--device_loop_steps K > 1`` on ``cuda``,
+    ``"device_loop"`` also holds the graph's captures, replays and capture
     seconds (warm-up included).  A caller may pass
     its own group as ``dist``; otherwise the flags and torchrun's
     environment decide (``parallel.from_cli``)."""
@@ -659,8 +653,8 @@ def train(args, dist: parallel.Dist):
         ckpt.restore_optimizer(args.output_dir, tag, optimizer,
                                shard=shard if tp > 1 else None)
 
-    result = {"losses": [], "step_seconds": [], "iter_seconds": [],
-              "model": model, "optimizer": optimizer, "allreduce_ms": []}
+    result = {"losses": [], "model": model, "optimizer": optimizer,
+              "allreduce_ms": []}
     if not args.do_train:
         return result
     logger.info("***** Running %straining on %s (%s), %d rank(s) *****",
@@ -702,23 +696,16 @@ def train(args, dist: parallel.Dist):
           if dist.is_main else contextlib.nullcontext()) as mf:
         for i_epoch in range(start_epoch, args.num_train_epochs + 1):
             losses = []
-            t_ep = t_prev = time.perf_counter()
+            t_ep = time.perf_counter()
             skip = skip_batches if i_epoch == start_epoch else 0
             pending, in_flight = [], None
 
             def drain(group):
                 """The losses of a launched group, once its copy to the
                 host is done (the JAX CLI's ``drain_ms``)."""
-                nonlocal t_prev
-                last, handle, t0, start = group
+                last, handle = group
                 host = fetched(handle)
                 group_losses = [float(x) for x in host["loss"]]
-                t1 = time.perf_counter()
-                group_s = (t1 - t0 if handle.done is None
-                           else start.elapsed_time(handle.done) / 1e3)
-                result["step_seconds"] += [group_s / K] * K
-                result["iter_seconds"] += [(t1 - t_prev) / K] * K
-                t_prev = t1
                 losses.extend(group_losses)
                 result["losses"].extend(group_losses)
                 if (last // K) % max(100 // K, 1) == 0 and dist.is_main:
@@ -739,15 +726,10 @@ def train(args, dist: parallel.Dist):
                     if (args.profile_steps and dist.is_main
                             and i_epoch == start_epoch and grp == 1):
                         profiler = start_profiler()
-                    t0 = time.perf_counter()
                     slot = grp % staging.n_slots
                     staging.stack(slot, pending)
                     seeds = [ts.step_seed(args.seed + 1, i_epoch * 100000 + i)
                              for i in range(step_i - K + 1, step_i + 1)]
-                    start = None
-                    if device.type == "cuda":
-                        start = torch.cuda.Event(enable_timing=True)
-                        start.record()
                     staged = staging.upload(slot)
                     dist.broadcast_in_tp_group([staging.device_block])
                     metrics = multi_step(
@@ -755,7 +737,7 @@ def train(args, dist: parallel.Dist):
                         args.max_drop_worst_ratio
                         if i_epoch > args.drop_after else 0.0)
                     pending = []
-                    launched = (step_i, fetch(metrics), t0, start)
+                    launched = (step_i, fetch(metrics))
                     if in_flight is not None:
                         drain(in_flight)
                     in_flight = launched
@@ -768,7 +750,6 @@ def train(args, dist: parallel.Dist):
                 if (args.profile_steps and dist.is_main
                         and i_epoch == start_epoch and step_i == skip + 1):
                     profiler = start_profiler()
-                t0 = time.perf_counter()
                 tbatch = to_device(batch, device)
                 dist.broadcast_in_tp_group(
                     v for _, v in sorted(tbatch.items()))
@@ -777,10 +758,6 @@ def train(args, dist: parallel.Dist):
                 seed = ts.step_seed(args.seed + 1, i_epoch * 100000 + step_i)
                 metrics = run_step(batch, tbatch, seed, i_epoch)
                 loss = float(metrics["loss"])
-                t1 = time.perf_counter()
-                result["step_seconds"].append(t1 - t0)
-                result["iter_seconds"].append(t1 - t_prev)
-                t_prev = t1
                 losses.append(loss)
                 result["losses"].append(loss)
                 if (profiler is not None
@@ -815,24 +792,29 @@ def train(args, dist: parallel.Dist):
 
 
 def start_profiler():
+    """``torch.profiler`` with the program's spans recorded
+    (``tracing.recording``), so that they are ranges of its table."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
     prof = profile(activities=acts)
     prof.__enter__()
-    return prof, time.perf_counter()
+    spans = tracing.recording()
+    spans.__enter__()
+    return prof, spans, time.perf_counter()
 
 
 def stop_profiler(profiler, output_dir: str) -> None:
     """Write the profiled window's wall time, summed device time and
     busy share, then the per-op table sorted by device time (every row:
-    the host-side ranges, such as ``dist.grad_agreement``, have none)."""
-    prof, t0 = profiler
+    the program's spans, such as ``dist.grad_agreement``, have none)."""
+    prof, spans, t0 = profiler
     cuda = torch.cuda.is_available()
     if cuda:
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
+    spans.__exit__(None, None, None)
     prof.__exit__(None, None, None)
     from torch.autograd import DeviceType
     events = prof.key_averages()

@@ -27,6 +27,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from vlp_tpu_torch import tracing
 from vlp_tpu_torch.config import VLPConfig
 from vlp_tpu_torch.host_copy import fetch, fetched
 from vlp_tpu_torch.models.model import ExplicitDropout, VLPModel
@@ -191,17 +192,20 @@ class Decoder:
     @torch.no_grad()
     def beam_trace(self, batch) -> Tuple[torch.Tensor, ...]:
         """The beam loop; returns (step_ids, step_ptrs, step_scores), each
-        [T, B, K], on the device."""
+        [T, B, K], on the device.  The prompt's encoding and first logits
+        are the span ``decode.prefill``, each step's decode and logits
+        ``decode.model``; the rest is the beam bookkeeping."""
         cfg, dp = self.cfg, self.dp
         K = dp.beam_size
         B = batch["input_ids"].shape[0]
         T = dp.max_tgt_length
         G = VLPModel.gen_cache_slots(T)
 
-        hidden, pk, pv = self._prefill(batch)
+        with tracing.span("decode.prefill"):
+            hidden, pk, pv = self._prefill(batch)
+            logits = self._logits(hidden, batch["task_idx"])
         dev = hidden.device
-        logp0 = torch.log_softmax(self._logits(hidden, batch["task_idx"]),
-                                  dim=-1)
+        logp0 = torch.log_softmax(logits, dim=-1)
         if dp.min_len and 1 <= dp.min_len:
             logp0[:, dp.eos_id] = NEG
         k_scores, k_ids = torch.topk(logp0, K, dim=-1)              # [B, K]
@@ -227,10 +231,11 @@ class Decoder:
             anc[:, t - 1:t + 1] = own[:, None]
             abias = torch.full((B * K, K, G), NEG, device=dev)
             abias = abias.masked_fill(anc[:, None, :] == beams, 0.0)
-            hidden = self.model.decode_step(
-                k_ids.reshape(-1, 1), seg, pos, pk, pv, gk, gv, t - 1,
-                dp.mask_id, beam_bias=abias.reshape(B * K, K * G))
-            logits = self._logits(hidden, task_idx)
+            with tracing.span("decode.model"):
+                hidden = self.model.decode_step(
+                    k_ids.reshape(-1, 1), seg, pos, pk, pv, gk, gv, t - 1,
+                    dp.mask_id, beam_bias=abias.reshape(B * K, K * G))
+                logits = self._logits(hidden, task_idx)
             kk_scores, kk_ids = self._candidate_topk(logits, seqs, t)
             kk_scores = (kk_scores + eos.reshape(-1, 1) * NEG
                          + k_scores.reshape(-1, 1))
@@ -255,15 +260,18 @@ class Decoder:
         dispatches batch N+1 before it collects batch N, so the host's
         back-trace overlaps the device.  The copy waits only for the work
         queued before it, where a ``.cpu()`` at collect would also wait
-        for whatever was queued since.  Pair with :meth:`beam_collect`."""
-        ids, ptrs, scores = self.beam_trace(batch)
-        return fetch(dict(ids=ids, ptrs=ptrs, scores=scores))
+        for whatever was queued since.  Pair with :meth:`beam_collect`.
+        The span ``decode.dispatch`` (n: the batch's rows)."""
+        with tracing.span("decode.dispatch", batch["input_ids"].shape[0]):
+            ids, ptrs, scores = self.beam_trace(batch)
+            return fetch(dict(ids=ids, ptrs=ptrs, scores=scores))
 
     def beam_collect(self, handle) -> Dict[str, np.ndarray]:
         """Wait for a :meth:`beam_dispatch` trace on the host and run the
-        back-trace."""
+        back-trace (the span ``decode.backtrace``)."""
         t = fetched(handle)
-        return self._backtrace(t["ids"], t["ptrs"], t["scores"])
+        with tracing.span("decode.backtrace"):
+            return self._backtrace(t["ids"], t["ptrs"], t["scores"])
 
     def beam_search(self, batch) -> Dict[str, np.ndarray]:
         return self.beam_collect(self.beam_dispatch(batch))

@@ -12,10 +12,12 @@ from typing import Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
+from vlp_tpu_torch import tracing
+
 
 class Fetch(NamedTuple):
-    """A queued copy: the host tensors it fills, and the timing event
-    recorded after it (None on the CPU, where nothing is queued)."""
+    """A queued copy: the host tensors it fills, and the event recorded
+    after it (None on the CPU, where nothing is queued)."""
     host: Dict[str, torch.Tensor]
     done: Optional[torch.cuda.Event]
 
@@ -30,13 +32,15 @@ def fetch(tensors: Dict[str, torch.Tensor]) -> Fetch:
             for k, v in tensors.items()}
     for k, v in tensors.items():
         host[k].copy_(v, non_blocking=True)
-    done = torch.cuda.Event(enable_timing=True)
+    done = torch.cuda.Event()
     done.record()
     return Fetch(host, done)
 
 
 def fetched(handle: Fetch) -> Dict[str, np.ndarray]:
-    """The arrays of a :func:`fetch`, once its copy is done."""
-    if handle.done is not None:
-        handle.done.synchronize()
+    """The arrays of a :func:`fetch`, once its copy is done (the wait is the
+    span ``io.wait``)."""
+    with tracing.span("io.wait"):
+        if handle.done is not None:
+            handle.done.synchronize()
     return {k: v.detach().numpy() for k, v in handle.host.items()}

@@ -38,6 +38,8 @@ from typing import Callable, Dict, Iterable, Optional, Tuple
 import torch
 import torch.distributed as tdist
 
+from vlp_tpu_torch import tracing
+
 # the reference's constants (optimization.py:74-77)
 B1, B2, EPS, MAX_GRAD_NORM = 0.9, 0.999, 1e-6, 1.0
 
@@ -138,7 +140,12 @@ class BertAdam:
         the update conditional on the device, with no sync: where it is
         False the parameters, both moments and the schedule's step count
         stay as they were (JAX ``_apply_grads`` keeps ``opt_state``
-        whole).  Nothing here reads a device value on the host."""
+        whole).  Nothing here reads a device value on the host.  The
+        update is the span ``optim.step`` (n: the parameter tensors)."""
+        with tracing.span("optim.step", len(self.params)):
+            self._update(finite)
+
+    def _update(self, finite: Optional[torch.Tensor]) -> None:
         lr_t = self.lr_at(self.step_count)
         sumsq = self._sharded_sumsq()
         for n, p in self.params.items():

@@ -47,8 +47,8 @@ from typing import Any, Dict, Iterable, List, Optional
 
 import torch
 import torch.distributed as tdist
-from torch.profiler import record_function
 
+from vlp_tpu_torch import tracing
 from vlp_tpu_torch.ops.philox import step_seed
 from vlp_tpu_torch.ops.tp import TP, broadcast_from_first
 from vlp_tpu_torch.parallel import mesh
@@ -180,9 +180,8 @@ class Dist:
         must agree on which parameters have no gradient; ``check`` verifies
         it first (:meth:`check_grad_agreement`, which syncs the host: a
         captured step checks once, before its capture, and reduces with
-        ``check=False``).  Under ``torch.profiler`` the agreement check and
-        the buckets are the ranges ``dist.grad_agreement`` and
-        ``dist.grad_buckets``."""
+        ``check=False``).  The agreement check and the buckets are the
+        spans ``dist.grad_agreement`` and ``dist.grad_buckets``."""
         if not self.dp_grouped:
             return
         start = self._mark()
@@ -190,7 +189,7 @@ class Dist:
         if check:
             self.check_grad_agreement(params)
         grads = [p.grad for p in params if p.grad is not None]
-        with record_function("dist.grad_buckets"):
+        with tracing.span("dist.grad_buckets"):
             bucket: List[torch.Tensor] = []
             size = 0
             for g in grads + [None]:
@@ -212,7 +211,7 @@ class Dist:
         if not self.dp_grouped:
             return
         params = [p for p in params if p.requires_grad]
-        with record_function("dist.grad_agreement"):
+        with tracing.span("dist.grad_agreement"):
             has = torch.tensor([p.grad is not None for p in params],
                                dtype=torch.int32, device=self.device)
             tdist.all_reduce(has, group=self.dp_group)

@@ -27,6 +27,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from vlp_tpu_torch import tracing
 from vlp_tpu_torch.config import VLPConfig
 from vlp_tpu_torch.models.model import DropoutRNG, VLPModel
 from vlp_tpu_torch.ops import _build
@@ -104,20 +105,27 @@ def grads_with_accum(model: VLPModel, batch, seed, *,
 
     A gradient buffer, once made, is zeroed and reused, not dropped: a
     captured step (:func:`make_multi_step`) accumulates into the same
-    tensors at every replay."""
+    tensors at every replay.  Each micro-batch's forward is the span
+    ``step.forward``, its backward ``step.backward``."""
     for p in model.parameters():
         if p.grad is not None:
             p.grad.zero_()
     drops = (list(seed) if isinstance(seed, (list, tuple))
              else micro_seeds(seed, grad_accum))
 
+    def forward(micro, drop):
+        with tracing.span("step.forward"):
+            return loss_fn(model, micro, drop,
+                           drop_worst_ratio=drop_worst_ratio,
+                           mask_image_regions=mask_image_regions,
+                           task=task)[1]
+
     def backward(loss):
-        (loss if scale is None else loss * scale).backward()
+        with tracing.span("step.backward"):
+            (loss if scale is None else loss * scale).backward()
 
     if grad_accum <= 1:
-        _, metrics = loss_fn(model, batch, drops[0],
-                             drop_worst_ratio=drop_worst_ratio,
-                             mask_image_regions=mask_image_regions, task=task)
+        metrics = forward(batch, drops[0])
         backward(metrics["loss"])
         return {k: v.detach() for k, v in metrics.items()}
     B = batch["input_ids"].shape[0]
@@ -128,9 +136,7 @@ def grads_with_accum(model: VLPModel, batch, seed, *,
     sums: Dict[str, torch.Tensor] = {}
     for i in range(grad_accum):
         micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-        _, metrics = loss_fn(model, micro, drops[i],
-                             drop_worst_ratio=drop_worst_ratio,
-                             mask_image_regions=mask_image_regions, task=task)
+        metrics = forward(micro, drops[i])
         backward(metrics["loss"])
         for k, v in metrics.items():
             sums[k] = sums.get(k, 0.0) + v.detach()
@@ -422,6 +428,11 @@ class CapturedSteps:
 
     def __call__(self, stacked_batch, seeds: Sequence[int],
                  drop_worst_ratio: float = 0.0) -> Dict[str, torch.Tensor]:
+        with tracing.span("loop.replay"):
+            return self._call(stacked_batch, seeds, drop_worst_ratio)
+
+    def _call(self, stacked_batch, seeds: Sequence[int],
+              drop_worst_ratio: float) -> Dict[str, torch.Tensor]:
         _check_group(stacked_batch, seeds, self.K)
         self._plan(seeds)
         key = (drop_worst_ratio, sorted(
@@ -429,7 +440,8 @@ class CapturedSteps:
             for k, v in stacked_batch.items()))
         if self.graph is None or key != self._key:
             t0 = time.perf_counter()
-            self._capture(stacked_batch, drop_worst_ratio)
+            with tracing.span("loop.capture"):
+                self._capture(stacked_batch, drop_worst_ratio)
             torch.cuda.synchronize(self.device)
             self.capture_seconds += time.perf_counter() - t0
             self._key = key
@@ -541,7 +553,8 @@ class GroupStaging:
     def upload(self, slot: int) -> Dict[str, torch.Tensor]:
         """Copy slab ``slot`` to the device block (asynchronous from pinned
         memory) and return the staged views."""
-        self._dev.copy_(self._host[slot], non_blocking=True)
+        with tracing.span("io.upload", self._dev.nbytes):
+            self._dev.copy_(self._host[slot], non_blocking=True)
         return self.staged
 
 
