@@ -34,7 +34,14 @@ dO reaching every gradient, gates K1 (both branches) and K2 past their
 one-block bodies at B=64, L = 160, 256 and 528 in both layouts and both
 16-bit dtypes, and times every 16-bit form of K1 and K2 beside SDPA in
 its dtype and the bound at L = 128, 256 and 528 (plain versions with
-PLAIN_REPS calls a round).  Phase 6 runs data parallel:
+PLAIN_REPS calls a round).  Phase 2 ends with the fused BertAdam update
+(``csrc/bert_adam.cu``) against the plain one at both benchmark
+configurations' parameter sets (bit for bit at the same norms; a skipped
+step, a None gradient, anchors, weight decay 0, a captured step; at most
+ADAM_MAX_LAUNCHES launch calls a step), timed beside its bound; every
+main path then expects one launch of each of its two kernels a step, and
+the script fails if ``BertAdam.step`` ran the plain update on CUDA
+parameters.  Phase 6 runs data parallel:
 the train, decode and VQA CLIs over NCCL at world size 1, which must equal
 the runs without a group bit for bit, and two gloo ranks on the one card
 (this script re-run with ``--dp-worker``, DP2_LAYERS deep), which must stay
@@ -132,6 +139,7 @@ DECODE_GEN_LENS = (0, 9, 18)   # decode steps timed: first, middle, last
 # the tool's bert-base learning rates; MLE partial (40 steps) so that SCST
 # has room to raise CIDEr
 E2E_B, E2E_STEPS, E2E_SCST_STEPS = 64, 40, 40
+ADAM_KERNELS = ("bert_adam_norms", "bert_adam_update")
 
 
 def body(dtype) -> str:
@@ -167,6 +175,12 @@ def log(msg: str) -> None:
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke FAILED: {msg}")
+
+
+def adam_launches(steps: int) -> dict:
+    """The fused BertAdam's launches over ``steps`` optimizer steps (a
+    skipped one included): one of each pass a step."""
+    return {k: steps for k in ADAM_KERNELS}
 
 
 def time_ms(fn, reps=REPS) -> float:
@@ -1313,6 +1327,320 @@ def phase_seed_slots(dev):
         "replayed with a new seed in its slot = the eager pair")
 
 
+# the benchmark's two configurations, whose parameter sets phase 2f takes
+ADAM_CONFIGS = (("vlp-base-coco-cap", False), ("vlp-base-vqa2", True))
+ADAM_STEPS = 3
+# runtime calls that put work on the device (benchmarks' launches metric)
+LAUNCH_CALLS = ("launchkernel", "graphlaunch", "memcpy", "memset",
+                "launchcooperativekernel")
+ADAM_MAX_LAUNCHES = 12          # a fused BertAdam step's launch calls, at most
+_PLAIN_ON_CUDA = []             # BertAdam._update calls on CUDA parameters
+
+
+def guard_plain_update() -> None:
+    """Record every call of the plain update (``BertAdam._update``) on
+    CUDA parameters: ``BertAdam.step`` must take the kernel there, so
+    ``main`` fails if any is recorded.  A gate runs the plain update on
+    purpose through :func:`plain_update`, past the record."""
+    from vlp_tpu_torch import optim as optim_lib
+    plain = optim_lib.BertAdam._update
+
+    def guarded(self, finite):
+        if self.plan is not None:
+            _PLAIN_ON_CUDA.append(len(self.params))
+        return plain(self, finite)
+
+    guarded.plain = plain
+    optim_lib.BertAdam._update = guarded
+
+
+def plain_update(opt, finite=None) -> None:
+    """The plain update of ``opt`` (a gate's reference), unrecorded."""
+    from vlp_tpu_torch import optim as optim_lib
+    fn = optim_lib.BertAdam._update
+    with torch.no_grad():
+        getattr(fn, "plain", fn)(opt, finite)
+
+
+def adam_param_set(config: str, vqa: bool, dev, seed: int) -> dict:
+    """A benchmark configuration's parameters (names and shapes from a
+    ``VLPModel`` on the meta device), N(0, 0.02) fp32 on ``dev``."""
+    import dataclasses
+
+    from vlp_tpu_torch.config import VLPConfig
+    from vlp_tpu_torch.models.model import VLPModel
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "benchmarks", "configs", config + ".json")) as f:
+        raw = json.load(f)
+    fields = {fl.name for fl in dataclasses.fields(VLPConfig)}
+    cfg = VLPConfig(**{k: v for k, v in raw.items() if k in fields})
+    with torch.device("meta"):
+        model = VLPModel(cfg, with_vqa=vqa)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return {n: torch.nn.Parameter(0.02 * torch.randn(
+                p.shape, generator=g, device=dev))
+            for n, p in model.named_parameters()}
+
+
+def adam_twin(params, make):
+    """(parameters cloned, ``make(their dict)``)."""
+    twin = {n: torch.nn.Parameter(p.detach().clone())
+            for n, p in params.items()}
+    return twin, make(twin)
+
+
+def adam_grads(params, g, none: str) -> dict:
+    """Random gradients, alternately of norm ~3 (clipped) and ~0.3 (not);
+    parameter ``none`` gets None."""
+    out = {}
+    for i, (n, p) in enumerate(params.items()):
+        norm = 3.0 if i % 2 == 0 else 0.3
+        out[n] = None if n == none else torch.randn(
+            p.shape, generator=g, device=p.device) * (norm / p.numel() ** 0.5)
+    return out
+
+
+def set_grads(params, grads) -> None:
+    for n, p in params.items():
+        p.grad = None if grads[n] is None else grads[n].clone()
+
+
+def ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """fp32 units in the last place between a and b, elementwise (int64:
+    the distance of their bit patterns on the ordered integer line)."""
+    def ordered(x):
+        i = x.float().contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(2 ** 31) - i, i)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def clip_scales(sumsq: torch.Tensor) -> torch.Tensor:
+    """_clip's scale from squared norms, as the plain update computes it."""
+    from vlp_tpu_torch import optim as optim_lib
+    norm = torch.sqrt(sumsq)
+    return torch.where(norm > optim_lib.MAX_GRAD_NORM,
+                       optim_lib.MAX_GRAD_NORM / (norm + optim_lib.CLIP_EPS),
+                       torch.ones_like(norm))
+
+
+def launch_calls(fn) -> int:
+    """Runtime calls that put work on the device during ``fn()``."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if any(c in e.key.lower() for c in LAUNCH_CALLS))
+
+
+def adam_gate(params, make, g, none, label, steps=ADAM_STEPS) -> dict:
+    """The fused update of ``make(params)`` against two plain twins over
+    ``steps`` steps of the same random gradients (step 1 skipped through
+    ``finite`` False, step 2 with ``finite`` True):
+
+    * twin A takes the kernel's squared norms (``_sharded_sumsq``): every
+      tensor, clipped or not, must equal the kernel's bit for bit in p, m
+      and v: the update is the plain one, op for op;
+    * twin B takes its own (``torch.sum``): the tensors that do not clip
+      must equal the kernel's bit for bit; for those that clip, the
+      kernel's clip scale must lie within 2 ulps of the scale from the
+      exact (fp64) norm, and its distance from B's scale and B's p, m and
+      v are reported (in ulps: B's fp32 sum has errors of its own, and
+      an element whose moment nearly cancels has few bits to agree on);
+    * a skipped step leaves p, m, v and the step count bit-identical;
+    * each step launches each pass once, and at most ADAM_MAX_LAUNCHES
+      runtime calls put work on the device."""
+    from vlp_tpu_torch.ops import _build
+
+    fused = make(params)
+    twin_a, plain_a = adam_twin(params, make)
+    twin_b, plain_b = adam_twin(params, make)
+    plan = fused.plan
+    order = {n: t for t, n in enumerate(plan.names)}
+    worst = dict(scale_vs_exact=0, scale_vs_plain=0, p=0, m=0, v=0)
+    clipped = set()
+    for step in range(steps):
+        finite = (None if step == 0 else
+                  torch.tensor(step != 1, device=plan.device))
+        grads = adam_grads(params, g, none)
+        for ps in (params, twin_a, twin_b):
+            set_grads(ps, grads)
+        before = [t.clone() for t in (*params.values(), *fused.m.values(),
+                                      *fused.v.values(), fused.step_count)]
+        launches = {k: _build.KERNELS[k].launches for k in ADAM_KERNELS}
+        fused.step(finite)
+        torch.cuda.synchronize()
+        if any(_build.KERNELS[k].launches != launches[k] + 1
+               for k in ADAM_KERNELS):
+            fail(f"BertAdam {label}: a step did not launch each pass once")
+        sumsq = dict(zip(plan.names, plan.sumsq.clone().unbind()))
+        plain_a._sharded_sumsq = lambda: sumsq
+        plain_update(plain_a, finite)
+        plain_update(plain_b, finite)
+        torch.cuda.synchronize()
+        if step == 1:
+            after = [*params.values(), *fused.m.values(), *fused.v.values(),
+                     fused.step_count]
+            if not all(torch.equal(a, b) for a, b in zip(before, after)):
+                fail(f"BertAdam {label}: a skipped step (finite False) "
+                     "changed the state")
+        mine = {n: (params[n], fused.m[n], fused.v[n]) for n in params}
+        for n, (p, m, v) in mine.items():
+            if not (torch.equal(p, twin_a[n]) and torch.equal(m, plain_a.m[n])
+                    and torch.equal(v, plain_a.v[n])):
+                fail(f"BertAdam {label} step {step}: {n} differs from the "
+                     "plain update at the kernel's norm")
+        exact = {n: (torch.zeros((), dtype=torch.float64, device=plan.device)
+                     if grads[n] is None else
+                     grads[n].double().pow(2).sum()) for n in params}
+        for n, (p, m, v) in mine.items():
+            if grads[n] is not None and float(sumsq[n].sqrt()) > 1.0:
+                clipped.add(n)
+                s_k = clip_scales(sumsq[n])
+                s_b = clip_scales(torch.sum(grads[n] * grads[n]))
+                s_x = (1.0 / (exact[n].sqrt() + 1e-6)).float()
+                worst["scale_vs_exact"] = max(worst["scale_vs_exact"],
+                                              int(ulps(s_k, s_x)))
+                worst["scale_vs_plain"] = max(worst["scale_vs_plain"],
+                                              int(ulps(s_k, s_b)))
+                for key, x, y in (("p", p, twin_b[n]), ("m", m, plain_b.m[n]),
+                                  ("v", v, plain_b.v[n])):
+                    worst[key] = max(worst[key], int(ulps(x, y).max()))
+            elif not (torch.equal(p, twin_b[n])
+                      and torch.equal(m, plain_b.m[n])
+                      and torch.equal(v, plain_b.v[n])):
+                fail(f"BertAdam {label} step {step}: {n}, not clipped, "
+                     "differs from the plain update")
+        if int(fused.step_count) != int(plain_b.step_count):
+            fail(f"BertAdam {label}: step count {int(fused.step_count)}, "
+                 f"plain {int(plain_b.step_count)}")
+    if worst["scale_vs_exact"] > 2:
+        fail(f"BertAdam {label}: a clip scale {worst['scale_vs_exact']} "
+             "ulps from the exact one")
+    with_grads = sum(x is not None for x in grads.values())
+    if not clipped or len(clipped) == with_grads:
+        fail(f"BertAdam {label}: the gradients clipped {len(clipped)} "
+             "tensors: not some of them")
+    calls = launch_calls(fused.step)
+    plain_calls = launch_calls(lambda: plain_update(plain_b))
+    if calls > ADAM_MAX_LAUNCHES:
+        fail(f"BertAdam {label}: {calls} launch calls a step, not <= "
+             f"{ADAM_MAX_LAUNCHES}")
+    rep = dict(tensors=len(params), clipped=len(clipped),
+               launch_calls=calls, plain_launch_calls=plain_calls,
+               max_ulps_vs_plain_norms=worst)
+    log(f"BertAdam {label}: {rep}")
+    del fused, plain_a, plain_b, twin_a, twin_b
+    return rep
+
+
+def phase_fused_adam(dev, results):
+    """The fused BertAdam update (``csrc/bert_adam.cu``) against the plain
+    one on the card at both benchmark configurations' parameter sets (210
+    and 214 tensors; :func:`adam_gate`), the caption set also with
+    fine-tune anchors (fresh heads anchored at zero) and with weight decay
+    0; a captured step replayed twice against two eager steps, bit for
+    bit; then the kernel's time (both passes, and the whole step with the
+    schedule's scalar ops) beside its bound (32 bytes an element) and the
+    plain update's time (host-bound: also its device time from the
+    profiler)."""
+    from vlp_tpu_torch import optim as optim_lib
+    from vlp_tpu_torch.ops import _build
+
+    g = torch.Generator(device=dev).manual_seed(21)
+    norms_r, update_r = {}, {}
+    for config, vqa in ADAM_CONFIGS:
+        params = adam_param_set(config, vqa, dev, 1)
+        none = next(n for n in params if "pooler" in n) if any(
+            "pooler" in n for n in params) else list(params)[-1]
+
+        def make(ps):
+            return optim_lib.BertAdam(ps, 3e-5, warmup=0.1, t_total=100)
+        gates = {"plain": adam_gate(params, make, g, none, config)}
+        if not vqa:
+            init = {n: p.detach() + 0.01 for n, p in params.items()}
+
+            def finetune(ps):
+                return optim_lib.bert_adam_finetune(
+                    ps, 3e-5, init_params=init, warmup=0.1, t_total=100,
+                    missing_key_substrings=("cls.",))
+            gates["anchors"] = adam_gate(params, finetune, g, none,
+                                         config + " anchors", steps=2)
+            del init
+            gates["weight_decay_0"] = adam_gate(
+                params, lambda ps: optim_lib.BertAdam(ps, 3e-5,
+                                                      weight_decay=0.0),
+                g, none, config + " weight_decay 0", steps=2)
+            # a captured step, replayed twice, against two eager steps
+            grads = adam_grads(params, g, none)
+            eager = make(params)
+            twin, captured = adam_twin(params, make)
+            set_grads(params, grads)
+            set_grads(twin, grads)
+            captured.plan.refresh()
+            graph = torch.cuda.CUDAGraph()
+            with _build.recording() as rec, torch.cuda.graph(graph):
+                captured.step()
+            if dict(rec) != adam_launches(1):
+                fail(f"BertAdam captured step recorded {dict(rec)}")
+            for _ in range(2):
+                eager.step()
+                graph.replay()
+            torch.cuda.synchronize()
+            same = all(torch.equal(params[n], twin[n])
+                       and torch.equal(eager.m[n], captured.m[n])
+                       and torch.equal(eager.v[n], captured.v[n])
+                       for n in params)
+            if not same or int(captured.step_count) != 2:
+                fail("BertAdam: a captured step replayed twice differs from "
+                     "two eager steps")
+            log("BertAdam: a captured step replayed twice = two eager steps, "
+                "bit for bit")
+            del graph, eager, captured, twin
+        # times: a fresh optimizer on fixed gradients
+        set_grads(params, adam_grads(params, g, none))
+        opt = make(params)
+        twin, plain = adam_twin(params, make)
+        set_grads(twin, {n: p.grad for n, p in params.items()})
+        opt.step()
+        plan = opt.plan
+        lr_t = opt.lr_at(opt.step_count)
+        numel = sum(p.numel() for p in params.values())
+        with _build.recording():
+            norms_ms = time_ms(plan.norms)
+            kernel_ms = time_ms(lambda: (plan.norms(), plan.update(
+                lr_t, None, opt.step_count, opt.weight_decay)))
+            step_ms = time_ms(opt.step)
+        plain_time = plain_ms(lambda: plain_update(plain))
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            plain_update(plain)
+            torch.cuda.synchronize()
+        plain_device_ms = sum(e.self_device_time_total
+                              for e in prof.key_averages()) / 1e3
+        key = "vqa" if vqa else "caption"
+        norms_r[key] = dict(tensors=len(params), ms=norms_ms,
+                            **bound(4 * numel, 0))
+        update_r[key] = dict(
+            tensors=len(params), params=numel, chunks=plan.n_chunks,
+            blocks=plan._blocks, ms=kernel_ms, step_ms=step_ms,
+            plain_ms=plain_time, plain_device_ms=plain_device_ms,
+            **bound(32 * numel, 0), gates=gates)
+        log(f"BertAdam {config} ({len(params)} tensors, {numel} elements, "
+            f"{plan.n_chunks} chunks, {plan._blocks} blocks): kernel "
+            f"{kernel_ms:.4f} ms (norms {norms_ms:.4f}), step {step_ms:.4f} "
+            f"ms, bound {update_r[key]['bound_ms']:.4f} ms "
+            f"({100 * update_r[key]['bound_ms'] / kernel_ms:.1f}%); plain "
+            f"{plain_time:.4f} ms (device {plain_device_ms:.4f} ms)")
+        del opt, plain, twin, params
+        torch.cuda.empty_cache()
+    results["bert_adam_norms"] = norms_r
+    results["bert_adam_update"] = update_r
+
+
 def bhld_inputs(g, dev, dtype, strided=False, B=64, L=128, H=12, P=102):
     """[B, H, L, 64] q/k/v and dout at the training shape, mixed modes,
     zeros in colkeep; ``strided``: q/k/v are slices of one [B, H, L, 192]
@@ -1556,6 +1884,7 @@ def phase_fp16_main_path(vocab_path, out_dir):
     n = 12 * 2 * spe
     want = {k: (n if k in ("attention_fwd_drop_fp16", "attention_bwd_fp16")
                 else 0) for k in counts}
+    want.update(adam_launches(2 * spe))
     log(f"true-fp16 train launch counts {counts}, expected {want}")
     if counts != want:
         fail("the --true_fp16 train path did not launch the fp16 kernels "
@@ -2022,7 +2351,8 @@ def phase_legacy_heads(dev):
     # every head but PairRelHead runs the encoder once on the card
     n = HEADS_LAYERS
     want = dict({k: 0 for k in counts}, attention_fwd=n * (len(calls) - 1),
-                attention_fwd_fp16=n, attention_fwd_drop=n, attention_bwd=n)
+                attention_fwd_fp16=n, attention_fwd_drop=n, attention_bwd=n,
+                **adam_launches(1))
     log(f"legacy heads launch counts {counts}, expected {want}")
     if counts != want:
         fail("the legacy heads did not launch the kernels as expected")
@@ -2400,6 +2730,7 @@ def phase_train_main_path(vocab_path, out_dir, gpu_line):
     n = 12 * epochs * spe
     want = {k: (n if k in ("attention_fwd_drop", "attention_bwd") else 0)
             for k in counts}
+    want.update(adam_launches(epochs * spe))
     log(f"train launch counts {counts}, expected {want}")
     if counts != want:
         fail("the train path did not launch the kernels as expected")
@@ -2455,6 +2786,7 @@ def phase_train_loop_main_path(vocab_path, out_dir, gpu_line, bf16_rates):
     n = 12 * epochs * spe
     want = {k: (n if k in ("attention_fwd_drop", "attention_bwd") else 0)
             for k in counts}
+    want.update(adam_launches(epochs * spe))
     loop = res["device_loop"]
     log(f"train K={LOOP_K} launch counts {counts}, expected {want}; "
         f"{loop}")
@@ -2530,6 +2862,7 @@ def phase_train_long_main_path(vocab_path, out_dir):
     n = 12 * LONG_TRAIN_STEPS
     want = {k: (n if k in ("attention_fwd_drop", "attention_bwd") else 0)
             for k in counts}
+    want.update(adam_launches(LONG_TRAIN_STEPS))
     log(f"train (--max_len_b {LONG_TRAIN_MAX_LEN_B}) launch counts {counts}, "
         f"expected {want}")
     if counts != want:
@@ -2644,6 +2977,7 @@ def phase_scst_main_path(vocab_path, out_dir, gpu_line):
     Each step launches K1 (the greedy prefill) 12 times, K1-dropout 24
     (the sampled prefill and the replay's), K2 12, K3 and K5 12 x 19 each
     and K6 12."""
+    from vlp_tpu_torch import tracing
     from vlp_tpu_torch.cli import train as train_cli
     from vlp_tpu_torch.ops import _build
 
@@ -2656,14 +2990,20 @@ def phase_scst_main_path(vocab_path, out_dir, gpu_line):
             "--steps_per_epoch", str(SCST_STEPS), "--output_dir", out,
             "--device", "cuda"]
     _build.reset_launch_counts()
-    res = train_cli.main(args)
+    with tracing.recording() as spans:
+        res = train_cli.main(args)
     torch.cuda.synchronize()
+    # SCST drops its gradients every step (p.grad = None): how often the
+    # fused BertAdam's table was rewritten, and how many rows
+    tables = [sp.n for sp in spans if sp.name == "optim.table"]
+    log(f"SCST: BertAdam's table rewritten {len(tables)} times in "
+        f"{SCST_STEPS} steps (rows {tables})")
     counts = {k: v.launches for k, v in _build.KERNELS.items()}
     n, steps = SCST_STEPS, 12 * (SCST_T - 1)
     want = dict({k: 0 for k in counts}, attention_fwd=12 * n,
                 attention_fwd_drop=24 * n, attention_bwd=12 * n,
                 decode_attention=steps * n, decode_attention_drop=steps * n,
-                decode_dropout_scales=12 * n)
+                decode_dropout_scales=12 * n, **adam_launches(n))
     log(f"SCST launch counts {counts}, expected {want}")
     if counts != want:
         fail("the SCST path did not launch the kernels as expected")
@@ -2740,6 +3080,7 @@ def phase_vqa_main_path(vocab_path, answers_path, out_dir, gpu_line):
     n = 12 * VQA_STEPS
     want = {k: (n if k in ("attention_fwd_drop", "attention_bwd") else 0)
             for k in train_counts}
+    want.update(adam_launches(VQA_STEPS))
     log(f"VQA train launch counts {train_counts}, expected {want}")
     if train_counts != want:
         fail("the VQA train path did not launch the kernels as expected")
@@ -2861,6 +3202,7 @@ def _dp_world1(flags, vocab_path, answers_path, out_dir, gpu_line):
         fail("cli.train left its process group behind")
     want = {k: (12 * DP_STEPS if k in ("attention_fwd_drop", "attention_bwd")
                 else 0) for k in counts["nccl"]}
+    want.update(adam_launches(DP_STEPS))
     if not counts["nccl"] == counts["no_group"] == want:
         fail(f"DP world 1 train launch counts {counts}, expected {want}")
     if runs["nccl"]["losses"] != runs["no_group"]["losses"]:
@@ -2903,6 +3245,7 @@ def _dp_world1(flags, vocab_path, answers_path, out_dir, gpu_line):
         counts[mode] = {k: v.launches for k, v in _build.KERNELS.items()}
     want = {k: (12 * DP_STEPS if k in ("attention_fwd_drop", "attention_bwd")
                 else 0) for k in counts["nccl_loop"]}
+    want.update(adam_launches(DP_STEPS))
     loops = [runs[m]["device_loop"] for m in ("no_group_loop", "nccl_loop")]
     if not counts["nccl_loop"] == counts["no_group_loop"] == want:
         fail(f"DP world 1 device loop launch counts {counts}, expected "
@@ -3143,13 +3486,14 @@ def phase_dp_two_ranks(vocab_path, out_dir):
     # DP2_LAYERS layers
     n = 2 * DP2_LAYERS
     zero = {k: 0 for k in r0["counts"]["fp32"]}
-    step = dict(zero, attention_fwd_drop=n, attention_bwd=n)
+    step = dict(zero, attention_fwd_drop=n, attention_bwd=n,
+                **adam_launches(2))
     dec = n * (SCST_T - 1)
     want = {"fp32": step, "bf16": step,
             "scst": dict(zero, attention_fwd=n, attention_fwd_drop=2 * n,
                          attention_bwd=n, decode_attention=dec,
                          decode_attention_drop=dec,
-                         decode_dropout_scales=n)}
+                         decode_dropout_scales=n, **adam_launches(2))}
     for r in (r0, r1):
         if r["counts"] != want:
             fail(f"DP two ranks launch counts {r['counts']}, expected {want}")
@@ -3605,7 +3949,7 @@ def check_tp_runs(recs, backend, gpu_line, path="tp2") -> dict:
     for name in r0["counts"]:
         zero = {k: 0 for k in r0["counts"][name]}
         want = dict(zero, attention_fwd_drop=12 * TP_STEPS,
-                    attention_bwd=12 * TP_STEPS)
+                    attention_bwd=12 * TP_STEPS, **adam_launches(TP_STEPS))
         for r in recs:
             if r["counts"][name] != want:
                 fail(f"TP {pre} {name}: launch counts "
@@ -3814,7 +4158,8 @@ def phase_e2e_learn(gpu_line):
                 decode_attention=steps * (evals + n_scst),
                 decode_attention_anc=steps,
                 decode_attention_drop=steps * n_scst,
-                decode_dropout_scales=12 * n_scst)
+                decode_dropout_scales=12 * n_scst,
+                **adam_launches(n_mle + n_scst))
     log(f"e2e_learn launch counts {counts}, expected {want}")
     bar = max(1.0, res["untrained_cider"] + 1.0)
     numbers = {k: v for k, v in res.items() if k not in ("model", "task")}
@@ -3944,6 +4289,7 @@ def main():
     from vlp_tpu_torch.ops import _build
 
     vlp_tpu_torch.configure_precision()
+    guard_plain_update()
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -3969,6 +4315,7 @@ def main():
     phase_bhld_kernels(dev, results)
     phase_fp16_kernels(dev, results)
     phase_seed_slots(dev)
+    phase_fused_adam(dev, results)
     log("phase 2: kernels agree with their plain versions")
 
     paths = {}
@@ -4043,6 +4390,10 @@ def main():
         log("phase 8: the learnability proof passed at bert-base width "
             "through its kernels, beam 5 above the bar")
 
+    if _PLAIN_ON_CUDA:
+        fail(f"BertAdam.step ran the plain update on CUDA parameters "
+             f"{len(_PLAIN_ON_CUDA)} times")
+    log("BertAdam.step took the fused update on every CUDA parameter set")
     leaked = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "flax", "vlp_tpu")]
     if leaked:

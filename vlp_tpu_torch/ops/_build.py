@@ -64,6 +64,10 @@ _SIGNATURES = {
                                   _I, _I, _LL, _I, _F, _ULL, _U, _F, _I, _P],
     "vlp_decode_attention_f32_blocks_per_sm": [_I, _I, _I, _I, _I, _I, _I],
     "vlp_decode_dropout_scales": [_P, _P, _I, _I, _I, _I, _I, _U, _F, _P],
+    "vlp_bert_adam_blocks": [],
+    "vlp_bert_adam_norms": [_P, _P, _I, _I, _P, _P, _P, _P],
+    "vlp_bert_adam_update": [_P, _P, _I, _I, _P, _P, _P, _P, _F, _F, _F, _F,
+                             _F, _F, _F, _F, _I, _I, _P],
 }
 
 
@@ -77,7 +81,7 @@ class Kernel:
     zeroes it before driving the main path and reads it after."""
     name: str
     source: str      # path in the repository
-    replaces: str    # the TPU kernel, file:line
+    replaces: str    # the TPU kernel, file:line, or "none: " and why
     route: str = "cuda"
     launches: int = 0
 
@@ -117,6 +121,11 @@ KERNELS = {
         "attention_bwd_bhld", "vlp_tpu_torch/csrc/attention_bwd.cu",
         "vlp_tpu/ops/attention.py:155"),
 }
+# BertAdam's update (optim.FusedPlan): no TPU kernel, XLA fuses the JAX
+# package's update (vlp_tpu/optim.py:111)
+for _name in ("bert_adam_norms", "bert_adam_update"):
+    KERNELS[_name] = Kernel(_name, "vlp_tpu_torch/csrc/bert_adam.cu",
+                            "none: XLA fuses vlp_tpu/optim.py:111")
 # the fp16 forms of K1 and K2 (--true_fp16 training): the 16-bit bodies
 # instantiated for fp16, counted apart from their bf16 and fp32 forms
 for _name in ("attention_fwd", "attention_fwd_drop", "attention_bwd",

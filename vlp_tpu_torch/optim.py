@@ -23,6 +23,10 @@ parameters, the moments and its step count (a device tensor) in place, so
 a captured CUDA graph of training steps (``train_step.make_multi_step``)
 reads and writes the same tensors at every replay.
 
+On a CUDA device the update is the hand-written multi-tensor kernel of
+``csrc/bert_adam.cu`` (:class:`FusedPlan`, two launches for every
+parameter); ``_update``, its plain version, takes CPU tensors.
+
 ``DynamicLossScale`` is the fp16 loss scaling of ``--true_fp16`` (the
 reference's apex ``FP16_Optimizer``, optimization_fp16.py:7-80; JAX
 ``optim.DynamicLossScale``).  Its state, ``{"scale", "good_steps"}`` as
@@ -33,15 +37,16 @@ its ``state_dict``, as apex keeps it in the optimizer's.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Iterable, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 import torch.distributed as tdist
 
 from vlp_tpu_torch import tracing
 
-# the reference's constants (optimization.py:74-77)
+# the reference's constants (optimization.py:74-77), and the clip's epsilon
 B1, B2, EPS, MAX_GRAD_NORM = 0.9, 0.999, 1e-6, 1.0
+CLIP_EPS = 1e-6
 
 # --- schedules (optimization.py:33-55); x = step / t_total, fp32 ----------
 
@@ -111,6 +116,8 @@ class BertAdam:
         self.loss_scale: Optional[Dict[str, torch.Tensor]] = None
         self.clip_group = clip_group
         self.clip_sharded = [n for n in self.params if n in set(clip_sharded)]
+        # the kernel's plan and scratch, made once (on the card only)
+        self.plan = FusedPlan(self) if dev.type == "cuda" else None
 
     def lr_at(self, step) -> torch.Tensor:
         """fp32 learning rate of the update after ``step`` completed ones
@@ -131,7 +138,7 @@ class BertAdam:
         norm = torch.sqrt(torch.sum(g * g) if sumsq is None else sumsq)
         one = torch.ones((), device=g.device)
         return g * torch.where(norm > MAX_GRAD_NORM,
-                               MAX_GRAD_NORM / (norm + 1e-6), one)
+                               MAX_GRAD_NORM / (norm + CLIP_EPS), one)
 
     @torch.no_grad()
     def step(self, finite: Optional[torch.Tensor] = None) -> None:
@@ -141,9 +148,29 @@ class BertAdam:
         False the parameters, both moments and the schedule's step count
         stay as they were (JAX ``_apply_grads`` keeps ``opt_state``
         whole).  Nothing here reads a device value on the host.  The
-        update is the span ``optim.step`` (n: the parameter tensors)."""
+        update is the span ``optim.step`` (n: the parameter tensors).
+
+        CUDA parameters take the kernel (:meth:`_fused`), CPU ones the
+        plain version (:meth:`_update`)."""
         with tracing.span("optim.step", len(self.params)):
-            self._update(finite)
+            if self.plan is None:
+                self._update(finite)
+            else:
+                self._fused(finite)
+
+    def _fused(self, finite: Optional[torch.Tensor]) -> None:
+        """:meth:`_update` as ``csrc/bert_adam.cu``'s two launches, with
+        the schedule's few scalar ops in PyTorch between the table's
+        refresh and the norms, and the tensor-parallel sum of the sharded
+        squared norms between the norms and the update."""
+        plan = self.plan
+        plan.refresh()
+        lr_t = self.lr_at(self.step_count)
+        plan.norms()
+        if self.clip_group is not None and plan.n_sharded:
+            tdist.all_reduce(plan.sumsq[:plan.n_sharded],
+                             group=self.clip_group)
+        plan.update(lr_t, finite, self.step_count, self.weight_decay)
 
     def _update(self, finite: Optional[torch.Tensor]) -> None:
         lr_t = self.lr_at(self.step_count)
@@ -230,6 +257,195 @@ class BertAdam:
             saved = state["loss_scale"]
             self.loss_scale["scale"].fill_(float(saved["scale"]))
             self.loss_scale["good_steps"].fill_(int(saved["good_steps"]))
+
+
+# --- the fused update's host side (csrc/bert_adam.cu) -----------------------
+
+CHUNK = 16384   # elements of a chunk (a multiple of 4: 16-byte vectors)
+# the tensor table's int64 columns (csrc/bert_adam.cu TensorRow); a null
+# gradient or anchor is 0
+TABLE_COLUMNS = ("p", "grad", "m", "v", "anchor", "chunk_begin", "numel",
+                 "decay")
+_POINTERS = 5   # the leading columns that hold pointers
+
+
+def _capturing(device: torch.device) -> bool:
+    """Whether ``device``'s current stream is capturing a CUDA graph."""
+    return device.type == "cuda" and torch.cuda.is_current_stream_capturing()
+
+
+class FusedPlan:
+    """The host side of the fused update of one :class:`BertAdam`: its
+    tables and scratch, allocated here, once.
+
+    * ``names``: the parameters in table order, the ``clip_sharded`` ones
+      first, so that their squared norms are the leading slice
+      ``sumsq[:n_sharded]``, which the step sum-all-reduces;
+    * the chunks: ``chunk`` elements each but a tensor's last, so that
+      every element of every parameter lies in exactly one;
+      ``host_chunks`` (int64 [n_chunks, 3], (tensor, start, length), on
+      the host: ``tensor_chunks``) lists them, ``owner`` (int32
+      [n_chunks], on the device) maps each to its tensor;
+    * ``host`` and ``table``: int64 [n_tensors, 8] (``TABLE_COLUMNS``),
+      pinned on the host and on the device.  :meth:`refresh` rewrites the
+      pointers of the rows whose tensors moved (a new ``.grad``) and copies
+      the table to the device once: the span ``optim.table`` (n: the rows
+      rewritten);
+    * scratch: ``partials`` (fp64 [n_chunks]), ``tickets`` (int32
+      [n_tensors], zero between launches), ``sumsq`` (fp32 [n_tensors]).
+
+    It holds the optimizer's dicts (parameters, moments, anchors), not the
+    optimizer: no reference cycle keeps either alive.
+
+    Nothing here launches a kernel but :meth:`norms` and :meth:`update`; on
+    the CPU the tables stay there (the tests build plans on the CPU)."""
+
+    def __init__(self, opt: "BertAdam", chunk: int = CHUNK):
+        if chunk <= 0 or chunk % 4:
+            raise ValueError(f"a chunk is a positive multiple of 4 elements,"
+                             f" got {chunk}")
+        self.chunk = chunk
+        self._params, self._m, self._v = opt.params, opt.m, opt.v
+        self._anchors = opt.anchors
+        sharded = set(opt.clip_sharded)
+        self.names = opt.clip_sharded + [n for n in opt.params
+                                         if n not in sharded]
+        self.n_sharded = len(opt.clip_sharded)
+        self.device = next(iter(opt.params.values())).device
+        for n in self.names:
+            self._check(n)
+        n_t = len(self.names)
+        rows, chunks = [], []
+        for t, n in enumerate(self.names):
+            numel = opt.params[n].numel()
+            begin = len(chunks)
+            chunks += [(t, s, min(chunk, numel - s))
+                       for s in range(0, numel, chunk)]
+            rows.append([0] * _POINTERS
+                        + [begin, numel, int(opt.decay[n])])
+        cuda = self.device.type == "cuda"
+        self.host = torch.tensor(rows, dtype=torch.int64).pin_memory() \
+            if cuda else torch.tensor(rows, dtype=torch.int64)
+        self.table = torch.empty_like(self.host, device=self.device)
+        self.host_chunks = torch.tensor(chunks, dtype=torch.int64).reshape(
+            -1, 3)
+        self.owner = self.host_chunks[:, 0].to(torch.int32).to(self.device)
+        self.n_chunks = len(chunks)
+        self.partials = torch.zeros(self.n_chunks, dtype=torch.float64,
+                                    device=self.device)
+        self.tickets = torch.zeros(n_t, dtype=torch.int32,
+                                   device=self.device)
+        self.sumsq = torch.zeros(n_t, dtype=torch.float32,
+                                 device=self.device)
+        self._keys: List[Optional[tuple]] = [None] * n_t
+        self._copied = torch.cuda.Event() if cuda else None
+        self._blocks: Optional[int] = None
+
+    def tensor_chunks(self, t: int) -> torch.Tensor:
+        """The chunks of tensor ``t`` (table order), from the host copy."""
+        begin, numel = self.host[t, 5:7].tolist()
+        return self.host_chunks[begin:begin + -(-numel // self.chunk)]
+
+    def _check(self, n: str) -> None:
+        """Raise unless parameter ``n``, its gradient (if any), moments and
+        anchor are contiguous fp32 tensors of its shape on the plan's
+        device: what the kernel takes."""
+        p = self._params[n]
+        parts = [("parameter", p), ("gradient", p.grad), ("m", self._m[n]),
+                 ("v", self._v[n])]
+        if self._anchors is not None:
+            parts.append(("anchor", self._anchors[n]))
+        for what, x in parts:
+            if x is None:
+                continue
+            if (x.dtype != torch.float32 or not x.is_contiguous()
+                    or x.device != self.device or x.shape != p.shape):
+                raise ValueError(
+                    f"BertAdam's fused update takes contiguous fp32 tensors "
+                    f"on {self.device}: the {what} of {n!r} is "
+                    f"{x.dtype} {tuple(x.shape)} on {x.device}"
+                    f"{'' if x.is_contiguous() else ', not contiguous'}")
+
+    def refresh(self) -> int:
+        """Bring the table's pointers up to date: returns the rows
+        rewritten (0 when no tensor moved, as in every step that zeroes and
+        reuses its gradients).  A rewrite inside a CUDA-graph capture
+        raises: the graph would keep the table it was captured with."""
+        params, m, v, anchors = self._params, self._m, self._v, self._anchors
+        changed = []
+        for t, n in enumerate(self.names):
+            p = params[n]
+            g = p.grad
+            key = (p.data_ptr(), 0 if g is None else g.data_ptr(),
+                   m[n].data_ptr(), v[n].data_ptr(),
+                   0 if anchors is None else anchors[n].data_ptr())
+            if key != self._keys[t]:
+                changed.append((t, n, key))
+        if not changed:
+            return 0
+        if _capturing(self.device):
+            raise RuntimeError(
+                f"BertAdam: {len(changed)} parameter tensors (first "
+                f"{changed[0][1]!r}) moved during a CUDA-graph capture; a "
+                f"captured step must reuse the buffers of its warm-up")
+        with tracing.span("optim.table", len(changed)):
+            for _, n, _ in changed:
+                self._check(n)
+            if self._copied is not None:
+                self._copied.synchronize()   # the last copy has read host
+            for t, _, key in changed:
+                self.host[t, :_POINTERS] = torch.tensor(key,
+                                                        dtype=torch.int64)
+                self._keys[t] = key
+            self.table.copy_(self.host, non_blocking=True)
+            if self._copied is not None:
+                self._copied.record()
+                if self._blocks is None:   # outside any capture, once
+                    self._blocks = self._update_blocks()
+        return len(changed)
+
+    @staticmethod
+    def _update_blocks() -> int:
+        """The update's persistent grid on the current device."""
+        from vlp_tpu_torch.ops import _build
+        blocks = _build.library().vlp_bert_adam_blocks()
+        if blocks <= 0:
+            _build.check(-blocks, "bert_adam_update")
+        return blocks
+
+    def norms(self) -> None:
+        """Pass 1: each tensor's squared gradient norm into ``sumsq``."""
+        from vlp_tpu_torch.ops import _build
+        err = _build.library().vlp_bert_adam_norms(
+            self.table.data_ptr(), self.owner.data_ptr(), self.n_chunks,
+            self.chunk, self.partials.data_ptr(), self.tickets.data_ptr(),
+            self.sumsq.data_ptr(), _build.stream_ptr(self.device))
+        _build.check(err, "bert_adam_norms")
+        _build.count_launch("bert_adam_norms")
+
+    def update(self, lr_t: torch.Tensor, finite: Optional[torch.Tensor],
+               step_count: torch.Tensor, weight_decay: float) -> None:
+        """Pass 2: the update of every parameter and its moments from
+        ``sumsq``, at the fp32 learning rate ``lr_t``, and ``step_count``
+        advanced; where ``finite`` (a bool) is False, nothing changes."""
+        from vlp_tpu_torch.ops import _build
+        for what, x, dtype in (("lr", lr_t, torch.float32),
+                               ("finite", finite, torch.bool),
+                               ("step_count", step_count, torch.int64)):
+            if x is not None and (x.dtype != dtype or x.numel() != 1
+                                  or x.device != self.device):
+                raise ValueError(f"BertAdam's fused update takes {what} as "
+                                 f"one {dtype} on {self.device}, got "
+                                 f"{x.dtype} {tuple(x.shape)} on {x.device}")
+        err = _build.library().vlp_bert_adam_update(
+            self.table.data_ptr(), self.owner.data_ptr(), self.n_chunks,
+            self.chunk, self.sumsq.data_ptr(), lr_t.data_ptr(),
+            None if finite is None else finite.data_ptr(),
+            step_count.data_ptr(), B1, 1 - B1, B2, 1 - B2, EPS,
+            MAX_GRAD_NORM, CLIP_EPS, weight_decay, int(weight_decay > 0),
+            self._blocks, _build.stream_ptr(self.device))
+        _build.check(err, "bert_adam_update")
+        _build.count_launch("bert_adam_update")
 
 
 def bert_adam_finetune(params: Dict[str, torch.Tensor], lr: float, *,

@@ -26,6 +26,8 @@ The spans of the port:
 ``step.forward``   a training forward (each micro-batch)
 ``step.backward``  its ``.backward()``
 ``optim.step``     ``BertAdam.step`` (tensors)
+``optim.table``    the fused update's table rewritten (tensors whose
+                   pointers changed; only when one did)
 ``loop.capture``   a device-loop group's capture (inside ``loop.replay``)
 ``loop.replay``    a device-loop group's call
 ``decode.*``       the beam loop (``dispatch``, rows), its ``prefill``,
