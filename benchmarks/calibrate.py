@@ -7,7 +7,9 @@ plain reference in fp8 in the program's place) and the planted faults'
         --seeds 1,2,3 --control-seeds 1,2 --seconds 2 --out readings.jsonl
 
 Each seed is a whole run of the cell (set-up, a short window, the
-comparison) without the end-to-end metrics; one JSON line per seed.
+comparison) without the end-to-end metrics, on the cell's chips
+(``launch.py``: over several, the ranks are spawned anew for each seed);
+one JSON line per seed.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if _ROOT not in sys.path:
     sys.path.insert(0, _ROOT)
 
-from benchmarks import harness  # noqa: E402
+from benchmarks import harness, launch  # noqa: E402
 
 
 def main(argv=None) -> int:
@@ -38,19 +40,20 @@ def main(argv=None) -> int:
     cfg = harness.config(man, wl["config"])
     traffic = harness.traffic(wl["traffic"])
     import torch
-    if not torch.cuda.is_available():
-        print("calibration needs a CUDA device", file=sys.stderr)
+    if not torch.cuda.is_available() or \
+            torch.cuda.device_count() < wl["chips"]:
+        print(f"calibration needs {wl['chips']} CUDA device(s)",
+              file=sys.stderr)
         return 2
     torch.cuda.set_device(0)
     controls = {int(s) for s in args.control_seeds.split(",") if s}
-    drv = harness.driver(traffic["driver"])
     for seed in (int(s) for s in args.seeds.split(",")):
         with tempfile.TemporaryDirectory(prefix="vlp-calib-") as work:
-            ctx = harness.Context(args.workload, cfg, traffic, seed,
-                                  args.seconds, False, work, "cuda:0")
-            ctx.controls = seed in controls
             torch.cuda.reset_peak_memory_stats()
-            drv.run(ctx)
+            ctx = launch.run_cell(args.workload, cfg, traffic, seed,
+                                  args.seconds, False, work,
+                                  world=wl["chips"],
+                                  controls=seed in controls)
         rec = ctx.record
         line = json.dumps({
             "workload": args.workload, "seed": seed,

@@ -102,14 +102,19 @@ _IMPORTED = time.monotonic()
 
 
 class Context:
-    """One run: what the cell's driver module reads (configuration,
-    traffic, seed, window length, trace flag, a private directory for its
-    inputs) and what it reports back through ``record``."""
+    """One run, or one rank's part of it: what the cell's driver module
+    reads (configuration, traffic, seed, window length, trace flag, a
+    private directory for its inputs; over several chips the rank, the
+    world, the ranks' shared ``team`` and the rank's ``dist``) and what it
+    reports back through ``record``.  One chip: rank 0 of a world of one,
+    no team and no group."""
 
     def __init__(self, name: str, cfg: dict, traffic_: dict, seed: int,
-                 seconds: float, traced: bool, workdir: str, device=None):
+                 seconds: float, traced: bool, workdir: str, device=None,
+                 rank: int = 0, world: int = 1, team=None, dist=None):
         import torch
         self.device = torch.device(device or "cuda:0")
+        self.rank, self.world, self.team, self.dist = rank, world, team, dist
         self.name, self.cfg, self.traffic = name, cfg, traffic_
         self.seed, self.seconds = seed, seconds
         self.workdir = workdir
@@ -122,15 +127,26 @@ class Context:
         self.marks = [("start", self.t_start), ("torch", time.monotonic())]
         self.profiler = SubWindow(traffic_.get("trace_after", 3),
                                   traffic_.get("trace_steps", 10),
-                                  workdir) if traced else None
+                                  workdir, rank) if traced else None
+        self.beat()
 
     def mark(self, name: str) -> None:
         """The end of a set-up phase (reported on standard error)."""
         self.marks.append((name, time.monotonic()))
+        self.beat()
+
+    def beat(self) -> None:
+        """Over several chips, tell the launcher's watchdog that this rank
+        is making progress in set-up (nothing on one chip)."""
+        if self.team is not None:
+            self.team.beat(self.rank)
 
     def open_window(self) -> float:
+        """Start the window (over several chips, once every rank is ready,
+        at rank 0's start)."""
         self.mark("warm-up")
-        t0 = time.monotonic()
+        t0 = (time.monotonic() if self.team is None
+              else self.team.open_window(self.rank))
         self.window = (t0, t0 + self.seconds)
         self.record["setup_s"] = t0 - self.t_start
         return t0
@@ -145,6 +161,17 @@ class Context:
         in no end-to-end metric, run to its end)."""
         return t > self.window[1] and not (self.profiler is not None
                                            and self.profiler.active)
+
+    def agree(self, go: bool) -> bool:
+        """Whether every rank takes another step: rank 0's ``go`` (the
+        others' is not read); one chip: ``go``."""
+        return go if self.team is None else self.team.agree(self.rank, go)
+
+    def leave_group(self) -> None:
+        """Tear down the ranks' process group, on every rank together once
+        the window's last exchange is over (nothing on one chip)."""
+        if self.dist is not None:
+            self.dist.destroy()
 
     @contextlib.contextmanager
     def span(self, name: str):
@@ -197,8 +224,9 @@ class SubWindow:
     and reduced to its device activities, runtime calls and the
     benchmark's ranges when it stops."""
 
-    def __init__(self, after: int, count: int, workdir: str):
+    def __init__(self, after: int, count: int, workdir: str, rank: int = 0):
         self.after, self.count, self.workdir = after, count, workdir
+        self.rank = rank
         self.prof = None
         self.active = False
         self.events: Optional[dict] = None
@@ -231,7 +259,7 @@ class SubWindow:
         self._outer.__exit__(None, None, None)
         self.prof.__exit__(None, None, None)
         self.active = False
-        path = os.path.join(self.workdir, "trace.json")
+        path = os.path.join(self.workdir, f"trace.{self.rank}.json")
         self.prof.export_chrome_trace(path)
         self.prof = None
         self.events = reduce_trace(path)

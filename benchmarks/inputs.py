@@ -25,9 +25,9 @@ IMAGE_CHUNK = 64        # images drawn per generator call
 @dataclasses.dataclass
 class Inputs:
     vocab: List[str]                 # id -> wordpiece
-    feat: np.ndarray                 # fp16 [N, regions, feat_dim]
-    cls: np.ndarray                  # fp16 [N, regions, cls_dim]
-    bbox: np.ndarray                 # fp16 [N, regions, 6]
+    feat: Optional[np.ndarray]       # fp16 [N, regions, feat_dim]
+    cls: Optional[np.ndarray]        # fp16 [N, regions, cls_dim]
+    bbox: Optional[np.ndarray]       # fp16 [N, regions, 6]
     example_image: np.ndarray        # int [E]: each example's image
     example_tokens: List[List[str]]  # [E] caption / question wordpieces
     ans_scores: Optional[list]       # [E] fp32 [num_answers] or None
@@ -90,12 +90,16 @@ def vqa_soft_scores(answers: List[int], n_answers: int) -> np.ndarray:
     return out
 
 
-def make_inputs(cfg: dict, traffic: dict, seed: int, device) -> Inputs:
-    """Everything a cell's traffic reads, from ``seed``."""
+def make_inputs(cfg: dict, traffic: dict, seed: int, device,
+                images: bool = True) -> Inputs:
+    """Everything a cell's traffic reads, from ``seed``.  ``images``
+    False leaves the region arrays out (None): a rank that reads them from
+    the store another rank wrote; the rest is the same."""
     rng = np.random.default_rng(np.random.SeedSequence((seed, 1)))
     vocab = make_vocab(cfg["vocab_size"])
-    feat, cls, bbox = make_images(traffic["images"], cfg,
-                                  int(rng.integers(2 ** 62)), device)
+    image_seed = int(rng.integers(2 ** 62))
+    feat, cls, bbox = (make_images(traffic["images"], cfg, image_seed,
+                                   device) if images else (None, None, None))
     n_ex = traffic.get("examples", 0)
     lo, hi = traffic.get("tokens", [1, 1])
     lens = rng.integers(lo, hi + 1, n_ex)

@@ -103,13 +103,27 @@ def seq_len(cfg: dict) -> int:
     return -(-(cfg["max_len_b"] + cfg["len_vis_input"] + 3) // 128) * 128
 
 
+def rank_order(loader_seed: int, epoch: int, n: int, rank: int,
+               world: int) -> np.ndarray:
+    """A rank's share of the epoch's permutation, as a distributed
+    sampler deals it: the permutation padded with its own head to a
+    multiple of ``world``, every ``world``-th entry from ``rank``."""
+    order = epoch_order(loader_seed, epoch, n)
+    total = -(-n // world) * world
+    order = np.concatenate([order, order[:total - n]])
+    return order[rank::world]
+
+
 def train_batch(inputs, cfg: dict, traffic: dict, epoch: int,
-                batch_index: int) -> Dict[str, np.ndarray]:
-    """Batch ``batch_index`` of epoch ``epoch`` as the loader orders and
-    builds it: examples in the epoch's permutation, example ``pos`` of the
-    epoch drawing from ``SeedSequence((loader_seed, epoch, 0, pos))``."""
+                batch_index: int, rank: int = 0,
+                world: int = 1) -> Dict[str, np.ndarray]:
+    """Batch ``batch_index`` of epoch ``epoch`` of one of ``world`` ranks,
+    as its loader orders and builds it: examples in the rank's share of
+    the epoch's permutation, example ``pos`` of that share drawing from
+    ``SeedSequence((loader_seed, epoch, rank, pos))``."""
     B = traffic["batch_size"]
-    order = epoch_order(inputs.loader_seed, epoch, len(inputs.example_tokens))
+    order = rank_order(inputs.loader_seed, epoch, len(inputs.example_tokens),
+                       rank, world)
     vocab = inputs.vocab_index
     words = inputs.vocab
     probs = [traffic["s2s_prob"], traffic["bi_prob"]]
@@ -118,7 +132,7 @@ def train_batch(inputs, cfg: dict, traffic: dict, epoch: int,
         pos = batch_index * B + j
         ex = int(order[pos])
         rng = np.random.default_rng(np.random.SeedSequence(
-            (inputs.loader_seed, epoch, 0, pos)))
+            (inputs.loader_seed, epoch, rank, pos)))
         img = inputs.example_image[ex]
         scores = (inputs.ans_scores[ex] if inputs.ans_scores is not None
                   else None)

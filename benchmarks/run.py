@@ -11,7 +11,9 @@ output is one JSON object (``correct``, ``attempted``, ``failed``,
 last: each number compared beside its limit); the same checks are the
 last lines of standard error.  It exits non-zero, printing no result,
 without enough CUDA devices, or if a JAX module is loaded once the window
-has closed.
+has closed.  A cell on more than one chip runs one rank a chip
+(``launch.py``): this process is rank 0 and prints the result; a rank that
+fails or hangs ends the run non-zero, with no result.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ _ROOT = os.path.dirname(_HERE)
 if _ROOT not in sys.path:
     sys.path.insert(0, _ROOT)
 
-from benchmarks import harness  # noqa: E402
+from benchmarks import harness, launch  # noqa: E402
 
 
 def _cache_env() -> None:
@@ -59,12 +61,21 @@ def main(argv=None) -> int:
               f"torch.cuda.is_available()={torch.cuda.is_available()}, "
               f"device_count={torch.cuda.device_count()}", file=sys.stderr)
         return 2
-    drv = harness.driver(traffic["driver"])
+    return execute(man, wl, cfg, traffic, args.seed, args.seconds,
+                   bool(args.trace))
+
+
+def execute(man: dict, wl: dict, cfg: dict, traffic: dict, seed: int,
+            seconds: float, traced: bool, device_type: str = "cuda",
+            hook=None) -> int:
+    """One run of the cell ``wl`` on its chips, its result printed;
+    returns the exit code.  ``device_type`` "cpu" and ``hook`` are the
+    tests': tiny runs on the CPU, ranks over gloo, a fault planted."""
+    import torch
     with tempfile.TemporaryDirectory(prefix="vlp-bench-") as work:
-        torch.cuda.set_device(0)
-        ctx = harness.Context(args.workload, cfg, traffic, args.seed,
-                              args.seconds, bool(args.trace), work, "cuda:0")
-        drv.run(ctx)
+        ctx = launch.run_cell(wl["name"], cfg, traffic, seed, seconds,
+                              traced, work, device_type=device_type,
+                              world=wl["chips"], hook=hook)
     rec = ctx.record
     rec["spans"] = ctx.spans
     rec["window"] = ctx.window
@@ -83,22 +94,26 @@ def main(argv=None) -> int:
         return 3
 
     metrics = {}
-    for m in harness.metrics_of(man, args.workload, bool(args.trace)):
+    for m in harness.metrics_of(man, wl["name"], traced):
         value = harness.metric_reader(m["name"])(rec)
         if value is not None:
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}
     checks = rec["checks"]
     correct = (bool(checks) and rec["failed"] == 0
                and all(c["value"] <= c["limit"] for c in checks))
-    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-              "count": wl["chips"],
+    platform, kind = (("gpu", torch.cuda.get_device_name(0))
+                      if device_type == "cuda" else ("cpu", "cpu"))
+    device = {"platform": platform, "kind": kind, "count": wl["chips"],
               "memory_peak_bytes": rec["memory_peak_bytes"]}
     out = {"correct": correct, "attempted": rec["attempted"],
            "failed": rec["failed"], "metrics": metrics, "device": device}
-    if args.trace:
+    if traced:
         summary = rec["trace_summary"]
-        device["busy_s"] = summary["busy_s"]
-        device["window_s"] = summary["window_s"]
+        # averaged over the chips used
+        busy = rec.get("busy_by_rank") or [(summary["busy_s"],
+                                            summary["window_s"])]
+        device["busy_s"] = sum(b for b, _ in busy) / len(busy)
+        device["window_s"] = sum(w for _, w in busy) / len(busy)
         out["breakdown"] = summary["breakdown"]
     out["checks"] = {c["name"]: {"value": c["value"], "limit": c["limit"]}
                      for c in checks}

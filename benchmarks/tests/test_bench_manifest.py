@@ -120,10 +120,92 @@ def test_four_chip_cells_within_share(man):
     assert four <= max(1, len(man["workloads"]) // 4)
 
 
-def test_config_files_hold_no_cut_width(man):
+# a width: hidden and intermediate sizes (an expert's too), head counts,
+# head and other dims, latent ranks, experts per token, expansion factors
+WIDTH = re.compile(r"(hidden_size|intermediate_size|_heads|_dim|_rank|"
+                   r"_width|_factor|experts_per_tok|experts_per_token)$")
+# the deployment a cut stands for: "EP8", "TP 4", "8 chips", "4 GPUs"
+DEPLOYMENT = re.compile(r"\b(EP|TP|DP|PP) ?\d+\b|\b\d+ (chips|GPUs|cards)\b")
+FIXTURE = os.path.join(os.path.dirname(__file__), "kimi_vl_cut.json")
+
+
+def config_faults(cfg: dict, reduced) -> list:
+    """What breaks the rule that a configuration holds its source's own
+    shape: (a) a ``published`` key whose value differs from the file's
+    without being in ``reduced``; (b) a width in ``reduced``; (c) a key in
+    ``reduced`` that ``published`` lacks or that equals its published
+    value, or a cut whose ``description`` names no deployment."""
+    pub = cfg.get("published")
+    if not pub:
+        return ["no published values"]
+    faults = [f"{k} is {cfg.get(k)!r}, published {v!r}, not in reduced"
+              for k, v in pub.items() if k not in reduced and cfg.get(k) != v]
+    faults += [f"{k} is a width" for k in reduced if WIDTH.search(k)]
+    for k in reduced:
+        if k not in pub:
+            faults.append(f"{k} has no published value")
+        elif cfg.get(k) == pub[k]:
+            faults.append(f"{k} is in reduced but equals its published value")
+    if reduced and not DEPLOYMENT.search(cfg.get("description", "")):
+        faults.append("the description names no deployment")
+    return faults
+
+
+@pytest.mark.parametrize("name", ["vlp-base-coco-cap", "vlp-base-vqa2"])
+def test_config_holds_its_published_shape(man, name):
+    entry = {c["name"]: c for c in man["configs"]}[name]
+    cfg = harness.load_json(os.path.join(harness.ROOT, entry["file"]))
+    assert config_faults(cfg, entry["reduced"]) == []
+    assert cfg["reduced"] == entry["reduced"]
+
+
+def test_every_config_holds_its_published_shape(man):
     for c in man["configs"]:
         cfg = harness.load_json(os.path.join(harness.ROOT, c["file"]))
-        assert cfg["hidden_size"] == 768 and cfg["intermediate_size"] == 3072
-        assert cfg["num_hidden_layers"] == 12
-        assert cfg["num_attention_heads"] == 12
+        assert config_faults(cfg, c["reduced"]) == [], c["name"]
         assert json.dumps(cfg)
+
+
+@pytest.mark.parametrize("name", ["vlp-base-coco-cap", "vlp-base-vqa2"])
+def test_vlp_base_holds_bert_base(man, name):
+    """What was asserted of every configuration while both were
+    BERT-base: the two VLP files keep its widths and depth."""
+    entry = {c["name"]: c for c in man["configs"]}[name]
+    cfg = harness.load_json(os.path.join(harness.ROOT, entry["file"]))
+    assert cfg["hidden_size"] == 768 and cfg["intermediate_size"] == 3072
+    assert cfg["num_hidden_layers"] == 12
+    assert cfg["num_attention_heads"] == 12
+
+
+def test_a_share_of_a_deployment_passes():
+    """A cut in the shape of a planned expert-parallel share (experts
+    held, vocabulary, depth) keeps every width and passes."""
+    cfg = harness.load_json(FIXTURE)
+    assert config_faults(cfg, cfg["reduced"]) == []
+
+
+CUT = ["num_hidden_layers", "n_routed_experts_held", "vocab_size"]
+
+
+@pytest.mark.parametrize("key, value, listed, fault", [
+    ("hidden_size", 1024, False, "not in reduced"),              # (a)
+    ("hidden_size", 1024, True, "is a width"),                   # (b)
+    ("moe_intermediate_size", 704, True, "is a width"),
+    ("kv_lora_rank", 256, True, "is a width"),
+    ("qk_rope_head_dim", 32, True, "is a width"),
+    ("num_attention_heads", 2, True, "is a width"),
+    ("num_experts_per_tok", 2, True, "is a width"),
+    ("num_hidden_layers", 27, True, "equals its published"),     # (c)
+    ("ep_size", 8, True, "has no published value"),
+    ("description", "Kimi-VL-A3B's language model, cut", False,
+     "names no deployment"),
+], ids=["width_not_listed", "hidden_listed", "expert_width_listed",
+        "latent_rank_listed", "head_dim_listed", "head_count_listed",
+        "experts_per_tok_listed", "reduced_equals_published",
+        "reduced_unpublished", "no_deployment"])
+def test_a_cut_width_or_an_unstated_cut_fails(key, value, listed, fault):
+    cfg = harness.load_json(FIXTURE)
+    cfg[key] = value
+    reduced = CUT + [key] if listed and key not in CUT else CUT
+    faults = config_faults(cfg, reduced)
+    assert any(fault in f for f in faults), faults

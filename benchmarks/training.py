@@ -1,8 +1,8 @@
 """What the training cells share: their inputs, the program's objects
 built as the train CLI builds them (packed fp16 store, ``TrainLoader``,
-``VLPModel``, ``BertAdam``, the data-parallel step at world size 1), the
-readings set-up takes of the first steps, and the comparison of those
-readings with the plain reference.
+``VLPModel``, ``BertAdam``, the data-parallel step over the run's ranks,
+one on one chip), the readings set-up takes of the first steps, and the
+comparison of those readings with the plain reference.
 
 The first steps go through the window's own call and feed: set-up builds
 one model and optimizer, drives them through the first steps, reads the
@@ -16,7 +16,7 @@ from __future__ import annotations
 import itertools
 import os
 import statistics
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -74,10 +74,13 @@ def write_store(inp, cfg: dict, path: str):
 
 
 class Program:
-    """The program's training objects for one run, as the train CLI builds
-    them at world size 1."""
+    """The program's training objects for one rank of a run, as the train
+    CLI builds them.  ``dist`` is the rank's place in the data-parallel
+    group (default: a world of one, no group): rank 0 makes the inputs and
+    writes the store, the others open it once it is written; each rank's
+    loader reads its share of the examples."""
 
-    def __init__(self, ctx, device, loop_k: int = 0):
+    def __init__(self, ctx, device, loop_k: int = 0, dist=None):
         from vlp_tpu_torch import configure_precision
         from vlp_tpu_torch import optim as optim_lib
         from vlp_tpu_torch import train_step as ts
@@ -88,17 +91,24 @@ class Program:
         from vlp_tpu_torch.parallel import Dist
         from vlp_tpu_torch.parallel.dp_step import (make_dp_multi_step,
                                                     make_dp_train_step)
+        from vlp_tpu_torch.data.native_store import PackedFeatureStore
         cfg, tr = ctx.cfg, ctx.traffic
+        dist = dist or Dist(device=device)
         configure_precision()
         task = tr["task"]
         vqa = task == "vqa2"
         self.seeds = run_seeds(ctx.seed)
         self.inputs = inputs_lib.make_inputs(cfg, tr, self.seeds["inputs"],
-                                             device)
+                                             device, images=dist.is_main)
         inp = self.inputs
         ctx.mark("inputs")
-        self.store = write_store(inp, cfg, os.path.join(ctx.workdir,
-                                                        "features.vlps"))
+        path = os.path.join(ctx.workdir, "features.vlps")
+        if dist.is_main:
+            self.store = write_store(inp, cfg, path)
+            dist.barrier()
+        else:
+            dist.barrier()
+            self.store = PackedFeatureStore(path)
         ctx.mark("store")
         examples = []
         for e, (img, toks) in enumerate(zip(inp.example_image,
@@ -125,14 +135,17 @@ class Program:
         self.loader = TrainLoader(
             examples, self.store, builders, [tr["s2s_prob"], tr["bi_prob"]],
             batch_size=B, num_workers=tr["num_workers"], prefetch=PREFETCH,
-            seed=inp.loader_seed, **slab_kw)
+            seed=inp.loader_seed, process_index=dist.dp_index,
+            process_count=dist.dp_world, **slab_kw)
         steps_per_epoch = len(self.loader)
         with torch.device(device):
             self.model = VLPModel(vcfg, with_vqa=vqa)
         w = weights_lib.make_weights(cfg, vqa, self.seeds["weights"], device)
         self.model.load_state_dict(weights_lib.program_state(w))
-        # the starting weights, kept on the host for the change reading
-        self.start = {n: t.cpu() for n, t in w.items()}
+        dist.broadcast_params(self.model)
+        # the starting weights, kept on the host for rank 0's change reading
+        self.start = ({n: t.cpu() for n, t in w.items()} if dist.is_main
+                      else None)
         del w
         ctx.mark("model")
         self.optimizer = optim_lib.BertAdam(
@@ -140,7 +153,6 @@ class Program:
             warmup=tr["warmup_proportion"],
             t_total=steps_per_epoch * tr["num_train_epochs"],
             schedule="warmup_linear", weight_decay=tr["weight_decay"])
-        dist = Dist(device=device)
         if loop_k:
             self.step = make_dp_multi_step(self.model, self.optimizer, dist,
                                            K=loop_k, task=task)
@@ -153,13 +165,18 @@ class Program:
     def _batches(self):
         """(epoch, batch index, batch) through consecutive epochs; with a
         device loop an epoch's tail of fewer than K batches is dropped, as
-        the train CLI drops it."""
+        the train CLI drops it.  Closing this generator closes the epoch's
+        own, whose ``finally`` stops its producer and joins it."""
         for epoch in itertools.count():
             n = len(self.loader)
             usable = n - n % self.K if self.K else n
-            for b, batch in enumerate(self.loader.epoch(epoch)):
-                if b < usable:
-                    yield epoch, b, batch
+            batches = self.loader.epoch(epoch)
+            try:
+                for b, batch in enumerate(batches):
+                    if b < usable:
+                        yield epoch, b, batch
+            finally:
+                batches.close()
 
     def moment_norms(self) -> Dict[str, float]:
         """Per weight: the norm of BertAdam's first moment over (1 - beta1),
@@ -174,6 +191,8 @@ class Program:
                 for n, p in self.model.named_parameters()}
 
     def close(self):
+        """Stop the loader, its producer joined, and only then unmap the
+        store it reads."""
         self.batches.close()
         self.store.close()
 
@@ -204,14 +223,19 @@ def attention_bound_ms(cfg: dict, metas: List[dict]) -> float:
 
 def reference_readings(ctx, dev, seeds, inp, t_total: int, n_steps: int,
                        moment_after: int, precision: str = "fp32",
-                       half_batch: bool = False) -> dict:
+                       fault: Optional[str] = None, world: int = 1) -> dict:
     """The reference's losses of the first ``n_steps`` steps, the clipped
     gradient norms of step 1, the first moment's norms after
     ``moment_after`` steps (over 1 - beta1: after one step, the gradient
     the optimizer took) and the weights' change norms after
-    ``n_steps``.  ``precision`` "fp8" is the control; ``half_batch`` the
-    fault that leaves half of each batch out and takes the mean over the
-    rest."""
+    ``n_steps``, over ``world`` data-parallel ranks: a step's gradient is
+    the mean of the ranks' gradients, each over its rank's batch under its
+    rank's dropout seed, and its loss the mean of theirs, one rank's batch
+    at a time.  ``precision`` "fp8" is the control; ``fault`` a fault put
+    in the program's place: "half_batch" leaves half of each batch out and
+    takes the mean over the rest, "no_exchange" steps on rank 0's gradient
+    alone (no all-reduce), "rank_left_out" leaves the last rank's gradient
+    out of the sum that the mean divides."""
     cfg, tr = ctx.cfg, ctx.traffic
     ref_model.no_tf32()
     q = ref_model.Precision(precision)
@@ -223,28 +247,51 @@ def reference_readings(ctx, dev, seeds, inp, t_total: int, n_steps: int,
     opt = ref_optim.BertAdam({n: W[n] for n in names}, tr["learning_rate"],
                              tr["warmup_proportion"], t_total,
                              tr["weight_decay"])
+    ranks = range(1 if fault == "no_exchange" else world)
+    summed = [r for r in ranks if not (fault == "rank_left_out"
+                                       and r == world - 1)]
     losses, grad1, moment = [], None, None
     for k in range(n_steps):
-        host = ref_data.train_batch(inp, cfg, tr, epoch=0, batch_index=k)
-        if half_batch:
-            host = {n: v[:len(v) // 2] for n, v in host.items()}
-        batch = {n: torch.from_numpy(np.asarray(v)).to(dev)
-                 for n, v in host.items()}
-        loss = ref_model.train_loss(W, cfg, batch, task=tr["task"],
-                                    seed=step_seed(seeds, k), q=q)
-        taken = opt.step(ref_model.grads(loss, W, names))
-        losses.append(float(loss.detach()))
+        step_losses, grads = [], None
+        for r in ranks:
+            host = ref_data.train_batch(inp, cfg, tr, epoch=0, batch_index=k,
+                                        rank=r, world=world)
+            if fault == "half_batch":
+                host = {n: v[:len(v) // 2] for n, v in host.items()}
+            batch = {n: torch.from_numpy(np.asarray(v)).to(dev)
+                     for n, v in host.items()}
+            seed = step_seed(seeds, k)
+            if world > 1:
+                seed = philox.step_seed(seed, r)
+            loss = ref_model.train_loss(W, cfg, batch, task=tr["task"],
+                                        seed=seed, q=q)
+            g = ref_model.grads(loss, W, names)
+            step_losses.append(float(loss.detach()))
+            del loss, batch
+            if r in summed:
+                grads = g if grads is None else {
+                    n: _plus(grads[n], g[n]) for n in names}
+            del g
+        if len(ranks) > 1:
+            grads = {n: None if x is None else x / world
+                     for n, x in grads.items()}
+        taken = opt.step(grads)
+        losses.append(statistics.fmean(step_losses))
         if k == 0:
             grad1 = {n: float(torch.linalg.vector_norm(g))
                      for n, g in taken.items()}
         if k + 1 == moment_after:
             moment = {n: float(torch.linalg.vector_norm(m))
                       / (1 - ref_optim.B1) for n, m in opt.m.items()}
-        del loss, taken, batch
+        del taken, grads
     change = {n: float(torch.linalg.vector_norm(W[n].detach() - start[n]))
               for n in names}
     return {"losses": losses, "grad1": grad1, "moment": moment,
             "change": change}
+
+
+def _plus(a: Optional[torch.Tensor], b: Optional[torch.Tensor]):
+    return b if a is None else a if b is None else a + b
 
 
 def worst_leaf_gap(prog: Dict[str, float], ref: Dict[str, float],
@@ -277,16 +324,22 @@ def compare(prog: dict, ref: dict, limits: dict, moment_name: str
 
 
 def controls(ctx, dev, seeds, inp, t_total: int, n_steps: int,
-             moment_after: int, ref: dict, moment_name: str) -> dict:
+             moment_after: int, ref: dict, moment_name: str,
+             world: int = 1) -> dict:
     """The checks' numbers of the control (the reference in fp8 in the
-    program's place) and of the half-batch fault, each against the
-    float32 reference ``ref``."""
+    program's place) and of the planted faults (half of each batch; over
+    more than one rank, the exchange left out and one rank's gradient left
+    out of it), each against the float32 reference ``ref``."""
     no_limits = {"loss_gap": 0, moment_name: 0, "change_gap": 0}
+    kinds = [("fp8", dict(precision="fp8")),
+             ("half_batch", dict(fault="half_batch"))]
+    if world > 1:
+        kinds += [("no_exchange", dict(fault="no_exchange")),
+                  ("rank_left_out", dict(fault="rank_left_out"))]
     out = {}
-    for name, kw in (("fp8", dict(precision="fp8")),
-                     ("half_batch", dict(half_batch=True))):
+    for name, kw in kinds:
         got = reference_readings(ctx, dev, seeds, inp, t_total, n_steps,
-                                 moment_after, **kw)
+                                 moment_after, world=world, **kw)
         out[name] = {c["name"]: c["value"]
                      for c in compare(got, ref, no_limits, moment_name)}
     return out
