@@ -1263,6 +1263,68 @@ def phase_train_kernels(dev, results):
         f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
 
 
+def phase_mla_kernels(dev, results):
+    """K1 and K2 at MLA's widths (Kimi-VL: q.k 192, v 128, H=16), bf16 at
+    rate 0, at the Kimi cell's shape (B=256, L=128, its s2s masks), through
+    ``FusedAttention`` against the plain versions, timed beside the plain
+    versions, SDPA (its mask built in the call and prebuilt) and the bound
+    (``benchmarks/work_kimi.py``'s bytes and visible-entry products)."""
+    from vlp_tpu_torch.config import MODE_S2S
+    from vlp_tpu_torch.ops import attention as attn
+
+    g = torch.Generator(device=dev).manual_seed(22)
+    B, L, H, P = 256, 128, 16, 102
+    dq, dv = attn.MLA_QK_DIM, attn.MLA_V_DIM
+    q, k = (torch.randn(B, L, H, dq, generator=g, device=dev).bfloat16()
+            for _ in range(2))
+    v = torch.randn(B, L, H, dv, generator=g, device=dev).bfloat16()
+    dout = torch.randn(B, L, H, dv, generator=g, device=dev).bfloat16()
+    mode = torch.full((B,), MODE_S2S, dtype=torch.int32, device=dev)
+    te = torch.randint(P + 9, P + 22, (B,), generator=g, device=dev,
+                       dtype=torch.int32)
+    ck = torch.ones(B, L, device=dev)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = attn.FusedAttention.apply(*leaves, mode, te, ck, P, 0.0, None)
+    grads = torch.autograd.grad(out, leaves, dout)
+    errs = {"attention_fwd_mla": compare(
+        "K1 MLA (192, 128) bf16", out,
+        attn.attention_plain(q, k, v, mode, te, ck, prefix=P), BF16_TOL)}
+    want = attn.attention_bwd_plain(q, k, v, mode, te, ck, dout, prefix=P)
+    errs["attention_bwd_mla"] = max(
+        compare(f"K2 MLA (192, 128) bf16 d{n}", a, b, BF16_TOL)
+        for n, a, b in zip("qkv", grads, want))
+    vis = product_flop(mode, te, ck, P, L, H, 1) // (2 * H)
+    meta = 8 * B + 4 * B * L
+    act = B * L * H * 2                       # bf16 bytes a column
+    mask = sdpa_mask(q, mode, te, ck, P)
+    built, pre = (sdpa(*leaves, mode, te, ck, P, mask=m)
+                  for m in (None, mask))
+    calls = {
+        "attention_fwd_mla": (
+            lambda: attn._forward_cuda(q, k, v, mode, te, ck, P,
+                                       dropout=(0.0, None)),
+            lambda: attn.attention_plain(q, k, v, mode, te, ck, prefix=P),
+            lambda m=None: sdpa(q, k, v, mode, te, ck, P, mask=m),
+            bound((2 * dq + 2 * dv) * act + meta, 2 * H * vis * (dq + dv))),
+        "attention_bwd_mla": (
+            lambda: attn._backward_cuda(q, k, v, mode, te, ck, dout, P, 0.0,
+                                        None),
+            lambda: attn.attention_bwd_plain(q, k, v, mode, te, ck, dout,
+                                             prefix=P),
+            lambda m=None: torch.autograd.grad(built if m is None else pre,
+                                               leaves, dout,
+                                               retain_graph=True),
+            bound((4 * dq + 3 * dv) * act + meta,
+                  2 * H * vis * (3 * dq + 2 * dv)))}
+    for name, (fn, plain_fn, lib, bnd) in calls.items():
+        r = results[name] = dict(
+            max_abs_err=errs[name], B=B, L=L, body="v2 mma (192, 128)",
+            ms=time_ms(fn), plain_ms=plain_ms(plain_fn),
+            library_ms=time_ms(lib),
+            library_prebuilt_mask_ms=time_ms(lambda: lib(mask)), **bnd)
+        log_times(name, r)
+
+
 SEED_B = 0xC0FFEE0123456789   # a second seed, past 2^63 (negative int64)
 
 
@@ -2237,6 +2299,98 @@ def phase_loop_modes(dev) -> dict:
         if not out[f"plain_stale_{stale}"]["differ"]:
             fail(f"the device loop's check did not see stale {stale} "
                  "dropout seeds")
+    return out
+
+
+KIMI_LAYERS = 2      # phase 4j: the dense layer and one MoE layer
+KIMI_B, KIMI_K, KIMI_GROUPS = 16, 2, 2
+
+
+def kimi_twin(dev, cfg, seed=11):
+    """Kimi-VL's model (published widths, KIMI_LAYERS deep, 8 of 64
+    experts held) with weights from ``seed``, and its BertAdam."""
+    from vlp_tpu_torch import optim as optim_lib
+    from vlp_tpu_torch.models.kimi_vl import KimiVLModel
+
+    with torch.device(dev):
+        model = KimiVLModel(cfg)
+    model.init_weights(torch.Generator(device=dev).manual_seed(seed))
+    return model, optim_lib.BertAdam(dict(model.named_parameters()), 1e-4,
+                                     warmup=0.1, t_total=100)
+
+
+def phase_kimi_loop(dev) -> dict:
+    """The Kimi-VL training step (MLA through K1/K2 at (192, 128), the
+    expert layer's sort, grouped products and combine, the balance loss
+    and the routers' bias update) captured as a device-loop group
+    (KIMI_GROUPS replays of K = KIMI_K steps) and taken one step at a
+    time, under deterministic algorithms: losses, parameters, BertAdam's
+    moments and step, the selection biases and the row counters bit for
+    bit.  The warm-up before the capture runs under
+    ``set_sync_debug_mode("error")``, so a host sync in the step raises."""
+    import dataclasses as dc
+
+    from vlp_tpu_torch import train_step as ts
+    from vlp_tpu_torch.config import VLPConfig
+    from vlp_tpu_torch.models.kimi_vl import KimiVLConfig
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "benchmarks", "configs", "kimi-vl-a3b-ep8.json")
+    cfg = dc.replace(KimiVLConfig.from_json_file(path),
+                     num_hidden_layers=KIMI_LAYERS)
+    vcfg = VLPConfig(vocab_size=cfg.vocab_size, type_vocab_size=6)
+    n = KIMI_K * KIMI_GROUPS
+    g = torch.Generator(device=dev).manual_seed(12)
+    batches = [fp16_batch(vcfg, KIMI_B, g, dev) for _ in range(n)]
+    runs = {}
+    with deterministic():
+        for captured in (False, True):
+            model, opt = kimi_twin(dev, cfg)
+            losses = []
+            if captured:
+                multi = ts.make_multi_step(model, opt, K=KIMI_K)
+                staged = {k: torch.empty((KIMI_K,) + tuple(v.shape),
+                                         dtype=v.dtype, device=dev)
+                          for k, v in batches[0].items()}
+                for grp in range(KIMI_GROUPS):
+                    rows = range(grp * KIMI_K, (grp + 1) * KIMI_K)
+                    for k, buf in staged.items():
+                        buf.copy_(torch.stack([batches[i][k] for i in rows]))
+                    out = multi(staged, list(rows))
+                    losses += [float(x) for x in out["loss"]]
+            else:
+                step = ts.make_train_step(model, opt)
+                losses = [float(step(b, i)["loss"])
+                          for i, b in enumerate(batches)]
+            torch.cuda.synchronize()
+            runs[captured] = (losses, model.state_dict(),
+                              model.rows_per_expert().clone(), opt,
+                              multi if captured else None)
+    (le, se, re_, oe, _), (lc, sc, rc, oc, multi) = runs[False], runs[True]
+    differ = [] if le == lc else [f"losses {le} vs {lc}"]
+    differ += [k for k in se if not torch.equal(se[k], sc[k])]
+    differ += [f"{key}.{name}" for key in ("m", "v") for name in oe.m
+               if not torch.equal(getattr(oe, key)[name],
+                                  getattr(oc, key)[name])]
+    if not torch.equal(re_, rc):
+        differ.append("rows_per_expert")
+    moved = sum(float(t.abs().sum()) for k, t in sc.items()
+                if k.endswith("e_score_correction_bias"))
+    out = dict(losses=lc, differ=differ[:6], captures=multi.captures,
+               replays=multi.replays, bias_moved=moved,
+               rows=rc.tolist(), launches=dict(multi.launches))
+    log(f"phase 4j: Kimi-VL ({KIMI_LAYERS} layers at published widths, "
+        f"B={KIMI_B}, K={KIMI_K} x {KIMI_GROUPS} replays, deterministic "
+        f"algorithms) captured vs eager: {out}")
+    if differ or multi.captures != 1 or multi.replays != KIMI_GROUPS:
+        fail(f"phase 4j: the captured Kimi-VL steps differ from the eager "
+             f"ones: {differ[:6]}")
+    if not moved or not all(np.isfinite(lc)) or len(set(lc)) < n:
+        fail(f"phase 4j: losses {lc}, selection biases moved {moved}")
+    mla = {k: v for k, v in multi.launches.items() if k.endswith("_mla")}
+    if mla != {"attention_fwd_mla": KIMI_K * KIMI_LAYERS,
+               "attention_bwd_mla": KIMI_K * KIMI_LAYERS}:
+        fail(f"phase 4j: a group launched {mla}")
     return out
 
 
@@ -4316,6 +4470,7 @@ def main():
     phase_fp16_kernels(dev, results)
     phase_seed_slots(dev)
     phase_fused_adam(dev, results)
+    phase_mla_kernels(dev, results)
     log("phase 2: kernels agree with their plain versions")
 
     paths = {}
@@ -4361,6 +4516,11 @@ def main():
         loop_modes = phase_loop_modes(dev)
         log("phase 4i: the device loop's modes bit-equal to eager steps, "
             "stale seeds seen")
+        kimi_loop = phase_kimi_loop(dev)
+        per_group = kimi_loop.pop("launches")
+        paths["kimi_loop"] = {k: per_group.get(k, 0) * KIMI_GROUPS
+                              for k in _build.KERNELS}
+        log("phase 4j: the captured Kimi-VL steps bit-equal to eager steps")
         steady = phase_steady_state(dev, vocab_path)
         vqa_rates["vqa_questions_per_sec_steady"] = phase_vqa_steady_state(
             dev, vocab_path)
@@ -4419,6 +4579,7 @@ def main():
                       **vqa_rates, **dp_rates, **tp_rates,
                       "scst_checks": scst_checks, "e2e_learn": e2e_numbers,
                       "device_loop_modes": loop_modes,
+                      "kimi_loop": kimi_loop,
                       "vqa_checks": vqa_checks}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -409,6 +409,69 @@ def test_training_attention_kernels_match_plain(cuda, dtype, tol, rate):
         torch.testing.assert_close(got.float(), exp.float(), **tol)
 
 
+def _mla_inputs(g, dev, B=6, L=128, H=16, P=102):
+    """MLA-shaped attention inputs (q.k 192 beside v 128, bf16), cut from
+    one projection's output as the model cuts them: mixed modes, some zero
+    colkeep."""
+    dq, dv = attn.MLA_QK_DIM, attn.MLA_V_DIM
+    x = torch.randn(B, L, H * (2 * dq + dv), generator=g,
+                    device=dev).bfloat16()
+    q, k, v = x.split([H * dq, H * dq, H * dv], dim=-1)
+    q, k = q.contiguous().view(B, L, H, dq), k.contiguous().view(B, L, H, dq)
+    v = v.contiguous().view(B, L, H, dv)
+    mode = torch.tensor([MODE_S2S, MODE_BI] * (B // 2), device=dev)
+    te = torch.randint(min(P + 1, L), L + 1, (B,), generator=g, device=dev)
+    ck = torch.ones(B, L, device=dev)
+    ck[:, 1:P - 1] = (torch.rand(B, P - 2, generator=g, device=dev)
+                      > 0.3).float()
+    return q, k, v, mode, te, ck
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [16, 103, 123, 128])
+def test_mla_attention_kernels_match_plain(cuda, L):
+    """K1 / K2 at MLA's (192, 128), through FusedAttention at rate 0 (as
+    the Kimi-VL model calls them), against the plain versions, counted
+    under their own names."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    P = min(102, L - 1)
+    q, k, v, mode, te, ck = _mla_inputs(g, cuda, L=L, P=P)
+    dout = torch.randn(v.shape, generator=g, device=cuda).bfloat16()
+    names = ("attention_fwd_mla", "attention_bwd_mla")
+    counts = {n: _build.KERNELS[n].launches for n in names}
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = attn.FusedAttention.apply(*leaves, mode, te, ck, P, 0.0, None)
+    grads = torch.autograd.grad(out, leaves, dout)
+    assert {n: _build.KERNELS[n].launches for n in names} == \
+        {n: c + 1 for n, c in counts.items()}
+    want = attn.attention_plain(q, k, v, mode, te, ck, prefix=P)
+    want_grads = attn.attention_bwd_plain(q, k, v, mode, te, ck, dout,
+                                          prefix=P)
+    torch.cuda.synchronize()
+    assert out.shape == v.shape
+    torch.testing.assert_close(out.float(), want.float(), **BF16_TOL)
+    for got, exp in zip(grads, want_grads):
+        assert got.dtype == torch.bfloat16 and got.is_contiguous()
+        assert got.shape == exp.shape
+        torch.testing.assert_close(got.float(), exp.float(), **BF16_TOL)
+
+
+@pytest.mark.cuda
+def test_mla_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v, mode, te, ck = _mla_inputs(g, cuda, B=2, L=128)
+    with pytest.raises(ValueError, match="no dropout"):
+        attn.FusedAttention.apply(q, k, v, mode, te, ck, 102, 0.1, 7)
+    with pytest.raises(TypeError, match="bf16"):
+        attn.attention(q.float(), k.float(), v.float(), mode, te, ck,
+                       prefix=102)
+    q2, k2, v2, mode2, te2, ck2 = _mla_inputs(g, cuda, B=2, L=144)
+    with pytest.raises(ValueError, match="L <= 128"):
+        attn.attention(q2, k2, v2, mode2, te2, ck2, prefix=102)
+    with pytest.raises(ValueError, match="D == 64"):   # v of 64 is not MLA
+        attn.attention(q, k, v[..., :64], mode, te, ck, prefix=102)
+
+
 @pytest.mark.cuda
 def test_dropout_mask_kernel_is_bit_exact(cuda):
     seed, rate = 2 ** 64 - 12345, 0.1

@@ -15,6 +15,9 @@ fused replay, ``scst.py``).
         --max_pred 0 --mask_prob 0 --learning_rate 1e-6 ...
     # fp16 activations with dynamic loss scaling (--loss_scale N: static)
     python -m vlp_tpu_torch.cli.train --do_train --true_fp16 ...
+    # Kimi-VL-A3B's language model (models/kimi_vl.py): a --config_path
+    # whose json has "model_type": "kimi_vl" (caption fine-tune, s2s/bi)
+    python -m vlp_tpu_torch.cli.train --do_train --config_path kimi.json ...
 
 It runs on the card unless called with ``--device cpu``: bf16 activations
 through the hand-written kernels on ``cuda``, fp32 through their plain
@@ -100,6 +103,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import logging
 import os
@@ -124,6 +128,7 @@ from vlp_tpu_torch.data.loader import TrainLoader
 from vlp_tpu_torch.data.tokenization import WhitespaceTokenizer
 from vlp_tpu_torch.evals.vqa import VQAAnswerProcessor
 from vlp_tpu_torch.host_copy import fetch, fetched
+from vlp_tpu_torch.models import kimi_vl
 from vlp_tpu_torch.models.model import VLPModel
 from vlp_tpu_torch.parallel import mesh
 from vlp_tpu_torch.parallel.dp_step import (make_dp_multi_step,
@@ -295,6 +300,32 @@ def refuse_unported(args) -> None:
             raise NotImplementedError(f"not ported to vlp_tpu_torch: {what}")
 
 
+def kimi_config(args, vocab_size: int, dtype: str):
+    """The Kimi-VL configuration a ``model_type`` "kimi_vl" json at
+    ``--config_path`` gives (the run's dtype and caption geometry), or
+    None; raises on a flag that model does not train with."""
+    if not kimi_vl.is_kimi_config(args.config_path):
+        return None
+    unsupported = [(args.tasks != "img2txt", f"--tasks {args.tasks}"),
+                   (args.scst, "--scst"), (args.true_fp16, "--true_fp16"),
+                   (args.tensor_parallel > 1, "--tensor_parallel"),
+                   (args.vis_mask_prob > 0, "--vis_mask_prob"),
+                   (bool(args.model_recover_path), "--model_recover_path"),
+                   (args.finetune_decay, "--finetune_decay")]
+    for hit, flag in unsupported:
+        if hit:
+            raise ValueError(f"{flag}: not supported with model_type "
+                             f"{kimi_vl.MODEL_TYPE!r}")
+    kcfg = kimi_vl.KimiVLConfig.from_json_file(args.config_path)
+    if kcfg.vocab_size < vocab_size:
+        raise ValueError(f"the vocabulary has {vocab_size} words, the "
+                         f"{kimi_vl.MODEL_TYPE} config {kcfg.vocab_size}")
+    return dataclasses.replace(kcfg, dtype=dtype,
+                               len_vis_input=args.len_vis_input,
+                               max_len_b=args.max_len_b,
+                               max_pred=args.max_pred)
+
+
 def make_config(args, vocab_size: int, dtype: str) -> VLPConfig:
     cfg = VLPConfig(
         vocab_size=vocab_size,
@@ -463,7 +494,9 @@ def train(args, dist: parallel.Dist):
                                          args.max_position_embeddings)
     data_tokenizer = (WhitespaceTokenizer() if args.tokenized_input
                       else tokenizer)
-    cfg = make_config(args, len(tokenizer.vocab), dtype)
+    kcfg = kimi_config(args, len(tokenizer.vocab), dtype)
+    cfg = (kcfg.vlp_config() if kcfg is not None
+           else make_config(args, len(tokenizer.vocab), dtype))
     rng_np = np.random.default_rng(args.seed)
     if tp > 1 and (cfg.num_attention_heads % tp
                    or cfg.intermediate_size % tp):
@@ -536,7 +569,8 @@ def train(args, dist: parallel.Dist):
     t_total = steps_per_epoch * args.num_train_epochs
 
     # ---- model / optimizer / resume ----------------------------------------
-    model = VLPModel(cfg, with_vqa=vqa)
+    model = (kimi_vl.KimiVLModel(kcfg) if kcfg is not None
+             else VLPModel(cfg, with_vqa=vqa))
     model.init_weights(torch.Generator().manual_seed(args.seed))
     model.to(device)
     # every rank resumes from what rank 0 finds (JAX CLI :397-410)

@@ -128,19 +128,90 @@ using vlp::kLog2e;
 
 // Four [Lp][72] tiles, two [Lp][Lp+8] ones, the column bias of kNT * 8
 // columns, and three rows of 16 floats per warp (Lp / 8 warps) through
-// which the two warps of a row tile add up their halves.
+// which the two warps of a row tile add up their halves.  MLA's (192, 128)
+// (kDQ != 64): Q and K tiles of 192 columns, V and dO of 128, and dS in
+// V's place once V is read (at Lp <= 128 a row of dS fits V's): 210,432
+// bytes at L = 128.
+template <int kDQ = D, int kDV = D>
 size_t smem_bytes_mma(int Lp, int kNT) {
-  return sizeof(bf16) * (4 * size_t(Lp) * vlp::kTileStride +
-                         2 * size_t(Lp) * (Lp + 8)) +
+  const size_t ds = kDQ == D ? 2 : 1;   // [Lp][Lp+8] tiles of their own
+  return sizeof(bf16) * (2 * size_t(Lp) * vlp::tile_stride<kDQ>() +
+                         2 * size_t(Lp) * vlp::tile_stride<kDV>() +
+                         ds * size_t(Lp) * (Lp + 8)) +
          sizeof(float) * (kNT * 8 + 3 * (Lp / 8) * 16);
+}
+
+// acc[n] (n < kN) = A(16 rows at r0) * B over the summed rows 0 .. Lp-1
+// and B's columns c0 .. c0 + 8 kN - 1: A from an [Lp][LS] tile, read
+// transposed (`trans`: dS^T, (P o keep)^T) or not (dS); B a [.][TSB] tile
+// (K, Q, dO), read transposed.  The products of the backward's last phase.
+template <int kN, typename T, int TSB>
+__device__ __forceinline__ void mma_atb(float (&acc)[kN][4], const T* a,
+                                        bool trans, const T* b, int r0,
+                                        int c0, int Lp, int LS, int lane) {
+#pragma unroll
+  for (int n = 0; n < kN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  for (int k0 = 0; k0 < Lp; k0 += 16) {
+    uint32_t fa[4];
+    if (trans)
+      vlp::ldsm_x4_t(fa, a + (k0 + (lane & 7) + (lane >> 4) * 8) * LS + r0 +
+                             ((lane >> 3) & 1) * 8);
+    else
+      vlp::ldsm_x4(fa, a + (r0 + (lane & 15)) * LS + k0 + (lane >> 4) * 8);
+#pragma unroll
+    for (int np = 0; np < kN / 2; ++np) {
+      uint32_t fb[4];
+      vlp::ldsm_x4_t(fb, b + (k0 + (lane & 15)) * TSB + c0 + np * 16 +
+                             (lane >> 4) * 8);
+      vlp::mma16<T>(acc[2 * np], fa, fb[0], fb[1]);
+      vlp::mma16<T>(acc[2 * np + 1], fa, fb[2], fb[3]);
+    }
+  }
+}
+
+// MLA's last phase, tile r0 in half `half` of each gradient's columns: dQ
+// = dS K * scale, dK = dS^T Q * scale (kDQ / 2 columns each), dV = (P o
+// keep)^T dO (kDV / 2), one after another, each stored before the next.
+template <typename T, int kNT, int kDQ, int kDV>
+__device__ __forceinline__ void mla_products(
+    const T* sq, const T* sk, const T* sdo, const T* spk, const T* sds,
+    T* dq, T* dk, T* dv, int b, int h, int r0, int L, int Lp, int LS,
+    int lane, int half, vlp::Strides os, vlp::Strides osv, float scale) {
+  constexpr int TS = vlp::tile_stride<kDQ>();
+  constexpr int TSV = vlp::tile_stride<kDV>();
+  constexpr int kNq = kDQ / 16, kNv = kDV / 16;  // n8 tiles of a half
+  const int dq0 = half * kDQ / 2, dv0 = half * kDV / 2;
+  const long long qbase = b * os.b + h * os.h + dq0;
+  {
+    float acc[kNq][4];
+    mma_atb<kNq, T, TS>(acc, sds, false, sk, r0, dq0, Lp, LS, lane);
+    vlp::store_rows(dq + qbase, os.l, acc, r0, L, lane, scale);
+  }
+  {
+    float acc[kNq][4];
+    mma_atb<kNq, T, TS>(acc, sds, true, sq, r0, dq0, Lp, LS, lane);
+    vlp::store_rows(dk + qbase, os.l, acc, r0, L, lane, scale);
+  }
+  {
+    float acc[kNv][4];
+    mma_atb<kNv, T, TSV>(acc, spk, true, sdo, r0, dv0, Lp, LS, lane);
+    vlp::store_rows(dv + b * osv.b + h * osv.h + dv0, osv.l, acc, r0, L,
+                    lane, 1.f);
+  }
 }
 
 // Two warps per 16-row tile (Lp / 8 warps): warp w owns query rows
 // 16 (w / 2) .. +15 and the key columns of half w % 2 for S, P, dP and dS,
 // the pair adding up its row max, sum and rowsum through shared memory;
 // after P o keep and dS are in shared memory it owns the 16 rows of dQ, dK
-// and dV of tile w / 2 in d-columns 32 (w % 2) .. +31.
-template <typename T, int kNT, bool kDrop>
+// and dV of tile w / 2 in d-columns 32 (w % 2) .. +31.  q and k have kDQ
+// columns a head (strides `in`; dq and dk `os`), v, dO and dv kDV
+// (`vin`, `ds_in`, `osv`); at MLA's (192, 128) a warp forms dQ, dK and dV
+// of its half of the columns one after another (96 + 96 + 64 fp32 would
+// not fit 128 registers at once).
+template <typename T, int kNT, bool kDrop, int kDQ = D, int kDV = D>
 __global__ void __launch_bounds__(kNT * 32, 1)
     attention_bwd_mma(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v,
@@ -149,12 +220,15 @@ __global__ void __launch_bounds__(kNT * 32, 1)
                       const int* __restrict__ mode,
                       const int* __restrict__ text_end,
                       const float* __restrict__ colkeep, int L, int H,
-                      vlp::Strides in, vlp::Strides ds_in, vlp::Strides os,
-                      int prefix, float scale, vlp::DropoutArg dp_arg,
-                      int align) {
+                      vlp::Strides in, vlp::Strides vin, vlp::Strides ds_in,
+                      vlp::Strides os, vlp::Strides osv, int prefix,
+                      float scale, vlp::DropoutArg dp_arg, int align) {
   const vlp::Dropout dp = dp_arg.load();
   constexpr int kH = kNT / 2;       // n8 tiles of a warp's half of a row
-  constexpr int TS = vlp::kTileStride;
+  constexpr bool kMla = kDQ != D;
+  constexpr int TS = vlp::tile_stride<kDQ>();
+  constexpr int TSV = vlp::tile_stride<kDV>();
+  static_assert(!kMla || kNT * 8 + 8 <= TSV, "dS fits V's rows");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int Lp = (L + 15) & ~15;    // blockDim.x == 4 * Lp
   const int LS = Lp + 8;            // row of an [Lp][Lp] bf16 tile
@@ -162,10 +236,11 @@ __global__ void __launch_bounds__(kNT * 32, 1)
   T* sq = reinterpret_cast<T*>(smem_raw);
   T* sk = sq + Lp * TS;
   T* sv = sk + Lp * TS;
-  T* sdo = sv + Lp * TS;
-  T* spk = sdo + Lp * TS;           // P o keep
-  T* sds = spk + Lp * LS;           // dS
-  float* colbias = reinterpret_cast<float*>(sds + Lp * LS);  // [kNT * 8]
+  T* sdo = sv + Lp * TSV;
+  T* spk = sdo + Lp * TSV;          // P o keep
+  T* sds = kMla ? sv : spk + Lp * LS;  // dS (MLA: once V has been read)
+  float* colbias =
+      reinterpret_cast<float*>(spk + (kMla ? 1 : 2) * Lp * LS);  // [kNT*8]
   float* xmax = colbias + kNT * 8;  // [nw][16] each
   float* xsum = xmax + nw * 16;
   float* xrs = xsum + nw * 16;
@@ -174,11 +249,12 @@ __global__ void __launch_bounds__(kNT * 32, 1)
   const int h = blockIdx.x % H;
   const long long in_base = b * in.b + h * in.h;
   const long long do_base = b * ds_in.b + h * ds_in.h;
-  vlp::stage_rows(sq, q + in_base, in.l, L, Lp, align);
-  vlp::stage_rows(sk, k + in_base, in.l, L, Lp, align);
+  vlp::stage_rows<T, kDQ>(sq, q + in_base, in.l, L, Lp, align);
+  vlp::stage_rows<T, kDQ>(sk, k + in_base, in.l, L, Lp, align);
   vlp::cp_async_commit();
-  vlp::stage_rows(sv, v + in_base, in.l, L, Lp, align);
-  vlp::stage_rows(sdo, dout + do_base, ds_in.l, L, Lp, align);
+  vlp::stage_rows<T, kDV>(sv, v + b * vin.b + h * vin.h, vin.l, L, Lp,
+                          align);
+  vlp::stage_rows<T, kDV>(sdo, dout + do_base, ds_in.l, L, Lp, align);
   vlp::cp_async_commit();
   for (int j = threadIdx.x; j < kNT * 8; j += blockDim.x)
     colbias[j] = j >= L ? -CUDART_INF_F
@@ -217,7 +293,7 @@ __global__ void __launch_bounds__(kNT * 32, 1)
 
   // ---- S, then P in place (fp32), rows r0 .. r0+15, this half's columns
   float p[kH][4];
-  vlp::mma_abt<kH>(p, sq, sk, r0, c0, Lp, lane);
+  vlp::mma_abt<kH, T, kDQ>(p, sq, sk, r0, c0, Lp, lane);
   float m[2] = {-CUDART_INF_F, -CUDART_INF_F};
   const int lim[2] = {vlp::row_limit(md, te, prefix, r0 + g),
                       vlp::row_limit(md, te, prefix, r0 + g + 8)};
@@ -279,7 +355,7 @@ __global__ void __launch_bounds__(kNT * 32, 1)
 
   // ---- dP = dO V^T, its keep, rowsum(dP o keep o P) over the pair
   float dpk[kH][4];
-  vlp::mma_abt<kH>(dpk, sdo, sv, r0, c0, Lp, lane);
+  vlp::mma_abt<kH, T, kDV>(dpk, sdo, sv, r0, c0, Lp, lane);
   float rs[2] = {0.f, 0.f};
 #pragma unroll
   for (int n = 0; n < kH; ++n)
@@ -294,7 +370,8 @@ __global__ void __launch_bounds__(kNT * 32, 1)
   quad(rs, false);
   exchange(xrs, rs, false);
 
-  // ---- dS = P o (dP o keep - rowsum) to shared memory as bf16
+  // ---- dS = P o (dP o keep - rowsum) to shared memory as bf16 (MLA: into
+  // V's tile, which every warp has read before the exchange's barrier)
 #pragma unroll
   for (int n = 0; n < kH; ++n) {
     if (c0 + n * 8 < Lp) {
@@ -309,6 +386,12 @@ __global__ void __launch_bounds__(kNT * 32, 1)
   }
   __syncthreads();
 
+  if constexpr (kMla) {
+    mla_products<T, kNT, kDQ, kDV>(sq, sk, sdo, spk, sds, dq, dk, dv, b, h,
+                                   r0, L, Lp, LS, lane, warp & 1, os, osv,
+                                   scale);
+    return;
+  }
   // ---- tile r0 in d-columns d0 .. d0+31: dQ = dS K * scale (query rows),
   // dK = dS^T Q * scale and dV = (P o keep)^T dO (key rows)
   const int d0 = (warp & 1) * 32;
@@ -1270,7 +1353,39 @@ int launch_mma(const void* q, const void* k, const void* v, const void* dout,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv),
-      mode, text_end, colkeep, L, H, in, ds_in, os, prefix, scale, dp, align);
+      mode, text_end, colkeep, L, H, in, in, ds_in, os, os, prefix, scale,
+      dp, align);
+  return (int)cudaGetLastError();
+}
+
+// MLA's (192, 128): bf16, rate 0, L <= 128, one block a head; q/k at
+// strides `in`, v at `vin`, dO at `ds_in`, dq/dk at `os`, dv at `osv`.
+int launch_mla(const void* q, const void* k, const void* v, const void* dout,
+               void* dq, void* dk, void* dv, const int* mode,
+               const int* text_end, const float* colkeep, int B, int L, int H,
+               vlp::Strides in, vlp::Strides vin, vlp::Strides ds_in,
+               vlp::Strides os, vlp::Strides osv, int prefix, float scale,
+               cudaStream_t stream) {
+  constexpr int kDQ = vlp::kMlaQkDim, kDV = vlp::kMlaVDim, kNT = 16;
+  if (B <= 0 || L <= 0 || H <= 0 || L > 8 * kNT)
+    return (int)cudaErrorInvalidValue;
+  const int Lp = (L + 15) & ~15;
+  const size_t smem = smem_bytes_mma<kDQ, kDV>(Lp, kNT);
+  const int align = vlp::common_alignment(
+      {(unsigned long long)q, (unsigned long long)k, (unsigned long long)v,
+       (unsigned long long)dout, 2ull * in.b, 2ull * in.h, 2ull * in.l,
+       2ull * vin.b, 2ull * vin.h, 2ull * vin.l, 2ull * ds_in.b,
+       2ull * ds_in.h, 2ull * ds_in.l});
+  auto kernel = attention_bwd_mma<bf16, kNT, false, kDQ, kDV>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<B * H, 4 * Lp, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+      mode, text_end, colkeep, L, H, in, vin, ds_in, os, osv, prefix, scale,
+      vlp::DropoutArg{nullptr, 0, 1.f}, align);
   return (int)cudaGetLastError();
 }
 
@@ -1430,6 +1545,29 @@ int vlp_attention_bwd(const void* q, const void* k, const void* v,
                   B, L, H, vlp::Strides{sb, D, sl}, vlp::Strides{dsb, D, dsl},
                   vlp::Strides{L * HD, D, HD}, prefix, scale,
                   vlp::dropout_arg(seed, threshold, keep_scale), dtype, stream);
+}
+
+// MLA (Kimi-VL's attention): q/k [B, L, H*192] with element strides sb,
+// sl; v [B, L, H*128] with strides vsb, vsl; dout [B, L, H*128] with
+// strides dsb, dsl; the last dimension contiguous in all four.  dq/dk:
+// contiguous [B, L, H*192]; dv: contiguous [B, L, H*128].  bf16, no
+// dropout, L <= 128; anything else returns cudaErrorInvalidValue.
+int vlp_attention_bwd_mla(const void* q, const void* k, const void* v,
+                          const void* dout, void* dq, void* dk, void* dv,
+                          const void* mode, const void* text_end,
+                          const void* colkeep, int B, int L, int H,
+                          long long sb, long long sl, long long vsb,
+                          long long vsl, long long dsb, long long dsl,
+                          int prefix, float scale, void* stream) {
+  constexpr long long DQ = vlp::kMlaQkDim, DV = vlp::kMlaVDim;
+  return launch_mla(q, k, v, dout, dq, dk, dv, static_cast<const int*>(mode),
+                    static_cast<const int*>(text_end),
+                    static_cast<const float*>(colkeep), B, L, H,
+                    vlp::Strides{sb, DQ, sl}, vlp::Strides{vsb, DV, vsl},
+                    vlp::Strides{dsb, DV, dsl},
+                    vlp::Strides{(long long)L * H * DQ, DQ, H * DQ},
+                    vlp::Strides{(long long)L * H * DV, DV, H * DV}, prefix,
+                    scale, static_cast<cudaStream_t>(stream));
 }
 
 // The bhld layout: q/k/v [B, H, L, 64] with element strides sb (batch), sh

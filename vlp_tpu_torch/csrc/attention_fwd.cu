@@ -100,8 +100,17 @@
 // spills: `-Xptxas -v` in the build log (chip_smoke.py prints it).
 //
 // Layout (bf16): L <= 128, grid = B*H, ceil(L/16) warps per block; past
-// it, grid = (B*H, ceil(L/128)), 8 warps per block.  D is fixed at 64
-// (every config in the repository); the wrapper rejects anything else.
+// it, grid = (B*H, ceil(L/128)), 8 warps per block.  D is 64 (VLP's head)
+// in every body and both layouts.
+//
+// MLA (Kimi-VL's and DeepSeek-V3's attention in its expanded training
+// form): q and k of 192 columns a head (128 without position, 64 under
+// RoPE) beside v of 128.  attention_fwd_mma is a template over (D_qk, D_v)
+// and also instantiated at (192, 128): bf16, rate 0, blhd, L <= 128, its
+// own entry point (vlp_attention_fwd_mla) with q/k strides apart from v's.
+// Q, K and V of a head take 137,728 bytes of shared memory at L = 128 (one
+// block an SM, so up to 255 registers a thread: S and O are 64 floats
+// each); the (64, 64) instantiation is the code above, unchanged.
 
 #include "common.cuh"
 #include "mma.cuh"
@@ -280,8 +289,11 @@ constexpr int kNT = kChunk / 8;      // n8 tiles of a chunk
 using vlp::kLog2e;
 
 // Q, K and V of the head and the column bias of kChunk keys.
+template <int kDQ = D, int kDV = D>
 size_t smem_bytes_mma(int Lp) {
-  return 3 * size_t(Lp) * vlp::kTileStride * sizeof(bf16) +
+  return size_t(Lp) *
+             (2 * vlp::tile_stride<kDQ>() + vlp::tile_stride<kDV>()) *
+             sizeof(bf16) +
          size_t(kChunk) * sizeof(float);
 }
 
@@ -297,12 +309,12 @@ struct FwdTiles {
 // 0..127: a lane holds columns 8n + 2t (+1) of rows r0 + g
 // (limit lim[0]) and r0 + g + 8 (lim[1]).  Columns past L are -inf, so
 // they take no part in the max and sum.
-template <typename T>
+template <typename T, int kDQ = D>
 __device__ __forceinline__ void scores(float (&s)[kNT][4],
                                        const FwdTiles<T>& t,
                                        int r0, int Lp, int lane,
                                        const int (&lim)[2], float scale) {
-  vlp::mma_abt<kNT>(s, t.q, t.k, r0, 0, Lp, lane);
+  vlp::mma_abt<kNT, T, kDQ>(s, t.q, t.k, r0, 0, Lp, lane);
   const int j0 = 2 * (lane & 3);
 #pragma unroll
   for (int n = 0; n < kNT; ++n) {
@@ -352,8 +364,8 @@ __device__ __forceinline__ void exp_rows(float (&s)[kNT][4],
 
 // o += T(p o keep) V over key columns 0..127, p the normalized
 // probabilities in s's layout.
-template <typename T, bool kDrop>
-__device__ __forceinline__ void pv(float (&o)[D / 8][4], float (&p)[kNT][4],
+template <typename T, bool kDrop, int kDV = D>
+__device__ __forceinline__ void pv(float (&o)[kDV / 8][4], float (&p)[kNT][4],
                                    const FwdTiles<T>& t, int L, int Lp,
                                    int lane, int b, int h, int i0,
                                    const vlp::Dropout& dp) {
@@ -378,9 +390,9 @@ __device__ __forceinline__ void pv(float (&o)[D / 8][4], float (&p)[kNT][4],
         vlp::pack16<T>(p[2 * kk + 1][0], p[2 * kk + 1][1]),
         vlp::pack16<T>(p[2 * kk + 1][2], p[2 * kk + 1][3])};
 #pragma unroll
-    for (int np = 0; np < D / 16; ++np) {
+    for (int np = 0; np < kDV / 16; ++np) {
       uint32_t bv[4];
-      vlp::ldsm_x4_t(bv, t.v + (k0 + (lane & 15)) * vlp::kTileStride +
+      vlp::ldsm_x4_t(bv, t.v + (k0 + (lane & 15)) * vlp::tile_stride<kDV>() +
                              np * 16 + (lane >> 4) * 8);
       vlp::mma16<T>(o[2 * np], a, bv[0], bv[1]);
       vlp::mma16<T>(o[2 * np + 1], a, bv[2], bv[3]);
@@ -389,31 +401,36 @@ __device__ __forceinline__ void pv(float (&o)[D / 8][4], float (&p)[kNT][4],
 }
 
 // L <= 128: one block per (example, head), one warp per 16-row tile, the
-// whole key row in registers.  T: __nv_bfloat16 or __half.
-template <typename T, bool kDrop>
-__global__ void __launch_bounds__(kMaxWarps * 32, 2)
+// whole key row in registers.  T: __nv_bfloat16 or __half; q and k of kDQ
+// columns a head at strides `in`, v and out of kDV at `vin` and `os` (two
+// blocks an SM at (64, 64), one at MLA's (192, 128)).
+template <typename T, bool kDrop, int kDQ = D, int kDV = D>
+__global__ void __launch_bounds__(kMaxWarps * 32, kDQ == D ? 2 : 1)
     attention_fwd_mma(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, T* __restrict__ out,
                       const int* __restrict__ mode,
                       const int* __restrict__ text_end,
                       const float* __restrict__ colkeep, int L, int H,
-                      vlp::Strides in, vlp::Strides os, int prefix,
-                      float scale, vlp::DropoutArg dp_arg, int align) {
+                      vlp::Strides in, vlp::Strides vin, vlp::Strides os,
+                      int prefix, float scale, vlp::DropoutArg dp_arg,
+                      int align) {
   const vlp::Dropout dp = dp_arg.load();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int Lp = (L + 15) & ~15;
   T* sq = reinterpret_cast<T*>(smem_raw);
-  T* sk = sq + Lp * vlp::kTileStride;
-  T* sv = sk + Lp * vlp::kTileStride;
-  float* colbias = reinterpret_cast<float*>(sv + Lp * vlp::kTileStride);
+  T* sk = sq + Lp * vlp::tile_stride<kDQ>();
+  T* sv = sk + Lp * vlp::tile_stride<kDQ>();
+  float* colbias =
+      reinterpret_cast<float*>(sv + Lp * vlp::tile_stride<kDV>());
 
   const int b = blockIdx.x / H;
   const int h = blockIdx.x % H;
   const long long in_base = b * in.b + h * in.h;
-  vlp::stage_rows(sq, q + in_base, in.l, L, Lp, align);
-  vlp::stage_rows(sk, k + in_base, in.l, L, Lp, align);
+  vlp::stage_rows<T, kDQ>(sq, q + in_base, in.l, L, Lp, align);
+  vlp::stage_rows<T, kDQ>(sk, k + in_base, in.l, L, Lp, align);
   vlp::cp_async_commit();
-  vlp::stage_rows(sv, v + in_base, in.l, L, Lp, align);
+  vlp::stage_rows<T, kDV>(sv, v + b * vin.b + h * vin.h, vin.l, L, Lp,
+                          align);
   vlp::cp_async_commit();
   for (int j = threadIdx.x; j < kChunk; j += blockDim.x)
     colbias[j] = j >= L ? -CUDART_INF_F
@@ -431,7 +448,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 2)
   const int r0 = warp * 16;
   const int lim[2] = {vlp::row_limit(md, te, prefix, r0 + g),
                       vlp::row_limit(md, te, prefix, r0 + g + 8)};
-  scores(s, t, r0, Lp, lane, lim, scale);
+  scores<T, kDQ>(s, t, r0, Lp, lane, lim, scale);
   row_max(s, m);
   exp_rows(s, m, sum);
   const float inv[2] = {1.f / sum[0], 1.f / sum[1]};
@@ -441,8 +458,8 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 2)
     for (int e = 0; e < 4; ++e) s[n][e] *= inv[e >> 1];
   vlp::cp_async_wait<0>();
   __syncthreads();
-  float o[D / 8][4] = {};
-  pv<T, kDrop>(o, s, t, L, Lp, lane, b, h, r0 + g, dp);
+  float o[kDV / 8][4] = {};
+  pv<T, kDrop, kDV>(o, s, t, L, Lp, lane, b, h, r0 + g, dp);
   vlp::store_rows(out + b * os.b + h * os.h, os.l, o, r0, L, lane, 1.f);
 }
 
@@ -705,16 +722,52 @@ int launch_mma(const void* q, const void* k, const void* v, void* out,
   const int align = vlp::common_alignment(
       {(unsigned long long)q, (unsigned long long)k, (unsigned long long)v,
        2ull * in.b, 2ull * in.h, 2ull * in.l});
-  auto kernel = rows ? attention_fwd_rows<T, kDrop>
-                     : attention_fwd_mma<T, kDrop>;
+  const void* kernel =
+      rows ? reinterpret_cast<const void*>(attention_fwd_rows<T, kDrop>)
+           : reinterpret_cast<const void*>(attention_fwd_mma<T, kDrop>);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(B * H, rows ? (L + kRows - 1) / kRows : 1);
-  kernel<<<grid, rows ? kRowWarps * 32 : Lp / 16 * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), mode, text_end,
-      colkeep, L, H, in, os, prefix, scale, dp, align);
+  if (rows) {
+    attention_fwd_rows<T, kDrop><<<grid, kRowWarps * 32, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(out), mode, text_end,
+        colkeep, L, H, in, os, prefix, scale, dp, align);
+  } else {
+    attention_fwd_mma<T, kDrop><<<grid, Lp / 16 * 32, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(out), mode, text_end,
+        colkeep, L, H, in, in, os, prefix, scale, dp, align);
+  }
+  return (int)cudaGetLastError();
+}
+
+// MLA's (192, 128): bf16, rate 0, L <= 128, one block a head; q/k at
+// strides `in`, v at `vin`, out at `os`.
+int launch_mla(const void* q, const void* k, const void* v, void* out,
+               const int* mode, const int* text_end, const float* colkeep,
+               int B, int L, int H, vlp::Strides in, vlp::Strides vin,
+               vlp::Strides os, int prefix, float scale,
+               cudaStream_t stream) {
+  constexpr int kDQ = vlp::kMlaQkDim, kDV = vlp::kMlaVDim;
+  if (B <= 0 || L <= 0 || H <= 0 || L > kChunk)
+    return (int)cudaErrorInvalidValue;
+  const int Lp = (L + 15) & ~15;
+  const size_t smem = smem_bytes_mma<kDQ, kDV>(Lp);
+  const int align = vlp::common_alignment(
+      {(unsigned long long)q, (unsigned long long)k, (unsigned long long)v,
+       2ull * in.b, 2ull * in.h, 2ull * in.l, 2ull * vin.b, 2ull * vin.h,
+       2ull * vin.l});
+  auto kernel = attention_fwd_mma<bf16, false, kDQ, kDV>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<B * H, Lp / 16 * 32, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), mode, text_end,
+      colkeep, L, H, in, vin, os, prefix, scale,
+      vlp::DropoutArg{nullptr, 0, 1.f}, align);
   return (int)cudaGetLastError();
 }
 
@@ -725,8 +778,9 @@ int blocks_per_sm(int L) {
   const int Lp = (L + 15) & ~15;
   const bool rows = Lp > kChunk;
   const size_t smem = rows ? kSmemBytesRows : smem_bytes_mma(Lp);
-  auto kernel = rows ? attention_fwd_rows<bf16, kDrop>
-                     : attention_fwd_mma<bf16, kDrop>;
+  const void* kernel =
+      rows ? reinterpret_cast<const void*>(attention_fwd_rows<bf16, kDrop>)
+           : reinterpret_cast<const void*>(attention_fwd_mma<bf16, kDrop>);
   int n = 0;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -823,6 +877,26 @@ int vlp_attention_fwd_bhld(const void* q, const void* k, const void* v,
   return forward(q, k, v, out, mode, text_end, colkeep, B, L, H,
                  vlp::Strides{sb, sh, sl}, bhld_out(L, H), prefix, scale,
                  vlp::dropout_arg(seed, threshold, keep_scale), dtype, stream);
+}
+
+// MLA (Kimi-VL's attention): q/k [B, L, H*192] with element strides sb,
+// sl; v [B, L, H*128] with strides vsb, vsl; the last dimension contiguous
+// in all three; out: contiguous [B, L, H*128].  bf16, no dropout, L <= 128;
+// anything else returns cudaErrorInvalidValue.  Returns cudaGetLastError()
+// after the launch.
+int vlp_attention_fwd_mla(const void* q, const void* k, const void* v,
+                          void* out, const void* mode, const void* text_end,
+                          const void* colkeep, int B, int L, int H,
+                          long long sb, long long sl, long long vsb,
+                          long long vsl, int prefix, float scale,
+                          void* stream) {
+  constexpr long long DQ = vlp::kMlaQkDim, DV = vlp::kMlaVDim;
+  return launch_mla(q, k, v, out, static_cast<const int*>(mode),
+                    static_cast<const int*>(text_end),
+                    static_cast<const float*>(colkeep), B, L, H,
+                    vlp::Strides{sb, DQ, sl}, vlp::Strides{vsb, DV, vsl},
+                    vlp::Strides{(long long)L * H * DV, DV, H * DV}, prefix,
+                    scale, static_cast<cudaStream_t>(stream));
 }
 
 // Blocks per SM of the bf16 body that length L runs (drop: the dropout

@@ -23,10 +23,23 @@
 
 namespace vlp {
 
-constexpr int kHeadDim = 64;           // D: every config in the repository
+constexpr int kHeadDim = 64;           // D: VLP's head width
 constexpr int kTileStride = kHeadDim + 8;  // 16-bit elements per staged
 // [L][64] row: 144 bytes, so the 8 rows an ldmatrix reads fall on 8 distinct 16-byte
 // bank groups, and every row start stays 16-byte aligned for cp.async
+
+// MLA's head widths (Kimi-VL, DeepSeek-V3): q.k of 128 + 64 (RoPE), v.
+constexpr int kMlaQkDim = 192;
+constexpr int kMlaVDim = 128;
+
+// The staged row of a 16-bit tile of kD columns (kD a multiple of 16): kD
+// + 8 elements, 16 bytes past a multiple of 32, as kTileStride is for 64
+// (MLA's q.k of 192 and v of 128: 400 and 272 bytes).
+template <int kD>
+__host__ __device__ constexpr int tile_stride() {
+  static_assert(kD % 16 == 0, "tiles of 16-column steps");
+  return kD + 8;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -163,15 +176,15 @@ __device__ __forceinline__ void ring_next(int it, int n, Issue issue) {
 // r at src + r*sl) into dst[Lp][kTileStride], zeros in rows [L, Lp),
 // kBytes per copy.  Asynchronous for kBytes >= 4 (the caller commits and
 // waits); 2-byte copies are plain loads and stores.
-template <int kBytes, typename T>
+template <int kBytes, typename T, int kD = kHeadDim>
 __device__ __forceinline__ void stage_rows_w(T* dst, const T* src,
                                              long long sl, int L, int Lp) {
   static_assert(sizeof(T) == 2, "16-bit elements");
   constexpr int kElems = kBytes / 2;
-  constexpr int kPerRow = kHeadDim / kElems;
+  constexpr int kPerRow = kD / kElems;
   for (int idx = threadIdx.x; idx < Lp * kPerRow; idx += blockDim.x) {
     const int r = idx / kPerRow, c = (idx % kPerRow) * kElems;
-    T* d = dst + r * kTileStride + c;
+    T* d = dst + r * tile_stride<kD>() + c;
     if (r >= L) {
       // +0 has all bits clear in both 16-bit types
 #pragma unroll
@@ -186,35 +199,36 @@ __device__ __forceinline__ void stage_rows_w(T* dst, const T* src,
 }
 
 // stage_rows_w at the widest copy that `align` (the common power-of-two
-// byte alignment of every base pointer and stride, capped at 16) allows.
-template <typename T>
+// byte alignment of every base pointer and stride, capped at 16) allows;
+// kD columns a row (64 unless given).
+template <typename T, int kD = kHeadDim>
 __device__ __forceinline__ void stage_rows(T* dst, const T* src,
                                            long long sl, int L, int Lp,
                                            int align) {
   switch (align) {
-    case 16: stage_rows_w<16>(dst, src, sl, L, Lp); break;
-    case 8: stage_rows_w<8>(dst, src, sl, L, Lp); break;
-    case 4: stage_rows_w<4>(dst, src, sl, L, Lp); break;
-    default: stage_rows_w<2>(dst, src, sl, L, Lp); break;
+    case 16: stage_rows_w<16, T, kD>(dst, src, sl, L, Lp); break;
+    case 8: stage_rows_w<8, T, kD>(dst, src, sl, L, Lp); break;
+    case 4: stage_rows_w<4, T, kD>(dst, src, sl, L, Lp); break;
+    default: stage_rows_w<2, T, kD>(dst, src, sl, L, Lp); break;
   }
 }
 
 // acc[n] = A(rows r0 .. r0+15) * B(rows c0 + 8n .. c0 + 8n + 7)^T for
-// n < kN, A and B [.][kTileStride] tiles of 64 columns of 16-bit T, and B
-// rows below Lp only (the other tiles stay 0): S = Q K^T and dP = dO V^T
-// over kN key tiles.  kN may be odd: the last tile then takes a two-matrix
-// ldmatrix.
-template <int kN, typename T>
+// n < kN, A and B [.][tile_stride<kD>()] tiles of kD columns (64 unless
+// given) of 16-bit T, and B rows below Lp only (the other tiles stay 0):
+// S = Q K^T and dP = dO V^T over kN key tiles.  kN may be odd: the last
+// tile then takes a two-matrix ldmatrix.
+template <int kN, typename T, int kD = kHeadDim>
 __device__ __forceinline__ void mma_abt(float (&acc)[kN][4], const T* a,
                                         const T* bt, int r0, int c0, int Lp,
                                         int lane) {
-  constexpr int TS = kTileStride;
+  constexpr int TS = tile_stride<kD>();
 #pragma unroll
   for (int n = 0; n < kN; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 #pragma unroll
-  for (int kk = 0; kk < kHeadDim / 16; ++kk) {
+  for (int kk = 0; kk < kD / 16; ++kk) {
     uint32_t fa[4];
     ldsm_x4(fa, a + (r0 + (lane & 15)) * TS + kk * 16 + (lane >> 4) * 8);
 #pragma unroll

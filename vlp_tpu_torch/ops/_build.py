@@ -58,6 +58,11 @@ _SIGNATURES = {
                                _I, _I, _I, _LL, _LL, _LL, _LL, _LL, _LL, _I,
                                _F, _P, _U, _F, _I, _P],
     "vlp_dropout_mask": [_P, _I, _I, _I, _P, _U, _F, _P],
+    "vlp_attention_fwd_mla": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _LL,
+                              _LL, _LL, _LL, _I, _F, _P],
+    "vlp_attention_bwd_mla": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                              _I, _I, _LL, _LL, _LL, _LL, _LL, _LL, _I, _F,
+                              _P],
     "vlp_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                              _I, _I, _I, _LL, _I, _F, _I, _P],
     "vlp_decode_attention_drop": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -126,6 +131,14 @@ KERNELS = {
 for _name in ("bert_adam_norms", "bert_adam_update"):
     KERNELS[_name] = Kernel(_name, "vlp_tpu_torch/csrc/bert_adam.cu",
                             "none: XLA fuses vlp_tpu/optim.py:111")
+# MLA's K1 / K2 (q.k 192, v 128; bf16, rate 0, blhd, L <= 128): the
+# L <= 128 bodies instantiated at (192, 128), counted apart
+KERNELS["attention_fwd_mla"] = Kernel(
+    "attention_fwd_mla", "vlp_tpu_torch/csrc/attention_fwd.cu",
+    "vlp_tpu/ops/attention.py:117")
+KERNELS["attention_bwd_mla"] = Kernel(
+    "attention_bwd_mla", "vlp_tpu_torch/csrc/attention_bwd.cu",
+    "vlp_tpu/ops/attention.py:197")
 # the fp16 forms of K1 and K2 (--true_fp16 training): the 16-bit bodies
 # instantiated for fp16, counted apart from their bf16 and fp32 forms
 for _name in ("attention_fwd", "attention_fwd_drop", "attention_bwd",

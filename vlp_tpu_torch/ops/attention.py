@@ -39,6 +39,11 @@ layout, which every model call uses) and ``layout="bhld"``
   bf16 and fp32 form plus ``_fp16``).
 * ``dropout_mask`` — the multipliers themselves (``csrc/dropout_mask.cu``),
   to hold the kernels' bits against ``philox.keep_scale`` on the card.
+* MLA (``models/kimi_vl.py``): q and k of D = 192 a head beside v of 128.
+  The plain versions take any v width; on the card the L <= 128 bodies
+  are instantiated at (192, 128), bf16 at rate 0 in blhd, with launch
+  counts of their own (``attention_fwd_mla``, ``attention_bwd_mla``).
+  Every other shape of the kernels keeps D == 64.
 
 A dropout ``seed`` is 64 bits, one per call (per layer and step); the
 example, head, row and column of a draw are Philox's counter.  Every
@@ -61,7 +66,9 @@ import torch
 from vlp_tpu_torch.ops import _build, masks, philox
 from vlp_tpu_torch.ops.masks import NEG_INF
 
-HEAD_DIM = 64  # the only head width the kernels are built for
+HEAD_DIM = 64  # VLP's head width: every kernel body and layout
+MLA_QK_DIM, MLA_V_DIM = 192, 128  # MLA's q.k and v widths (bf16, blhd)
+MLA_MAX_LEN = 128  # the L <= 128 bodies are the ones instantiated for MLA
 LAYOUTS = ("blhd", "bhld")
 # the kernels' dtype code (csrc/common.cuh vlp::DType)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -185,6 +192,42 @@ def _dims(q, layout):
     return B, L, H, D
 
 
+def is_mla(q, v, layout: str = "blhd") -> bool:
+    """Whether (q, v) take the MLA kernels: blhd, q.k of 192 and v of 128
+    a head."""
+    return (layout == "blhd" and q.shape[-1] == MLA_QK_DIM
+            and v.shape[-1] == MLA_V_DIM)
+
+
+def _check_mla(q, k, v, mode, text_end, colkeep, what, dropout_rate):
+    B, L, H, _ = q.shape
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"{what} kernel takes bf16, got {q.dtype}")
+    if dropout_rate != 0.0:
+        raise ValueError(f"{what} kernel takes no dropout, got rate "
+                         f"{dropout_rate}")
+    if L > MLA_MAX_LEN:
+        raise ValueError(f"{what} kernel takes L <= {MLA_MAX_LEN}, got {L}")
+    if (k.shape != q.shape or v.shape != (B, L, H, MLA_V_DIM)
+            or {k.dtype, v.dtype} != {q.dtype}
+            or {k.device, v.device} != {q.device}):
+        raise ValueError(f"{what}: q, k [B, L, H, {MLA_QK_DIM}] and v "
+                         f"[B, L, H, {MLA_V_DIM}] differ in shape/dtype/"
+                         "device")
+    if k.stride() != q.stride():
+        raise ValueError(f"{what}: q and k must share strides")
+    for t, d in ((q, MLA_QK_DIM), (v, MLA_V_DIM)):
+        if t.stride(3) != 1 or t.stride(2) != d:
+            raise ValueError(f"{what}: the (H, D) dims must be packed")
+    if any(m.device != q.device for m in (mode, text_end, colkeep)):
+        raise ValueError(f"{what}: mask metadata must be on q's device")
+    if mode.shape != (B,) or text_end.shape != (B,) or colkeep.shape != (B, L):
+        raise ValueError(f"{what}: mask metadata has the wrong shape")
+    return (mode.to(torch.int32).contiguous(),
+            text_end.to(torch.int32).contiguous(),
+            colkeep.to(torch.float32).contiguous())
+
+
 def _check_qkv(q, k, v, mode, text_end, colkeep, what, layout="blhd"):
     _check_layout(layout)
     if q.device.type != "cuda":
@@ -258,6 +301,9 @@ def _forward_cuda(q, k, v, mode, text_end, colkeep, prefix,
     seed) selects the training branch.  Each layout has one entry point
     for both branches (rate 0 is the deterministic kernel); each branch
     keeps its own launch count."""
+    if is_mla(q, v, layout):
+        return _forward_mla(q, k, v, mode, text_end, colkeep, prefix,
+                            0.0 if dropout is None else dropout[0])
     entry = "attention_fwd" + ("_bhld" if layout == "bhld" else "")
     what = _count_name(entry + ("" if dropout is None else "_drop"), q.dtype)
     mode, text_end, colkeep = _check_qkv(q, k, v, mode, text_end, colkeep,
@@ -277,10 +323,55 @@ def _forward_cuda(q, k, v, mode, text_end, colkeep, prefix,
     return out
 
 
+def _forward_mla(q, k, v, mode, text_end, colkeep, prefix, rate):
+    """K1 at MLA's (192, 128): out [B, L, H, 128], contiguous."""
+    what = "attention_fwd_mla"
+    mode, text_end, colkeep = _check_mla(q, k, v, mode, text_end, colkeep,
+                                         what, rate)
+    B, L, H, D = q.shape
+    out = torch.empty(v.shape, dtype=q.dtype, device=q.device)
+    err = _build.library().vlp_attention_fwd_mla(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        mode.data_ptr(), text_end.data_ptr(), colkeep.data_ptr(), B, L, H,
+        q.stride(0), q.stride(1), v.stride(0), v.stride(1), prefix,
+        1.0 / math.sqrt(D), _build.stream_ptr(q.device))
+    _build.check(err, what)
+    _build.count_launch(what)
+    return out
+
+
+def _backward_mla(q, k, v, mode, text_end, colkeep, dout, prefix, rate):
+    """K2 at MLA's (192, 128): (dq, dk, dv), contiguous."""
+    what = "attention_bwd_mla"
+    mode, text_end, colkeep = _check_mla(q, k, v, mode, text_end, colkeep,
+                                         what, rate)
+    B, L, H, D = q.shape
+    if dout.shape != v.shape or dout.dtype != q.dtype:
+        raise ValueError(f"{what}: dout differs from v in shape/dtype")
+    if dout.stride(3) != 1 or dout.stride(2) != MLA_V_DIM:
+        dout = dout.contiguous()
+    dq, dk = (torch.empty(q.shape, dtype=q.dtype, device=q.device)
+              for _ in range(2))
+    dv = torch.empty(v.shape, dtype=q.dtype, device=q.device)
+    err = _build.library().vlp_attention_bwd_mla(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), mode.data_ptr(),
+        text_end.data_ptr(), colkeep.data_ptr(), B, L, H, q.stride(0),
+        q.stride(1), v.stride(0), v.stride(1), dout.stride(0),
+        dout.stride(1), prefix, 1.0 / math.sqrt(D),
+        _build.stream_ptr(q.device))
+    _build.check(err, what)
+    _build.count_launch(what)
+    return dq, dk, dv
+
+
 def _backward_cuda(q, k, v, mode, text_end, colkeep, dout, prefix, rate,
                    seed, layout="blhd"):
     """K2 (``_bwd_kernel``'s counterpart in bhld): (dq, dk, dv), each
     contiguous in q's layout and dtype."""
+    if is_mla(q, v, layout):
+        return _backward_mla(q, k, v, mode, text_end, colkeep, dout, prefix,
+                             rate)
     entry = "attention_bwd" + ("_bhld" if layout == "bhld" else "")
     what = _count_name(entry, q.dtype)
     mode, text_end, colkeep = _check_qkv(q, k, v, mode, text_end, colkeep,

@@ -33,7 +33,18 @@ The spans of the port:
 ``decode.*``       the beam loop (``dispatch``, rows), its ``prefill``,
                    each step's ``model`` work, and the host ``backtrace``
 ``dist.*``         the data-parallel gradient agreement and buckets
+``attn.mla``       a Kimi-VL layer's MLA sublayer (``models/kimi_vl.py``)
+``moe.route``      an expert layer's router, balance loss and load count
+``moe.dispatch``   its sort of the held (token, expert) rows and offsets
+``moe.experts``    its grouped products (rows given: the most it can hold;
+                   the rows taken stay on the device)
+``moe.combine``    the rows gathered back to their tokens
 =================  =====================================================
+
+``counter(name, value)`` keeps a number the host has in hand (recorded
+like a span of no duration, ``n`` the value), e.g. the held experts' row
+counts that ``KimiVLModel.read_rows_per_expert`` reads off the device
+once: ``moe.rows_per_expert.<layer>.<expert>``.
 """
 
 from __future__ import annotations
@@ -113,6 +124,18 @@ def span(name: str, n: Optional[int] = None):
     if _sink is None:
         return _OFF
     return _Open(_sink, name, n)
+
+
+def counter(name: str, value: int) -> None:
+    """Keep ``value`` under ``name`` inside :func:`recording` (nothing
+    outside it)."""
+    if _sink is None:
+        return
+    stack = _stack()
+    now = time.monotonic_ns()
+    _sink.append(Span(next(_ids), name, threading.get_native_id(),
+                      stack[-1] if stack else None, now, now, 0,
+                      int(value)))
 
 
 @contextlib.contextmanager

@@ -229,7 +229,13 @@ def _train_step(model, optimizer, dist: Dist, *, check: bool,
         model.align_replicated_grads()
         dist.all_reduce_grads(model.parameters(), check=check)
         metrics = dist.all_reduce_mean(metrics)
-        return apply_grads(optimizer, loss_scale, metrics)
+        metrics = apply_grads(optimizer, loss_scale, metrics)
+        # state a model moves outside autograd after each update (the MoE
+        # routers' selection biases, models/kimi_vl.py)
+        after_step = getattr(model, "after_step", None)
+        if after_step is not None:
+            after_step(dist)
+        return metrics
 
     return train_step
 
