@@ -41,7 +41,13 @@ step, a None gradient, anchors, weight decay 0, a captured step; at most
 ADAM_MAX_LAUNCHES launch calls a step), timed beside its bound; every
 main path then expects one launch of each of its two kernels a step, and
 the script fails if ``BertAdam.step`` ran the plain update on CUDA
-parameters.  Phase 6 runs data parallel:
+parameters.  Phase 2 also holds Kimi-VL's expert-row kernels
+(``csrc/moe_rows.cu``: gather, SwiGLU, weighted combine and their
+backwards) at the Kimi cell's shape against their plain versions with the
+rows past the held-row count NaN, twice bit for bit, and the whole expert
+layer, every undefined row NaN, against the masked full-buffer passes and
+captured against eager, each timed beside its bound; phase 4j counts
+their launches.  Phase 6 runs data parallel:
 the train, decode and VQA CLIs over NCCL at world size 1, which must equal
 the runs without a group bit for bit, and two gloo ranks on the one card
 (this script re-run with ``--dp-worker``, DP2_LAYERS deep), which must stay
@@ -105,6 +111,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 T0 = time.time()
 
@@ -1325,6 +1332,246 @@ def phase_mla_kernels(dev, results):
         log_times(name, r)
 
 
+# Kimi-VL's expert layer at the Kimi cell's shape: B=128 sequences of 128
+# tokens, top-6 of 64 experts, 8 held, hidden 2048, expert width 1408
+MOE_T, MOE_K, MOE_E, MOE_HELD, MOE_H, MOE_I = 16384, 6, 64, 8, 2048, 1408
+# a training step's launches per MoE layer: the forward's three, the
+# backward's recomputed gather and SwiGLU and the three backwards
+MOE_STEP_LAUNCHES = dict(moe_gather=2, moe_gather_bwd=1, moe_swiglu=2,
+                         moe_swiglu_bwd=1, moe_combine=1, moe_combine_bwd=1)
+
+
+def moe_layer_inputs(dev, seed=24) -> dict:
+    """One expert layer's inputs at the Kimi cell's shape: unit-variance
+    token rows routed by a random router as the cell's is initialised
+    (N(0, 0.02), sigmoid scores, top-6 normalised and scaled by 2.446),
+    the held experts 0..7 (fp32, N(0, 0.02)) and a shared output."""
+    from vlp_tpu_torch.models.kimi_vl import sort_pairs
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    T, k, H, inter = MOE_T, MOE_K, MOE_H, MOE_I
+
+    def r(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * scale
+
+    x = r(T, H).bfloat16()
+    scores = torch.sigmoid(x.float() @ r(MOE_E, H, scale=0.02).t())
+    idx = scores.topk(k, dim=-1).indices
+    w = scores.gather(1, idx)
+    w = (w / w.sum(-1, keepdim=True) * 2.446).contiguous()
+    order, row_of, counts, offs = sort_pairs(idx, range(MOE_HELD))
+    R = T * min(k, MOE_HELD)
+    return dict(x=x, w=w, order=order[:R], row_of=row_of, counts=counts,
+                offs=offs, count=int(offs[-1]), R=R,
+                gate_up=r(MOE_HELD, 2 * inter, H, scale=0.02),
+                down=r(MOE_HELD, H, inter, scale=0.02),
+                base=r(T, H).bfloat16(), dy=r(T, H).bfloat16())
+
+
+def masked_held_rows(x, order, row_of, k, offs, w, gate_up, down, base):
+    """The expert rows as masked full-buffer passes, the yardstick: the
+    same products, with ``where`` masks, the weighting and an
+    ``index_select`` combine, every pass over all R rows."""
+    from vlp_tpu_torch.models.kimi_vl import grouped_mm
+    R, T, H = order.shape[0], row_of.shape[0] // k, x.shape[1]
+    valid = torch.arange(R, device=x.device) < offs[-1]
+    w_row = torch.where(valid, w.reshape(-1)[order], 0.0)
+    xg = torch.where(valid[:, None], x.index_select(0, order // k), 0.0)
+    gg, u = grouped_mm(xg, gate_up, offs).split(down.shape[-1], dim=-1)
+    y = grouped_mm(F.silu(gg) * u, down, offs)
+    y = torch.where(valid[:, None], y, 0.0) * w_row[:, None].to(y.dtype)
+    y = torch.cat([y, y.new_zeros(T * k - R, H)]).index_select(0, row_of)
+    return y.view(T, k, H).sum(1) + base
+
+
+class PoisonedGroupedMM(torch.autograd.Function):
+    """``torch._grouped_mm`` with the rows it leaves undefined (past the
+    last offset) set to NaN, in its output and in a's gradient."""
+
+    @staticmethod
+    def forward(ctx, a, w, offs):
+        ctx.save_for_backward(a, w, offs)
+        out = torch._grouped_mm(a, w.transpose(-2, -1), offs=offs)
+        out[int(offs[-1]):] = float("nan")
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        a, w, offs = ctx.saved_tensors
+        leaves = [t.detach().requires_grad_() for t in (a, w)]
+        with torch.enable_grad():
+            out = torch._grouped_mm(leaves[0], leaves[1].transpose(-2, -1),
+                                    offs=offs)
+            da, dw = torch.autograd.grad(out, leaves, g)
+        da[int(offs[-1]):] = float("nan")
+        return da, dw, None
+
+
+@contextlib.contextmanager
+def poisoned_rows():
+    """Every row the expert layer leaves undefined is NaN: the grouped
+    products' (:class:`PoisonedGroupedMM`) and, through PyTorch's
+    deterministic mode, every ``torch.empty`` of the row kernels."""
+    from vlp_tpu_torch.models import kimi_vl
+    plain = kimi_vl.grouped_mm
+    kimi_vl.grouped_mm = lambda a, w, offs: PoisonedGroupedMM.apply(
+        a, w.to(a.dtype), offs)
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.utils.deterministic.fill_uninitialized_memory = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+        kimi_vl.grouped_mm = plain
+
+
+def moe_layer_grads(inp, fn=None):
+    """(y, dx, dw, d gate_up, d down, d base) of one layer's held rows
+    (``HeldRows``, or ``fn`` with its arguments) from the gradient dy."""
+    from vlp_tpu_torch.models.kimi_vl import HeldRows
+    leaves = [inp[n].detach().requires_grad_()
+              for n in ("x", "w", "gate_up", "down", "base")]
+    x, w, gate_up, down, base = leaves
+    y = (fn or HeldRows.apply)(x, inp["order"], inp["row_of"], MOE_K,
+                               inp["offs"], w, gate_up, down, base)
+    return [y.detach()] + list(torch.autograd.grad(y, leaves, inp["dy"]))
+
+
+def phase_moe_rows(dev, results):
+    """Kimi-VL's expert-row kernels (``csrc/moe_rows.cu``) at the Kimi
+    cell's shape: each against its plain version with the rows past the
+    held-row count NaN in its inputs (none may reach an output), twice
+    bit-identical; the whole layer (``HeldRows``, forward and backward)
+    with every undefined row NaN against the masked full-buffer passes, twice
+    bit-identical, and captured in a CUDA graph against eager; each
+    kernel's time beside its plain version's, the masked passes' and the
+    bound (the held rows' bytes over the HBM rate); the layer's time,
+    beside the masked passes'."""
+    from vlp_tpu_torch.ops import moe_rows as mr
+
+    inp = moe_layer_inputs(dev)
+    T, k, H, inter = MOE_T, MOE_K, MOE_H, MOE_I
+    R, n, offs = inp["R"], inp["count"], inp["offs"]
+    order, row_of, w = inp["order"], inp["row_of"], inp["w"]
+    g = torch.Generator(device=dev).manual_seed(25)
+
+    def rows(width):   # a buffer whose rows past the count are NaN
+        t = torch.randn(R, width, generator=g, device=dev).bfloat16()
+        t[n:] = float("nan")
+        return t
+
+    x, base, dy = inp["x"], inp["base"], inp["dy"]
+    gu, dh, y_rows, dxg = rows(2 * inter), rows(inter), rows(H), rows(H)
+    e = 2                                    # bf16 bytes
+    idx_bytes = 8 * T * k + 4 * MOE_HELD     # row_of (or order) and offs
+    valid = torch.arange(R, device=dev) < offs[-1]
+    w_row = torch.where(valid, w.reshape(-1)[order], 0.0)[:, None]
+    gg, uu = gu.split(inter, dim=-1)
+    pad = dxg.new_zeros(T * k - R, H)
+    calls = {
+        "moe_gather": (
+            lambda: mr.gather(x, order, offs, k),
+            lambda: mr.gather_plain(x, order, offs, k),
+            lambda: torch.where(valid[:, None], x.index_select(0, order // k),
+                                0.0),
+            2 * n * H * e + 8 * n + 4 * MOE_HELD, n),
+        "moe_gather_bwd": (
+            lambda: mr.gather_bwd(dxg, row_of, offs, k),
+            lambda: mr.gather_bwd_plain(dxg, row_of, offs, k),
+            lambda: torch.cat([torch.where(valid[:, None], dxg, 0.0), pad])
+            .index_select(0, row_of).view(T, k, H).sum(1),
+            n * H * e + T * H * e + idx_bytes, None),
+        "moe_swiglu": (
+            lambda: mr.swiglu(gu, offs),
+            lambda: mr.swiglu_plain(gu, offs),
+            lambda: F.silu(gg) * uu,
+            3 * n * inter * e + 4 * MOE_HELD, n),
+        "moe_swiglu_bwd": (
+            lambda: mr.swiglu_bwd(dh, gu, offs),
+            lambda: mr.swiglu_bwd_plain(dh, gu, offs),
+            lambda: torch.cat([torch.ops.aten.silu_backward(dh * uu, gg),
+                               dh * F.silu(gg)], dim=-1),
+            5 * n * inter * e + 4 * MOE_HELD, n),
+        "moe_combine": (
+            lambda: mr.combine(y_rows, w, row_of, offs, k, base),
+            lambda: mr.combine_plain(y_rows, w, row_of, offs, k, base),
+            lambda: torch.cat([torch.where(valid[:, None], y_rows, 0.0)
+                               * w_row.to(y_rows.dtype), pad])
+            .index_select(0, row_of).view(T, k, H).sum(1) + base,
+            n * H * e + 2 * T * H * e + 4 * T * k + idx_bytes, None),
+        "moe_combine_bwd": (
+            lambda: mr.combine_bwd(dy, y_rows, w, row_of, offs, k),
+            lambda: mr.combine_bwd_plain(dy, y_rows, w, row_of, offs, k),
+            lambda: (torch.where(valid[:, None], dy.index_select(
+                0, order // k) * w_row.to(dy.dtype), 0.0),
+                (dy.index_select(0, order // k) * torch.where(
+                    valid[:, None], y_rows, 0.0)).float().sum(-1)),
+            T * H * e + 2 * n * H * e + 8 * T * k + idx_bytes, n),
+    }
+    for name, (fn, plain_fn, masked_fn, nbytes, cut) in calls.items():
+        got, again, want = fn(), fn(), plain_fn()
+        torch.cuda.synchronize()
+        outs = [(got, want, again)] if torch.is_tensor(got) else list(
+            zip(got, want, again))
+        err = 0.0
+        for i, (a, b, c) in enumerate(outs):
+            a, b, c = ((t[:cut] if cut is not None and t.shape[0] == R else t)
+                       for t in (a, b, c))
+            err = max(err, compare(f"{name} [{i}] (rows past the count NaN)",
+                                   a, b, BF16_TOL))
+            if not torch.equal(a, c):
+                fail(f"{name}: two runs differ")
+        results[name] = r = dict(
+            max_abs_err=err, T=T, k=k, held_rows=n, buffer_rows=R,
+            ms=time_ms(fn), plain_ms=plain_ms(plain_fn),
+            masked_ms=time_ms(masked_fn), **bound(nbytes, 0.0))
+        log(f"{name}: {n} of {R} rows, kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, masked passes {r['masked_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+            f"{100 * r['bound_ms'] / r['ms']:.1f}% of it")
+
+    # the whole layer, forward and backward
+    with poisoned_rows():
+        got = moe_layer_grads(inp)
+        again = moe_layer_grads(inp)
+    torch.cuda.synchronize()
+    want = moe_layer_grads(inp, masked_held_rows)
+    layer_err = {}
+    for name, a, b, c in zip(("y", "dx", "dw", "dgate_up", "ddown", "dbase"),
+                             got, want, again):
+        tol = BF16_TOL if name in ("y", "dx", "dbase") else dict(
+            atol=2e-2 * float(b.abs().max()), rtol=2e-2)
+        layer_err[name] = compare(f"expert layer {name} (undefined rows NaN) "
+                                  "vs the masked passes", a, b, tol)
+        if not torch.equal(a, c):
+            fail(f"expert layer {name}: two runs differ")
+    with deterministic():
+        eager = moe_layer_grads(inp)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            moe_layer_grads(inp)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = moe_layer_grads(inp)
+        graph.replay()
+        torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(eager, captured)):
+        fail("expert layer: the captured layer differs from the eager one")
+    layer = dict(held_rows=n, buffer_rows=R, max_abs_err=layer_err,
+                 captured_equals_eager=True,
+                 ms=time_ms(lambda: moe_layer_grads(inp)),
+                 masked_ms=time_ms(lambda: moe_layer_grads(inp,
+                                                         masked_held_rows)))
+    results["moe_layer"] = layer
+    log(f"phase 2 expert layer: forward + backward {layer['ms']:.3f} ms "
+        f"(masked passes {layer['masked_ms']:.3f} ms), {n} of {R} rows held; "
+        "captured equals eager")
+
+
 SEED_B = 0xC0FFEE0123456789   # a second seed, past 2^63 (negative int64)
 
 
@@ -2391,6 +2638,10 @@ def phase_kimi_loop(dev) -> dict:
     if mla != {"attention_fwd_mla": KIMI_K * KIMI_LAYERS,
                "attention_bwd_mla": KIMI_K * KIMI_LAYERS}:
         fail(f"phase 4j: a group launched {mla}")
+    moe = {k: v for k, v in multi.launches.items() if k.startswith("moe_")}
+    if moe != {name: KIMI_K * (KIMI_LAYERS - 1) * c
+               for name, c in MOE_STEP_LAUNCHES.items()}:
+        fail(f"phase 4j: a group launched {moe} of the expert-row kernels")
     return out
 
 
@@ -4471,6 +4722,7 @@ def main():
     phase_seed_slots(dev)
     phase_fused_adam(dev, results)
     phase_mla_kernels(dev, results)
+    phase_moe_rows(dev, results)
     log("phase 2: kernels agree with their plain versions")
 
     paths = {}
@@ -4580,6 +4832,7 @@ def main():
                       "scst_checks": scst_checks, "e2e_learn": e2e_numbers,
                       "device_loop_modes": loop_modes,
                       "kimi_loop": kimi_loop,
+                      "moe_layer": results["moe_layer"],
                       "vqa_checks": vqa_checks}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,11 @@
 small size on the CPU, in fp32: against the plain reference
 (``benchmarks/reference/kimi_vl.py``) in loss, gradients, one BertAdam step
 and the routers' bias update; its expert-parallel share against the uncut
-layer; the router's rules; no pair dropped; MLA's widths through the
-attention op's plain versions; the train CLI's normal path and its device
-loop."""
+layer; the router's rules; no pair dropped, with no pick or every pick
+held; the expert-row passes' plain versions (``ops/moe_rows.py``) against
+the masked full-buffer passes they replaced, in bf16, with the rows past
+the held-row count NaN; MLA's widths through the attention op's plain
+versions; the train CLI's normal path and its device loop."""
 
 import dataclasses
 import json
@@ -14,6 +16,7 @@ import os
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from benchmarks.reference import kimi_vl as ref
 from benchmarks.reference import optim as ref_optim
@@ -24,6 +27,7 @@ from vlp_tpu_torch.cli import train as train_cli
 from vlp_tpu_torch.config import MODE_BI, MODE_S2S
 from vlp_tpu_torch.models import kimi_vl
 from vlp_tpu_torch.ops import attention as attn
+from vlp_tpu_torch.ops import moe_rows
 
 # hidden 64, 2 heads of q.k 24 (16 + 8 RoPE) and v 16, 8 experts of which
 # 4 held, top-2, 1 shared expert, 3 layers (one dense)
@@ -239,6 +243,117 @@ def test_no_pair_is_dropped_when_every_token_picks_one_held_expert():
     assert not torch.allclose(dropped, want)
 
 
+@pytest.mark.parametrize("held", ["none", "every"])
+def test_layer_matches_the_reference_when_no_or_every_pick_is_held(held):
+    """The selection biases make every pick another chip's expert (the
+    held-row count 0: the layer is its shared expert) or one of this
+    chip's (the count fills the buffer): output and input gradient as the
+    reference's, and the row counters say so."""
+    model, w = program()
+    model.train()
+    moe = model.moe_layers[0]
+    bias = torch.zeros(8)
+    bias[(slice(4, 8) if held == "none" else slice(0, 4))] = 10.0
+    moe.gate.e_score_correction_bias.copy_(bias)
+    h = torch.randn(3, 7, TINY["hidden_size"],
+                    generator=torch.Generator().manual_seed(8))
+    leaves = [h.clone().requires_grad_() for _ in range(2)]
+    y, _ = moe(leaves[0])
+    want, _, _, _ = ref._moe(w, TINY, "layers.1.mlp.", leaves[1], bias,
+                             ref.Precision("fp32"), None)
+    torch.testing.assert_close(y, want, rtol=1e-5, atol=1e-6)
+    dy = torch.randn(y.shape, generator=torch.Generator().manual_seed(9))
+    got, = torch.autograd.grad(y, leaves[0], dy)
+    ref_dh, = torch.autograd.grad(want, leaves[1], dy)
+    torch.testing.assert_close(got, ref_dh, rtol=1e-5, atol=1e-6)
+    T = 21
+    assert int(moe.rows.sum()) == (0 if held == "none" else 2 * T)
+    assert int(moe.buffer_rows) == 2 * T
+
+
+# the expert-row passes: 12 tokens, top-2 of 8 experts, 4 held (0..3)
+ROWS_T, ROWS_K, ROWS_H, ROWS_I = 12, 2, 16, 8
+
+
+def _row_case(case: str, seed=10):
+    """Picks [T, k] of one routing case, sorted as the layer sorts them:
+    (order[:R], row_of, offs, count)."""
+    g = torch.Generator().manual_seed(seed)
+    T, k = ROWS_T, ROWS_K
+    pool = {"random": range(8), "none_held": range(4, 8),
+            "every_held": range(4), "one_expert": None}[case]
+    if pool is None:    # expert 0 and one of another chip's
+        idx = torch.stack([torch.zeros(T, dtype=torch.int64),
+                           torch.randint(4, 8, (T,), generator=g)], 1)
+    else:
+        pool = torch.tensor(list(pool))
+        idx = torch.stack([pool[torch.randperm(len(pool), generator=g)[:k]]
+                           for _ in range(T)])
+    order, row_of, _, offs = kimi_vl.sort_pairs(idx, range(4))
+    return order[:T * k], row_of, offs, int(offs[-1])
+
+
+def _poisoned(R, width, count, g):
+    t = torch.randn(R, width, generator=g).bfloat16()
+    t[count:] = float("nan")
+    return t
+
+
+@pytest.mark.parametrize("case", ["random", "none_held", "every_held",
+                                  "one_expert"])
+@pytest.mark.parametrize("what", ["gather", "swiglu", "combine"])
+def test_row_passes_match_the_masked_passes(what, case):
+    """Each plain pass, forward and backward, against the full-buffer pass
+    it replaced (``where`` masks, ``index_select``, the weighting), in
+    bf16, with the buffer's rows past the held-row count NaN: the rows
+    below the count and every token agree, and no NaN gets through."""
+    order, row_of, offs, count = _row_case(case)
+    T, k, H, inter = ROWS_T, ROWS_K, ROWS_H, ROWS_I
+    R = T * k
+    g = torch.Generator().manual_seed(11)
+    valid = torch.arange(R) < count
+    tol = dict(rtol=1e-2, atol=2e-2)
+
+    def held_rows(t):
+        return t[:count] if t.shape[0] == R else t
+
+    if what == "gather":
+        x = torch.randn(T, H, generator=g).bfloat16().requires_grad_()
+        want = torch.where(valid[:, None], x.index_select(0, order // k), 0.0)
+        got = moe_rows.gather_plain(x.detach(), order, offs, k)
+        d_out = _poisoned(R, H, count, g)
+        want_d = torch.autograd.grad(want, x, d_out)
+        got_d = (moe_rows.gather_bwd_plain(d_out, row_of, offs, k),)
+    elif what == "swiglu":
+        gu = _poisoned(R, 2 * inter, count, g).requires_grad_()
+        a, b = gu.split(inter, dim=-1)
+        want = F.silu(a) * b
+        got = moe_rows.swiglu_plain(gu.detach(), offs)
+        d_out = _poisoned(R, inter, count, g)
+        want_d = torch.autograd.grad(want, gu, d_out)
+        got_d = (moe_rows.swiglu_bwd_plain(d_out, gu.detach(), offs),)
+    else:
+        y_rows = _poisoned(R, H, count, g).requires_grad_()
+        w = torch.rand(T, k, generator=g).requires_grad_()
+        base = torch.randn(T, H, generator=g).bfloat16().requires_grad_()
+        w_row = torch.where(valid, w.reshape(-1)[order], 0.0)
+        yw = torch.where(valid[:, None], y_rows, 0.0) * w_row[:, None].to(
+            y_rows.dtype)
+        want = torch.cat([yw, yw.new_zeros(T * k - R, H)]).index_select(
+            0, row_of).view(T, k, H).sum(1) + base
+        got = moe_rows.combine_plain(y_rows.detach(), w.detach(), row_of,
+                                     offs, k, base.detach())
+        d_out = torch.randn(T, H, generator=g).bfloat16()
+        want_d = torch.autograd.grad(want, [y_rows, w], d_out)
+        got_d = moe_rows.combine_bwd_plain(d_out, y_rows.detach(),
+                                           w.detach(), row_of, offs, k)
+        assert bool((got_d[1][row_of.view(T, k) >= count] == 0).all())
+    for a, b in [(got, want)] + list(zip(got_d, want_d)):
+        a, b = held_rows(a), held_rows(b)
+        assert a.shape == b.shape and bool(torch.isfinite(a).all())
+        torch.testing.assert_close(a.float(), b.float(), **tol)
+
+
 def test_attention_plain_at_mla_widths_matches_an_einsum():
     g = torch.Generator().manual_seed(7)
     B, L, H, P = 2, 12, 3, 5
@@ -345,6 +460,13 @@ def test_spans_and_the_row_counter_are_recorded():
     kept = {s.name: s.n for s in spans if s.name.startswith("moe.rows")}
     assert kept["moe.rows_per_expert.2.3"] == rows[1][3]
     B, L = b["input_ids"].shape
+    # the buffer's rows, R = tokens x min(k, held) a step, and the share of
+    # them held (the rows the row passes touched)
+    buffers = {s.name: s.n for s in spans if s.name.startswith("moe.buffer")}
+    assert buffers == {"moe.buffer_rows.1": B * L * 2,
+                       "moe.buffer_rows.2": B * L * 2}
+    for layer, counts in zip((1, 2), rows):
+        assert 0 < sum(counts) / buffers[f"moe.buffer_rows.{layer}"] <= 1
     assert [s.n for s in spans if s.name == "moe.experts"] == [B * L * 2] * 2
     # every pick of a held expert is one row
     idx = model.selections(b)

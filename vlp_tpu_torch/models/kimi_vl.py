@@ -32,10 +32,13 @@ by expert on the device into a buffer of the most pairs a layer can hold
 (tokens x min(top-k, held)), the two grouped products (gate and up
 together, then down) take the expert offsets from device memory
 (``torch._grouped_mm`` on the card; a loop over the experts for CPU
-tensors), each row is weighted and the rows are gathered back to their
-tokens; the products' intermediates are recomputed in the backward
-(:class:`HeldRows`).  Nothing in the step reads a device value on the
-host, so ``train_step.CapturedSteps`` captures it.
+tensors), and the gather of the tokens' rows, the SwiGLU between the
+products and the weighted combine back onto the tokens are
+``ops/moe_rows.py``'s passes, which stop at the held-row count the device
+holds (``offs[-1]``, ~1/8 of the buffer at EP8); the intermediates are
+recomputed in the backward (:class:`HeldRows`).  Nothing in the step
+reads a device value on the host, so ``train_step.CapturedSteps``
+captures it.
 
 Training-only state, outside autograd, on the device: each MoE layer
 counts how often each of the 64 experts was picked in the step
@@ -44,7 +47,8 @@ moves its bias by ``bias_update_speed * sign(mean load - load)``
 (DeepSeek-V3's auxiliary-loss-free balancing; the rate and the balance
 loss's coefficient are from its report, arXiv:2412.19437, since the
 configuration leaves them unstated); each counts the rows its held
-experts took (``rows``, read by a benchmark once after its window).  The
+experts took (``rows``, read by a benchmark once after its window) and
+the rows of its buffer (``buffer_rows``).  The
 sequence-wise balance loss (``aux_loss_alpha``, over all 64 experts'
 selections and normalised scores) is added to the loss.
 
@@ -75,6 +79,7 @@ from vlp_tpu_torch import losses as losses_lib
 from vlp_tpu_torch import torch_dtype, tracing
 from vlp_tpu_torch.config import VLPConfig
 from vlp_tpu_torch.ops import attention as attn_ops
+from vlp_tpu_torch.ops import moe_rows
 
 MODEL_TYPE = "kimi_vl"
 
@@ -335,88 +340,65 @@ def grouped_mm(a: torch.Tensor, w: torch.Tensor,
     return torch.cat(parts)
 
 
-def _pad_rows(x: torch.Tensor, n: int) -> torch.Tensor:
-    return x if x.shape[0] == n else torch.cat(
-        [x, x.new_zeros(n - x.shape[0], x.shape[1])])
+def sort_pairs(idx: torch.Tensor, held: range):
+    """The picks idx [T, k] as (token, expert) pairs p = t k + j sorted by
+    held expert, the others last (stable, on the device): (``order``, the
+    pair of each sorted row; ``row_of``, its inverse, each pair's row; the
+    rows of each held expert, int64; ``offs``, the end of each held
+    expert's rows, int32).  A pair is held iff its row is below
+    ``offs[-1]``."""
+    n = len(held)
+    local = idx.reshape(-1) - held.start
+    key = torch.where((local >= 0) & (local < n), local, n)
+    order = torch.sort(key, stable=True).indices
+    counts = torch.zeros(n + 1, dtype=torch.int64,
+                         device=idx.device).scatter_add_(
+        0, key, torch.ones_like(key))[:n]
+    row_of = torch.empty_like(order).scatter_(
+        0, order, torch.arange(order.numel(), device=idx.device))
+    return order, row_of, counts, torch.cumsum(counts, 0).to(torch.int32)
 
 
-class ToRows(torch.autograd.Function):
-    """x [T, H] to the sorted pair order: row r is the token of pair
-    ``order[r]`` (pair p = token p // k, pick p % k).  The backward gathers
-    each pair's row back (``row_of``, the inverse permutation) and sums a
-    token's k picks: no atomic adds, the same sum order every time."""
-
-    @staticmethod
-    def forward(ctx, x, order, row_of, k):
-        ctx.save_for_backward(row_of)
-        ctx.k = k
-        return x.index_select(0, order // k)
-
-    @staticmethod
-    def backward(ctx, g):
-        row_of, = ctx.saved_tensors
-        gp = _pad_rows(g, row_of.shape[0]).index_select(0, row_of)
-        return gp.view(-1, ctx.k, g.shape[1]).sum(1), None, None, None
-
-
-class FromRows(torch.autograd.Function):
-    """The inverse of :class:`ToRows`: rows [R, H] in the sorted pair order
-    to [T, H], each token's k picks' rows summed (rows past R are 0); the
-    backward gives each row its token's gradient."""
-
-    @staticmethod
-    def forward(ctx, y, order, row_of, k):
-        ctx.save_for_backward(order)
-        ctx.k = k
-        yp = _pad_rows(y, row_of.shape[0]).index_select(0, row_of)
-        return yp.view(-1, k, y.shape[1]).sum(1)
-
-    @staticmethod
-    def backward(ctx, g):
-        order, = ctx.saved_tensors
-        return g.index_select(0, order // ctx.k), None, None, None
-
-
-def _held_rows(x, order, row_of, k, offs, w_row, valid, gate_up, down):
-    """The weighted SwiGLU of the held experts over their sorted rows
-    (:class:`ToRows`; ``order`` the first R pairs of the sort), each
-    expert's rows ending at ``offs``; rows past the held pairs (``valid``
-    False) are 0 in both directions, so the products' undefined rows
-    there reach neither the output nor x's gradient."""
-    inter = down.shape[-1]
-    xg = torch.where(valid[:, None], ToRows.apply(x, order, row_of, k), 0.0)
-    g, u = grouped_mm(xg, gate_up, offs).split(inter, dim=-1)
-    y = grouped_mm(F.silu(g) * u, down, offs)
-    return torch.where(valid[:, None], y, 0.0) * w_row[:, None].to(y.dtype)
+def _expert_rows(x, order, row_of, k, offs, gate_up, down):
+    """The held experts' SwiGLU over their sorted rows [R, H]: row r < the
+    held-row count ``offs[-1]`` is expert e's product of the token of pair
+    ``order[r]`` (e's rows ending at ``offs[e]``); the rows past the count
+    are undefined, and no pass here or in the backward reads them."""
+    xg = moe_rows.GatherRows.apply(x, order, row_of, offs, k)
+    h = moe_rows.SwiGLURows.apply(grouped_mm(xg, gate_up, offs), offs)
+    return grouped_mm(h, down, offs)
 
 
 class HeldRows(torch.autograd.Function):
-    """:func:`_held_rows` with its intermediates recomputed in the
-    backward rather than kept: the rows are sized for the most pairs a
-    layer can hold (tokens x min(k, held), 8x the even share at EP8), so
-    the gathered rows and the two products' outputs would hold ~1.5 GB
-    a layer at the Kimi cell's 128 sequences."""
+    """The held experts' part of the layer, weighted and combined onto the
+    tokens, plus ``base`` (the shared experts' output): y [T, H].  The
+    intermediates are recomputed in the backward rather than kept: the
+    rows are sized for the most pairs a layer can hold (tokens x min(k,
+    held), 8x the even share at EP8), so the gathered rows and the two
+    products' outputs would hold ~1.5 GB a layer at the Kimi cell's 128
+    sequences."""
 
     @staticmethod
-    def forward(ctx, x, order, row_of, k, offs, w_row, valid, gate_up,
-                down):
-        ctx.save_for_backward(x, order, row_of, offs, w_row, valid, gate_up,
-                              down)
+    def forward(ctx, x, order, row_of, k, offs, w, gate_up, down, base):
+        ctx.save_for_backward(x, order, row_of, offs, w, gate_up, down)
         ctx.k = k
-        return _held_rows(x, order, row_of, k, offs, w_row, valid, gate_up,
-                          down)
+        with tracing.span("moe.experts", order.shape[0]):
+            y_rows = _expert_rows(x, order, row_of, k, offs, gate_up, down)
+        with tracing.span("moe.combine"):
+            return moe_rows.combine(y_rows, w, row_of, offs, k, base)
 
     @staticmethod
     def backward(ctx, dy):
-        x, order, row_of, offs, w_row, valid, gate_up, down = \
-            ctx.saved_tensors
-        leaves = [t.detach().requires_grad_() for t in (x, w_row, gate_up,
-                                                        down)]
+        x, order, row_of, offs, w, gate_up, down = ctx.saved_tensors
+        dy = dy.contiguous()
+        leaves = [t.detach().requires_grad_() for t in (x, gate_up, down)]
         with torch.enable_grad():
-            y = _held_rows(leaves[0], order, row_of, ctx.k, offs, leaves[1],
-                           valid, *leaves[2:])
-            dx, dw, dgu, dd = torch.autograd.grad(y, leaves, dy)
-        return dx, None, None, None, None, dw, None, dgu, dd
+            y_rows = _expert_rows(leaves[0], order, row_of, ctx.k, offs,
+                                  *leaves[1:])
+        dy_rows, dw = moe_rows.combine_bwd(dy, y_rows.detach(), w, row_of,
+                                           offs, ctx.k)
+        dx, dgu, dd = torch.autograd.grad(y_rows, leaves, dy_rows)
+        return dx, None, None, None, None, dw, dgu, dd, dy
 
 
 class MoE(nn.Module):
@@ -437,6 +419,9 @@ class MoE(nn.Module):
                              persistent=False)
         self.register_buffer("rows", torch.zeros(
             cfg.n_routed_experts_held, dtype=torch.int64), persistent=False)
+        # rows of the buffer: R a training step, of which ``rows`` were held
+        self.register_buffer("buffer_rows", torch.zeros((), dtype=torch.int64),
+                             persistent=False)
 
     def route(self, x: torch.Tensor):
         """(top-k expert ids [T, k], their weights fp32 [T, k], the sigmoid
@@ -482,31 +467,14 @@ class MoE(nn.Module):
                         torch.ones(T * k, device=x.device))
         R = T * min(k, n)   # the most (token, held expert) pairs
         with tracing.span("moe.dispatch"):
-            local = idx.reshape(-1) - cfg.held.start
-            held = (local >= 0) & (local < n)
-            key = torch.where(held, local, n)       # the others sort last
-            order = torch.sort(key, stable=True).indices
-            counts = torch.zeros(n + 1, dtype=torch.int64,
-                                 device=x.device).scatter_add_(
-                0, key, torch.ones_like(key))
-            offs = torch.cumsum(counts[:n], 0).to(torch.int32)
+            order, row_of, counts, offs = sort_pairs(idx, cfg.held)
             if self.training:
                 with torch.no_grad():
-                    self.rows += counts[:n]
-            rows = order[:R]
-            # each pair's row in the sorted order: picks of other chips'
-            # experts sort past the held pairs, onto rows that stay 0
-            row_of = torch.empty_like(order).scatter_(
-                0, order, torch.arange(T * k, device=x.device))
-            valid = torch.arange(R, device=x.device) < offs[-1]
-            w_row = torch.where(valid, w.reshape(-1)[rows], 0.0)
-        with tracing.span("moe.experts", R):
-            fn = HeldRows.apply if torch.is_grad_enabled() else _held_rows
-            y_rows = fn(xt, rows, row_of, k, offs, w_row, valid,
-                        self.experts.gate_up_proj, self.experts.down_proj)
-        with tracing.span("moe.combine"):
-            y = FromRows.apply(y_rows, rows, row_of, k)
-        y = y + self.shared_experts(xt)
+                    self.rows += counts
+                    self.buffer_rows += R
+        y = HeldRows.apply(xt, order[:R], row_of, k, offs, w.contiguous(),
+                           self.experts.gate_up_proj, self.experts.down_proj,
+                           self.shared_experts(xt))
         return y.view(B, L, H), aux
 
     @torch.no_grad()
@@ -675,10 +643,15 @@ class KimiVLModel(nn.Module):
 
     def read_rows_per_expert(self) -> List[List[int]]:
         """:meth:`rows_per_expert` on the host (one sync), each also kept
-        as the counter ``moe.rows_per_expert.<layer>.<expert>``."""
-        rows = self.rows_per_expert().tolist()
+        as the counter ``moe.rows_per_expert.<layer>.<expert>``, and each
+        layer's ``buffer_rows`` as ``moe.buffer_rows.<layer>``: over the
+        same steps, the held rows over the buffer's is the share of the
+        buffer that the row passes touched."""
+        both = torch.cat([self.rows_per_expert(), torch.stack(
+            [m.buffer_rows for m in self.moe_layers])[:, None]], 1).tolist()
         for layer, counts in zip((i for i, l in enumerate(self.layers)
-                                  if isinstance(l.mlp, MoE)), rows):
-            for e, n in enumerate(counts):
+                                  if isinstance(l.mlp, MoE)), both):
+            for e, n in enumerate(counts[:-1]):
                 tracing.counter(f"moe.rows_per_expert.{layer}.{e}", n)
-        return rows
+            tracing.counter(f"moe.buffer_rows.{layer}", counts[-1])
+        return [counts[:-1] for counts in both]

@@ -73,6 +73,13 @@ _SIGNATURES = {
     "vlp_bert_adam_norms": [_P, _P, _I, _I, _P, _P, _P, _P],
     "vlp_bert_adam_update": [_P, _P, _I, _I, _P, _P, _P, _P, _F, _F, _F, _F,
                              _F, _F, _F, _F, _I, _I, _P],
+    "vlp_moe_gather": [_P, _P, _P, _I, _P, _LL, _I, _I, _I, _P],
+    "vlp_moe_swiglu": [_P, _P, _I, _P, _LL, _I, _I, _I, _P],
+    "vlp_moe_swiglu_bwd": [_P, _P, _P, _I, _P, _LL, _I, _I, _I, _P],
+    "vlp_moe_sum_picks": [_P, _P, _P, _P, _P, _I, _P, _LL, _I, _I, _I, _I,
+                          _P],
+    "vlp_moe_combine_bwd": [_P, _P, _P, _P, _P, _I, _P, _P, _LL, _I, _I, _I,
+                            _I, _P],
 }
 
 
@@ -139,6 +146,12 @@ KERNELS["attention_fwd_mla"] = Kernel(
 KERNELS["attention_bwd_mla"] = Kernel(
     "attention_bwd_mla", "vlp_tpu_torch/csrc/attention_bwd.cu",
     "vlp_tpu/ops/attention.py:197")
+# Kimi-VL's expert rows (ops/moe_rows.py): no TPU kernel, the JAX package
+# has no expert layer; the gather's backward and the combine share a body
+for _name in ("moe_gather", "moe_gather_bwd", "moe_swiglu", "moe_swiglu_bwd",
+              "moe_combine", "moe_combine_bwd"):
+    KERNELS[_name] = Kernel(_name, "vlp_tpu_torch/csrc/moe_rows.cu",
+                            "none: the JAX package has no expert layer")
 # the fp16 forms of K1 and K2 (--true_fp16 training): the 16-bit bodies
 # instantiated for fp16, counted apart from their bf16 and fp32 forms
 for _name in ("attention_fwd", "attention_fwd_drop", "attention_bwd",

@@ -36,15 +36,18 @@ The spans of the port:
 ``attn.mla``       a Kimi-VL layer's MLA sublayer (``models/kimi_vl.py``)
 ``moe.route``      an expert layer's router, balance loss and load count
 ``moe.dispatch``   its sort of the held (token, expert) rows and offsets
-``moe.experts``    its grouped products (rows given: the most it can hold;
-                   the rows taken stay on the device)
-``moe.combine``    the rows gathered back to their tokens
+``moe.experts``    its gather, grouped products and SwiGLU (rows given:
+                   the most it can hold; the rows taken stay on the
+                   device)
+``moe.combine``    the rows weighted and summed onto their tokens
 =================  =====================================================
 
 ``counter(name, value)`` keeps a number the host has in hand (recorded
 like a span of no duration, ``n`` the value), e.g. the held experts' row
 counts that ``KimiVLModel.read_rows_per_expert`` reads off the device
-once: ``moe.rows_per_expert.<layer>.<expert>``.
+once: ``moe.rows_per_expert.<layer>.<expert>``, beside each layer's
+``moe.buffer_rows.<layer>`` (its row buffer's rows summed over the
+training steps since that counter was cleared).
 """
 
 from __future__ import annotations
